@@ -1,0 +1,54 @@
+"""Linear layers in the reference checkpoint's layout.
+
+Counterpart of ``lirec_tpu/models/layers.py``. Layers are ``nn.Linear``
+(``weight [out, in]``, the transpose of the JAX package's ``kernel``) with
+the torch default init, uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight
+and bias, drawn from an explicit ``torch.Generator``. Eval needs no dropout.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+__all__ = ["compute_dtype", "init_linear", "linear"]
+
+
+def compute_dtype(spec) -> Optional[torch.dtype]:
+    """Matmul input dtype for a ModelSpec ('bfloat16' -> torch.bfloat16,
+    anything else -> None = keep the input dtype)."""
+    return torch.bfloat16 if spec.compute_dtype == "bfloat16" else None
+
+
+def init_linear(in_dim: int, out_dim: int,
+                generator: torch.Generator) -> nn.Linear:
+    """nn.Linear on the CPU with weight and bias drawn U(+-1/sqrt(in_dim))
+    from `generator` (a CPU generator, so a seed gives the same weights
+    whatever device the model is moved to)."""
+    layer = nn.utils.skip_init(nn.Linear, in_dim, out_dim)
+    bound = 1.0 / math.sqrt(in_dim)
+    with torch.no_grad():
+        layer.weight.uniform_(-bound, bound, generator=generator)
+        layer.bias.uniform_(-bound, bound, generator=generator)
+    return layer
+
+
+def linear(layer: nn.Linear, x: torch.Tensor,
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x @ W^T + b with a float32 result.
+
+    Under bf16 compute the JAX package casts x and the kernel to bf16 and
+    asks for an f32 product (``preferred_element_type``). A bf16 matmul here
+    would round its output to bf16, so both operands are rounded to bf16
+    and multiplied in f32 instead: bf16 x bf16 products are exact in f32,
+    so only the order of the f32 sums differs. (A fast bf16 GEMM with f32
+    output is later work.)
+    """
+    w = layer.weight
+    if compute_dtype is not None:
+        x = x.to(compute_dtype).float()
+        w = w.to(compute_dtype).float()
+    return nn.functional.linear(x, w, layer.bias)
