@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the versions.
-2. Builds every CUDA kernel of the serve path from csrc/ with nvcc.
+2. Builds every CUDA kernel from csrc/ with nvcc, one process per source,
+   all started together.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    serve path's shapes (M = 64 x 20 pooled rows, R = 18, clip 12,288 x 1024
    and track 24,576 x 256 embedded rows) and at 4x the rows, in float32 and
@@ -19,6 +20,22 @@
    against the same forward with the plain pool.
 5. Builds a server through the CLI's own ``build_engine_from_args`` on a
    synthetic MovieGraphs fixture and answers one /predict.
+6. Holds the scatter-accumulate kernel (the train step's gather_h1
+   backward) against its plain version on the card and against the
+   in-order sum on the CPU, at the train step's shapes (idx [1280, 18, 3],
+   updates 1024 / 512 wide) into split-scale tables (12,288 / 24,576 rows)
+   and into the Localizer's batch-local tables, with structured indices and
+   with every update sent to 8 rows, f32 and bf16 updates, three tables,
+   flattened and single-table; checks that two launches are bit-identical;
+   prints median times (L2 flushed), the sort apart from the kernel.
+7. Trains int_rel_ch at its published widths on split-scale tables, B = 64
+   structured batches through the port's Localizer, in bf16 and f32
+   compute: holds one step's gradients against the same step with the
+   plain scatter, then runs 10 steps, checks every loss finite, every
+   parameter moved and one scatter launch per step, and prints the median
+   ms/step and clips/s.
+8. Runs the port's train() on a synthetic MovieGraphs fixture on the card:
+   2 epochs at batch 8 (the last batch of 6 is padded with loss_weight 0).
 
 Every failure raises. There is no CPU path: without a CUDA device the
 script exits 2. Its last line is one JSON object,
@@ -30,6 +47,7 @@ times.
 import json
 import os
 import statistics
+from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import tempfile
@@ -50,6 +68,9 @@ GIANT = 4  # giant tables: 4x the rows, past the TPU's VMEM-resident tier
 TOPK = 5
 CU = "lirec_tpu_torch/csrc/fused_ctx_pool.cu"
 TPU_SRC = "lirec_tpu/ops/gather_pool.py"
+SCATTER_CU = "lirec_tpu_torch/csrc/scatter_accum.cu"
+SCATTER_TPU_SRC = "lirec_tpu/ops/scatter_accum.py"
+TRAIN_B, TRAIN_STEPS = 64, 10
 
 
 def log(*args):
@@ -387,6 +408,283 @@ def entry_point(torch):
                              engine.bundle.spec.n_rels))
 
 
+# ------------------------------------------------------- scatter kernel
+
+
+def train_batches(spec):
+    """TRAIN_STEPS structured B = 64 host batches (the real loader's index
+    locality: heavy duplicate rows), and the same batches localized
+    together by the port's Localizer, as the train loop localizes an
+    epoch. Returns (raw, localized, (cap_clip, cap_track))."""
+    from lirec_tpu.utils.fake_batch import make_structured_batch
+    from lirec_tpu_torch.data.localize import Localizer
+
+    raw = [make_structured_batch(spec, TRAIN_B, N_CLIPS, N_TRACKS,
+                                 seed=400 + i) for i in range(TRAIN_STEPS)]
+    localizer = Localizer(spec, N_CLIPS, N_TRACKS)
+    local = localizer.maybe_localize(raw)
+    check(localizer.applied, "the Localizer did not localize")
+    return raw, local, (localizer.cap_clip, localizer.cap_track)
+
+
+def ctx_idx(torch, batch):
+    """A batch's ctx index triples as a contiguous int32 [B*T, R, 3] on the
+    card: the idx of the train step's gather_h1."""
+    fi = batch["feat_idx"]
+    return torch.from_numpy(fi[:, :, 1:, :].reshape(
+        -1, fi.shape[2] - 1, 3).copy()).cuda()
+
+
+def scatter_case(torch, label, idx, gs, rows, single):
+    """Kernel vs the plain version on the card (index_add_, f32 atomics)
+    and vs the in-order sum on the CPU; two launches must be bitwise equal.
+    Returns (max |diff| vs the card's plain version, kernel ms, sort ms,
+    plain ms)."""
+    from lirec_tpu_torch.ops import scatter_accum as sa
+
+    if single:
+        one = idx[..., 0].contiguous()
+        run = lambda: (sa.scatter_accum1(one, gs[0], rows[0]),)  # noqa: E731
+        plain = lambda: (sa.scatter_accum1_reference(  # noqa: E731
+            one, gs[0], rows[0]),)
+        flat = one.reshape(-1, 1)
+        gflat, rows_k = [gs[0].reshape(-1, gs[0].shape[-1])], rows[:1]
+    else:
+        run = lambda: sa.scatter_accum3(idx, *gs, *rows[:2])  # noqa: E731
+        plain = lambda: sa.scatter_accum3_reference(  # noqa: E731
+            idx, *gs, *rows[:2])
+        flat = idx.reshape(-1, 3)
+        gflat = [g.reshape(-1, g.shape[-1]) for g in gs]
+        rows_k = rows
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "%s: two launches differ" % label)
+    want_gpu = plain()
+    if single:
+        want_cpu = (sa.scatter_accum1_reference(one.cpu(), gs[0].cpu(),
+                                                rows[0]),)
+    else:
+        want_cpu = sa.scatter_accum3_reference(
+            idx.cpu(), *(g.cpu() for g in gs), *rows[:2])
+    torch.cuda.synchronize()
+    err_gpu = max(float((a - b).abs().max()) for a, b in zip(got, want_gpu))
+    err_cpu = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(got, want_cpu))
+    scale = max(float(b.abs().max()) for b in want_cpu)
+    log("  %-44s max|diff| vs card plain %.3e, vs CPU in-order %.3e "
+        "(scale %.1f)" % (label, err_gpu, err_cpu, scale))
+    # the kernel sums each row in update order with f32 adds, as index_add_
+    # does on the CPU: bitwise equal; the card's plain version sums with
+    # atomics in another order: 1e-5 of the largest sum
+    check(err_cpu == 0.0, "%s: differs from the in-order sum" % label)
+    check(err_gpu <= 1e-5 * scale, "%s: differs from the plain version"
+          % label)
+    perm, offsets = sa.sort_by_row(flat, rows_k)
+    outs = [torch.empty_like(o) for o in got]
+    ms = median_ms(torch, lambda: sa.launch_sorted(gflat, outs, perm,
+                                                   offsets))
+    sort_ms = median_ms(torch, lambda: sa.sort_by_row(flat, rows_k))
+    plain_ms = median_ms(torch, plain)
+    check(all(torch.equal(a, b) for a, b in zip(outs, got)),
+          "%s: timed launches differ" % label)
+    upd = sum(g.numel() * g.element_size() for g in gflat)
+    out = sum(o.numel() * o.element_size() for o in got)
+    floor_us = (upd + out) / 3.35e12 * 1e6
+    log("  %-44s kernel %.4f ms, sort %.4f ms, plain %.4f ms; bytes floor "
+        "%.1f us (%.1f MB)" % ("", ms, sort_ms, plain_ms, floor_us,
+                               (upd + out) / 1e6))
+    return err_gpu, ms, sort_ms, plain_ms
+
+
+def scatter_checks(torch, spec, raw, local, caps):
+    """Phase 6, on the ctx indices of one structured batch (`raw`) and of
+    the same batch localized (`local`, tables of `caps` rows). Returns
+    {entry: {max_abs_err, ms, plain_ms}} at split-scale tables (the numbers
+    of the kernels line)."""
+    idx_full, idx_loc = ctx_idx(torch, raw), ctx_idx(torch, local)
+    idx_dup = idx_full % 8  # every update into 8 rows of each table
+    g = torch.Generator(device="cuda").manual_seed(6)
+    d_clip, d_tr = 2 * spec.joint_dim, spec.joint_dim
+    base = [torch.randn(*idx_full.shape[:2], d, device="cuda", generator=g)
+            for d in (d_clip, d_tr, d_tr)]
+    full = (N_CLIPS, N_TRACKS, N_TRACKS)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        gs = [t.to(dtype) for t in base]
+        err, ms, sort_ms, plain_ms = scatter_case(
+            torch, "3 tables %dx%d rows %s" % (N_CLIPS, N_TRACKS, tag),
+            idx_full, gs, full, single=False)
+        results[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "sort_ms": sort_ms}
+        scatter_case(torch, "3 tables at caps %dx%d %s" % (caps[0], caps[1],
+                                                           tag),
+                     idx_loc, gs, (caps[0], caps[1], caps[1]), single=False)
+        scatter_case(torch, "3 tables, all updates into 8 rows, %s" % tag,
+                     idx_dup, gs, full, single=False)
+        err, ms, _, plain_ms = scatter_case(
+            torch, "flattened [23040, d] %s" % tag, idx_full.reshape(-1, 3),
+            [t.reshape(-1, t.shape[-1]) for t in gs], full, single=False)
+        results[tag + "@flat"] = {"max_abs_err": err, "ms": ms,
+                                  "plain_ms": plain_ms}
+        err, ms, _, plain_ms = scatter_case(
+            torch, "single table (clip) %s" % tag, idx_full, gs, full,
+            single=True)
+        results[tag + "@single_table"] = {"max_abs_err": err, "ms": ms,
+                                          "plain_ms": plain_ms}
+    del base, gs
+    torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------------------------------------------ train path
+
+
+def step_grads(torch, bundle, batch, tables, use_kernel):
+    """Gradients of one training forward + loss (dropout on, the step's
+    generators reseeded identically each call)."""
+    from lirec_tpu_torch.train.loop import MODEL_KEYS, _to_device, \
+        step_generators
+
+    model = bundle.model
+    model.zero_grad(set_to_none=True)
+    b = _to_device(batch, "cuda")
+    gen_drop, gen_loss = step_generators(0, 7, "cuda")
+    out = bundle.apply(model, {k: b[k] for k in MODEL_KEYS if k in b},
+                       tables=tables, deterministic=False, rng=gen_drop,
+                       use_kernel=use_kernel)
+    bundle.loss(out, b, rng=gen_loss).backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def train_path(torch, batches):
+    """Phase 7 on localized host batches. Returns ({kernel name:
+    launches}, {compute: ms/step})."""
+    import numpy as np
+
+    from lirec_tpu import config as config_lib
+    from lirec_tpu.utils.fake_batch import make_tables
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+
+    cfg = config_lib.preset("int_rel_ch")
+    counts, step_ms = {}, {}
+    tables = None
+    for compute in ("bfloat16", "float32"):
+        bundle = create_model(cfg.with_runtime(compute_dtype=compute), 101,
+                              n_rels=15, seed=0, device="cuda")
+        check((bundle.spec.text_dim, bundle.spec.visual_dim,
+               bundle.spec.track_dim, bundle.spec.joint_dim)
+              == (768, 2048, 2048, 512), "published widths")
+        if tables is None:
+            tables = {k: torch.from_numpy(v).cuda() for k, v in make_tables(
+                bundle.spec, N_CLIPS, N_TRACKS, seed=0).items()}
+        name = KERNEL_NAMES[torch.bfloat16 if compute == "bfloat16"
+                            else torch.float32]
+
+        # one step's gradients, kernel against the plain scatter (not counted)
+        with_kernel = step_grads(torch, bundle, batches[0], tables, True)
+        plain = step_grads(torch, bundle, batches[0], tables, False)
+        torch.cuda.synchronize()
+        # f32: the plain scatter's atomics sum the table grads in another
+        # order (1e-5 of each tensor's scale); bf16: the table grads are
+        # then rounded to bf16, where such a difference can flip a rounding
+        # (the bf16 contract, 4.1e-3 of scale)
+        rel = 4.1e-3 if compute == "bfloat16" else 1e-5
+        worst = 0.0
+        for n, g in with_kernel.items():
+            p = plain[n]
+            check(bool(torch.isfinite(g).all()), "%s: non-finite grad %s"
+                  % (compute, n))
+            scale = float(p.abs().max())
+            err = float((g - p).abs().max())
+            worst = max(worst, err / scale if scale else err)
+            check(err <= rel * scale, "%s: grad %s differs from the plain "
+                  "scatter's by %.3e (scale %.3e)" % (compute, n, err, scale))
+        log("  %s: step grads with the kernel vs the plain scatter: worst "
+            "|diff| / scale %.3e (bound %.1e)" % (compute, worst, rel))
+
+        before = {n: p.detach().clone()
+                  for n, p in bundle.model.named_parameters()}
+        opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
+                             cfg.optim.weight_decay)
+        step = make_train_step(bundle, opt)
+        # ---- the counted run: only the training steps launch kernels here
+        dispatch.reset_launches()
+        times, losses = [], []
+        for i, batch in enumerate(batches):
+            t = time.perf_counter()
+            loss = step(batch, tables, step_generators(0, i, "cuda"))
+            losses.append(float(loss))  # waits for the step
+            times.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        counted = dispatch.launches()
+        # ---- end of the counted run
+        check(all(np.isfinite(losses)), "%s: losses %s" % (compute, losses))
+        check(counted.get(name, 0) == len(batches),
+              "%s: %d launches of %s for %d steps" % (
+                  compute, counted.get(name, 0), name, len(batches)))
+        check(set(counted) == {name}, "%s: other launches %s"
+              % (compute, counted))
+        for n, p in bundle.model.named_parameters():
+            check(not torch.equal(p.detach(), before[n]),
+                  "%s: parameter %s did not move" % (compute, n))
+        counts[name] = counted[name]
+        step_ms[compute] = statistics.median(times[1:])
+        log("  %s: %d steps, losses %.4f .. %.4f, %d launches of %s; "
+            "median %.2f ms/step (first %.1f ms), %.0f clips/s"
+            % (compute, len(batches), losses[0], losses[-1], counted[name],
+               name, step_ms[compute], times[0],
+               TRAIN_B / step_ms[compute] * 1e3))
+        del bundle, opt, step, before, with_kernel, plain
+        torch.cuda.empty_cache()
+    return counts, step_ms
+
+
+def train_entry(torch):
+    """Phase 8: train() on a synthetic fixture, on the card."""
+    import numpy as np
+
+    from lirec_tpu import config as config_lib
+    from lirec_tpu.data import synthetic
+    from lirec_tpu.data.dataset import InteractionDataset
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES
+    from lirec_tpu_torch.train.loop import train
+
+    with tempfile.TemporaryDirectory() as root:
+        synthetic.generate(root)
+        base = synthetic.make_config(root)
+        cfg = config_lib.preset("int_rel_ch", data_root=root)
+        cfg = cfg.replace(dims=base.dims, paths=base.paths).with_optim(
+            batch_size=8, epochs=2, save_model=False)
+        ds = InteractionDataset(cfg, mode="train")
+        ds.cache()
+        ds.init_relships()
+        bundle = create_model(cfg, ds.n_classes,
+                              n_rels=max(len(ds.rels_list) - 1, 0),
+                              device="cuda")
+        dispatch.reset_launches()
+        out = train(cfg, bundle, ds, verbose=False)
+        torch.cuda.synchronize()
+        counted = dispatch.launches()
+    name = KERNEL_NAMES[torch.bfloat16]  # the preset computes in bf16
+    steps = 2 * -(-len(ds) // 8)
+    check(len(out["losses"]) == 2 and all(np.isfinite(out["losses"])),
+          "train() losses %s" % out["losses"])
+    check(counted.get(name, 0) == steps, "train(): %d launches of %s for "
+          "%d steps" % (counted.get(name, 0), name, steps))
+    log("  train() on %d synthetic samples, batch 8, 2 epochs: losses %s, "
+        "%d launches of %s" % (len(ds), out["losses"], counted[name], name))
+
+
 def main():
     import torch
 
@@ -407,15 +705,20 @@ def main():
 
     log("== 2. build")
     t0 = time.perf_counter()
-    path = build.build("fused_ctx_pool")
-    info = build.BUILD_LOGS.get("fused_ctx_pool")
-    log("  %s: %s in %.2f s" % (
-        CU, "built" if info else "reused", time.perf_counter() - t0))
-    if info:
-        log("  " + info["cmd"])
-        for line in info["log"].splitlines():
-            log("  " + line)
-    log("  -> %s" % os.path.relpath(path, ROOT))
+    sources = ("fused_ctx_pool", "scatter_accum")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = list(pool.map(build.build, sources))
+    log("  built in %.2f s (one nvcc per source, in parallel)"
+        % (time.perf_counter() - t0))
+    for name, path in zip(sources, paths):
+        info = build.BUILD_LOGS.get(name)
+        log("  %s: %s" % (name, "built in %.2f s" % info["seconds"]
+                          if info else "reused"))
+        if info:
+            log("  " + info["cmd"])
+            for line in info["log"].splitlines():
+                log("  " + line)
+        log("  -> %s" % os.path.relpath(path, ROOT))
 
     log("== 3. kernels vs plain PyTorch on the card")
     perf = kernel_checks(torch)
@@ -426,6 +729,24 @@ def main():
     log("== 5. CLI entry point")
     entry_point(torch)
 
+    log("== 6. scatter kernel vs plain PyTorch on the card")
+    from lirec_tpu_torch.models.spec import ModelSpec
+
+    spec = ModelSpec(n_classes=101, n_rels=15)  # the published widths
+    t0 = time.perf_counter()
+    raw, local, caps = train_batches(spec)
+    log("  %d structured B=%d batches, localized in %.1f s: caps %d clip / "
+        "%d track rows" % (len(raw), TRAIN_B, time.perf_counter() - t0,
+                           *caps))
+    scatter = scatter_checks(torch, spec, raw[0], local[0], caps)
+
+    log("== 7. int_rel_ch training at published widths (counted run)")
+    train_counts, step_ms = train_path(torch, local)
+
+    log("== 8. train() on a synthetic fixture")
+    train_entry(torch)
+
+    from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
 
     f32, bf16 = KERNEL_NAMES[torch.float32], KERNEL_NAMES[torch.bfloat16]
@@ -442,6 +763,31 @@ def main():
             "name": name, "route": "cuda", "source": CU,
             "replaces": replaces, "launches": launches, **perf[key],
         })
+    # scatter: one entry per instantiation, as the train path launches it
+    # (three tables); the flattened and single-table cases of phase 6 are
+    # the same kernel and go on a line of their own
+    variants = {}
+    for dtype, tag in ((torch.float32, "float32"),
+                       (torch.bfloat16, "bfloat16")):
+        name = scatter_accum.KERNEL_NAMES[dtype]
+        launches = train_counts.get(name, 0)
+        check(launches > 0, "%s was not launched by the train path" % name)
+        r = scatter[tag]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SCATTER_CU,
+            "replaces": "%s:91" % SCATTER_TPU_SRC, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+        })
+        for suffix, line in (("@flat", 49), ("@single_table", 282)):
+            variants[name + suffix] = dict(
+                scatter[tag + suffix],
+                replaces="%s:%d" % (SCATTER_TPU_SRC, line))
+        log("scatter %s: sort %.4f ms beside the kernel's %.4f ms"
+            % (tag, r["sort_ms"], r["ms"]))
+    log("scatter_variants (phase 6 only, not counted launches): "
+        + json.dumps(variants))
+    log("train_ms_per_step: " + json.dumps(step_ms))
     log("latency_ms: " + json.dumps(
         {"%s_B%d" % k: v for k, v in latency.items()}))
     log(json.dumps({"kernels": kernels}))

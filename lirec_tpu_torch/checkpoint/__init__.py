@@ -1,8 +1,9 @@
-"""Checkpoint import for the port (reference .pth.tar files and lirec_tpu
-params)."""
+"""Checkpoint import for the port (reference .pth.tar files, lirec_tpu
+params and Adam state)."""
 
 from lirec_tpu_torch.checkpoint.convert import (  # noqa: F401
     clean_state_dict,
     load_torch_checkpoint,
+    opt_state_from_jax,
     params_from_jax,
 )

@@ -4,6 +4,11 @@
   out], "bias"}}``, numpy or jax arrays) -> a ``state_dict`` of the port's
   modules (``name.weight [out, in]``, ``name.bias``; the gate's
   ``gates_ints`` becomes ``gates_ints.fc_out``).
+* ``opt_state_from_jax``: the optax Adam state of a lirec_tpu training run
+  (``ScaleByAdamState(count, mu, nu)`` inside the make_optimizer chain) ->
+  a ``torch.optim.Adam`` ``state_dict`` (``step``, ``exp_avg``,
+  ``exp_avg_sq`` per parameter, the moments laid out as the weights), so a
+  JAX training state carries on in the port.
 * ``load_torch_checkpoint``: a reference ``.pth.tar`` file (ref
   ``mlp/train.py:99-106``: ``{'epoch', 'state_dict', 'optimizer'}``) -> the
   ``state_dict`` the port's modules load, with the DataParallel
@@ -22,7 +27,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "clean_state_dict", "load_torch_checkpoint"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "clean_state_dict",
+           "load_torch_checkpoint"]
 
 _SKIPPED_BUFFERS = ("num_batches_tracked", "running_mean", "running_var")
 
@@ -39,6 +45,44 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
             np.array(leaf["bias"], np.float32)
         )
     return state
+
+
+def _adam_state(opt_state):
+    """The (count, mu, nu) entry of an optax state (a chain's tuple)."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(opt_state, model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer) -> Dict:
+    """optax Adam state (numpy or jax leaves) -> a state_dict that
+    ``optimizer.load_state_dict`` takes, for an optimizer over
+    ``model.parameters()``. The step count becomes each parameter's
+    ``step``; mu and nu are mapped like the params (kernels transposed)."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the state")
+    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    step = float(np.asarray(adam.count))
+    names = {id(p): n for n, p in model.named_parameters()}
+    template = optimizer.state_dict()
+    state = {}
+    for group, saved in zip(optimizer.param_groups,
+                            template["param_groups"]):
+        for param, index in zip(group["params"], saved["params"]):
+            name = names[id(param)]
+            state[index] = {
+                "step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": mu[name].reshape(param.shape),
+                "exp_avg_sq": nu[name].reshape(param.shape),
+            }
+    return {"state": state, "param_groups": template["param_groups"]}
 
 
 def clean_state_dict(state_dict: Dict) -> Dict[str, torch.Tensor]:

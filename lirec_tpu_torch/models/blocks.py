@@ -1,14 +1,19 @@
-"""Shared model building blocks (counterpart of lirec_tpu/models/blocks.py,
-eval only: dropout is the identity)."""
+"""Shared model building blocks (counterpart of lirec_tpu/models/blocks.py)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from lirec_tpu_torch.models.layers import compute_dtype, init_linear, linear
+from lirec_tpu_torch.models.layers import (
+    DropoutRng,
+    compute_dtype,
+    dropout,
+    init_linear,
+    linear,
+)
 
 __all__ = ["GatingUnit", "init_modality_mlps", "init_gate", "gate_apply"]
 
@@ -51,10 +56,13 @@ def init_gate(spec, generator: torch.Generator) -> Dict:
 
 
 def gate_apply(model: nn.Module, ints_repr: torch.Tensor,
-               ctx_repr: torch.Tensor, spec) -> torch.Tensor:
-    """cat(ctx, ints) -> linear -> relu (ref mlp/model.py:349-354; the
-    dropout after it is the identity at eval)."""
+               ctx_repr: torch.Tensor, spec,
+               rng: Optional[DropoutRng] = None,
+               deterministic: bool = True) -> torch.Tensor:
+    """cat(ctx, ints) -> linear -> relu -> dropout (ref
+    mlp/model.py:349-354; the dropout is the identity at eval)."""
     fused = torch.cat([ctx_repr, ints_repr], dim=-1)
-    return torch.relu(
+    out = torch.relu(
         linear(model.gates_ints.fc_out, fused, compute_dtype(spec))
     )
+    return dropout(out, spec.dropout, rng, deterministic)

@@ -1,9 +1,13 @@
-"""Linear layers in the reference checkpoint's layout.
+"""Linear layers in the reference checkpoint's layout, and dropout.
 
 Counterpart of ``lirec_tpu/models/layers.py``. Layers are ``nn.Linear``
 (``weight [out, in]``, the transpose of the JAX package's ``kernel``) with
 the torch default init, uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight
-and bias, drawn from an explicit ``torch.Generator``. Eval needs no dropout.
+and bias, drawn from an explicit ``torch.Generator``.
+
+Dropout masks come from one explicit ``torch.Generator`` per forward, drawn
+in the forward's fixed call order. They cannot match JAX's key stream: the
+two are held to the same distribution only.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["compute_dtype", "init_linear", "linear"]
+__all__ = ["DropoutRng", "compute_dtype", "dropout", "init_linear", "linear"]
 
 
 def compute_dtype(spec) -> Optional[torch.dtype]:
@@ -52,3 +56,30 @@ def linear(layer: nn.Linear, x: torch.Tensor,
         x = x.to(compute_dtype).float()
         w = w.to(compute_dtype).float()
     return nn.functional.linear(x, w, layer.bias)
+
+
+class DropoutRng:
+    """The dropout stream of one forward: a ``torch.Generator`` on the
+    activations' device (None: no randomness, e.g. at eval), drawn from in
+    call order; ``calls`` counts the masks drawn."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator = generator
+        self.calls = 0
+
+
+def dropout(x: torch.Tensor, rate: float, rng: DropoutRng,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate); the identity when deterministic or
+    rate == 0. (The JAX package drew 16-bit words on the TPU to cut its RNG
+    cost; one f32 uniform per element is drawn here.)"""
+    if deterministic or rate == 0.0:
+        return x
+    if rng.generator is None:
+        raise ValueError("dropout needs a generator unless deterministic")
+    rng.calls += 1
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=rng.generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))

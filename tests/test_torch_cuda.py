@@ -1,4 +1,5 @@
-"""The CUDA ctx-pool kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (ctx pool, scatter-accumulate) against their plain
+PyTorch versions, and one train step, on the card.
 
 Marked ``cuda``: these skip without a CUDA device. The file imports no jax,
 so it runs on a machine without it:
@@ -11,6 +12,7 @@ import torch
 
 from lirec_tpu_torch.models.tabular import EmbeddedTables
 from lirec_tpu_torch.ops import dispatch
+from lirec_tpu_torch.ops import scatter_accum as sa
 from lirec_tpu_torch.ops.gather_pool import (
     KERNEL_NAMES,
     fused_ctx_pool,
@@ -68,3 +70,110 @@ def test_kernel_raises_instead_of_falling_back(cuda):
         fused_ctx_pool(emb, idx.long(), mask, True)
     with pytest.raises(ValueError, match="on cpu"):
         fused_ctx_pool(emb, idx.cpu(), mask, True)
+
+
+def _updates(device, dtype, N=23, R=18, rows=(50, 70), widths=(1040, 520),
+             dup_rows=None, seed=1):
+    """idx [N, R, 3] int32 and updates [N, R, d]; widths not multiples of
+    the kernel's 512-column pass; dup_rows sends everything to that many
+    rows."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    hi = (rows[0], rows[1], rows[1]) if dup_rows is None else (dup_rows,) * 3
+    idx = torch.stack([torch.randint(0, n, (N, R), device=device, generator=g)
+                       for n in hi], dim=-1).to(torch.int32).contiguous()
+    gs = [torch.randn(N, R, d, device=device, generator=g).to(dtype)
+          for d in (widths[0], widths[1], widths[1])]
+    return idx, gs
+
+
+@pytest.mark.parametrize("dup_rows", [None, 4, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_kernel_matches_in_order_sum(cuda, dtype, dup_rows):
+    """Three tables: bitwise the plain version's in-order sum on the CPU,
+    within 1e-5 of scale of index_add_ on the card (whose atomics sum in
+    another order), and bitwise equal over two launches; bf16 output is
+    the f32 sum rounded. dup_rows=1 puts 414 updates into one row: past the
+    row kernel's 128 and the long-row kernel's 256-update chunk, with a
+    width (520) that ends in a partial 16-column tile."""
+    idx, gs = _updates(cuda, dtype, dup_rows=dup_rows)
+    name = sa.KERNEL_NAMES[dtype]
+    before = dispatch.launches(name)
+    got = sa.scatter_accum3(idx, *gs, 50, 70)
+    again = sa.scatter_accum3(idx, *gs, 50, 70)
+    as_bf16 = sa.scatter_accum3(idx, *gs, 50, 70, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert dispatch.launches(name) == before + 3
+    cpu = sa.scatter_accum3_reference(idx.cpu(), *(g.cpu() for g in gs),
+                                      50, 70)
+    plain = sa.scatter_accum3_reference(idx, *gs, 50, 70)
+    for k, c, p, a, b in zip(got, cpu, plain, again, as_bf16):
+        assert k.dtype == torch.float32 and torch.equal(k, a)
+        assert torch.equal(k.cpu(), c)
+        scale = float(c.abs().max())
+        torch.testing.assert_close(k, p, rtol=0, atol=1e-5 * scale)
+        assert torch.equal(b, k.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_table_kernel_matches_in_order_sum(cuda, dtype):
+    idx, gs = _updates(cuda, dtype, dup_rows=3)
+    one = idx[..., 1].contiguous()
+    got = sa.scatter_accum1(one, gs[1], 9)
+    torch.cuda.synchronize()
+    want = sa.scatter_accum1_reference(one.cpu(), gs[1].cpu(), 9)
+    assert torch.equal(got.cpu(), want)
+    assert bool((got[3:] == 0).all())  # untouched rows are written as zeros
+
+
+def test_gather_h1_backward_launches_the_kernel(cuda):
+    idx, gs = _updates(cuda, torch.bfloat16, N=6, R=5)
+    tables = [torch.randn(n, d, device=cuda).bfloat16().requires_grad_(True)
+              for n, d in ((50, 1040), (70, 520), (70, 520))]
+    before = dispatch.launches(sa.KERNEL_NAMES[torch.bfloat16])
+    outs = sa.gather_h1(*tables, idx)
+    sum((o.float() * g.float()).sum() for o, g in zip(outs, gs)).backward()
+    torch.cuda.synchronize()
+    assert dispatch.launches(sa.KERNEL_NAMES[torch.bfloat16]) == before + 1
+    want = sa.scatter_accum3_reference(idx.cpu(), *(g.cpu() for g in gs),
+                                       50, 70)
+    for t, w in zip(tables, want):
+        assert t.grad.dtype == torch.bfloat16
+        assert torch.equal(t.grad.cpu(), w.to(torch.bfloat16))
+
+
+def test_scatter_raises_instead_of_falling_back(cuda):
+    idx, gs = _updates(cuda, torch.float32, N=2, R=3)
+    with pytest.raises(ValueError, match="int32"):
+        sa.scatter_accum3(idx.long(), *gs, 50, 70)
+    with pytest.raises(ValueError, match="on cpu"):
+        sa.scatter_accum3(idx, gs[0].cpu(), *gs[1:], 50, 70)
+
+
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_one_train_step_on_the_card(cuda, compute):
+    """int_rel_ch at small widths on the card: a finite loss, every
+    parameter moved, one scatter launch per step."""
+    from lirec_tpu import config as config_lib
+    from lirec_tpu.utils.fake_batch import make_batch, make_tables
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+
+    cfg = config_lib.preset("int_rel_ch").with_dims(
+        text_dim=32, visual_dim=64, joint_dim=256).with_runtime(
+        compute_dtype=compute)
+    pb = create_model(cfg, 9, n_rels=6, device=cuda)
+    before = {n: p.detach().clone() for n, p in pb.model.named_parameters()}
+    tables = {k: torch.from_numpy(v).to(cuda)
+              for k, v in make_tables(pb.spec, 64, 96).items()}
+    step = make_train_step(pb, make_optimizer(pb.model.parameters(), 1e-3))
+    name = sa.KERNEL_NAMES[torch.bfloat16 if compute == "bfloat16"
+                           else torch.float32]
+    launches = dispatch.launches(name)
+    loss = step(make_batch(pb.spec, 4, 64, 96, seed=2), tables,
+                step_generators(0, 1, cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert dispatch.launches(name) == launches + 1
+    for n, p in pb.model.named_parameters():
+        assert not torch.equal(p.detach(), before[n]), n
