@@ -36,12 +36,30 @@
    ms/step and clips/s.
 8. Runs the port's train() on a synthetic MovieGraphs fixture on the card:
    2 epochs at batch 8 (the last batch of 6 is padded with loss_weight 0).
+9. Evaluates int_rel_ch at its published widths over a split of 168
+   structured B = 64 batches and a 37-sample tail (10,789 samples) on
+   split-scale tables with the packed eval sweep, in bf16 and f32 compute,
+   in each ctx localisation tier (off, per-table, triple): checks that the
+   three tiers' carries are bitwise equal, that a triple sweep launches the
+   triple kernel once per full batch and the 3-table kernel once for the
+   tail, every loss finite, and a sweep with the plain pools close; prints
+   eval clips/s per tier and dtype (the slope over two batch counts), the
+   embed time and the host localisation time.
+10. Runs the int_rel_ch eval CLI (``cli.int_rel_ch.main``) on a synthetic
+   fixture on the card: both splits' metrics finite.
+
+Phase 3 also holds the triple-tier pool (kernel 4) against its plain
+version and bit for bit against the 3-table kernel on a structured
+batch's local table, and the masked gather-sum (kernel 5, no product
+caller) against its plain version, and times each beside the
+``embedding_bag`` library call that computes the same function.
 
 Every failure raises. There is no CPU path: without a CUDA device the
 script exits 2. Its last line is one JSON object,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
-the line before it lists each kernel with its launch count, error and
-times.
+the line before it lists each kernel with its launch count, error, times
+and bound (the larger of the bytes this run's inputs need over 3.35 TB/s
+and the operations over 67 TFLOP/s of f32 arithmetic).
 """
 
 import json
@@ -67,10 +85,15 @@ N_CLIPS, N_TRACKS = 12288, 24576  # split-scale tables (ROADMAP.md)
 GIANT = 4  # giant tables: 4x the rows, past the TPU's VMEM-resident tier
 TOPK = 5
 CU = "lirec_tpu_torch/csrc/fused_ctx_pool.cu"
+TRIPLE_CU = "lirec_tpu_torch/csrc/fused_ctx_pool_triple.cu"
 TPU_SRC = "lirec_tpu/ops/gather_pool.py"
 SCATTER_CU = "lirec_tpu_torch/csrc/scatter_accum.cu"
 SCATTER_TPU_SRC = "lirec_tpu/ops/scatter_accum.py"
 TRAIN_B, TRAIN_STEPS = 64, 10
+EVAL_B, EVAL_FULL, EVAL_TAIL = 64, 168, 37  # a split of 10,789 samples
+EVAL_ROUNDS = 5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 
 
 def log(*args):
@@ -122,6 +145,24 @@ def median_ms(torch, fn, reps=15):
     return statistics.median(times)
 
 
+def bound(n_bytes, flops):
+    """The least time the card could take: bytes over the memory rate or
+    f32 operations over the f32 rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def gathered_bytes(table, ids):
+    """Bytes of the table rows `ids` reference, each read once."""
+    return int(ids.unique().numel()) * table.shape[1] * table.element_size()
+
+
 def pool_inputs(torch, n_clips, n_tracks, dtype, seed, M=64 * 20, R=18,
                 d_clip=1024, d_tr=256):
     from lirec_tpu_torch.models.tabular import EmbeddedTables
@@ -169,6 +210,10 @@ def pool_case(torch, label, emb, idx, mask, guard, atol):
     return err
 
 
+def emb_width(emb):
+    return emb.clip.shape[1] + 2 * emb.tr1.shape[1]
+
+
 def kernel_checks(torch):
     """Phase 3. Returns {entry: {max_abs_err, ms, plain_ms}}."""
     from lirec_tpu_torch.ops.gather_pool import (
@@ -202,12 +247,155 @@ def kernel_checks(torch):
                     emb, idx, mask, True))
                 plain = median_ms(torch, lambda: fused_ctx_pool_reference(
                     emb, idx, mask, True))
-                log("  %-34s kernel %.4f ms, plain %.4f ms (median, M=%d)"
-                    % (name, ms, plain, idx.shape[0]))
-                timed = (ms, plain)
+                M, R = idx.shape[:2]
+                moved = (gathered_bytes(emb.clip, idx[..., 0])
+                         + gathered_bytes(emb.tr1, idx[..., 1])
+                         + gathered_bytes(emb.tr2, idx[..., 2])
+                         + nbytes(idx, mask) + M * emb_width(emb) * 4)
+                b = bound(moved, 2 * M * R * emb_width(emb))
+                log("  %-34s kernel %.4f ms, plain %.4f ms (median, M=%d); "
+                    "bound %.4f ms (%s, %.1f MB)" % (
+                        name, ms, plain, M, b["bound_ms"], b["bound_by"],
+                        moved / 1e6))
+                timed = dict(ms=ms, plain_ms=plain, **b)
             del emb, idx, mask
-        results[key] = {"max_abs_err": max(errs), "ms": timed[0],
-                        "plain_ms": timed[1]}
+        # no single PyTorch call computes the 3-table pool
+        results[key] = dict(max_abs_err=max(errs), library_ms=None, **timed)
+    torch.cuda.empty_cache()
+    return results
+
+
+def local_table_inputs(torch, dtype, spec, seed):
+    """A structured B = 64 batch's ctx entries (M = 1280, R = 18) over
+    split-scale embedded tables, and the batch's triple-tier local table
+    built as the eval sweep builds it: (emb, idx [M, R, 3], mask [M, R],
+    fused [U, 1536], tidx [M, R])."""
+    from lirec_tpu_torch.data.localize import localize_eval_ctx_triples
+    from lirec_tpu_torch.utils.fake_batch import make_structured_batch
+
+    emb, _, _ = pool_inputs(torch, N_CLIPS, N_TRACKS, dtype, seed=seed)
+    batch = make_structured_batch(spec, EVAL_B, N_CLIPS, N_TRACKS,
+                                  seed=500 + seed)
+    fi = batch["feat_idx"]
+    tidx, triples = localize_eval_ctx_triples(fi, EVAL_B, 1, N_TRACKS)
+    M, R = EVAL_B * fi.shape[1], fi.shape[2] - 1
+    idx = torch.from_numpy(fi[:, :, 1:, :].reshape(M, R, 3).copy()).cuda()
+    mask = torch.from_numpy(batch["rels_mask"].reshape(M, R).astype(
+        "float32")).cuda()
+    tri = torch.from_numpy(triples[0]).cuda().long()
+    fused = fuse(torch, emb, tri)
+    tidx = torch.from_numpy(tidx.reshape(M, R)).cuda()
+    return emb, idx, mask, fused, tri, tidx
+
+
+def fuse(torch, emb, tri):
+    """The local table: each unique triple's [clip | tr1 | tr2] row."""
+    return torch.cat([emb.clip[tri[:, 0]], emb.tr1[tri[:, 1]],
+                      emb.tr2[tri[:, 2]]], dim=-1)
+
+
+def triple_checks(torch, spec):
+    """Phase 3, kernels 4 and 5. Returns {entry: {max_abs_err, ms,
+    plain_ms, library_ms, bound_ms, bound_by}}."""
+    import torch.nn.functional as F
+
+    from lirec_tpu_torch.ops.gather_pool import (
+        fused_ctx_pool, fused_ctx_pool_triple,
+        fused_ctx_pool_triple_reference, gather_masked_sum,
+        gather_masked_sum_reference,
+    )
+
+    atol = {torch.float32: 2e-6, torch.bfloat16: 1e-5}
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+        emb, idx, mask, fused, tri, tidx = local_table_inputs(
+            torch, dtype, spec, seed=7)
+        M, R = tidx.shape
+        U, width = fused.shape
+        errs = []
+        for guard in (True, False):
+            got = fused_ctx_pool_triple(fused, tidx, mask, guard)
+            three = fused_ctx_pool(emb, idx, mask, guard)
+            torch.cuda.synchronize()
+            want = fused_ctx_pool_triple_reference(fused, tidx, mask, guard)
+            check(got.shape == (M, width) and got.dtype == torch.float32,
+                  "triple %s: output %s %s" % (tag, tuple(got.shape),
+                                               got.dtype))
+            check(torch.equal(got.isnan(), three.isnan())
+                  and torch.equal(torch.nan_to_num(got),
+                                  torch.nan_to_num(three)),
+                  "triple %s guard=%s: not bitwise the 3-table kernel"
+                  % (tag, guard))
+            check(torch.equal(got.isnan(), want.isnan()),
+                  "triple %s: NaN positions differ from plain" % tag)
+            nan = got.isnan()
+            err = float((got - want).abs()[~nan].max())
+            errs.append(err)
+            log("  triple %-4s guard=%-5s U=%d: bitwise the 3-table kernel; "
+                "max|diff| vs plain %.3e (atol %.0e)"
+                % (tag, guard, U, err, atol[dtype]))
+            check(err <= atol[dtype], "triple %s disagrees with plain" % tag)
+        div = mask.sum(-1, keepdim=True)
+        div = torch.where(div == 0, torch.ones_like(div), div)
+        w = mask.to(dtype)
+        lib_out = torch.tanh(F.embedding_bag(
+            tidx, fused, per_sample_weights=w, mode="sum").float() / div)
+        lib_err = float((lib_out - fused_ctx_pool_triple(
+            fused, tidx, mask, True)).abs().max())
+        ms = median_ms(torch, lambda: fused_ctx_pool_triple(
+            fused, tidx, mask, True))
+        plain = median_ms(torch, lambda: fused_ctx_pool_triple_reference(
+            fused, tidx, mask, True))
+        lib = median_ms(torch, lambda: torch.tanh(F.embedding_bag(
+            tidx, fused, per_sample_weights=w, mode="sum").float() / div))
+        build = median_ms(torch, lambda: fuse(torch, emb, tri))
+        # one batch's ctx pool in each tier, as the sweep runs it: the
+        # triple tier builds its local table, then pools it
+        tier_triple = median_ms(torch, lambda: fused_ctx_pool_triple(
+            fuse(torch, emb, tri), tidx, mask, True))
+        tier_off = median_ms(torch, lambda: fused_ctx_pool(
+            emb, idx, mask, True))
+        moved = nbytes(fused, tidx, mask) + M * width * 4
+        b = bound(moved, 2 * M * R * width)
+        log("  triple %-4s kernel %.4f ms, plain %.4f ms, embedding_bag + "
+            "tanh %.4f ms (max|diff| %.1e); local-table build (U = %d rows) "
+            "%.4f ms; bound %.4f ms (%s, %.2f MB)" % (
+                tag, ms, plain, lib, lib_err, U, build, b["bound_ms"],
+                b["bound_by"], moved / 1e6))
+        log("  one batch's ctx pool, %s: triple tier (build + kernel) %.4f "
+            "ms, unlocalised (3-table kernel) %.4f ms" % (
+                tag, tier_triple, tier_off))
+        results["triple_" + tag] = dict(max_abs_err=max(errs), ms=ms,
+                                        plain_ms=plain, library_ms=lib, **b)
+
+        # kernel 5: the clip table's masked sum, no epilogue
+        table, one = emb.clip, idx[..., 0].contiguous()
+        got = gather_masked_sum(table, one, mask)
+        torch.cuda.synchronize()
+        want = gather_masked_sum_reference(table, one, mask)
+        check(got.dtype == dtype, "gather_masked_sum %s dtype" % tag)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        # f32: sums in another order; bf16: one bf16 rounding of the sum
+        tol = 1e-5 * scale if dtype == torch.float32 else 2 ** -8 * scale
+        log("  gather_masked_sum %-4s max|diff| vs plain %.3e (bound %.1e)"
+            % (tag, err, tol))
+        check(err <= tol, "gather_masked_sum %s disagrees" % tag)
+        ms = median_ms(torch, lambda: gather_masked_sum(table, one, mask))
+        plain = median_ms(torch, lambda: gather_masked_sum_reference(
+            table, one, mask))
+        lib = median_ms(torch, lambda: F.embedding_bag(
+            one, table, per_sample_weights=w, mode="sum"))
+        moved = (gathered_bytes(table, one) + nbytes(one, mask)
+                 + M * table.shape[1] * table.element_size())
+        b = bound(moved, 2 * M * R * table.shape[1])
+        log("  gather_masked_sum %-4s kernel %.4f ms, plain %.4f ms, "
+            "embedding_bag %.4f ms; bound %.4f ms (%s)"
+            % (tag, ms, plain, lib, b["bound_ms"], b["bound_by"]))
+        results["gms_" + tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                     library_ms=lib, **b)
+        del emb, idx, mask, fused, tidx, table
     torch.cuda.empty_cache()
     return results
 
@@ -274,8 +462,8 @@ def main_path(torch):
     """Phase 4. Returns {kernel name: launches} and the latencies."""
     import numpy as np
 
-    from lirec_tpu import config as config_lib
-    from lirec_tpu.utils.fake_batch import make_structured_batch, make_tables
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.utils.fake_batch import make_structured_batch, make_tables
     from lirec_tpu_torch.cli.serve import InferenceEngine
     from lirec_tpu_torch.evaluation.metrics import _sigmoid
     from lirec_tpu_torch.models.factory import create_model
@@ -337,8 +525,8 @@ def main_path(torch):
     counts = dispatch.launches()
     # ---- end of the counted run
 
-    names = {"bfloat16": KERNEL_NAMES[torch.bfloat16],
-             "float32": KERNEL_NAMES[torch.float32]}
+    names = {"bfloat16": KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)],
+             "float32": KERNEL_NAMES[("fused_ctx_pool", torch.float32)]}
     for compute, name in names.items():
         log("  %s: %d forwards, %d launches of %s"
             % (compute, forwards[compute], counts.get(name, 0), name))
@@ -383,8 +571,8 @@ def main_path(torch):
 
 def entry_point(torch):
     """Phase 5: the CLI's own engine builder on a synthetic fixture."""
-    from lirec_tpu.data import synthetic
-    from lirec_tpu.utils.fake_batch import make_batch
+    from lirec_tpu_torch.data import synthetic
+    from lirec_tpu_torch.utils.fake_batch import make_batch
     from lirec_tpu_torch.cli.serve import build_engine_from_args, make_parser
 
     with tempfile.TemporaryDirectory() as root:
@@ -416,7 +604,7 @@ def train_batches(spec):
     locality: heavy duplicate rows), and the same batches localized
     together by the port's Localizer, as the train loop localizes an
     epoch. Returns (raw, localized, (cap_clip, cap_track))."""
-    from lirec_tpu.utils.fake_batch import make_structured_batch
+    from lirec_tpu_torch.utils.fake_batch import make_structured_batch
     from lirec_tpu_torch.data.localize import Localizer
 
     raw = [make_structured_batch(spec, TRAIN_B, N_CLIPS, N_TRACKS,
@@ -439,7 +627,7 @@ def scatter_case(torch, label, idx, gs, rows, single):
     """Kernel vs the plain version on the card (index_add_, f32 atomics)
     and vs the in-order sum on the CPU; two launches must be bitwise equal.
     Returns (max |diff| vs the card's plain version, kernel ms, sort ms,
-    plain ms)."""
+    plain ms, bound)."""
     from lirec_tpu_torch.ops import scatter_accum as sa
 
     if single:
@@ -488,13 +676,13 @@ def scatter_case(torch, label, idx, gs, rows, single):
     plain_ms = median_ms(torch, plain)
     check(all(torch.equal(a, b) for a, b in zip(outs, got)),
           "%s: timed launches differ" % label)
-    upd = sum(g.numel() * g.element_size() for g in gflat)
-    out = sum(o.numel() * o.element_size() for o in got)
-    floor_us = (upd + out) / 3.35e12 * 1e6
-    log("  %-44s kernel %.4f ms, sort %.4f ms, plain %.4f ms; bytes floor "
-        "%.1f us (%.1f MB)" % ("", ms, sort_ms, plain_ms, floor_us,
-                               (upd + out) / 1e6))
-    return err_gpu, ms, sort_ms, plain_ms
+    upd, out = nbytes(*gflat), nbytes(*got)
+    adds = sum(g.numel() for g in gflat)
+    b = bound(upd + out + nbytes(flat), adds)
+    log("  %-44s kernel %.4f ms, sort %.4f ms, plain %.4f ms; bound %.4f "
+        "ms (%s, %.1f MB)" % ("", ms, sort_ms, plain_ms, b["bound_ms"],
+                              b["bound_by"], (upd + out) / 1e6))
+    return err_gpu, ms, sort_ms, plain_ms, b
 
 
 def scatter_checks(torch, spec, raw, local, caps):
@@ -513,26 +701,29 @@ def scatter_checks(torch, spec, raw, local, caps):
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[1]
         gs = [t.to(dtype) for t in base]
-        err, ms, sort_ms, plain_ms = scatter_case(
+        err, ms, sort_ms, plain_ms, b = scatter_case(
             torch, "3 tables %dx%d rows %s" % (N_CLIPS, N_TRACKS, tag),
             idx_full, gs, full, single=False)
-        results[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "sort_ms": sort_ms}
+        # the plain version is index_add_, the library call itself
+        results[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=plain_ms, sort_ms=sort_ms, **b)
         scatter_case(torch, "3 tables at caps %dx%d %s" % (caps[0], caps[1],
                                                            tag),
                      idx_loc, gs, (caps[0], caps[1], caps[1]), single=False)
         scatter_case(torch, "3 tables, all updates into 8 rows, %s" % tag,
                      idx_dup, gs, full, single=False)
-        err, ms, _, plain_ms = scatter_case(
+        err, ms, _, plain_ms, b = scatter_case(
             torch, "flattened [23040, d] %s" % tag, idx_full.reshape(-1, 3),
             [t.reshape(-1, t.shape[-1]) for t in gs], full, single=False)
-        results[tag + "@flat"] = {"max_abs_err": err, "ms": ms,
-                                  "plain_ms": plain_ms}
-        err, ms, _, plain_ms = scatter_case(
+        results[tag + "@flat"] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms,
+                                      library_ms=plain_ms, **b)
+        err, ms, _, plain_ms, b = scatter_case(
             torch, "single table (clip) %s" % tag, idx_full, gs, full,
             single=True)
-        results[tag + "@single_table"] = {"max_abs_err": err, "ms": ms,
-                                          "plain_ms": plain_ms}
+        results[tag + "@single_table"] = dict(max_abs_err=err, ms=ms,
+                                              plain_ms=plain_ms,
+                                              library_ms=plain_ms, **b)
     del base, gs
     torch.cuda.empty_cache()
     return results
@@ -565,8 +756,8 @@ def train_path(torch, batches):
     launches}, {compute: ms/step})."""
     import numpy as np
 
-    from lirec_tpu import config as config_lib
-    from lirec_tpu.utils.fake_batch import make_tables
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.utils.fake_batch import make_tables
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.ops import dispatch
     from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES
@@ -651,9 +842,9 @@ def train_entry(torch):
     """Phase 8: train() on a synthetic fixture, on the card."""
     import numpy as np
 
-    from lirec_tpu import config as config_lib
-    from lirec_tpu.data import synthetic
-    from lirec_tpu.data.dataset import InteractionDataset
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.data import synthetic
+    from lirec_tpu_torch.data.dataset import InteractionDataset
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.ops import dispatch
     from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES
@@ -685,6 +876,237 @@ def train_entry(torch):
         "%d launches of %s" % (len(ds), out["losses"], counted[name], name))
 
 
+# ------------------------------------------------------------- eval sweep
+
+
+def eval_split(spec):
+    """EVAL_FULL structured B = 64 batches and an EVAL_TAIL-sample tail,
+    as one materialized split."""
+    import numpy as np
+
+    from lirec_tpu_torch.utils.fake_batch import make_structured_batch
+
+    parts = [make_structured_batch(spec, EVAL_B, N_CLIPS, N_TRACKS,
+                                   seed=900 + i) for i in range(EVAL_FULL)]
+    parts.append(make_structured_batch(spec, EVAL_TAIL, N_CLIPS, N_TRACKS,
+                                       seed=900 + EVAL_FULL))
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def split_stand_in():
+    """What evaluate_packed reads of a dataset: 101 interaction classes
+    and 16 relationship labels (15 heads and 'None', as dataset.n_rels
+    counts them), no relationship hashes."""
+    import types
+
+    return types.SimpleNamespace(n_classes=101, n_rels=16, hashidx_rels=None)
+
+
+# a plain pool differs from the kernel by ulps; through f32 (or bf16-rounded)
+# GEMMs that can flip an argmax tie between two hypotheses or classes
+MAX_COUNTER_FLIPS = 8
+
+
+def eval_sweep(torch, spec):
+    """Phase 9. Returns ({triple kernel name: launches of one counted
+    triple sweep}, {(compute, tier): clips/s})."""
+    import numpy as np
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.data.localize import (
+        localize_eval_ctx, localize_eval_ctx_triples,
+    )
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.models.tabular import embed_all
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    t0 = time.perf_counter()
+    data = eval_split(spec)
+    n_samples = len(data["labels"])
+    log("  split: %d structured B=%d batches + a %d-sample tail (%d "
+        "samples), made in %.1f s" % (EVAL_FULL, EVAL_B, EVAL_TAIL,
+                                      n_samples, time.perf_counter() - t0))
+    fi = data["feat_idx"]
+    for name, fn in (
+        ("triple", lambda: localize_eval_ctx_triples(
+            fi, EVAL_B, EVAL_FULL, N_TRACKS)),
+        ("tables", lambda: localize_eval_ctx(
+            fi, EVAL_B, EVAL_FULL, N_CLIPS, N_TRACKS)),
+    ):
+        t0 = time.perf_counter()
+        loc = fn()
+        caps = loc[1].shape[1] if name == "triple" else (
+            loc[1].shape[1], loc[2].shape[1])
+        log("  host localisation (%s tier) of the split: %.3f s, caps %s"
+            % (name, time.perf_counter() - t0, caps))
+    n_half = EVAL_FULL // 2
+    halves = {n: {k: v[: n * EVAL_B] for k, v in data.items()}
+              for n in (n_half, EVAL_FULL)}
+
+    captured = {}
+    finish = packed.finish_from_carry
+
+    def capture(carry, *args, **kw):
+        captured["carry"] = carry
+        return finish(carry, *args, **kw)
+
+    packed.finish_from_carry = capture
+    tables, counts, rates = None, {}, {}
+    try:
+        for compute in ("bfloat16", "float32"):
+            dtype = torch.bfloat16 if compute == "bfloat16" else \
+                torch.float32
+            cfg = config_lib.preset("int_rel_ch").with_optim(
+                batch_size=EVAL_B).with_runtime(compute_dtype=compute)
+            bundle = create_model(cfg, 101, n_rels=15, seed=0,
+                                  device="cuda")
+            check((bundle.spec.text_dim, bundle.spec.visual_dim,
+                   bundle.spec.track_dim, bundle.spec.joint_dim)
+                  == (768, 2048, 2048, 512), "published widths")
+            if tables is None:
+                tables = make_tables(bundle.spec, N_CLIPS, N_TRACKS, seed=0)
+            dev_tables = {k: torch.from_numpy(v).cuda()
+                          for k, v in tables.items()}
+            times = []
+            with torch.inference_mode():
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    embed_all(bundle.model, bundle.spec, dev_tables)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t) * 1e3)
+            del dev_tables
+            log("  %s: embed_all over %d / %d rows: median %.2f ms"
+                % (compute, N_CLIPS, N_TRACKS, statistics.median(times[1:])))
+
+            def sweep(tier, split=data, ds=None, use_kernel=True):
+                return packed.evaluate_packed(
+                    ds or split_stand_in(), bundle, bundle.model, cfg,
+                    mode="test", verbose=False, data=split, tables=tables,
+                    use_kernel=use_kernel, localize_ctx=tier)
+
+            three = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+            tri = KERNEL_NAMES[("fused_ctx_pool_triple", dtype)]
+            carries = {}
+            for tier in (False, "tables", "triple"):
+                # ---- the counted run: one sweep of the split
+                dispatch.reset_launches()
+                metrics = sweep(tier)
+                torch.cuda.synchronize()
+                launched = dispatch.launches()
+                # ---- end of the counted run
+                carries[tier] = captured["carry"]
+                want = ({tri: EVAL_FULL, three: 1} if tier == "triple"
+                        else {three: EVAL_FULL + 1})
+                check({k: launched.get(k, 0) for k in (three, tri)}
+                      == dict({three: 0, tri: 0}, **want),
+                      "%s %s sweep launched %s" % (compute, tier, launched))
+                check(all(np.isfinite(v) for v in metrics.values()),
+                      "%s %s metrics %s" % (compute, tier, metrics))
+                if tier == "triple":
+                    counts[tri] = launched[tri]
+                log("  %s localize=%-6s loss %.6f, %d batches, launches %s; "
+                    "metrics %s" % (
+                        compute, tier, metrics["loss"],
+                        int(carries[tier]["n_batches"]),
+                        {k: v for k, v in launched.items() if "pool" in k},
+                        {k: round(v, 6) for k, v in metrics.items()}))
+            for tier in ("tables", "triple"):
+                for key, val in carries[False].items():
+                    check(np.array_equal(carries[tier][key], val),
+                          "%s: %s carry %s differs from the unlocalised "
+                          "sweep's" % (compute, tier, key))
+            log("  %s: the three tiers' carries are bitwise equal"
+                % compute)
+            sweep(None, use_kernel=False)
+            plain = captured["carry"]
+            base = carries[False]
+            rel = abs(float(plain["loss_sum"]) - float(base["loss_sum"])) / \
+                abs(float(base["loss_sum"]))
+            flips = {k: int(abs(int(plain[k]) - int(v)))
+                     for k, v in base.items() if k != "loss_sum"}
+            log("  %s: plain pools vs kernel: loss rel diff %.2e (bound "
+                "1e-5), counter diffs %s (bound %d each)"
+                % (compute, rel, flips, MAX_COUNTER_FLIPS))
+            check(rel <= 1e-5, "%s: plain-pool loss differs" % compute)
+            check(max(flips.values()) <= MAX_COUNTER_FLIPS,
+                  "%s: plain-pool counters differ" % compute)
+
+            # clips/s: the slope of the sweep time over two batch counts,
+            # the tiers taken in turn, EVAL_ROUNDS rounds
+            tiers = (False, "tables", "triple")
+            stand_ins = {(tier, n): split_stand_in()
+                         for tier in tiers for n in halves}
+            for tier in tiers:
+                for n in halves:  # warm-up; computes the localisation
+                    sweep(tier, halves[n], stand_ins[(tier, n)])
+            secs = {key: [] for key in stand_ins}
+            for r in range(EVAL_ROUNDS):
+                for tier in tiers[r % 3:] + tiers[:r % 3]:
+                    for n in (n_half, EVAL_FULL):
+                        t = time.perf_counter()
+                        sweep(tier, halves[n], stand_ins[(tier, n)])
+                        secs[(tier, n)].append(time.perf_counter() - t)
+            for tier in tiers:
+                t1 = statistics.median(secs[(tier, n_half)])
+                t2 = statistics.median(secs[(tier, EVAL_FULL)])
+                per_batch = (t2 - t1) / (EVAL_FULL - n_half)
+                rounds = sorted(
+                    EVAL_B * (EVAL_FULL - n_half) / (b - a) for a, b in zip(
+                        secs[(tier, n_half)], secs[(tier, EVAL_FULL)]))
+                rates[(compute, tier)] = EVAL_B / per_batch
+                log("  %s localize=%-6s sweep %d batches %.4f s, %d batches "
+                    "%.4f s (medians of %d): %.4f ms/batch, %.0f clips/s; "
+                    "per round %s" % (
+                        compute, tier, n_half, t1, EVAL_FULL, t2, EVAL_ROUNDS,
+                        per_batch * 1e3, rates[(compute, tier)],
+                        [round(x) for x in rounds]))
+            del bundle
+            torch.cuda.empty_cache()
+    finally:
+        packed.finish_from_carry = finish
+    return counts, rates
+
+
+def eval_cli(torch):
+    """Phase 10: the int_rel_ch eval CLI on a synthetic fixture, on the
+    card, with a reference-format checkpoint of seeded weights."""
+    import math
+
+    from lirec_tpu_torch.cli import common, int_rel_ch
+    from lirec_tpu_torch.data import synthetic
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch
+
+    with tempfile.TemporaryDirectory() as root:
+        synthetic.generate(root)
+        ckpt = os.path.join(root, "weights.pth.tar")
+        args = ["--data-root", root, "--resume-path", ckpt,
+                "--batch-size", "8", "--device", "cuda", "--quiet",
+                "--sanity-check", "--text-dim", "16", "--visual-dim", "32",
+                "--text-layers", "4", "--joint-dim", "16"]
+        cfg = common.config_from_args(
+            "int_rel_ch", common.build_parser("int_rel_ch").parse_args(args))
+        train_ds, _, _ = common.build_datasets(cfg, "int_rel_ch")
+        model = create_model(cfg, train_ds.n_classes,
+                             n_rels=max(len(train_ds.rels_list) - 1, 0),
+                             seed=0, device="cpu").model
+        torch.save({"state_dict": model.state_dict()}, ckpt)
+        dispatch.reset_launches()
+        out = int_rel_ch.main(args)
+        torch.cuda.synchronize()
+        launched = dispatch.launches()
+    for split in ("val", "test"):
+        check(all(math.isfinite(v) for v in out[split].values()),
+              "CLI %s metrics %s" % (split, out[split]))
+    log("  cli.int_rel_ch.main on the card: val %s, test %s; launches %s; "
+        "localisation %s" % (out["val"], out["test"], launched,
+                             dispatch.last_dispatch("eval_ctx_localize")))
+
+
 def main():
     import torch
 
@@ -705,7 +1127,7 @@ def main():
 
     log("== 2. build")
     t0 = time.perf_counter()
-    sources = ("fused_ctx_pool", "scatter_accum")
+    sources = ("fused_ctx_pool", "scatter_accum", "fused_ctx_pool_triple")
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(build.build, sources))
     log("  built in %.2f s (one nvcc per source, in parallel)"
@@ -721,7 +1143,11 @@ def main():
         log("  -> %s" % os.path.relpath(path, ROOT))
 
     log("== 3. kernels vs plain PyTorch on the card")
+    from lirec_tpu_torch.models.spec import ModelSpec
+
+    spec = ModelSpec(n_classes=101, n_rels=15)  # the published widths
     perf = kernel_checks(torch)
+    triple = triple_checks(torch, spec)
 
     log("== 4. int_rel_ch served at published widths")
     counts, latency = main_path(torch)
@@ -730,9 +1156,6 @@ def main():
     entry_point(torch)
 
     log("== 6. scatter kernel vs plain PyTorch on the card")
-    from lirec_tpu_torch.models.spec import ModelSpec
-
-    spec = ModelSpec(n_classes=101, n_rels=15)  # the published widths
     t0 = time.perf_counter()
     raw, local, caps = train_batches(spec)
     log("  %d structured B=%d batches, localized in %.1f s: caps %d clip / "
@@ -746,10 +1169,17 @@ def main():
     log("== 8. train() on a synthetic fixture")
     train_entry(torch)
 
+    log("== 9. int_rel_ch eval sweep at published widths (counted runs)")
+    eval_counts, eval_rates = eval_sweep(torch, spec)
+
+    log("== 10. eval CLI entry point")
+    eval_cli(torch)
+
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
 
-    f32, bf16 = KERNEL_NAMES[torch.float32], KERNEL_NAMES[torch.bfloat16]
+    f32 = KERNEL_NAMES[("fused_ctx_pool", torch.float32)]
+    bf16 = KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)]
     entries = [
         (f32, "split_f32", "%s:178" % TPU_SRC),
         (bf16, "split_bf16", "%s:218" % TPU_SRC),
@@ -776,8 +1206,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": SCATTER_CU,
             "replaces": "%s:91" % SCATTER_TPU_SRC, "launches": launches,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
+            **{k: v for k, v in r.items() if k != "sort_ms"},
         })
         for suffix, line in (("@flat", 49), ("@single_table", 282)):
             variants[name + suffix] = dict(
@@ -787,6 +1216,26 @@ def main():
             % (tag, r["sort_ms"], r["ms"]))
     log("scatter_variants (phase 6 only, not counted launches): "
         + json.dumps(variants))
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        name = KERNEL_NAMES[("fused_ctx_pool_triple", dtype)]
+        check(eval_counts.get(name, 0) > 0,
+              "%s was not launched by the eval sweep" % name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": TRIPLE_CU,
+            "replaces": "%s:719" % TPU_SRC, "launches": eval_counts[name],
+            **triple["triple_" + tag],
+        })
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        # no product path calls it: held in phase 3 only, no launches
+        kernels.append({
+            "name": KERNEL_NAMES[("gather_masked_sum", dtype)],
+            "route": "cuda", "source": TRIPLE_CU,
+            "replaces": "%s:106" % TPU_SRC, "launches": 0, "path": "none",
+            **triple["gms_" + tag],
+        })
+    log("eval_clips_per_s: " + json.dumps(
+        {"%s_%s" % (c, t if t else "off"): v
+         for (c, t), v in eval_rates.items()}))
     log("train_ms_per_step: " + json.dumps(step_ms))
     log("latency_ms: " + json.dumps(
         {"%s_B%d" % k: v for k, v in latency.items()}))

@@ -215,10 +215,13 @@ def make_handler(engine: InferenceEngine):
     return Handler
 
 
+CHECKPOINT_SUFFIXES = (".pth.tar", ".pth", ".tar")
+
+
 def load_checkpoint_state(path: str) -> Dict[str, torch.Tensor]:
     """A reference .pth.tar checkpoint -> the port's state_dict. The JAX
     package's own msgpack and Orbax formats need flax and are not read."""
-    if not path.endswith((".pth.tar", ".pth", ".tar")):
+    if not path.endswith(CHECKPOINT_SUFFIXES):
         raise ValueError(
             "lirec_tpu_torch reads reference .pth.tar checkpoints only; got "
             "%r" % path
@@ -230,8 +233,8 @@ def load_checkpoint_state(path: str) -> Dict[str, torch.Tensor]:
 
 
 def build_engine_from_args(args) -> InferenceEngine:
-    from lirec_tpu import config as config_lib
-    from lirec_tpu.data.dataset import InteractionDataset
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.data.dataset import InteractionDataset
     from lirec_tpu_torch.models.factory import create_model
 
     cfg = config_lib.preset(args.preset, data_root=args.data_root)
@@ -243,7 +246,8 @@ def build_engine_from_args(args) -> InferenceEngine:
     ds.cache(parallel_workers=args.cache_workers)
     if cfg.tasks.rels or cfg.tasks.rels_multitask:
         ds.init_relships()
-    bundle = create_model(cfg, ds.n_classes, n_rels=max(ds.n_rels - 1, 0))
+    bundle = create_model(cfg, ds.n_classes, n_rels=max(ds.n_rels - 1, 0),
+                          device=args.device)
     if args.resume_path:
         bundle.model.load_state_dict(load_checkpoint_state(args.resume_path))
     return InferenceEngine(bundle, ds.tables.as_dict(), device=args.device,

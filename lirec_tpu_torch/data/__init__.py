@@ -1,2 +1,4 @@
-"""Host data tier of the port: the train-mode epoch iterator and the
-batch-local table Localizer, over lirec_tpu's jax-free data modules."""
+"""Host data tier of the port: its own copy of the JAX package's numpy
+data modules (annotations, graphs, vocab, features, dataset, assembly plan,
+synthetic fixtures, localisation), the batch collation and the train-mode
+epoch iterator."""

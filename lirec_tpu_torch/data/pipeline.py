@@ -1,11 +1,10 @@
-"""Train-mode epoch iterator (counterpart of the train path of
-lirec_tpu/data/pipeline.BatchIterator).
+"""Batch collation and the train-mode epoch iterator (counterparts of
+``collate`` and of the train path of lirec_tpu/data/pipeline.BatchIterator).
 
-``BatchIterator`` reaches ``dataset.assembly_plan()``, whose disk cache
-(lirec_tpu/data/plan_cache.py) imports jax; this iterator builds the plan
-with the jax-free ``lirec_tpu.data.plan.build_plan`` instead (no disk
-cache) and yields bitwise the batches of ``BatchIterator(dataset,
-batch_size, shuffle=True, seed=seed)``: the order is shuffled with
+``EpochIterator`` builds the assembly plan in memory with
+``data/plan.build_plan`` (the JAX package's disk cache is not ported) and
+yields bitwise the batches of ``BatchIterator(dataset, batch_size,
+shuffle=True, seed=seed)``: the order is shuffled with
 ``default_rng((seed, epoch))``, and where there is no plan every sample is
 assembled from its own ``default_rng((seed, epoch, i))`` stream, as
 ``BatchIterator`` does with no workers.
@@ -14,13 +13,26 @@ assembled from its own ``default_rng((seed, epoch, i))`` stream, as
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 import numpy as np
 
-from lirec_tpu.data.pipeline import collate
+__all__ = ["collate", "EpochIterator"]
 
-__all__ = ["EpochIterator"]
+
+def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """Stack per-sample dicts into batch arrays (default-collate style)."""
+    out: Dict[str, np.ndarray] = {}
+    for key in samples[0]:
+        vals = [s[key] for s in samples]
+        first = np.asarray(vals[0])
+        if first.dtype == bool:
+            out[key] = np.asarray(vals, dtype=bool)
+        elif first.dtype.kind in "iu":
+            out[key] = np.stack([np.asarray(v) for v in vals]).astype(np.int32)
+        else:
+            out[key] = np.stack([np.asarray(v) for v in vals]).astype(np.float32)
+    return out
 
 
 class EpochIterator:
@@ -44,7 +56,7 @@ class EpochIterator:
     def plan(self):
         """The dataset's assembly plan, built once per label chooser; None
         where BatchIterator would assemble per sample."""
-        from lirec_tpu.data.plan import build_plan
+        from lirec_tpu_torch.data.plan import build_plan
 
         ds = self.dataset
         if (os.environ.get("LIREC_TPU_NO_PLAN")

@@ -1,1 +1,2 @@
-"""Evaluation helpers of the port."""
+"""Evaluation of the port: metric accumulators, device-side metric
+reductions and the packed eval sweep."""

@@ -2,10 +2,11 @@
 
 Ported: the packed forwards of the mid-fusion presets (``int_rel_ch``,
 ``int_ch``, ``int_rels``): at eval the embed-then-gather path over
-embedded tables (models/tabular.py), in training the hybrid path
-(models/hybrid.py), with the batch-local tables of data/localize.py; and
-the loss each preset trains with. The dense forwards, the modalities model
-and the eval ctx-localisation batch keys are later slices, and say so.
+embedded tables (models/tabular.py) with the eval sweep's ctx
+localisation keys, in training the hybrid path (models/hybrid.py), with
+the batch-local tables of data/localize.py; and the loss each preset
+trains with. The dense forwards and the modalities model are later
+slices, and say so.
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ from lirec_tpu_torch.models.midfusion import init_midfusion
 from lirec_tpu_torch.models.spec import ModelSpec
 
 __all__ = ["ModelBundle", "create_model", "apply_model"]
-
-_LATER_KEYS = ("ctx_triples", "ctx_uniq_clip")
 
 
 def apply_model(
@@ -44,20 +43,18 @@ def apply_model(
     use_tabular=False, or deterministic=False with a dropout generator
     `rng`, runs the hybrid training forward. A batch carrying
     ``uniq_clip``/``uniq_track`` (data/localize.py) first gathers those raw
-    table rows, and its ``feat_idx`` points into them. use_kernel=False
-    takes the plain ctx pool (eval) or the plain scatter in the backward
-    (training), for comparisons.
+    table rows, and its ``feat_idx`` points into them. At eval a batch
+    carrying ``ctx_triples``/``ctx_tidx`` (the triple tier) or
+    ``ctx_uniq_clip``/``ctx_uniq_track`` (the per-table tier) of
+    data/localize.localize_eval_ctx[_triples] pools its context from
+    batch-local embedded ctx rows. use_kernel=False takes the plain ctx
+    pool (eval) or the plain scatter in the backward (training), for
+    comparisons.
     """
     if "feat_idx" not in batch:
         raise NotImplementedError(
             "lirec_tpu_torch ports the packed forwards only; dense "
             "`features` batches are not ported yet"
-        )
-    later = [k for k in _LATER_KEYS if k in batch]
-    if later:
-        raise NotImplementedError(
-            "batch-local table keys %s are not ported yet (eval-sweep slice)"
-            % later
         )
     if spec.mod_check:
         raise NotImplementedError("the modalities model is not ported yet")
@@ -78,12 +75,33 @@ def apply_model(
         rels_mask = torch.as_tensor(rels_mask, dtype=torch.float32,
                                     device=device)
     if use_tabular:
+        ctx_triple = None
+        if embedded is not None and spec.ctx and "ctx_triples" in batch:
+            # triple tier: this batch's unique fused [clip | tr1 | tr2]
+            # rows in one local table, one row gather per context entry;
+            # feat_idx stays global (slot 0, the ints row, is untouched)
+            tri = torch.as_tensor(batch["ctx_triples"], device=device).long()
+            ctx = embedded["ctx"]
+            fused = torch.cat([ctx.clip[tri[:, 0]], ctx.tr1[tri[:, 1]],
+                               ctx.tr2[tri[:, 2]]], dim=-1)
+            ctx_triple = (fused, torch.as_tensor(batch["ctx_tidx"],
+                                                 device=device))
+        if embedded is not None and "ctx_uniq_clip" in batch:
+            # per-table tier: feat_idx slots 1..R already point into this
+            # batch's unique embedded ctx rows; slot 0 stays global
+            uc = torch.as_tensor(batch["ctx_uniq_clip"], device=device).long()
+            ut = torch.as_tensor(batch["ctx_uniq_track"],
+                                 device=device).long()
+            ctx = embedded["ctx"]
+            embedded = dict(embedded, ctx=tabular.EmbeddedTables(
+                ctx.clip[uc], ctx.tr1[ut], ctx.tr2[ut]))
         forward = (
             tabular.midfusion_maxtracks_tabular if spec.tr_maximize
             else tabular.midfusion_tabular
         )
         return forward(model, spec, tables, feat_idx, rels_mask,
-                       embedded=embedded, use_kernel=use_kernel)
+                       embedded=embedded, use_kernel=use_kernel,
+                       ctx_triple=ctx_triple)
     forward = (
         hybrid.midfusion_maxtracks_hybrid if spec.tr_maximize
         else hybrid.midfusion_hybrid
@@ -139,19 +157,18 @@ class ModelBundle(NamedTuple):
 
 
 def create_model(cfg, n_classes: int, n_rels: int = 0,
-                 seed: Optional[int] = None, device=None) -> ModelBundle:
+                 seed: Optional[int] = None, device="cuda") -> ModelBundle:
     """Build (spec, model, apply, loss) for a config. The weights are drawn from
     a CPU ``torch.Generator`` seeded with `seed` (default
-    ``cfg.optim.seed``) and then moved to `device`."""
+    ``cfg.optim.seed``) and then moved to `device` (the card unless the
+    caller asks for the CPU)."""
     spec = ModelSpec.from_config(cfg, n_classes, n_rels)
     if spec.mod_check:
         raise NotImplementedError("the modalities model is not ported yet")
     gen = torch.Generator().manual_seed(
         cfg.optim.seed if seed is None else seed
     )
-    model = init_midfusion(spec, gen)
-    if device is not None:
-        model = model.to(device)
+    model = init_midfusion(spec, gen).to(device)
 
     def apply_fn(model, batch, tables=None, embedded=None, **kw):
         return apply_model(model, spec, batch, tables=tables,

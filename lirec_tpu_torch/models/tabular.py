@@ -23,6 +23,8 @@ from lirec_tpu_torch.models.layers import compute_dtype, linear
 from lirec_tpu_torch.ops.gather_pool import (
     fused_ctx_pool,
     fused_ctx_pool_reference,
+    fused_ctx_pool_triple,
+    fused_ctx_pool_triple_reference,
 )
 
 __all__ = [
@@ -102,6 +104,23 @@ def _ctx_branch(emb: EmbeddedTables, idx: torch.Tensor, mask: torch.Tensor,
     return pool(emb, idx, mask, guard_zero)
 
 
+def _ctx_branch_triple(fused: torch.Tensor, tidx: torch.Tensor,
+                       mask: torch.Tensor, guard_zero: bool,
+                       use_kernel: bool) -> torch.Tensor:
+    """Triple-tier ctx branch: one fused-row gather per context entry.
+
+    fused: the batch's unique [clip | tr1 | tr2] rows gathered into one
+    local table (models/factory.apply_model builds it from
+    ``ctx_triples``); tidx: [N, R] positions into it. The same values in
+    the same order as _ctx_branch (ops/gather_pool.fused_ctx_pool_triple).
+    """
+    tidx = tidx.to(torch.int32).contiguous()
+    mask = mask.to(torch.float32).contiguous()
+    pool = (fused_ctx_pool_triple if use_kernel
+            else fused_ctx_pool_triple_reference)
+    return pool(fused.contiguous(), tidx, mask, guard_zero)
+
+
 def _embedded(model, spec, tables, embedded, branch):
     if embedded:
         return embedded[branch]
@@ -116,11 +135,14 @@ def midfusion_maxtracks_tabular(
     rels_mask: Optional[torch.Tensor] = None,
     embedded: Optional[Dict[str, EmbeddedTables]] = None,
     use_kernel: bool = True,
+    ctx_triple=None,
 ) -> Dict[str, Optional[torch.Tensor]]:
     """MidFusionMultiClipMaxTracks eval forward over tables.
 
     feat_idx: [B, T, 1+R, 3]; rels_mask: [B, T, R] ->
-    {"inters": [B, T, n_classes], "rels": [B, T, n_rels]}.
+    {"inters": [B, T, n_classes], "rels": [B, T, n_rels]}. ctx_triple
+    (optional): (fused local table, tidx [B, T, R]), the triple tier
+    (_ctx_branch_triple) in place of the 3-table ctx pool.
     """
     cdt = compute_dtype(spec)
     B, T = feat_idx.shape[0], feat_idx.shape[1]
@@ -131,14 +153,17 @@ def midfusion_maxtracks_tabular(
             _gather_row(emb_i, feat_idx[:, :, 0, :]).reshape(B * T, -1)
         )
     if spec.ctx:
-        emb_c = _embedded(model, spec, tables, embedded, "ctx")
-        output_ctx = _ctx_branch(
-            emb_c,
-            feat_idx[:, :, 1:, :].reshape(B * T, -1, 3),
-            rels_mask.reshape(B * T, -1),
-            True,
-            use_kernel,
-        )
+        flat_mask = rels_mask.reshape(B * T, -1)
+        if ctx_triple is not None:
+            fused, tidx = ctx_triple
+            output_ctx = _ctx_branch_triple(
+                fused, tidx.reshape(B * T, -1), flat_mask, True, use_kernel)
+        else:
+            emb_c = _embedded(model, spec, tables, embedded, "ctx")
+            output_ctx = _ctx_branch(
+                emb_c, feat_idx[:, :, 1:, :].reshape(B * T, -1, 3),
+                flat_mask, True, use_kernel,
+            )
     if spec.gates:
         output_ints = gate_apply(model, output_ints, output_ctx, spec)
     rels_out = (
@@ -160,12 +185,14 @@ def midfusion_tabular(
     rels_mask: Optional[torch.Tensor] = None,
     embedded: Optional[Dict[str, EmbeddedTables]] = None,
     use_kernel: bool = True,
+    ctx_triple=None,
 ) -> Dict[str, Optional[torch.Tensor]]:
     """MidFusionMultiClip eval forward over tables.
 
     feat_idx: [B, 1+R, 3]; rels_mask: [B, R, 1] or [B, R]. A sample without
     any context gives NaN relationship logits, as in the reference (no
-    zero-divider guard on this model).
+    zero-divider guard on this model). ctx_triple (optional): (fused local
+    table, tidx [B, R]), see _ctx_branch_triple.
     """
     cdt = compute_dtype(spec)
     B = feat_idx.shape[0]
@@ -174,11 +201,15 @@ def midfusion_tabular(
         emb_i = _embedded(model, spec, tables, embedded, "ints")
         output_ints = torch.tanh(_gather_row(emb_i, feat_idx[:, 0, :]))
     if spec.ctx:
-        emb_c = _embedded(model, spec, tables, embedded, "ctx")
-        output_ctx = _ctx_branch(
-            emb_c, feat_idx[:, 1:, :], rels_mask.reshape(B, -1), False,
-            use_kernel,
-        )
+        mask = rels_mask.reshape(B, -1)
+        if ctx_triple is not None:
+            fused, tidx = ctx_triple
+            output_ctx = _ctx_branch_triple(fused, tidx.reshape(B, -1), mask,
+                                            False, use_kernel)
+        else:
+            emb_c = _embedded(model, spec, tables, embedded, "ctx")
+            output_ctx = _ctx_branch(emb_c, feat_idx[:, 1:, :], mask, False,
+                                     use_kernel)
     if spec.gates:
         output_ints = gate_apply(model, output_ints, output_ctx, spec)
     rels_out = linear(model.out_ctx, output_ctx, cdt) if spec.ctx else None

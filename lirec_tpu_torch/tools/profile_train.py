@@ -37,7 +37,7 @@ SORT_KERNELS = ("RadixSort", "searchsorted")
 
 
 def _batches(spec, n):
-    from lirec_tpu.utils.fake_batch import make_structured_batch
+    from lirec_tpu_torch.utils.fake_batch import make_structured_batch
     from lirec_tpu_torch.data.localize import Localizer
 
     raw = [make_structured_batch(spec, BATCH, N_CLIPS, N_TRACKS, seed=400 + i)
@@ -70,8 +70,8 @@ def profile(compute: str) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    from lirec_tpu import config as config_lib
-    from lirec_tpu.utils.fake_batch import make_tables
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.utils.fake_batch import make_tables
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.train.loop import make_train_step, step_generators
     from lirec_tpu_torch.train.optim import make_optimizer

@@ -11,8 +11,9 @@ two ``torch.Generator``s seeded from (seed, e * 100003 + i), as the JAX
 package folds its key. The ``tr_sum_max`` curriculum flips at epoch 20
 (ref :49-51).
 
-Not in this slice, and raised rather than skipped: cadence evaluation on
-``val_dataset``/``test_dataset`` (eval-sweep slice), a device mesh
+Not ported yet, and raised rather than skipped: cadence evaluation on
+``val_dataset``/``test_dataset`` (the eval-sweep cadence; the sweep
+itself is evaluation/packed.evaluate_packed), a device mesh
 (multi-GPU slice), dense batches, and checkpoint writing. The one-dispatch
 epoch sweep of the JAX package is not ported.
 """
@@ -25,7 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from lirec_tpu.utils.meters import Averaging, MetricsLogger
+from lirec_tpu_torch.utils.meters import Averaging, MetricsLogger
 from lirec_tpu_torch.data.localize import Localizer
 from lirec_tpu_torch.data.pipeline import EpochIterator
 from lirec_tpu_torch.train.optim import make_optimizer
@@ -148,8 +149,8 @@ def train(
     o, t = cfg.optim, cfg.tasks
     later = []
     if val_dataset is not None or test_dataset is not None:
-        later.append("cadence evaluation on val/test datasets (eval-sweep "
-                     "slice)")
+        later.append("cadence evaluation on val/test datasets (the "
+                     "eval-sweep cadence of train())")
     if mesh is not None:
         later.append("a device mesh (multi-GPU slice)")
     if dense:

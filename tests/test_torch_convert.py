@@ -41,7 +41,7 @@ def test_params_from_jax_round_trip():
     torch mapping -> the same params, bitwise."""
     jb = jax_create_model(_cfg(), 9, n_rels=6)
     params = jax.tree.map(np.asarray, jb.params)
-    pb = create_model(_cfg(), 9, n_rels=6, seed=5)
+    pb = create_model(_cfg(), 9, n_rels=6, seed=5, device="cpu")
     pb.model.load_state_dict(params_from_jax(params))
     back = params_from_torch_state_dict(pb.model.state_dict())
     _assert_params_equal(back, params)
@@ -52,7 +52,8 @@ def test_pth_tar_loads_like_the_jax_importer(tmp_path, capsys):
     non-tensor entry and a batch-norm buffer, which both importers skip)
     loads into the port's modules with the values the JAX importer reads,
     bitwise."""
-    src = create_model(_cfg(), 9, n_rels=6, seed=7).model.state_dict()
+    src = create_model(_cfg(), 9, n_rels=6, seed=7,
+                       device="cpu").model.state_dict()
     state = {"module." + k: v for k, v in src.items()}
     state["module.bn.num_batches_tracked"] = torch.tensor(3)
     state["module.step_count"] = 11
@@ -61,7 +62,7 @@ def test_pth_tar_loads_like_the_jax_importer(tmp_path, capsys):
 
     loaded, meta = load_torch_checkpoint(str(path))
     assert meta == {"epoch": 12, "has_optimizer": True}
-    pb = create_model(_cfg(), 9, n_rels=6, seed=8)
+    pb = create_model(_cfg(), 9, n_rels=6, seed=8, device="cpu")
     pb.model.load_state_dict(loaded)  # strict: names and shapes match
     for k, v in src.items():
         assert torch.equal(pb.model.state_dict()[k], v), k

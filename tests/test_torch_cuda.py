@@ -1,5 +1,5 @@
-"""The CUDA kernels (ctx pool, scatter-accumulate) against their plain
-PyTorch versions, and one train step, on the card.
+"""The CUDA kernels (ctx pools, masked gather-sum, scatter-accumulate)
+against their plain PyTorch versions, and one train step, on the card.
 
 Marked ``cuda``: these skip without a CUDA device. The file imports no jax,
 so it runs on a machine without it:
@@ -17,6 +17,10 @@ from lirec_tpu_torch.ops.gather_pool import (
     KERNEL_NAMES,
     fused_ctx_pool,
     fused_ctx_pool_reference,
+    fused_ctx_pool_triple,
+    fused_ctx_pool_triple_reference,
+    gather_masked_sum,
+    gather_masked_sum_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -53,7 +57,7 @@ def test_kernel_matches_plain_version(cuda, dtype, atol, guard):
     f32: one-ulp differences (1/div against a divide, sum order); bf16: the
     same bf16 values on both sides, f32 sums."""
     emb, idx, mask = _inputs(cuda, dtype)
-    name = KERNEL_NAMES[dtype]
+    name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
     before = dispatch.launches(name)
     got = fused_ctx_pool(emb, idx, mask, guard)
     torch.cuda.synchronize()
@@ -70,6 +74,59 @@ def test_kernel_raises_instead_of_falling_back(cuda):
         fused_ctx_pool(emb, idx.long(), mask, True)
     with pytest.raises(ValueError, match="on cpu"):
         fused_ctx_pool(emb, idx.cpu(), mask, True)
+
+
+def _triple_of(emb, idx):
+    """The fused local table of idx's unique index triples and the
+    positions of every entry in it (what the eval sweep's triple tier
+    builds from data/localize.localize_eval_ctx_triples)."""
+    tri, tidx = torch.unique(idx.reshape(-1, 3), dim=0, return_inverse=True)
+    tri = tri.long()
+    fused = torch.cat([emb.clip[tri[:, 0]], emb.tr1[tri[:, 1]],
+                       emb.tr2[tri[:, 2]]], dim=-1).contiguous()
+    return fused, tidx.reshape(idx.shape[:2]).to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("guard", [True, False])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-6),
+                                        (torch.bfloat16, 1e-5)])
+def test_triple_kernel_matches_plain_and_three_table_kernel(cuda, dtype,
+                                                            atol, guard):
+    """Against its plain version (one-ulp differences, as the 3-table
+    kernel), and bit for bit against the 3-table kernel on the
+    corresponding global index triples: the same values added in the same
+    order."""
+    emb, idx, mask = _inputs(cuda, dtype)
+    fused, tidx = _triple_of(emb, idx)
+    assert fused.shape[0] < idx.shape[0] * idx.shape[1]  # duplicates folded
+    name = KERNEL_NAMES[("fused_ctx_pool_triple", dtype)]
+    before = dispatch.launches(name)
+    got = fused_ctx_pool_triple(fused, tidx, mask, guard)
+    three = fused_ctx_pool(emb, idx, mask, guard)
+    torch.cuda.synchronize()
+    assert dispatch.launches(name) == before + 1
+    assert torch.equal(got.isnan(), three.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(three))
+    want = fused_ctx_pool_triple_reference(fused, tidx, mask, guard)
+    torch.testing.assert_close(got, want, rtol=0, atol=atol, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_masked_sum_kernel_matches_plain_version(cuda, dtype):
+    """f32 sums in r order against the plain version's: f32 within 1e-5,
+    bf16 output within one bf16 rounding of the sum."""
+    emb, idx, mask = _inputs(cuda, dtype)
+    table, one = emb.clip, idx[..., 0].contiguous()
+    name = KERNEL_NAMES[("gather_masked_sum", dtype)]
+    before = dispatch.launches(name)
+    got = gather_masked_sum(table, one, mask)
+    torch.cuda.synchronize()
+    assert dispatch.launches(name) == before + 1
+    assert got.dtype == dtype
+    want = gather_masked_sum_reference(table, one, mask)
+    tol = dict(rtol=0, atol=1e-5) if dtype == torch.float32 else dict(
+        rtol=2 ** -8, atol=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 def _updates(device, dtype, N=23, R=18, rows=(50, 70), widths=(1040, 520),
@@ -153,8 +210,8 @@ def test_scatter_raises_instead_of_falling_back(cuda):
 def test_one_train_step_on_the_card(cuda, compute):
     """int_rel_ch at small widths on the card: a finite loss, every
     parameter moved, one scatter launch per step."""
-    from lirec_tpu import config as config_lib
-    from lirec_tpu.utils.fake_batch import make_batch, make_tables
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.train.loop import make_train_step, step_generators
     from lirec_tpu_torch.train.optim import make_optimizer

@@ -1,7 +1,10 @@
-"""lirec_tpu_torch never imports jax, flax or optax, not even transitively
-or at run time (its target machine has no jax), and chip_smoke.py refuses
-to run without a CUDA card or without the repository around it."""
+"""lirec_tpu_torch never imports jax, flax or optax, nor anything of the
+JAX package lirec_tpu, not even transitively or at run time (its target
+machine has no jax; the port carries its own copy of the host tier), and
+chip_smoke.py refuses to run without a CUDA card or without the repository
+around it."""
 
+import ast
 import os
 import shutil
 import subprocess
@@ -21,26 +24,31 @@ names = ["lirec_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+bad = sorted(m for m in sys.modules if m.split(".")[0]
+             in ("jax", "jaxlib", "flax", "optax", "lirec_tpu"))
 print(len(names), "modules")
 print("BAD", bad)
 """
 
 
-_TRAIN_WITHOUT_JAX = r"""
+_RUN_WITHOUT_JAX = r"""
 import importlib.abc, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                  "lirec_tpu"):
             raise ImportError("blocked: " + name)
         return None
 
 sys.meta_path.insert(0, Refuse())
-from lirec_tpu import config as config_lib
-from lirec_tpu.data import synthetic
-from lirec_tpu.data.dataset import InteractionDataset
+import math, os
+import torch
+from lirec_tpu_torch import config as config_lib
+from lirec_tpu_torch.cli import common, int_rel_ch
+from lirec_tpu_torch.cli.serve import build_engine_from_args, make_parser
+from lirec_tpu_torch.data import synthetic
+from lirec_tpu_torch.data.dataset import InteractionDataset
 from lirec_tpu_torch.models.factory import create_model
 from lirec_tpu_torch.train.loop import train
 
@@ -53,10 +61,31 @@ cfg = cfg.replace(dims=base.dims, paths=base.paths).with_optim(
 ds = InteractionDataset(cfg, mode="train")
 ds.cache()
 ds.init_relships()
-bundle = create_model(cfg, ds.n_classes, n_rels=max(len(ds.rels_list) - 1, 0))
+bundle = create_model(cfg, ds.n_classes, n_rels=max(len(ds.rels_list) - 1, 0),
+                      device="cpu")
 out = train(cfg, bundle, ds, verbose=False, localize_tables=True)
 assert out["localized_tables"], out
 print("LOSSES", out["losses"])
+
+dims = ["--text-dim", "16", "--visual-dim", "32", "--text-layers", "4",
+        "--joint-dim", "16"]
+engine = build_engine_from_args(make_parser().parse_args(
+    ["--data-root", root, "--device", "cpu"] + dims))
+print("ENGINE", engine.bundle.spec.n_classes)
+
+ckpt = os.path.join(root, "weights.pth.tar")
+args = ["--data-root", root, "--resume-path", ckpt, "--batch-size", "8",
+        "--device", "cpu", "--quiet"] + dims
+cfg = common.config_from_args(
+    "int_rel_ch", common.build_parser("int_rel_ch").parse_args(args))
+train_ds, _, _ = common.build_datasets(cfg, "int_rel_ch")
+model = create_model(cfg, train_ds.n_classes,
+                     n_rels=max(len(train_ds.rels_list) - 1, 0),
+                     device="cpu").model
+torch.save({"state_dict": model.state_dict()}, ckpt)
+metrics = int_rel_ch.main(args)
+assert all(math.isfinite(v) for m in metrics.values() for v in m.values())
+print("CLI", sorted(metrics))
 """
 
 
@@ -77,15 +106,41 @@ def test_port_imports_no_jax():
 
 
 def test_train_runs_with_jax_blocked(tmp_path):
-    """One epoch of the port's train() on a synthetic fixture in a process
-    where importing jax, jaxlib, optax or flax raises: the run-time paths
-    (assembly plan, Localizer, the loop) stay off the JAX package's
-    jax-importing modules."""
+    """In a process where importing jax, jaxlib, optax, flax or anything of
+    lirec_tpu raises, on a fixture from the port's own generator: one epoch
+    of the port's train(), the serve CLI's engine builder and the
+    int_rel_ch eval CLI (the run-time paths: assembly plan, Localizer,
+    native libraries, eval localisation, the sweep)."""
     proc = subprocess.run(
-        [sys.executable, "-c", _TRAIN_WITHOUT_JAX, str(tmp_path / "mg")],
+        [sys.executable, "-c", _RUN_WITHOUT_JAX, str(tmp_path / "mg")],
         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "LOSSES [" in proc.stdout, proc.stdout
+    assert "ENGINE" in proc.stdout and "CLI ['test', 'val']" in proc.stdout
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_source_names_no_jax_package_import():
+    """No `import lirec_tpu...` / `from lirec_tpu... import` anywhere in
+    the port or in chip_smoke.py, at any depth of the code."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "lirec_tpu_torch")):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 40
+    bad = [(os.path.relpath(p, ROOT), m) for p in paths
+           for m in _imported_modules(p)
+           if m.split(".")[0] in ("lirec_tpu", "jax", "jaxlib", "flax",
+                                  "optax")]
+    assert bad == []
 
 
 def test_chip_smoke_fails_without_a_card():

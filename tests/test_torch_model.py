@@ -46,7 +46,7 @@ def _pair(preset="int_rel_ch", compute="float32"):
     """(JAX bundle, port bundle) with the same weights."""
     cfg = _cfg(preset, compute)
     jb = jax_create_model(cfg, 9, n_rels=6)
-    pb = create_model(cfg, 9, n_rels=6)
+    pb = create_model(cfg, 9, n_rels=6, device="cpu")
     pb.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray,
                                                           jb.params)))
     return jb, pb
@@ -197,10 +197,5 @@ def test_apply_rejects_what_is_not_ported():
     _, pb = _pair()
     with pytest.raises(NotImplementedError, match="dense"):
         pb.apply(pb.model, {"features": np.zeros((1, 4), np.float32)})
-    batch = {"feat_idx": np.zeros((1, 20, 19, 3), np.int32),
-             "rels_mask": np.zeros((1, 20, 18), np.int32),
-             "ctx_triples": np.zeros((1, 3), np.int32)}
-    with pytest.raises(NotImplementedError, match="ctx_triples"):
-        pb.apply(pb.model, batch)
     with pytest.raises(NotImplementedError, match="modalities"):
-        create_model(config_lib.preset("modalities"), 9)
+        create_model(config_lib.preset("modalities"), 9, device="cpu")

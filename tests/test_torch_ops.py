@@ -118,7 +118,8 @@ def test_pool_cpu_takes_plain_version_and_launches_nothing():
                                fused_ctx_pool_reference(*args),
                                rtol=0, atol=0)
     assert dispatch.launches() == before
-    assert dispatch.last_dispatch(KERNEL_NAMES[torch.float32])["path"] == (
+    assert dispatch.last_dispatch(
+        KERNEL_NAMES[("fused_ctx_pool", torch.float32)])["path"] == (
         "reference")
 
 

@@ -46,7 +46,7 @@ def _engines(preset, topk=3, max_batch=8):
     cfg = cfg.with_dims(text_dim=16, visual_dim=32, joint_dim=16)
     cfg = cfg.with_runtime(compute_dtype="float32")
     jb = jax_create_model(cfg, 9, n_rels=6)
-    pb = create_model(cfg, 9, n_rels=6)
+    pb = create_model(cfg, 9, n_rels=6, device="cpu")
     pb.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray,
                                                           jb.params)))
     tables = make_tables(jb.spec, N_CLIPS, N_TRACKS, seed=1)

@@ -32,7 +32,10 @@ from lirec_tpu.ops.select import select_along_axis as jax_select
 from lirec_tpu.train.loop import train as jax_train
 from lirec_tpu.train.optim import make_optimizer as jax_make_optimizer
 from lirec_tpu.utils.fake_batch import make_batch, make_tables
+from lirec_tpu_torch import config as port_config
 from lirec_tpu_torch.checkpoint import opt_state_from_jax, params_from_jax
+from lirec_tpu_torch.data import synthetic as port_synthetic
+from lirec_tpu_torch.data.dataset import InteractionDataset as PortDataset
 from lirec_tpu_torch.data.pipeline import EpochIterator
 from lirec_tpu_torch.models import layers, losses
 from lirec_tpu_torch.models.factory import create_model
@@ -68,7 +71,7 @@ def _cfg(preset="int_rel_ch", compute="float32", **tasks):
 def _pair(preset="int_rel_ch", compute="float32"):
     cfg = _cfg(preset, compute)
     jb = jax_create_model(cfg, 9, n_rels=6)
-    pb = create_model(cfg, 9, n_rels=6)
+    pb = create_model(cfg, 9, n_rels=6, device="cpu")
     pb.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray,
                                                           jb.params)))
     return jb, pb
@@ -275,7 +278,7 @@ def test_localized_batch_gives_the_full_table_forward():
 
 
 def _loss_inputs(seed=3, B=5, T=20, C=9, NR=6):
-    spec = create_model(_cfg(), C, n_rels=NR).spec
+    spec = create_model(_cfg(), C, n_rels=NR, device="cpu").spec
     batch = make_batch(spec, B, N_CLIPS, N_TRACKS, seed=seed)
     rng = np.random.default_rng(seed)
     outputs = {"inters": rng.standard_normal((B, T, C)).astype(np.float32),
@@ -461,14 +464,19 @@ def pinned_synth_root(tmp_path_factory):
     return root
 
 
-def _synth_setup(synth_root, batch_size, dropout=0.0):
-    base = synthetic.make_config(synth_root)
-    cfg = config_lib.preset("int_rel_ch", data_root=synth_root)
+def _synth_setup(synth_root, batch_size, dropout=0.0, port=False):
+    """(cfg, train dataset) from the JAX package's host tier, or with
+    port=True from the port's own copy of it."""
+    cfg_lib, synth, dataset = ((port_config, port_synthetic, PortDataset)
+                               if port else
+                               (config_lib, synthetic, InteractionDataset))
+    base = synth.make_config(synth_root)
+    cfg = cfg_lib.preset("int_rel_ch", data_root=synth_root)
     cfg = cfg.replace(dims=base.dims, paths=base.paths).with_runtime(
         compute_dtype="float32"
     ).with_optim(batch_size=batch_size, epochs=2, save_model=False, lr=1e-3,
                  dropout=dropout)
-    ds = InteractionDataset(cfg, mode="train")
+    ds = dataset(cfg, mode="train")
     ds.cache()
     ds.init_relships()
     return cfg, ds
@@ -477,13 +485,15 @@ def _synth_setup(synth_root, batch_size, dropout=0.0):
 @pytest.mark.parametrize("plan", [True, False])
 def test_epoch_iterator_is_bitwise_batch_iterator(synth_root, monkeypatch,
                                                   plan):
-    """Two shuffled epochs, with the assembly plan and per sample
-    (LIREC_TPU_NO_PLAN), give bitwise BatchIterator's batches."""
+    """Two shuffled epochs of the port's dataset, with the assembly plan
+    and per sample (LIREC_TPU_NO_PLAN), give bitwise BatchIterator's
+    batches of the JAX package's."""
     if not plan:
         monkeypatch.setenv("LIREC_TPU_NO_PLAN", "1")
     _, ds = _synth_setup(synth_root, 5)
+    _, port_ds = _synth_setup(synth_root, 5, port=True)
     want_it = BatchIterator(ds, 5, shuffle=True, seed=3)
-    got_it = EpochIterator(ds, 5, seed=3)
+    got_it = EpochIterator(port_ds, 5, seed=3)
     assert len(got_it) == len(want_it)
     assert (got_it.plan() is not None) == plan
     for _ in range(2):
@@ -508,10 +518,13 @@ def test_train_matches_jax_trajectory(pinned_synth_root):
         n_rels = max(len(ds.rels_list) - 1, 0)
         jb = jax_create_model(cfg, ds.n_classes, n_rels=n_rels)
         want = jax_train(cfg, jb, ds, verbose=False, epoch_sweep=False)
-        pb = create_model(cfg, ds.n_classes, n_rels=n_rels)
+        port_cfg, port_ds = _synth_setup(pinned_synth_root, batch_size,
+                                         port=True)
+        pb = create_model(port_cfg, ds.n_classes, n_rels=n_rels,
+                          device="cpu")
         pb.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray,
                                                               jb.params)))
-        got = train(cfg, pb, ds, verbose=False)
+        got = train(port_cfg, pb, port_ds, verbose=False)
         np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
         assert got["localized_tables"] == want["localized_tables"]
         final = params_from_jax(jax.tree.map(np.asarray, want["params"]))
@@ -526,7 +539,7 @@ def test_train_step_runs_with_dropout_and_moves_every_parameter():
     cfg = _cfg(tr_cat_distr=True)
     states = []
     for _ in range(2):
-        pb = create_model(cfg, 9, n_rels=6)
+        pb = create_model(cfg, 9, n_rels=6, device="cpu")
         before = {n: p.detach().clone()
                   for n, p in pb.model.named_parameters()}
         _, pt = _tables(pb.spec)
@@ -544,7 +557,7 @@ def test_train_step_runs_with_dropout_and_moves_every_parameter():
 
 
 def test_train_step_rejects_out_of_range_ids():
-    pb = create_model(_cfg(), 9, n_rels=6)
+    pb = create_model(_cfg(), 9, n_rels=6, device="cpu")
     _, pt = _tables(pb.spec)
     step = make_train_step(pb, make_optimizer(pb.model.parameters(), 1e-3))
     batch = make_batch(pb.spec, 2, N_CLIPS, N_TRACKS, seed=1)
@@ -564,9 +577,9 @@ def test_step_generators_are_two_seeded_streams():
 
 
 def test_train_raises_for_what_is_not_ported(synth_root):
-    cfg, ds = _synth_setup(synth_root, 7)
-    pb = create_model(cfg, ds.n_classes, n_rels=max(len(ds.rels_list) - 1,
-                                                    0))
+    cfg, ds = _synth_setup(synth_root, 7, port=True)
+    pb = create_model(cfg, ds.n_classes,
+                      n_rels=max(len(ds.rels_list) - 1, 0), device="cpu")
     for kw, match in ((dict(val_dataset=ds), "eval-sweep"),
                       (dict(mesh=object()), "multi-GPU"),
                       (dict(dense=True), "dense"),
