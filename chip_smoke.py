@@ -47,6 +47,28 @@
    embed time and the host localisation time.
 10. Runs the int_rel_ch eval CLI (``cli.int_rel_ch.main``) on a synthetic
    fixture on the card: both splits' metrics finite.
+11. Runs the two probes' entry points on the card (counted run):
+   ``tools.probe_hbm_dma.main`` (the per-row pool, kernel 1, beside the run
+   pool, kernel 9, and the plain pool, at the serve path's shapes) and
+   ``tools.probe_bf16_pack.main`` (the packed-bf16 gather-sum, kernel 10,
+   beside the masked gather-sum, kernel 5, on the native bf16 table, at the
+   TPU probe's own shapes and the clip table's). Then holds kernel 9 against
+   its plain version and bit for bit against kernel 1 on the explicit run
+   indices, kernel 10 against its plain version, and kernel 5 against its
+   plain version on the same inputs as kernel 10, and times each (L2
+   flushed) beside its plain version, its bound and, for kernels 10 and 5,
+   ``embedding_bag`` on the unpacked f32 and the native bf16 table.
+12. Trains int_rel_ch from the training CLI (``cli.train.main``) at its
+   published widths on a synthetic fixture of published feature widths
+   (text 768 x 12 layers, visual 2048): 3 epochs with cadence evaluation at
+   epochs 0 and 2 and a train state every epoch (counted run: the scatter
+   and pool kernels launched); checks the losses, the best-n files,
+   index.json, latest.pth.tar and 2.pth.tar; resumes from latest.pth.tar
+   for a 4th epoch; trains one epoch with the --host-eval cadence, checks
+   that its cadence took the host loop (``evaluation/runner.evaluate``) and
+   not the packed sweep, and holds its recorded val metrics against the packed sweep's on the same weights
+   (the eval CLI on that run's final checkpoint); and evaluates the first
+   run's best checkpoint with the eval CLI.
 
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
@@ -89,11 +111,14 @@ TRIPLE_CU = "lirec_tpu_torch/csrc/fused_ctx_pool_triple.cu"
 TPU_SRC = "lirec_tpu/ops/gather_pool.py"
 SCATTER_CU = "lirec_tpu_torch/csrc/scatter_accum.cu"
 SCATTER_TPU_SRC = "lirec_tpu/ops/scatter_accum.py"
+DMA_CU = "lirec_tpu_torch/csrc/probe_hbm_dma.cu"
+PACK_CU = "lirec_tpu_torch/csrc/probe_bf16_pack.cu"
 TRAIN_B, TRAIN_STEPS = 64, 10
 EVAL_B, EVAL_FULL, EVAL_TAIL = 64, 168, 37  # a split of 10,789 samples
 EVAL_ROUNDS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+HOLD_CYCLES = 1 << 21  # about 1 ms of spinning at the H100's clock
 
 
 def log(*args):
@@ -128,13 +153,18 @@ def card_line():
 def median_ms(torch, fn, reps=15):
     """Median of CUDA-event times of single launches, the L2 cache flushed
     (a 64 MiB write) before each one, so rows are read from HBM as a new
-    request would."""
+    request would. A spin kernel of about a millisecond follows the flush:
+    the host enqueues the timed call while the card spins, so the time is
+    the card's alone. Without it the card would reach the start event
+    before a slow host had enqueued the call, and the wrapper's host time
+    would count."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1107,6 +1137,267 @@ def eval_cli(torch):
                              dispatch.last_dispatch("eval_ctx_localize")))
 
 
+# ------------------------------------------------------------ the probes
+
+
+def probe_phase(torch):
+    """Phase 11. Returns ({kernel name: launches of the probes' run},
+    {entry: {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}})."""
+    import math
+
+    import torch.nn.functional as F
+
+    from lirec_tpu_torch.ops import dispatch, probes
+    from lirec_tpu_torch.ops.gather_pool import (
+        fused_ctx_pool, gather_masked_sum, gather_masked_sum_reference,
+    )
+    from lirec_tpu_torch.tools import probe_bf16_pack, probe_hbm_dma
+
+    # ---- the counted run: the two probes' entry points
+    dispatch.reset_launches()
+    dma = probe_hbm_dma.main([])
+    pack = probe_bf16_pack.main([])
+    torch.cuda.synchronize()
+    counts = dispatch.launches()
+    # ---- end of the counted run
+    check(all(math.isfinite(dma[k + "_ms"]) and dma[k + "_ms"] > 0
+              for k in ("per_row", "per_run", "plain")), "probe_hbm_dma %s"
+          % dma)
+    log("  probe_hbm_dma (slopes, 20..120 calls): per-row %.4f ms, per-run "
+        "%.4f ms, plain %.4f ms" % (dma["per_row_ms"], dma["per_run_ms"],
+                                    dma["plain_ms"]))
+    for name in probe_bf16_pack.SHAPES:
+        r = pack[name]
+        log("  probe_bf16_pack %s %s (slopes): packed i32 %.4f ms, native "
+            "bf16 %.4f ms, max|diff| %.3e" % (name, r["shape"],
+                                               r["packed_ms"],
+                                               r["native_bf16_ms"],
+                                               r["max_abs_err"]))
+    log("  launches in the probes' run: %s" % counts)
+
+    results = {}
+    # kernel 9 at the probe's inputs: against its plain version, and bit
+    # for bit against kernel 1 on the explicit rows of each run
+    emb, idx, mask = probe_hbm_dma.make_inputs(torch, "cuda")
+    run = probe_hbm_dma.run_indices(torch, idx)
+    got = probes.run_pool(emb, idx, mask)
+    rows = fused_ctx_pool(emb, run, mask, True)
+    torch.cuda.synchronize()
+    want = probes.run_pool_reference(emb, idx, mask)
+    check(got.shape == want.shape and got.dtype == torch.float32,
+          "run pool output %s %s" % (tuple(got.shape), got.dtype))
+    check(torch.equal(got, rows),
+          "run pool: not bitwise kernel 1 on the run indices")
+    err = float((got - want).abs().max())
+    log("  run pool (kernel 9): bitwise kernel 1 on the run indices; "
+        "max|diff| vs plain %.3e (atol 1e-05)" % err)
+    check(err <= 1e-5, "run pool disagrees with the plain version")
+    M, R = idx.shape[:2]
+    width = emb_width(emb)
+    ms = median_ms(torch, lambda: probes.run_pool(emb, idx, mask))
+    per_row = median_ms(torch, lambda: fused_ctx_pool(emb, idx, mask, True))
+    plain = median_ms(torch, lambda: probes.run_pool_reference(emb, idx,
+                                                                mask))
+    # the runs' rows, each read once; the kernel reads idx[:, 0, :] only
+    moved = (sum(gathered_bytes(t, run[..., k]) for k, t in enumerate(emb))
+             + M * 3 * 4 + nbytes(mask) + M * width * 4)
+    b = bound(moved, 2 * M * R * width)
+    row_moved = (sum(gathered_bytes(t, idx[..., k])
+                     for k, t in enumerate(emb))
+                 + nbytes(idx, mask) + M * width * 4)
+    row_b = bound(row_moved, 2 * M * R * width)
+    log("  run pool kernel %.4f ms, plain %.4f ms; bound %.4f ms (%s, %.1f "
+        "MB). Per-row kernel 1 on the random rows %.4f ms; bound %.4f ms "
+        "(%.1f MB)" % (ms, plain, b["bound_ms"], b["bound_by"], moved / 1e6,
+                       per_row, row_b["bound_ms"], row_moved / 1e6))
+    # no single PyTorch call computes the pool of runs
+    results["run_pool"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               library_ms=None, per_row_ms=per_row,
+                               per_row_bound_ms=row_b["bound_ms"], **b)
+    del emb, idx, mask, run, got, rows, want
+
+    # kernel 10 at the TPU probe's shapes and the clip table's
+    for name, (n, d, m, r) in probe_bf16_pack.SHAPES.items():
+        table, pidx, pmask = probe_bf16_pack.make_inputs(torch, "cuda", n, d,
+                                                         m, r)
+        packed = probes.pack_bf16(table)
+        native = table.to(torch.bfloat16)
+        unpacked = native.float()
+        check(torch.equal(probes.unpack_bf16(packed), native),
+              "pack_bf16 %s: does not unpack to the bf16 table" % name)
+        got = probes.packed_gather_sum(packed, pidx, pmask)
+        torch.cuda.synchronize()
+        want = probes.packed_gather_sum_reference(packed, pidx, pmask)
+        check(got.shape == (m, d) and got.dtype == torch.float32,
+              "packed gather-sum %s output %s" % (name, tuple(got.shape)))
+        err = float((got - want).abs().max())
+        lib_out = F.embedding_bag(pidx, unpacked, per_sample_weights=pmask,
+                                  mode="sum")
+        lib_err = float((lib_out - got).abs().max())
+        log("  packed gather-sum (kernel 10) %s [%d, %d] M=%d: max|diff| "
+            "vs plain %.3e (bound 1e-05), embedding_bag %.3e"
+            % (name, n, d, m, err, lib_err))
+        check(err < 1e-5, "packed gather-sum %s disagrees" % name)
+        # kernel 5 on the native bf16 table of the same values, the other
+        # side of the probe's comparison: one bf16 rounding of the sum
+        got5 = gather_masked_sum(native, pidx, pmask)
+        torch.cuda.synchronize()
+        want5 = gather_masked_sum_reference(native, pidx, pmask)
+        check(got5.shape == (m, d) and got5.dtype == torch.bfloat16,
+              "gather_masked_sum bf16 %s output %s %s"
+              % (name, tuple(got5.shape), got5.dtype))
+        err5 = float((got5.float() - want5.float()).abs().max())
+        tol5 = 2 ** -8 * float(want5.float().abs().max())
+        log("  gather_masked_sum bf16 (kernel 5) %s: max|diff| vs plain "
+            "%.3e (bound %.1e)" % (name, err5, tol5))
+        check(err5 <= tol5, "gather_masked_sum bf16 %s disagrees" % name)
+        ms = median_ms(torch, lambda: probes.packed_gather_sum(packed, pidx,
+                                                               pmask))
+        k5 = median_ms(torch, lambda: gather_masked_sum(native, pidx, pmask))
+        plain = median_ms(torch, lambda: probes.packed_gather_sum_reference(
+            packed, pidx, pmask))
+        plain5 = median_ms(torch, lambda: gather_masked_sum_reference(
+            native, pidx, pmask))
+        lib = median_ms(torch, lambda: F.embedding_bag(
+            pidx, unpacked, per_sample_weights=pmask, mode="sum"))
+        w5 = pmask.to(torch.bfloat16)
+        lib5 = median_ms(torch, lambda: F.embedding_bag(
+            pidx, native, per_sample_weights=w5, mode="sum"))
+        moved = gathered_bytes(packed, pidx) + nbytes(pidx, pmask) + m * d * 4
+        b = bound(moved, 2 * m * r * d)
+        k5_moved = (gathered_bytes(native, pidx) + nbytes(pidx, pmask)
+                    + m * d * 2)
+        b5 = bound(k5_moved, 2 * m * r * d)
+        log("  packed gather-sum %s kernel %.4f ms, plain %.4f ms, "
+            "embedding_bag (f32 table) %.4f ms; bound %.4f ms (%s, %.2f MB)"
+            % (name, ms, plain, lib, b["bound_ms"], b["bound_by"],
+               moved / 1e6))
+        log("  native bf16 kernel 5 %s %.4f ms, plain %.4f ms, embedding_bag "
+            "(bf16 table) %.4f ms; bound %.4f ms (%s, %.2f MB)"
+            % (name, k5, plain5, lib5, b5["bound_ms"], b5["bound_by"],
+               k5_moved / 1e6))
+        results["pack_" + name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                       library_ms=lib, native_bf16_ms=k5, **b)
+        results["gms_" + name] = dict(max_abs_err=err5, ms=k5,
+                                      plain_ms=plain5, library_ms=lib5, **b5)
+        del table, pidx, pmask, packed, native, unpacked, got5, want5, w5
+    torch.cuda.empty_cache()
+    return counts, results
+
+
+# ------------------------------------------------------ the training CLI
+
+
+def train_cli_phase(torch):
+    """Phase 12. Returns {kernel name: launches of the training run}."""
+    import glob
+    import math
+
+    from lirec_tpu_torch.cli import int_rel_ch
+    from lirec_tpu_torch.cli import train as train_cli
+    from lirec_tpu_torch.checkpoint.saver import load_train_state
+    from lirec_tpu_torch.data import synthetic
+    from lirec_tpu_torch.ops import dispatch, scatter_accum
+    from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
+
+    def finite(metrics):
+        return all(math.isfinite(v) for v in metrics.values())
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        synthetic.generate(root, synthetic.SyntheticSpec(
+            text_dim=768, visual_dim=2048, text_layers=12))
+        log("  fixture of published feature widths written in %.1f s"
+            % (time.perf_counter() - t0))
+        store = os.path.join(root, "store")
+        dims = ["--data-root", root, "--device", "cuda", "--quiet",
+                "--text-dim", "768", "--visual-dim", "2048",
+                "--text-layers", "12", "--joint-dim", "512"]
+        base = dims + ["--store-root", store]
+
+        # ---- the counted run: 3 epochs from the training CLI
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        out = train_cli.main(base + ["--epochs", "3", "--checkpoint-every",
+                                     "1"])
+        torch.cuda.synchronize()
+        counts = dispatch.launches()
+        # ---- end of the counted run
+        secs = time.perf_counter() - t0
+        losses = out["train"]["losses"]
+        check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+              "training CLI losses %s" % losses)
+        scatter = scatter_accum.KERNEL_NAMES[torch.bfloat16]
+        pool = KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)]
+        check(counts.get(scatter, 0) > 0 and counts.get(pool, 0) > 0,
+              "training CLI launches %s: the scatter (steps) and the pool "
+              "(cadence eval) must both run" % counts)
+        for name in ("index.json", "latest.pth.tar", "2.pth.tar"):
+            check(os.path.exists(os.path.join(store, name)),
+                  "training CLI wrote no %s" % name)
+        with open(os.path.join(store, "index.json")) as f:
+            index = json.load(f)
+        kept = sorted(glob.glob(os.path.join(store, "*", "*.pth.tar")))
+        check(index.get("total") and kept, "no best-n checkpoints: %s"
+              % index)
+        _, _, epoch = load_train_state(os.path.join(store, "latest.pth.tar"))
+        check(epoch == 2, "latest.pth.tar holds epoch %d" % epoch)
+        log("  cli.train.main, 3 epochs: losses %s in %.1f s; launches %s; "
+            "index.json %s; %d best-n files" % (losses, secs, counts, index,
+                                                len(kept)))
+
+        resumed = train_cli.main(base + [
+            "--epochs", "4", "--resume-train", "--resume-path",
+            os.path.join(store, "latest.pth.tar")])
+        r_losses = resumed["train"]["losses"]
+        check(resumed["train"]["start_epoch"] == 3 and len(r_losses) == 1
+              and math.isfinite(r_losses[0]),
+              "resumed training %s" % resumed)
+        check(os.path.exists(os.path.join(store, "3.pth.tar")),
+              "resumed training wrote no 3.pth.tar")
+        log("  --resume-train from latest.pth.tar: epoch 3, loss %s"
+            % r_losses)
+
+        # one epoch with the host-loop cadence; its recorded val metrics
+        # against the packed sweep's on the same weights (the final state
+        # of epoch 0 is what the cadence evaluated)
+        host_store = os.path.join(root, "host")
+        before = dispatch.decisions("eval_loop")
+        host = train_cli.main(dims + ["--store-root", host_store, "--epochs",
+                                      "1", "--host-eval"])
+        after = dispatch.decisions("eval_loop")
+        loops = {p: after.get(p, 0) - before.get(p, 0)
+                 for p in ("host", "packed")}
+        # one cadence (epoch 0) over train, val and test, all host loops
+        check(loops == {"host": 3, "packed": 0},
+              "--host-eval cadence ran eval loops %s" % loops)
+        check(math.isfinite(host["train"]["losses"][0]),
+              "--host-eval training %s" % host)
+        with open(os.path.join(host_store, "index.json")) as f:
+            host_index = json.load(f)
+        swept = int_rel_ch.main(dims + [
+            "--store-root", host_store, "--resume-path",
+            os.path.join(host_store, "0.pth.tar")])
+        check(finite(swept["val"]) and finite(swept["test"]),
+              "eval CLI on the host run's checkpoint %s" % swept)
+        for key, per_epoch in host_index.items():
+            check(abs(per_epoch["0"] - swept["val"][key]) <= 1e-6,
+                  "--host-eval cadence %s %r != the packed sweep's %r"
+                  % (key, per_epoch["0"], swept["val"][key]))
+        log("  --host-eval cadence at epoch 0 (eval loops %s): val %s, equal "
+            "to the packed sweep's on the same weights"
+            % (loops, {k: v["0"] for k, v in host_index.items()}))
+
+        best = max(glob.glob(os.path.join(store, "total", "*.pth.tar")))
+        metrics = int_rel_ch.main(base + ["--resume-path", best])
+        check(finite(metrics["val"]) and finite(metrics["test"]),
+              "eval CLI on the best checkpoint %s" % metrics)
+        log("  cli.int_rel_ch.main on %s: val %s, test %s"
+            % (os.path.relpath(best, store), metrics["val"],
+               metrics["test"]))
+    return counts
+
+
 def main():
     import torch
 
@@ -1127,7 +1418,8 @@ def main():
 
     log("== 2. build")
     t0 = time.perf_counter()
-    sources = ("fused_ctx_pool", "scatter_accum", "fused_ctx_pool_triple")
+    sources = ("fused_ctx_pool", "scatter_accum", "fused_ctx_pool_triple",
+               "probe_hbm_dma", "probe_bf16_pack")
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(build.build, sources))
     log("  built in %.2f s (one nvcc per source, in parallel)"
@@ -1175,6 +1467,12 @@ def main():
     log("== 10. eval CLI entry point")
     eval_cli(torch)
 
+    log("== 11. the probes, kernels 9-10 (counted run)")
+    probe_counts, probe = probe_phase(torch)
+
+    log("== 12. the training CLI at published widths (counted run)")
+    train_cli_phase(torch)
+
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
 
@@ -1196,7 +1494,7 @@ def main():
     # scatter: one entry per instantiation, as the train path launches it
     # (three tables); the flattened and single-table cases of phase 6 are
     # the same kernel and go on a line of their own
-    variants = {}
+    variants = []
     for dtype, tag in ((torch.float32, "float32"),
                        (torch.bfloat16, "bfloat16")):
         name = scatter_accum.KERNEL_NAMES[dtype]
@@ -1208,14 +1506,17 @@ def main():
             "replaces": "%s:91" % SCATTER_TPU_SRC, "launches": launches,
             **{k: v for k, v in r.items() if k != "sort_ms"},
         })
+        # the flattened (kernel 7) and single-table (kernel 8) cases: the
+        # same kernel, held in phase 6 only (the counted paths do not
+        # launch these forms)
         for suffix, line in (("@flat", 49), ("@single_table", 282)):
-            variants[name + suffix] = dict(
-                scatter[tag + suffix],
-                replaces="%s:%d" % (SCATTER_TPU_SRC, line))
+            variants.append({
+                "name": name + suffix, "route": "cuda", "source": SCATTER_CU,
+                "replaces": "%s:%d" % (SCATTER_TPU_SRC, line),
+                "launches": 0, "path": "none", **scatter[tag + suffix]})
         log("scatter %s: sort %.4f ms beside the kernel's %.4f ms"
             % (tag, r["sort_ms"], r["ms"]))
-    log("scatter_variants (phase 6 only, not counted launches): "
-        + json.dumps(variants))
+    kernels += variants
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         name = KERNEL_NAMES[("fused_ctx_pool_triple", dtype)]
         check(eval_counts.get(name, 0) > 0,
@@ -1226,12 +1527,42 @@ def main():
             **triple["triple_" + tag],
         })
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        # no product path calls it: held in phase 3 only, no launches
+        # no product path calls it: held in phase 3 at the eval batch's
+        # shapes, no launches there
         kernels.append({
             "name": KERNEL_NAMES[("gather_masked_sum", dtype)],
             "route": "cuda", "source": TRIPLE_CU,
             "replaces": "%s:106" % TPU_SRC, "launches": 0, "path": "none",
             **triple["gms_" + tag],
+        })
+    # the bf16 probe (phase 11) runs kernel 5 on the native bf16 table
+    # beside kernel 10: held and timed there, one entry per probe shape
+    gms_bf16 = KERNEL_NAMES[("gather_masked_sum", torch.bfloat16)]
+    for suffix, key in (("@bf16_probe", "gms_probe"),
+                        ("@clip_table", "gms_clip")):
+        launches = probe_counts.get(gms_bf16, 0)
+        check(launches > 0, "%s was not launched by the probes" % gms_bf16)
+        kernels.append({
+            "name": gms_bf16 + suffix, "route": "cuda", "source": TRIPLE_CU,
+            "replaces": "%s:106" % TPU_SRC, "launches": launches,
+            "path": "probe", **probe[key],
+        })
+    from lirec_tpu_torch.ops.probes import KERNEL_NAMES as PROBE_NAMES
+
+    for name, src, replaces, key in (
+        (PROBE_NAMES["run_pool"], DMA_CU, "tools/probe_hbm_dma.py:40",
+         "run_pool"),
+        (PROBE_NAMES["packed_gather_sum"], PACK_CU,
+         "tools/probe_bf16_pack.py:30", "pack_probe"),
+        (PROBE_NAMES["packed_gather_sum"] + "@clip_table", PACK_CU,
+         "tools/probe_bf16_pack.py:30", "pack_clip"),
+    ):
+        launches = probe_counts.get(name.split("@")[0], 0)
+        check(launches > 0, "%s was not launched by the probes" % name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "path": "probe",
+            **probe[key],
         })
     log("eval_clips_per_s: " + json.dumps(
         {"%s_%s" % (c, t if t else "off"): v

@@ -1,0 +1,142 @@
+"""Checkpoint writing: the best-n-per-metric policy and resumable train
+states, in the reference's own ``.pth.tar`` layout (counterpart of
+lirec_tpu/checkpoint/saver.py, ref ``utils/model_saver.py``).
+
+``BestNSaver`` keeps the best ``n = 4`` checkpoints **per metric key**
+('total' / 'ints' / 'rels' / 'tracks' / 'joint'), evicts the worst, and
+``save()`` writes the kept ones as ``<path>/<key>/v%.4f_ep%d.pth.tar``,
+deletes stale files there and writes ``<path>/index.json``: the JAX
+package's policy, file stems and index. Every file is a ``torch.save`` of
+``{'epoch', 'state_dict', 'optimizer'}`` (ref ``mlp/train.py:99-106``),
+so ``checkpoint.load_torch_checkpoint``, the eval CLIs and ``cli/serve``
+read them as they read the reference's.
+
+The port's parameters change in place under ``optimizer.step()``, so
+``update`` keeps a detached CPU copy of what it is given (the JAX package
+can keep a reference to its immutable arrays): a kept checkpoint holds
+the weights of its own epoch.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import os.path as ops
+from collections import defaultdict
+from typing import Dict, Optional
+
+import torch
+
+__all__ = ["BestNSaver", "save_train_state", "load_train_state"]
+
+
+def _cpu_copy(tree):
+    """A detached CPU clone of every tensor in a nest of dicts / lists."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_copy(v) for v in tree)
+    return tree
+
+
+def _write(path: str, payload: Dict) -> None:
+    """torch.save through a temporary file, so a crash never leaves a
+    truncated checkpoint under the final name."""
+    os.makedirs(ops.dirname(ops.abspath(path)), exist_ok=True)
+    tmp = "%s.%d.tmp" % (path, os.getpid())
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def save_train_state(path: str, state_dict: Dict,
+                     optimizer_state: Optional[Dict], epoch: int) -> None:
+    """Weights, Adam state and epoch, for --resume-train (ref
+    mlp/train.py:99-106)."""
+    _write(path, {"epoch": int(epoch), "state_dict": _cpu_copy(state_dict),
+                  "optimizer": _cpu_copy(optimizer_state)})
+
+
+def load_train_state(path: str):
+    """(state_dict, optimizer state dict or None, epoch) of a train state
+    (ref utils/util_functions.py:274-291). The state_dict is cleaned as
+    ``load_torch_checkpoint`` cleans a reference checkpoint."""
+    from lirec_tpu_torch.checkpoint.convert import clean_state_dict
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return (clean_state_dict(ckpt["state_dict"]), ckpt.get("optimizer"),
+            int(ckpt.get("epoch") or 0))
+
+
+class BestNSaver:
+    """Best-n checkpoints per metric key (ref utils/model_saver.py:17-64)."""
+
+    def __init__(self, path: str = "", n: int = 4):
+        self.n = n
+        self.path = path
+        self.eval: Dict[str, Dict[int, float]] = defaultdict(dict)
+        self.models: Dict[str, Dict[int, Dict]] = defaultdict(dict)
+        self.worst_idx: Dict[str, int] = defaultdict(lambda: -1)
+        self.saved: Dict[str, Dict[int, str]] = defaultdict(dict)
+        if path:
+            os.makedirs(path, exist_ok=True)
+
+    def check(self, val: Dict[str, float]) -> bool:
+        """True if any metric improves on its current worst kept value
+        (ref :31-35)."""
+        for key in val:
+            if len(self.eval[key]) < self.n:
+                return True
+            if val[key] > self.eval[key][self.worst_idx[key]]:
+                return True
+        return False
+
+    def update(self, val: Dict[str, float], save_dict: Dict,
+               epoch: int) -> None:
+        """Keep `save_dict` (a CPU copy of it, shared by every key) for
+        each metric of `val`, evicting the worst beyond n."""
+        save_dict = _cpu_copy(save_dict)
+        for key in val:
+            self.eval[key][epoch] = val[key]
+            self.models[key][epoch] = save_dict
+            if len(self.eval[key]) > self.n:
+                self.eval[key].pop(self.worst_idx[key])
+                self.models[key].pop(self.worst_idx[key])
+                self.saved[key].pop(self.worst_idx[key], None)
+            worst = val[key]
+            self.worst_idx[key] = epoch
+            for epoch_other, val_other in self.eval[key].items():
+                if val_other <= worst:
+                    worst = val_other
+                    self.worst_idx[key] = epoch_other
+            assert len(self.eval[key]) <= self.n
+
+    def save(self) -> None:
+        """Write kept checkpoints under <path>/<key>/, GC stale files
+        (ref :53-64)."""
+        for key in self.eval:
+            key_dir = ops.join(self.path, key)
+            os.makedirs(key_dir, exist_ok=True)
+            kept = set(self.saved[key].values())
+            for filename in os.listdir(key_dir):
+                full = ops.join(key_dir, filename)
+                if full not in kept:
+                    os.remove(full)
+            for epoch, val in self.eval[key].items():
+                full = ops.join(key_dir, "v%.4f_ep%d.pth.tar" % (val, epoch))
+                if full not in kept:
+                    self.saved[key][epoch] = full
+                    save_dict = self.models[key][epoch]
+                    _write(full, {
+                        "epoch": save_dict.get("epoch", epoch),
+                        "state_dict": save_dict["state_dict"],
+                        "optimizer": save_dict.get("optimizer"),
+                    })
+        with open(ops.join(self.path, "index.json"), "w") as f:
+            json.dump(
+                {k: {str(e): v for e, v in d.items()}
+                 for k, d in self.eval.items()},
+                f,
+                indent=2,
+            )

@@ -1,12 +1,19 @@
-"""Shared entry-point plumbing of the eval CLIs (counterpart of
+"""Shared entry-point plumbing of the CLIs (counterpart of
 lirec_tpu/cli/common.py, ref `resume/*.py` catch_inner/pipeline).
 
 Each entry point resolves a preset config, builds the split datasets with
 the reference's split choices (`int_rels` builds its nominal train dataset
 from the **val** split, `int_ch`/`int_rel_ch` from the **test** split; ref
-resume/int_rels.py:25, int_ch.py:22, int_rel_ch.py:23), loads a reference
-``.pth.tar`` checkpoint, and evaluates the val and test splits with the
-packed sweep (evaluation/packed.py) on ``--device`` (default: the card).
+resume/int_rels.py:25, int_ch.py:22, int_rel_ch.py:23), and then either
+evaluates a reference ``.pth.tar`` checkpoint on the val and test splits
+(the packed sweep, evaluation/packed.py, or with ``--host-eval`` the
+per-batch host loop, evaluation/runner.py) or, with ``--train`` /
+``--resume-train``, trains (train/loop.py: cadence evaluation, best-n
+checkpoints, ``latest.pth.tar`` and the final ``<epochs-1>.pth.tar`` under
+``--store-root``), all on ``--device`` (default: the card).
+``--resume-train`` reads ``{'epoch', 'state_dict', 'optimizer'}`` from
+``--resume-path`` and starts at epoch + 1; ``--auto-resume`` does the same
+from ``<store-root>/latest.pth.tar`` when it exists.
 
 The flags of features the port does not have yet are accepted and refuse
 to run, naming the ROADMAP.md item that ports them.
@@ -21,6 +28,7 @@ from lirec_tpu_torch import config as config_lib
 from lirec_tpu_torch.cli.serve import CHECKPOINT_SUFFIXES, load_checkpoint_state
 from lirec_tpu_torch.data.dataset import InteractionDataset
 from lirec_tpu_torch.evaluation.packed import evaluate_packed
+from lirec_tpu_torch.evaluation.runner import evaluate
 from lirec_tpu_torch.models.factory import create_model
 
 TRAIN_SPLIT = {
@@ -31,13 +39,12 @@ TRAIN_SPLIT = {
 
 # flag -> the ROADMAP.md queue 1 item that ports its feature
 NOT_PORTED = {
-    "train": "'CLI --train with cadence eval'",
-    "resume_train": "'CLI --train with cadence eval'",
-    "host_eval": "'--host-eval'",
     "ingest_cache": "'the remaining CLIs and ingest artifacts'",
     "mesh": "'multi-GPU'",
     "num_processes": "'multi-GPU'",
+    "assembly_workers": "'the rest of training', the AssemblyPool",
 }
+TRISTATE = {"auto": None, "on": True, "off": False}
 
 
 def build_parser(preset_name: str) -> argparse.ArgumentParser:
@@ -53,9 +60,35 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
                    help="reference .pth.tar; default: the released "
                         "checkpoint path for this preset under "
                         "<data-root>/models_release")
+    p.add_argument("--train", action="store_true",
+                   help="train instead of evaluating a checkpoint")
+    p.add_argument("--resume-train", action="store_true",
+                   help="load weights + optimizer + epoch from "
+                        "--resume-path and continue training")
+    p.add_argument("--auto-resume", action="store_true",
+                   help="continue from <store-root>/latest.pth.tar if "
+                        "present")
+    p.add_argument("--metrics-log", default="",
+                   help="append JSONL training telemetry to this path")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save a resumable latest.pth.tar every N epochs")
+    p.add_argument("--checkpoint-backend", default="torch",
+                   choices=["torch", "msgpack", "orbax"],
+                   help="train-state format: torch (.pth.tar); the JAX "
+                        "package's msgpack and orbax are not ported "
+                        "(refused)")
     p.add_argument("--cache-workers", type=int, default=0,
                    help="thread pool size for feature precompute IO")
+    p.add_argument("--assembly-workers", type=int, default=0,
+                   help="sample-assembly worker processes: not ported "
+                        "(any value above 0 is refused)")
+    p.add_argument("--drop-last", action="store_true",
+                   help="drop the leftover train batch (non-parity: the "
+                        "reference trains on it)")
+    p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None,
+                   help="override the preset learning rate (ref 3e-5)")
     p.add_argument("--text-dim", type=int, default=768)
     p.add_argument("--visual-dim", type=int, default=2048)
     p.add_argument("--text-layers", type=int, default=12)
@@ -69,16 +102,22 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
                         "embedded rows (on = the per-table tier). auto = "
                         "off: on the card the local tables cost more than "
                         "they save; metrics are identical either way")
+    p.add_argument("--host-eval", action="store_true",
+                   help="per-batch host eval loop instead of the packed "
+                        "sweep (same metrics, slower; checkpoint eval and "
+                        "the training cadence)")
+    p.add_argument("--localize-tables", choices=("auto", "on", "off"),
+                   default="auto",
+                   help="batch-local table projection for training "
+                        "(data/localize.py). auto = on when profitable at "
+                        "the split's cardinality")
+    p.add_argument("--per-batch-train", action="store_true",
+                   help="accepted for the JAX package's command lines: "
+                        "the port always trains one step per batch")
     p.add_argument("--device", default="cuda",
                    help="torch device of the weights, tables and sweep")
     p.add_argument("--quiet", action="store_true")
     # not ported yet: accepted, then refused (run_entry)
-    p.add_argument("--train", action="store_true",
-                   help="not ported yet (refused)")
-    p.add_argument("--resume-train", action="store_true",
-                   help="not ported yet (refused)")
-    p.add_argument("--host-eval", action="store_true",
-                   help="not ported yet (refused)")
     p.add_argument("--ingest-cache", default="",
                    help="not ported yet (refused)")
     p.add_argument("--mesh", default="", help="not ported yet (refused)")
@@ -104,12 +143,18 @@ def config_from_args(preset_name: str, args) -> config_lib.ExperimentConfig:
         text_layers=args.text_layers,
         joint_dim=args.joint_dim,
     )
+    if args.epochs is not None:
+        cfg = cfg.with_optim(epochs=args.epochs)
     if args.batch_size is not None:
         cfg = cfg.with_optim(batch_size=args.batch_size)
+    if args.lr is not None:
+        cfg = cfg.with_optim(lr=args.lr)
     if args.compute_dtype:
         cfg = cfg.with_runtime(compute_dtype=args.compute_dtype)
     if args.resume_path is not None:
         cfg = cfg.replace(resume_path=args.resume_path)
+    if args.train or args.resume_train:
+        cfg = cfg.replace(resume=False, resume_train=args.resume_train)
     return cfg
 
 
@@ -137,21 +182,30 @@ def load_checkpoint(path: str):
     msgpack and Orbax checkpoints are refused."""
     if os.path.isdir(path) or not path.endswith(CHECKPOINT_SUFFIXES):
         raise SystemExit(
-            "lirec_tpu_torch reads reference .pth.tar checkpoints only; the "
-            "JAX package's msgpack / Orbax formats wait for ROADMAP.md "
-            "queue 1 'checkpoint writing': %r" % path
+            "lirec_tpu_torch reads .pth.tar checkpoints only; the JAX "
+            "package's msgpack / Orbax formats wait for ROADMAP.md queue 1 "
+            "'checkpoint reading of the JAX package's formats': %r" % path
         )
     return load_checkpoint_state(path)
 
 
-def run_entry(preset_name: str, argv=None) -> dict:
-    args = build_parser(preset_name).parse_args(argv)
+def _refuse_unported(args) -> None:
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(
                 "--%s is not ported to lirec_tpu_torch yet (ROADMAP.md "
                 "queue 1 %s)" % (flag.replace("_", "-"), item)
             )
+    if args.checkpoint_backend != "torch":
+        raise SystemExit(
+            "--checkpoint-backend %s is not ported to lirec_tpu_torch: it "
+            "writes .pth.tar train states (ROADMAP.md queue 1 'checkpoint "
+            "reading of the JAX package's formats')" % args.checkpoint_backend)
+
+
+def run_entry(preset_name: str, argv=None) -> dict:
+    args = build_parser(preset_name).parse_args(argv)
+    _refuse_unported(args)
     cfg = config_from_args(preset_name, args)
     verbose = not args.quiet
     train_ds, val_ds, test_ds = build_datasets(
@@ -160,18 +214,64 @@ def run_entry(preset_name: str, argv=None) -> dict:
     n_rels = max(len(train_ds.rels_list) - 1, 0)
     bundle = create_model(cfg, train_ds.n_classes, n_rels=n_rels,
                           device=args.device)
+    if not cfg.resume:
+        return {"train": _train(cfg, args, bundle, train_ds, val_ds,
+                                test_ds, verbose)}
     if cfg.resume_path:
         bundle.model.load_state_dict(load_checkpoint(cfg.resume_path))
         if verbose:
             print("loaded checkpoint: %s" % cfg.resume_path)
-    localize = {"auto": None, "on": True, "off": False}[args.eval_localize]
     results = {}
     for mode, ds in (("val", val_ds), ("test", test_ds)):
         if verbose:
             print("testing on %s set" % ("validation" if mode == "val"
                                          else mode))
-        results[mode] = evaluate_packed(
-            ds, bundle, bundle.model, cfg, mode=mode, verbose=verbose,
-            localize_ctx=localize,
-        )
+        if args.host_eval:
+            results[mode] = evaluate(ds, bundle, bundle.model, cfg,
+                                     mode=mode, verbose=verbose)
+        else:
+            results[mode] = evaluate_packed(
+                ds, bundle, bundle.model, cfg, mode=mode, verbose=verbose,
+                localize_ctx=TRISTATE[args.eval_localize],
+            )
     return results
+
+
+def _train(cfg, args, bundle, train_ds, val_ds, test_ds, verbose) -> dict:
+    """--train / --resume-train / --auto-resume: the epoch loop from epoch
+    0, or from the epoch after a train state's."""
+    from lirec_tpu_torch.checkpoint.saver import load_train_state
+    from lirec_tpu_torch.train.loop import train
+    from lirec_tpu_torch.train.optim import make_optimizer
+
+    optimizer = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
+                               cfg.optim.weight_decay)
+    start_epoch = 0
+    resume_from = ""
+    if cfg.resume_train and cfg.resume_path:
+        resume_from = cfg.resume_path
+    elif args.auto_resume:
+        latest = os.path.join(cfg.paths.store_root, "latest.pth.tar")
+        if os.path.exists(latest):
+            resume_from = latest
+    if resume_from:
+        state_dict, opt_state, epoch = load_train_state(resume_from)
+        bundle.model.load_state_dict(state_dict)
+        if opt_state:
+            optimizer.load_state_dict(opt_state)
+        start_epoch = epoch + 1
+        if verbose:
+            print("resumed training state from %s (epoch %d)"
+                  % (resume_from, epoch))
+    out = train(
+        cfg, bundle, train_ds, val_dataset=val_ds, test_dataset=test_ds,
+        optimizer=optimizer, verbose=verbose, start_epoch=start_epoch,
+        metrics_log_path=args.metrics_log or None,
+        checkpoint_every=args.checkpoint_every, drop_last=args.drop_last,
+        host_eval=args.host_eval,
+        localize_tables=TRISTATE[args.localize_tables],
+        eval_localize=TRISTATE[args.eval_localize],
+    )
+    return {"losses": out["losses"], "start_epoch": start_epoch,
+            "final_path": out["final_path"],
+            "localized_tables": out["localized_tables"]}

@@ -1,13 +1,13 @@
-"""Batch collation and the train-mode epoch iterator (counterparts of
-``collate`` and of the train path of lirec_tpu/data/pipeline.BatchIterator).
+"""Batch collation and iteration (counterparts of ``collate`` and
+``BatchIterator`` of lirec_tpu/data/pipeline.py).
 
-``EpochIterator`` builds the assembly plan in memory with
-``data/plan.build_plan`` (the JAX package's disk cache is not ported) and
-yields bitwise the batches of ``BatchIterator(dataset, batch_size,
-shuffle=True, seed=seed)``: the order is shuffled with
-``default_rng((seed, epoch))``, and where there is no plan every sample is
-assembled from its own ``default_rng((seed, epoch, i))`` stream, as
-``BatchIterator`` does with no workers.
+``BatchIterator`` yields bitwise the batches of the JAX package's
+``BatchIterator`` with no workers: eval-mode splits are sliced from the
+materialized split, other datasets go through the assembly plan (built in
+memory with ``data/plan.build_plan``; the JAX package's disk cache is not
+ported) or, where there is none, per sample from ``default_rng((seed,
+epoch, i))`` streams. ``EpochIterator`` is its shuffled train form. The
+``AssemblyPool`` worker processes and the dense layout are not ported.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
-__all__ = ["collate", "EpochIterator"]
+__all__ = ["collate", "BatchIterator", "EpochIterator"]
 
 
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -35,13 +35,23 @@ def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     return out
 
 
-class EpochIterator:
-    """Shuffled train batches, one epoch per ``iter()``."""
+class BatchIterator:
+    """Batches of a dataset, one epoch per ``iter()`` (counterpart of
+    lirec_tpu/data/pipeline.BatchIterator without the worker pool and the
+    dense layout).
 
-    def __init__(self, dataset, batch_size: int, seed: int = 0,
-                 drop_last: bool = False):
+    Eval modes (``shuffle=False`` on a dataset whose mode is not
+    ``"train"``) slice the materialized split; otherwise batches come from
+    the assembly plan or, where there is none, per sample, every sample
+    drawing from its own ``default_rng((seed, epoch, i))`` stream. The
+    order is shuffled with ``default_rng((seed, epoch))`` when asked.
+    """
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.epoch = 0
@@ -68,13 +78,29 @@ class EpochIterator:
             self._plan = (chooser, build_plan(ds))
         return self._plan[1]
 
+    def _materialized(self, order):
+        """The materialized split of an eval-mode dataset, else None."""
+        ds = self.dataset
+        if (len(order) and not self.shuffle
+                and getattr(ds, "mode", "train") != "train"
+                and hasattr(ds, "materialize")
+                and not getattr(ds, "test_rels_multi_clip", False)):
+            return ds.materialize()
+        return None
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.dataset))
-        np.random.default_rng((self.seed, self.epoch)).shuffle(order)
+        if self.shuffle:
+            np.random.default_rng((self.seed, self.epoch)).shuffle(order)
         if self.drop_last:
             order = order[: (len(order) // self.batch_size) * self.batch_size]
-        plan = self.plan() if len(order) else None
-        if plan is not None:
+        materialized = self._materialized(order)
+        plan = self.plan() if len(order) and materialized is None else None
+        if materialized is not None:
+            for start in range(0, len(order), self.batch_size):
+                chunk = order[start: start + self.batch_size]
+                yield {k: v[chunk] for k, v in materialized.items()}
+        elif plan is not None:
             epoch_data = plan.assemble(order, self.seed, self.epoch)
             for start in range(0, len(order), self.batch_size):
                 yield {k: v[start: start + self.batch_size]
@@ -88,3 +114,14 @@ class EpochIterator:
                     for i in order[start: start + self.batch_size]
                 ])
         self.epoch += 1
+
+
+class EpochIterator(BatchIterator):
+    """Shuffled train batches, one epoch per ``iter()``: bitwise the
+    batches of ``BatchIterator(dataset, batch_size, shuffle=True,
+    seed=seed)`` of the JAX package."""
+
+    def __init__(self, dataset, batch_size: int, seed: int = 0,
+                 drop_last: bool = False):
+        super().__init__(dataset, batch_size, shuffle=True,
+                         drop_last=drop_last, seed=seed)

@@ -399,13 +399,16 @@ def evaluate_packed(
         tables = dataset.tables.as_dict()
 
     from lirec_tpu_torch.models.tabular import embed_all
+    from lirec_tpu_torch.ops import dispatch
 
+    dispatch.record("eval_loop", "packed", mode, {"N": N, "batch_size": B})
     device = next(model.parameters()).device
     init_carry, step = device_sweep_builder(
         bundle, t, n_classes, n_rels, n_hashes, use_kernel=use_kernel)
     model.eval()
     with torch.inference_mode():
-        tables = {k: torch.as_tensor(np.asarray(tables[k], np.float32),
+        # numpy arrays or tensors (the train cadence passes its own)
+        tables = {k: torch.as_tensor(tables[k], dtype=torch.float32,
                                      device=device)
                   for k in ("text", "visual", "track")}
         embedded = embed_all(model, bundle.spec, tables)

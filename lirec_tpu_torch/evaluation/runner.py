@@ -1,12 +1,132 @@
-"""Metric summary of an evaluation (counterpart of
-``lirec_tpu/evaluation/runner.summarize_metrics``). The per-batch host
-loop ``evaluate`` (``--host-eval``) is not ported."""
+"""The per-batch host evaluation loop and the metric summary
+(counterparts of ``evaluate`` and ``summarize_metrics`` of
+lirec_tpu/evaluation/runner.py, ref ``mlp/test.py:17-145``).
+
+``evaluate`` (``--host-eval``) embeds the tables once, runs the eval
+forward and the loss per batch on the model's device and fills the host
+accumulators (evaluation/metrics.py) in the JAX package's branch order;
+the grounding presets take their argmaxes on the device
+(``device_metrics.grounding_predictions``). It gives the metric dict of
+the packed sweep (evaluation/packed.py), batch for batch: the same
+batches, the same skip of size-1 batches, and the same fixed loss
+generator (seeded 0 before every loss, as the sweep seeds it). Eager
+launches run ahead of the host until a ``.cpu()`` waits, so the JAX
+package's PIPELINE_DEPTH queue is a plain loop here. Not ported: dense
+batches, ``jit_apply``, ``evaluate_rels_only``.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
-__all__ = ["summarize_metrics"]
+import numpy as np
+import torch
+
+__all__ = ["evaluate", "summarize_metrics"]
+
+MODEL_KEYS = ("feat_idx", "rels_mask")
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().float().cpu().numpy()
+
+
+def evaluate(
+    dataset,
+    bundle,
+    model,
+    cfg,
+    mode: str = "val",
+    tables: Optional[Dict] = None,
+    verbose: bool = True,
+) -> Dict[str, float]:
+    """One evaluation pass of `model` (on its own device) over `dataset`;
+    returns {'total', 'ints'[, 'rels'][, 'tracks', 'joint'], 'loss'} (ref
+    test.py:138-145). `tables` default to the dataset's; numpy arrays or
+    tensors."""
+    from lirec_tpu_torch.data.pipeline import BatchIterator
+    from lirec_tpu_torch.evaluation.device_metrics import (
+        grounding_predictions,
+    )
+    from lirec_tpu_torch.evaluation.metrics import (
+        MetricAccumulator, RelationshipsAcc,
+    )
+    from lirec_tpu_torch.models.tabular import embed_all
+    from lirec_tpu_torch.ops import dispatch
+
+    t = cfg.tasks
+    n_rels = dataset.n_rels
+    prec = MetricAccumulator(n_rels=n_rels)
+    prec_rels = RelationshipsAcc(n_rels=n_rels) if t.rels_multitask else None
+    conf_mat = np.zeros((dataset.n_classes, dataset.n_classes))
+    losses = []
+    device = next(model.parameters()).device
+    if tables is None:
+        tables = dataset.tables.as_dict()
+    it = BatchIterator(dataset, cfg.optim.batch_size, shuffle=False)
+    dispatch.record("eval_loop", "host", mode,
+                    {"batch_size": cfg.optim.batch_size})
+    loss_rng = (torch.Generator(device=device) if t.tr_cat_distr
+                else None)
+    model.eval()
+    with torch.inference_mode():
+        tables = {k: torch.as_tensor(tables[k], dtype=torch.float32,
+                                     device=device)
+                  for k in ("text", "visual", "track")}
+        embedded = embed_all(model, bundle.spec, tables)
+        for batch in it:
+            if len(np.atleast_1d(batch["labels"])) == 1:
+                continue  # ref test.py:38-39
+            dev = {k: torch.as_tensor(np.asarray(v)).to(device)
+                   for k, v in batch.items()}
+            out = bundle.apply(model, {k: dev[k] for k in MODEL_KEYS
+                                       if k in dev},
+                               tables=tables, embedded=embedded)
+            rng = None if loss_rng is None else loss_rng.manual_seed(0)
+            losses.append(float(bundle.loss(out, dev, rng=rng)))
+            B = len(batch["labels"])
+            if t.soft_gt:
+                conf_mat = prec.update_probs(
+                    _host(out["inters"]).reshape(B, -1), batch["labels"],
+                    soft_labels=batch["soft_labels"], conf_mat=conf_mat)
+            elif t.tr_maximize:
+                if not t.ints:
+                    continue  # nothing to count, as in the JAX package
+                preds = grounding_predictions(
+                    out["inters"], dev["mem_mask"], dev["labels"],
+                    pr_probs_rels=out["rels"] if t.ctx else None,
+                    gt_rels=dev["rels_label"] if t.ctx else None)
+                preds = {k: v.cpu().numpy() for k, v in preds.items()}
+                kw = {}
+                if t.ctx:
+                    # samples whose GT-slot relationship is labeled (ref
+                    # test.py:62)
+                    kw = dict(gt_rels=batch["rels_label"],
+                              rels_sample_idx=np.nonzero(
+                                  batch["rels_label"][:, 0] - n_rels + 1)[0])
+                prec.update_from_predictions(
+                    preds, gt_classes=batch["labels"],
+                    gt_tracks=batch["gt_tracks"],
+                    just_zeros=batch["just_zeros"], **kw)
+            elif t.rels_multitask:
+                if t.ints:
+                    inters = _host(out["inters"]).reshape(
+                        B, -1, dataset.n_classes)[:, 0]
+                    conf_mat = prec.update_probs(
+                        inters, batch["labels"][:, 0].reshape(-1),
+                        conf_mat=conf_mat)
+                if t.ctx:
+                    valid = np.nonzero(batch["rels_label"] - n_rels + 1)[0]
+                    if len(valid):
+                        prec_rels.update(_host(out["rels"])[valid],
+                                         batch["rels_label"][valid],
+                                         batch["hash_rel"][valid])
+            else:
+                conf_mat = prec.update_probs(
+                    _host(out["inters"]).reshape(B, -1), batch["labels"],
+                    conf_mat=conf_mat)
+    avg_loss = float(np.mean(losses)) if losses else 0.0
+    return summarize_metrics(t, prec, prec_rels, avg_loss, mode, verbose)
 
 
 def summarize_metrics(

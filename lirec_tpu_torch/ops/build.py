@@ -19,7 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load", "nvcc_path", "source_path"]
+__all__ = ["NVCC_FLAGS", "build", "load", "launcher", "nvcc_path",
+           "source_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
@@ -94,6 +95,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _LIBS[name] = lib
         return lib
+
+
+def launcher(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    """The C launcher `symbol` of csrc/<name>.cu: n_ptrs device pointers,
+    n_ints ints, then the stream; it returns a cudaError_t."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 if __name__ == "__main__":

@@ -11,18 +11,20 @@ from __future__ import annotations
 
 import logging
 
-__all__ = ["record", "last_dispatch", "count_launch", "launches",
-           "reset_launches"]
+__all__ = ["record", "last_dispatch", "decisions", "route", "launch",
+           "count_launch", "launches", "reset_launches"]
 
 _logger = logging.getLogger("lirec_tpu_torch.ops")
 _DISPATCH: dict = {}
 _LOGGED: set = set()
 _LAUNCHES: dict = {}
+_DECISIONS: dict = {}
 
 
 def record(kernel: str, path: str, reason: str, shapes) -> None:
     """Record (and log once per distinct decision) a dispatch choice."""
     _DISPATCH[kernel] = {"path": path, "reason": reason, "shapes": shapes}
+    _DECISIONS[(kernel, path)] = _DECISIONS.get((kernel, path), 0) + 1
     key = (kernel, path, reason, str(shapes))
     if key not in _LOGGED:
         _LOGGED.add(key)
@@ -35,6 +37,35 @@ def record(kernel: str, path: str, reason: str, shapes) -> None:
 def last_dispatch(kernel: str):
     """Most recent decision for `kernel`, or None."""
     return _DISPATCH.get(kernel)
+
+
+def decisions(kernel: str) -> dict:
+    """{path: how many times `kernel` took it} since the process began."""
+    return {p: n for (k, p), n in _DECISIONS.items() if k == kernel}
+
+
+def route(kernel: str, op: str, device, shapes) -> bool:
+    """True where `kernel` runs (CUDA tensors); False for CPU tensors,
+    which take `op`'s plain version. Any other device raises."""
+    if device.type == "cpu":
+        record(kernel, "reference", "cpu tensors", shapes)
+        return False
+    if device.type != "cuda":
+        raise ValueError("%s: no kernel for device %s" % (op, device))
+    record(kernel, "cuda", "cuda tensors", shapes)
+    return True
+
+
+def launch(kernel: str, fn, device, args) -> None:
+    """Call the C launcher `fn` with `args` and the current stream of
+    `device`, raise on a refused launch (its cudaError_t), count it."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("%s launch failed: cudaError %d" % (kernel, err))
+    count_launch(kernel)
 
 
 def count_launch(kernel: str) -> None:

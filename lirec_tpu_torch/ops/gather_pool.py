@@ -25,7 +25,6 @@ launches or raises: a missing nvcc or a failed build is an error.
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -105,42 +104,19 @@ def _check(emb, idx, mask):
                          "an int32")
 
 
-def _kernel_fn(op, dtype, n_ptrs, n_ints):
-    """The C launcher of `op` for `dtype` tables: n_ptrs device pointers,
-    n_ints ints, then the stream; returns a cudaError_t."""
+def _launch(op, table, n_ptrs, args):
+    """Launch `op` for `table`'s dtype on the current stream of its card:
+    n_ptrs device pointers, then ints."""
     from lirec_tpu_torch.ops import build
 
-    fn = getattr(build.load(_SOURCES[op]), KERNEL_NAMES[(op, dtype)])
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(op, table, n_ptrs, args):
-    """Launch `op` on the current stream of `table`'s card, raise on a
-    refused launch, count it."""
     name = KERNEL_NAMES[(op, table.dtype)]
-    fn = _kernel_fn(op, table.dtype, n_ptrs, len(args) - n_ptrs)
-    with torch.cuda.device(table.device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError("%s launch failed: cudaError %d" % (name, err))
-    dispatch.count_launch(name)
+    fn = build.launcher(_SOURCES[op], name, n_ptrs, len(args) - n_ptrs)
+    dispatch.launch(name, fn, table.device, args)
 
 
 def _route(op, table, shapes):
-    """True where the kernel runs (CUDA tensors); False for CPU tensors,
-    which take the plain version. Any other device raises."""
-    name = KERNEL_NAMES[(op, table.dtype)]
-    if table.device.type == "cpu":
-        dispatch.record(name, "reference", "cpu tensors", shapes)
-        return False
-    if table.device.type != "cuda":
-        raise ValueError("%s: no kernel for device %s" % (op, table.device))
-    dispatch.record(name, "cuda", "cuda tensors", shapes)
-    return True
+    return dispatch.route(KERNEL_NAMES[(op, table.dtype)], op, table.device,
+                          shapes)
 
 
 def fused_ctx_pool(emb, idx: torch.Tensor, mask: torch.Tensor,

@@ -178,15 +178,10 @@ def launch_sorted(gs, outs, perm, offsets) -> None:
     workspace = torch.empty(lib.scatter_accum_workspace_ints(perm.numel()),
                             dtype=torch.int32, device=perm.device)
     dispatch.record(name, "cuda", "cuda tensors", shapes)
-    with torch.cuda.device(gs[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*g_ptrs, *o_ptrs, *n_rows, *widths, len(gs),
-                 perm.data_ptr(), offsets.data_ptr(),
-                 int(out_dtype == torch.bfloat16), workspace.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError("%s launch failed: cudaError %d" % (name, err))
-    dispatch.count_launch(name)
+    dispatch.launch(name, fn, gs[0].device, (
+        *g_ptrs, *o_ptrs, *n_rows, *widths, len(gs), perm.data_ptr(),
+        offsets.data_ptr(), int(out_dtype == torch.bfloat16),
+        workspace.data_ptr()))
 
 
 def scatter_accum3(idx3: torch.Tensor, g_clip: torch.Tensor,

@@ -11,25 +11,42 @@ two ``torch.Generator``s seeded from (seed, e * 100003 + i), as the JAX
 package folds its key. The ``tr_sum_max`` curriculum flips at epoch 20
 (ref :49-51).
 
-Not ported yet, and raised rather than skipped: cadence evaluation on
-``val_dataset``/``test_dataset`` (the eval-sweep cadence; the sweep
-itself is evaluation/packed.evaluate_packed), a device mesh
-(multi-GPU slice), dense batches, and checkpoint writing. The one-dispatch
-epoch sweep of the JAX package is not ported.
+Every ``test_fr`` epochs, with a ``val_dataset``, the cadence evaluation
+(ref :75-91) runs the packed sweep (evaluation/packed.evaluate_packed;
+``host_eval``: the per-batch host loop, evaluation/runner.evaluate) on the
+train split (with the training tables) and on val; a val result that
+improves some metric goes to the ``BestNSaver`` (checkpoint/saver.py,
+loss dropped) and triggers the test split's evaluation. Each split is
+materialized once per run. Checkpoints go under ``cfg.paths.store_root``:
+the best-n files and ``index.json`` (``save_model``; every 30 epochs too
+with ``save_model_often``), ``latest.pth.tar`` every ``checkpoint_every``
+epochs, and ``<epochs-1>.pth.tar`` at the end, each a ``torch.save`` of
+``{'epoch', 'state_dict', 'optimizer'}``.
+
+As in the JAX package, the epoch iterator starts at epoch 0 whatever
+``start_epoch`` is: a resumed run replays the shuffle order of epoch 0
+onwards while its step generators follow the true epoch (ROADMAP.md queue
+3). Not ported, and raised rather than skipped: a device mesh (multi-GPU
+slice) and dense batches. The one-dispatch epoch sweep of the JAX package
+is not ported.
 """
 
 from __future__ import annotations
 
+import os.path as ops
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from lirec_tpu_torch.utils.meters import Averaging, MetricsLogger
+from lirec_tpu_torch.checkpoint.saver import BestNSaver, save_train_state
 from lirec_tpu_torch.data.localize import Localizer
 from lirec_tpu_torch.data.pipeline import EpochIterator
+from lirec_tpu_torch.evaluation.packed import evaluate_packed
+from lirec_tpu_torch.evaluation.runner import evaluate
 from lirec_tpu_torch.train.optim import make_optimizer
+from lirec_tpu_torch.utils.meters import Averaging, MetricsLogger
 
 __all__ = ["train", "make_train_step", "step_generators"]
 
@@ -137,27 +154,25 @@ def train(
     checkpoint_every: int = 0,
     drop_last: bool = False,
     mesh=None,
+    host_eval: bool = False,
     localize_tables: Optional[bool] = None,
+    eval_localize=None,
 ) -> Dict:
     """Run the epoch loop on ``bundle.model``'s device; returns {'model',
-    'optimizer', 'losses' (mean per epoch), 'localized_tables'}.
+    'optimizer', 'saver', 'losses' (mean per epoch), 'final_path',
+    'localized_tables'}.
 
     `tables` default to the dataset's (``train_dataset.tables``); they are
     moved to the device once. `optimizer` defaults to ``make_optimizer``
-    over the model's parameters (pass one to resume, e.g. with a state from
-    checkpoint.opt_state_from_jax)."""
+    over the model's parameters (pass one to resume, with its state from a
+    train checkpoint or checkpoint.opt_state_from_jax). `eval_localize` is
+    the cadence sweep's ``localize_ctx``."""
     o, t = cfg.optim, cfg.tasks
     later = []
-    if val_dataset is not None or test_dataset is not None:
-        later.append("cadence evaluation on val/test datasets (the "
-                     "eval-sweep cadence of train())")
     if mesh is not None:
         later.append("a device mesh (multi-GPU slice)")
     if dense:
         later.append("dense batches")
-    if cfg.paths.store_root and (o.save_model or checkpoint_every):
-        later.append("checkpoint writing (save_model / checkpoint_every "
-                     "with a store_root)")
     if later:
         raise NotImplementedError("lirec_tpu_torch.train does not port "
                                   "yet: " + "; ".join(later))
@@ -165,7 +180,7 @@ def train(
     device = next(model.parameters()).device
     if tables is None:
         tables = train_dataset.tables.as_dict()
-    tables = {k: torch.as_tensor(np.asarray(tables[k], np.float32),
+    tables = {k: torch.as_tensor(tables[k], dtype=torch.float32,
                                  device=device)
               for k in ("text", "visual", "track")}
     if optimizer is None:
@@ -181,6 +196,27 @@ def train(
                              drop_last=drop_last)
     tr_sum_max_flag = t.tr_sum_max_flag
     metrics_log = MetricsLogger(metrics_log_path)
+    store = cfg.paths.store_root
+    saver = BestNSaver(path=store, n=o.keep_best_n)
+    eval_data: Dict[int, Dict] = {}
+
+    def cadence_eval(ds, mode, tables=None):
+        # datasets without the packed interface keep the host loop
+        if host_eval or not hasattr(ds, "materialize"):
+            return evaluate(ds, bundle, model, cfg, mode=mode, tables=tables,
+                            verbose=verbose)
+        # each split materialized once for the whole run (the train split's
+        # eval-time context draws are frozen with it)
+        data = eval_data.get(id(ds))
+        if data is None:
+            data = eval_data[id(ds)] = ds.materialize()
+        return evaluate_packed(ds, bundle, model, cfg, mode=mode,
+                               tables=tables, verbose=verbose, data=data,
+                               localize_ctx=eval_localize)
+
+    def train_state():
+        return {"state_dict": model.state_dict(),
+                "optimizer": optimizer.state_dict()}
 
     losses = []
     for epoch in range(start_epoch, o.epochs):
@@ -218,9 +254,39 @@ def train(
         metrics_log.log({"epoch": epoch, "loss": losses[-1],
                          "batch_time_avg": batch_time.avg,
                          "data_time_avg": data_time.avg})
+
+        if epoch % o.test_fr == 0 and val_dataset is not None:
+            # each dataset evaluates with its own tables; only the train
+            # split reuses the training ones (ref :75-91)
+            cadence_eval(train_dataset, "train", tables=tables)
+            check_val = {k: v for k, v in cadence_eval(
+                val_dataset, "val").items() if k != "loss"}
+            if saver.check(check_val):
+                saver.update(check_val, dict(train_state(), epoch=epoch),
+                             epoch)
+                if test_dataset is not None:
+                    cadence_eval(test_dataset, "test")
+        if o.save_model and o.save_model_often and epoch % 30 == 0:
+            saver.save()
+        if checkpoint_every and store and (epoch + 1) % checkpoint_every == 0:
+            # a resumable state (the reference has no failure recovery,
+            # SURVEY.md 5.3); --auto-resume picks it up
+            state = train_state()
+            save_train_state(ops.join(store, "latest.pth.tar"),
+                             state["state_dict"], state["optimizer"], epoch)
+
+    final_path = ""
+    if o.save_model and store:
+        final_path = ops.join(store, "%d.pth.tar" % (o.epochs - 1))
+        state = train_state()
+        save_train_state(final_path, state["state_dict"], state["optimizer"],
+                         o.epochs - 1)
+        saver.save()
     return {
         "model": model,
         "optimizer": optimizer,
+        "saver": saver,
         "losses": losses,
+        "final_path": final_path,
         "localized_tables": bool(localizer and localizer.applied),
     }

@@ -234,3 +234,77 @@ def test_one_train_step_on_the_card(cuda, compute):
     assert dispatch.launches(name) == launches + 1
     for n, p in pb.model.named_parameters():
         assert not torch.equal(p.detach(), before[n]), n
+
+
+# ------------------------------------------------ the probes, kernels 9-10
+
+
+def _run_inputs(device, M=37, R=18, Nc=60, Nt=80, Dc=40, Dt=24, seed=3):
+    """f32 tables (widths multiples of 4, not of the block), run-safe
+    starts in idx[:, 0, :], 0/1 weights with an empty row."""
+    emb, idx, mask = _inputs(device, torch.float32, M, R, Nc, Nt, Dc, Dt,
+                             seed)
+    hi = torch.tensor([Nc - R, Nt - R, Nt - R], device=device,
+                      dtype=torch.int32)
+    idx = (idx % (hi + 1)).contiguous()
+    return emb, idx, mask
+
+
+def test_run_pool_kernel_matches_plain_and_the_row_kernel(cuda):
+    """Kernel 9 against its plain version (one-ulp differences from the
+    sum order), and bit for bit against kernel 1 on the explicit run
+    indices with 0/1 weights; a run that leaves its table gives NaN."""
+    from lirec_tpu_torch.ops import probes
+    from lirec_tpu_torch.tools.probe_hbm_dma import run_indices
+
+    emb, idx, mask = _run_inputs(cuda)
+    name = probes.KERNEL_NAMES["run_pool"]
+    before = dispatch.launches(name)
+    got = probes.run_pool(emb, idx, mask)
+    rows = fused_ctx_pool(emb, run_indices(torch, idx), mask, True)
+    torch.cuda.synchronize()
+    assert dispatch.launches(name) == before + 1
+    assert torch.equal(got, rows)
+    want = probes.run_pool_reference(emb, idx, mask)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    bad = idx.clone()
+    bad[2, 0, 1] = emb.tr1.shape[0] - 1  # the run leaves tr1
+    out = probes.run_pool(emb, bad, mask)
+    torch.cuda.synchronize()
+    assert bool(out[2, 40:64].isnan().all())
+    assert not bool(out[2, :40].isnan().any())
+    assert not bool(out[2, 64:].isnan().any())
+
+
+def test_run_pool_raises_instead_of_falling_back(cuda):
+    from lirec_tpu_torch.ops import probes
+
+    emb, idx, mask = _run_inputs(cuda)
+    with pytest.raises(TypeError, match="float32"):
+        probes.run_pool(EmbeddedTables(*(t.bfloat16() for t in emb)), idx,
+                        mask)
+    wide = EmbeddedTables(*(t.repeat(1, 40) for t in emb))  # 3,520 columns
+    with pytest.raises(ValueError, match="shared memory"):
+        probes.run_pool(wide, idx, mask)
+
+
+@pytest.mark.parametrize("n,d,m", [(50, 40, 37), (512, 1024, 64)])
+def test_packed_gather_sum_kernel_matches_plain_version(cuda, n, d, m):
+    """Kernel 10 against its plain version: the same bf16 values summed in
+    f32, within 1e-5 (the TPU probe's bound)."""
+    from lirec_tpu_torch.ops import probes
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    table = torch.randn(n, d, device=cuda, generator=g)
+    idx = torch.randint(0, n, (m, 18), device=cuda, generator=g).to(
+        torch.int32)
+    mask = (torch.rand(m, 18, device=cuda, generator=g) < 0.5).float()
+    packed = probes.pack_bf16(table)
+    assert torch.equal(probes.unpack_bf16(packed), table.bfloat16())
+    name = probes.KERNEL_NAMES["packed_gather_sum"]
+    before = dispatch.launches(name)
+    got = probes.packed_gather_sum(packed, idx, mask)
+    torch.cuda.synchronize()
+    assert dispatch.launches(name) == before + 1
+    want = probes.packed_gather_sum_reference(packed, idx, mask)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

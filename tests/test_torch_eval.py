@@ -225,6 +225,74 @@ def test_evaluate_packed_matches_jax(synth_root, monkeypatch, preset, mode,
             np.testing.assert_array_equal(v, port_carries[0][key], key)
 
 
+def _capture_accumulators(monkeypatch, module, store, key):
+    """Record the integer counters of the accumulators each side hands
+    to summarize_metrics (read after it has summed them)."""
+    orig = module.summarize_metrics
+
+    def counters(acc):
+        if acc is None:
+            return None
+        out = {k: v for k, v in vars(acc).items()
+               if isinstance(v, (int, np.integer)) and k != "n_rels"}
+        if hasattr(acc, "_gt"):  # RelationshipsAcc: labels per hash
+            out["gt"] = dict(acc._gt)
+            out["pr_probs"] = {h: p.copy() for h, p in acc._pr_probs.items()}
+        return out
+
+    def wrapped(t, prec, prec_rels, *args, **kw):
+        res = orig(t, prec, prec_rels, *args, **kw)
+        store[key] = (counters(prec), counters(prec_rels))
+        return res
+
+    monkeypatch.setattr(module, "summarize_metrics", wrapped)
+
+
+@pytest.mark.parametrize("preset,mode,batch_size", [
+    ("int_rel_ch", "test", 8),
+    ("int_ch", "test", 8),
+    ("int_rels", "val", 5),
+])
+def test_host_evaluate_matches_jax(synth_root, monkeypatch, preset, mode,
+                                   batch_size):
+    """The per-batch host loop (--host-eval) on both sides: every integer
+    counter of the accumulators equal, the relationship scores and the
+    metric dict within rtol 2e-6; and the port's host loop gives the port's
+    packed sweep's metric dict."""
+    from lirec_tpu.evaluation import runner as jax_runner
+    from lirec_tpu_torch.evaluation import runner as port_runner
+
+    (jc, jd, jb), (pc, pd, pb) = _pair(synth_root, preset, mode, batch_size)
+    acc = {}
+    _capture_accumulators(monkeypatch, jax_runner, acc, "jax")
+    _capture_accumulators(monkeypatch, port_runner, acc, "port")
+    want = jax_runner.evaluate(jd, jb, jb.params, jc, mode=mode,
+                               verbose=False)
+    got = port_runner.evaluate(pd, pb, pb.model, pc, mode=mode,
+                               verbose=False)
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=2e-6, atol=1e-7,
+                                   err_msg=key)
+    for j, p in zip(acc["jax"], acc["port"]):
+        assert (j is None) == (p is None)
+        if j is None:
+            continue
+        scores_j, scores_p = j.pop("pr_probs", {}), p.pop("pr_probs", {})
+        assert p == j
+        assert set(scores_p) == set(scores_j)
+        for h in scores_j:
+            np.testing.assert_allclose(scores_p[h], scores_j[h], rtol=2e-6,
+                                       atol=1e-7)
+    assert sum(acc["port"][0].values()) > 0  # the samples were counted
+    packed = port_packed.evaluate_packed(pd, pb, pb.model, pc, mode=mode,
+                                         verbose=False)
+    assert set(packed) == set(got)
+    for key in got:
+        np.testing.assert_allclose(got[key], packed[key], rtol=2e-6,
+                                   atol=1e-7, err_msg=key)
+
+
 def test_eval_localize_auto_keeps_the_full_tables(synth_root):
     """localize_ctx=None on the port keeps the full tables, recorded as
     auto (the triple tier measured slower on the card); the plain pools
@@ -281,8 +349,8 @@ def test_bf16_triple_forward_matches_jax(synth_root):
 
 def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
     """The eval CLI with --device cpu on a reference-format checkpoint of
-    seeded weights: finite metric dicts for both splits; flags of what is
-    not ported refuse to run."""
+    seeded weights: finite metric dicts for both splits, the same with
+    --host-eval; flags of what is not ported refuse to run."""
     from lirec_tpu_torch.cli import common, int_rel_ch
 
     ckpt = tmp_path / "weights.pth.tar"
@@ -301,9 +369,16 @@ def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
         assert set(out[split]) == {"total", "ints", "loss", "rels",
                                    "tracks", "joint"}
         assert all(np.isfinite(v) for v in out[split].values())
-    for extra, match in ((["--train"], "--train"),
-                         (["--host-eval"], "--host-eval"),
-                         (["--mesh", "2x1"], "multi-GPU"),
+    host = int_rel_ch.main(args + ["--host-eval"])
+    for split in ("val", "test"):
+        assert set(host[split]) == set(out[split])
+        for key, v in out[split].items():
+            np.testing.assert_allclose(host[split][key], v, rtol=2e-6,
+                                       atol=1e-7, err_msg=key)
+    for extra, match in ((["--mesh", "2x1"], "multi-GPU"),
+                         (["--num-processes", "2"], "multi-GPU"),
+                         (["--assembly-workers", "2"], "AssemblyPool"),
+                         (["--checkpoint-backend", "orbax"], "orbax"),
                          (["--ingest-cache", "x.npz"], "--ingest-cache")):
         with pytest.raises(SystemExit, match=match):
             int_rel_ch.main(args + extra)

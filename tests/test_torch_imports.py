@@ -1,5 +1,6 @@
 """lirec_tpu_torch never imports jax, flax or optax, nor anything of the
-JAX package lirec_tpu, not even transitively or at run time (its target
+JAX package lirec_tpu or of the repo-root tools/ directory (the TPU
+probes), not even transitively or at run time (its target
 machine has no jax; the port carries its own copy of the host tier), and
 chip_smoke.py refuses to run without a CUDA card or without the repository
 around it."""
@@ -25,7 +26,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
 bad = sorted(m for m in sys.modules if m.split(".")[0]
-             in ("jax", "jaxlib", "flax", "optax", "lirec_tpu"))
+             in ("jax", "jaxlib", "flax", "optax", "lirec_tpu", "tools"))
 print(len(names), "modules")
 print("BAD", bad)
 """
@@ -37,7 +38,7 @@ import importlib.abc, sys
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "lirec_tpu"):
+                                  "lirec_tpu", "tools"):
             raise ImportError("blocked: " + name)
         return None
 
@@ -46,6 +47,7 @@ import math, os
 import torch
 from lirec_tpu_torch import config as config_lib
 from lirec_tpu_torch.cli import common, int_rel_ch
+from lirec_tpu_torch.cli import train as train_cli
 from lirec_tpu_torch.cli.serve import build_engine_from_args, make_parser
 from lirec_tpu_torch.data import synthetic
 from lirec_tpu_torch.data.dataset import InteractionDataset
@@ -86,6 +88,18 @@ torch.save({"state_dict": model.state_dict()}, ckpt)
 metrics = int_rel_ch.main(args)
 assert all(math.isfinite(v) for m in metrics.values() for v in m.values())
 print("CLI", sorted(metrics))
+
+store = os.path.join(root, "store")
+out = train_cli.main(["--data-root", root, "--store-root", store,
+                      "--batch-size", "8", "--device", "cpu", "--quiet",
+                      "--sanity-check", "--epochs", "1",
+                      "--checkpoint-every", "1"] + dims)
+assert all(math.isfinite(v) for v in out["train"]["losses"])
+assert os.path.exists(os.path.join(store, "latest.pth.tar"))
+from lirec_tpu_torch.tools import probe_bf16_pack, probe_hbm_dma
+probe_hbm_dma.measure("cpu", n_clips=64, n_tracks=96, m=8)
+probe_bf16_pack.measure("cpu", {"probe": probe_bf16_pack.SHAPES["probe"]})
+print("TRAIN_CLI", out["train"]["losses"])
 """
 
 
@@ -108,15 +122,18 @@ def test_port_imports_no_jax():
 def test_train_runs_with_jax_blocked(tmp_path):
     """In a process where importing jax, jaxlib, optax, flax or anything of
     lirec_tpu raises, on a fixture from the port's own generator: one epoch
-    of the port's train(), the serve CLI's engine builder and the
-    int_rel_ch eval CLI (the run-time paths: assembly plan, Localizer,
-    native libraries, eval localisation, the sweep)."""
+    of the port's train(), the serve CLI's engine builder, the
+    int_rel_ch eval CLI, one epoch of the training CLI with cadence
+    evaluation and checkpoints, and the two probes on the CPU (the
+    run-time paths: assembly plan, Localizer, native libraries, eval
+    localisation, the sweep, the saver)."""
     proc = subprocess.run(
         [sys.executable, "-c", _RUN_WITHOUT_JAX, str(tmp_path / "mg")],
         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "LOSSES [" in proc.stdout, proc.stdout
     assert "ENGINE" in proc.stdout and "CLI ['test', 'val']" in proc.stdout
+    assert "TRAIN_CLI [" in proc.stdout, proc.stdout
 
 
 def _imported_modules(path):
@@ -130,8 +147,9 @@ def _imported_modules(path):
 
 
 def test_port_source_names_no_jax_package_import():
-    """No `import lirec_tpu...` / `from lirec_tpu... import` anywhere in
-    the port or in chip_smoke.py, at any depth of the code."""
+    """No `import lirec_tpu...` / `from lirec_tpu... import` (nor of jax
+    or the repo-root tools/) anywhere in the port or in chip_smoke.py, at
+    any depth of the code."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "lirec_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
@@ -139,7 +157,7 @@ def test_port_source_names_no_jax_package_import():
     bad = [(os.path.relpath(p, ROOT), m) for p in paths
            for m in _imported_modules(p)
            if m.split(".")[0] in ("lirec_tpu", "jax", "jaxlib", "flax",
-                                  "optax")]
+                                  "optax", "tools")]
     assert bad == []
 
 

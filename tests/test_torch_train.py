@@ -10,6 +10,8 @@ deterministic=True (or dropout 0) and dropout is checked for its
 distribution.
 """
 
+import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -464,22 +466,32 @@ def pinned_synth_root(tmp_path_factory):
     return root
 
 
-def _synth_setup(synth_root, batch_size, dropout=0.0, port=False):
+def _synth_setup(synth_root, batch_size, dropout=0.0, port=False,
+                 store_root="", splits=("train",)):
     """(cfg, train dataset) from the JAX package's host tier, or with
-    port=True from the port's own copy of it."""
+    port=True from the port's own copy of it; with more `splits`, (cfg,
+    dataset per split), the eval splits sharing the first one's classes."""
     cfg_lib, synth, dataset = ((port_config, port_synthetic, PortDataset)
                                if port else
                                (config_lib, synthetic, InteractionDataset))
     base = synth.make_config(synth_root)
     cfg = cfg_lib.preset("int_rel_ch", data_root=synth_root)
-    cfg = cfg.replace(dims=base.dims, paths=base.paths).with_runtime(
+    paths = base.paths
+    if store_root:
+        paths = dataclasses.replace(paths, store_root=store_root)
+    cfg = cfg.replace(dims=base.dims, paths=paths).with_runtime(
         compute_dtype="float32"
     ).with_optim(batch_size=batch_size, epochs=2, save_model=False, lr=1e-3,
                  dropout=dropout)
-    ds = dataset(cfg, mode="train")
-    ds.cache()
-    ds.init_relships()
-    return cfg, ds
+    out = []
+    for mode in splits:
+        ds = dataset(cfg, mode=mode)
+        if out:
+            ds.n_classes = out[0].n_classes
+        ds.cache()
+        ds.init_relships()
+        out.append(ds)
+    return (cfg, out[0]) if len(splits) == 1 else (cfg, *out)
 
 
 @pytest.mark.parametrize("plan", [True, False])
@@ -576,15 +588,63 @@ def test_step_generators_are_two_seeded_streams():
     assert not torch.equal(draw[0], draw[4])
 
 
-def test_train_raises_for_what_is_not_ported(synth_root):
-    cfg, ds = _synth_setup(synth_root, 7, port=True)
+def test_train_raises_for_what_is_not_ported(synth_root, tmp_path):
+    """A mesh and dense batches still raise; cadence evaluation on a
+    val_dataset and checkpoint writing, refused before, now run."""
+    cfg, ds = _synth_setup(synth_root, 7, port=True,
+                           store_root=str(tmp_path))
     pb = create_model(cfg, ds.n_classes,
                       n_rels=max(len(ds.rels_list) - 1, 0), device="cpu")
-    for kw, match in ((dict(val_dataset=ds), "eval-sweep"),
-                      (dict(mesh=object()), "multi-GPU"),
-                      (dict(dense=True), "dense"),
-                      (dict(checkpoint_every=1), "checkpoint")):
+    for kw, match in ((dict(mesh=object()), "multi-GPU"),
+                      (dict(dense=True), "dense")):
         with pytest.raises(NotImplementedError, match=match):
             train(cfg, pb, ds, verbose=False, **kw)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        train(cfg.with_optim(save_model=True), pb, ds, verbose=False)
+    out = train(cfg.with_optim(save_model=True, epochs=1), pb, ds,
+                val_dataset=ds, checkpoint_every=1, verbose=False)
+    assert out["final_path"] == str(tmp_path / "0.pth.tar")
+    for name in ("0.pth.tar", "latest.pth.tar", "index.json"):
+        assert (tmp_path / name).exists(), name
+    assert list(out["saver"].eval["total"]) == [0]
+
+
+def test_train_cadence_matches_jax(pinned_synth_root, tmp_path):
+    """Both train() loops (the JAX one per batch) with val and test
+    splits, save_model and a store root, dropout 0, 3 epochs at test_fr 2
+    (cadences at epochs 0 and 2): the savers keep the same epochs with the
+    same metric values per key, and write the same index.json; both end
+    with the final <epochs-1> train state. Near-tie argmaxes do not flip
+    on this pinned fixture at lr 1e-3."""
+    results = {}
+    for port in (False, True):
+        store = str(tmp_path / ("port" if port else "jax"))
+        cfg, ds, val, test = _synth_setup(
+            pinned_synth_root, 8, port=port, store_root=store,
+            splits=("train", "val", "test"))
+        cfg = cfg.with_optim(epochs=3, test_fr=2, save_model=True)
+        n_rels = max(len(ds.rels_list) - 1, 0)
+        if port:
+            pb = create_model(cfg, ds.n_classes, n_rels=n_rels, device="cpu")
+            pb.model.load_state_dict(params_from_jax(
+                jax.tree.map(np.asarray, jb.params)))
+            out = train(cfg, pb, ds, val_dataset=val, test_dataset=test,
+                        verbose=False)
+        else:
+            jb = jax_create_model(cfg, ds.n_classes, n_rels=n_rels)
+            out = jax_train(cfg, jb, ds, val_dataset=val, test_dataset=test,
+                            verbose=False, epoch_sweep=False)
+        with open(os.path.join(store, "index.json")) as f:
+            results[port] = (out, json.load(f))
+    (want, want_index), (got, got_index) = results[False], results[True]
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    assert set(got["saver"].eval) == set(want["saver"].eval)
+    for key, kept in want["saver"].eval.items():
+        assert list(got["saver"].eval[key]) == list(kept), key
+        np.testing.assert_allclose(list(got["saver"].eval[key].values()),
+                                   list(kept.values()), rtol=2e-6,
+                                   err_msg=key)
+    assert sorted(want["saver"].eval["total"]) == [0, 2]
+    assert set(got_index) == set(want_index)
+    for key in want_index:
+        assert list(got_index[key]) == list(want_index[key])
+    assert got["final_path"].endswith("2.pth.tar")
+    assert want["final_path"].endswith("2.ckpt")
