@@ -23,11 +23,13 @@
 6. Holds the scatter-accumulate kernel (the train step's gather_h1
    backward) against its plain version on the card and against the
    in-order sum on the CPU, at the train step's shapes (idx [1280, 18, 3],
-   updates 1024 / 512 wide) into split-scale tables (12,288 / 24,576 rows)
-   and into the Localizer's batch-local tables, with structured indices and
-   with every update sent to 8 rows, f32 and bf16 updates, three tables,
-   flattened and single-table; checks that two launches are bit-identical;
-   prints median times (L2 flushed), the sort apart from the kernel.
+   updates 1024 / 512 wide) into the Localizer's batch-local tables (the
+   train path's own case) and into split-scale tables (12,288 / 24,576
+   rows), with structured indices and with every update sent to 8 rows,
+   f32 and bf16 updates, three tables, flattened and single-table; checks
+   that two launches are bit-identical; prints median times (L2 flushed),
+   the sort apart from the kernel, and each launch's device time inside
+   the op (``torch.profiler``).
 7. Trains int_rel_ch at its published widths on split-scale tables, B = 64
    structured batches through the port's Localizer, in bf16 and f32
    compute: holds one step's gradients against the same step with the
@@ -74,14 +76,21 @@ Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
 batch's local table, and the masked gather-sum (kernel 5, no product
 caller) against its plain version, and times each beside the
-``embedding_bag`` library call that computes the same function.
+``embedding_bag`` library call that computes the same function; and it
+times the 3-table kernel on that batch's own indices, as the eval sweep
+launches it, beside its plain version and three ``embedding_bag`` sums.
 
 Every failure raises. There is no CPU path: without a CUDA device the
 script exits 2. Its last line is one JSON object,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it lists each kernel with its launch count, error, times
 and bound (the larger of the bytes this run's inputs need over 3.35 TB/s
-and the operations over 67 TFLOP/s of f32 arithmetic).
+and the operations over 67 TFLOP/s of f32 arithmetic), at the shapes of
+the path that launches it: the 3-table pool on the eval sweep's batch
+(launches: one off-tier sweep, what ``auto`` runs), the scatter at the
+Localizer's tables (launches: phase 7's steps); the serve path's random
+rows, the giant tables and the split-scale scatter are entries of their
+own (``name@case``).
 """
 
 import json
@@ -255,8 +264,8 @@ def kernel_checks(torch):
     atol = {torch.float32: 2e-6, torch.bfloat16: 1e-5}
     results = {}
     for key, rows, dtypes in (
-        ("split_f32", 1, (torch.float32,)),
-        ("split_bf16", 1, (torch.bfloat16,)),
+        ("random_f32", 1, (torch.float32,)),
+        ("random_bf16", 1, (torch.bfloat16,)),
         ("giant", GIANT, (torch.float32, torch.bfloat16)),
     ):
         errs = []
@@ -322,6 +331,48 @@ def fuse(torch, emb, tri):
     """The local table: each unique triple's [clip | tr1 | tr2] row."""
     return torch.cat([emb.clip[tri[:, 0]], emb.tr1[tri[:, 1]],
                       emb.tr2[tri[:, 2]]], dim=-1)
+
+
+def eval_pool_entry(torch, tag, emb, idx, mask, w, div, ms, atol):
+    """The 3-table pool (kernels 1-3) on the eval sweep's own inputs, a
+    structured batch over split-scale tables, as the off-tier sweep
+    launches it: error against the plain version, its time (`ms`, timed by
+    the caller), plain and library times, and the bound on these indices.
+    The library yardstick, three ``embedding_bag`` sums, a concatenation,
+    the divide and tanh, is timed only: the port never calls it."""
+    import torch.nn.functional as F
+
+    from lirec_tpu_torch.ops.gather_pool import (
+        fused_ctx_pool, fused_ctx_pool_reference,
+    )
+
+    got = fused_ctx_pool(emb, idx, mask, True)
+    torch.cuda.synchronize()
+    want = fused_ctx_pool_reference(emb, idx, mask, True)
+    err = float((got - want).abs().max())
+    check(err <= atol, "3-table pool %s on the eval batch disagrees with "
+          "the plain version: %.3e" % (tag, err))
+    cols = [idx[..., k].contiguous() for k in range(3)]
+
+    def library():
+        return torch.tanh(torch.cat([
+            F.embedding_bag(c, t, per_sample_weights=w, mode="sum")
+            for c, t in zip(cols, emb)], dim=-1).float() / div)
+
+    lib_err = float((library() - got).abs().max())
+    plain = median_ms(torch, lambda: fused_ctx_pool_reference(
+        emb, idx, mask, True))
+    lib = median_ms(torch, library)
+    M, R = idx.shape[:2]
+    moved = (sum(gathered_bytes(t, idx[..., k]) for k, t in enumerate(emb))
+             + nbytes(idx, mask) + M * emb_width(emb) * 4)
+    b = bound(moved, 2 * M * R * emb_width(emb))
+    log("  3-table pool %-4s on the eval batch: max|diff| vs plain %.3e "
+        "(atol %.0e); kernel %.4f ms, plain %.4f ms, 3 x embedding_bag + "
+        "tanh %.4f ms (max|diff| %.1e); bound %.4f ms (%s, %.2f MB)" % (
+            tag, err, atol, ms, plain, lib, lib_err, b["bound_ms"],
+            b["bound_by"], moved / 1e6))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **b)
 
 
 def triple_checks(torch, spec):
@@ -398,6 +449,8 @@ def triple_checks(torch, spec):
                 tag, tier_triple, tier_off))
         results["triple_" + tag] = dict(max_abs_err=max(errs), ms=ms,
                                         plain_ms=plain, library_ms=lib, **b)
+        results["pool_eval_" + tag] = eval_pool_entry(
+            torch, tag, emb, idx, mask, w, div, tier_off, atol[dtype])
 
         # kernel 5: the clip table's masked sum, no epilogue
         table, one = emb.clip, idx[..., 0].contiguous()
@@ -656,8 +709,10 @@ def ctx_idx(torch, batch):
 def scatter_case(torch, label, idx, gs, rows, single):
     """Kernel vs the plain version on the card (index_add_, f32 atomics)
     and vs the in-order sum on the CPU; two launches must be bitwise equal.
-    Returns (max |diff| vs the card's plain version, kernel ms, sort ms,
-    plain ms, bound)."""
+    Returns the entry: max |diff| vs the card's plain version, the kernel's
+    ms (the sort apart), the sort's, the plain version's (``index_add_``,
+    also the library call), each launch's device ms inside the op, and
+    the bound."""
     from lirec_tpu_torch.ops import scatter_accum as sa
 
     if single:
@@ -700,8 +755,9 @@ def scatter_case(torch, label, idx, gs, rows, single):
           % label)
     perm, offsets = sa.sort_by_row(flat, rows_k)
     outs = [torch.empty_like(o) for o in got]
-    ms = median_ms(torch, lambda: sa.launch_sorted(gflat, outs, perm,
-                                                   offsets))
+    launch = lambda: sa.launch_sorted(gflat, outs, perm, offsets)  # noqa: E731
+    ms = median_ms(torch, launch)
+    split = launch_split_ms(torch, launch)
     sort_ms = median_ms(torch, lambda: sa.sort_by_row(flat, rows_k))
     plain_ms = median_ms(torch, plain)
     check(all(torch.equal(a, b) for a, b in zip(outs, got)),
@@ -710,16 +766,51 @@ def scatter_case(torch, label, idx, gs, rows, single):
     adds = sum(g.numel() for g in gflat)
     b = bound(upd + out + nbytes(flat), adds)
     log("  %-44s kernel %.4f ms, sort %.4f ms, plain %.4f ms; bound %.4f "
-        "ms (%s, %.1f MB)" % ("", ms, sort_ms, plain_ms, b["bound_ms"],
-                              b["bound_by"], (upd + out) / 1e6))
-    return err_gpu, ms, sort_ms, plain_ms, b
+        "ms (%s, %.1f MB); device ms per launch inside the op %s" % (
+            "", ms, sort_ms, plain_ms, b["bound_ms"], b["bound_by"],
+            (upd + out) / 1e6, json.dumps(split)))
+    return dict(max_abs_err=err_gpu, ms=ms, sort_ms=sort_ms,
+                plain_ms=plain_ms, library_ms=plain_ms,
+                launch_split_ms=split, **b)
+
+
+def launch_split_ms(torch, fn, reps=10):
+    """Device ms of each launch (kernel or memset) that `fn` makes, by
+    ``torch.profiler``: the mean over `reps` calls, each after the L2
+    flush and the spin of ``median_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(HOLD_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    total = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = evt.name.replace("void ", "").replace(
+            "(anonymous namespace)::", "").split("(")[0]
+        if "spin_kernel" in name or "FillFunctor" in name:
+            continue  # the flush and the spin
+        span = (evt.time_range.end - evt.time_range.start) / 1e3
+        total[name] = total.get(name, 0.0) + span
+    check(total, "the profiler recorded no launch of the op")
+    return {k: v / reps for k, v in sorted(total.items())}
 
 
 def scatter_checks(torch, spec, raw, local, caps):
     """Phase 6, on the ctx indices of one structured batch (`raw`) and of
-    the same batch localized (`local`, tables of `caps` rows). Returns
-    {entry: {max_abs_err, ms, plain_ms}} at split-scale tables (the numbers
-    of the kernels line)."""
+    the same batch localized (`local`, tables of `caps` rows, what the
+    train step scatters into). Returns {entry: {max_abs_err, ms, sort_ms,
+    plain_ms, library_ms, launch_split_ms, bound_ms, bound_by}}: the
+    localized case under the dtype's name (the train path's shapes), the
+    split-scale, flattened and single-table cases under suffixes."""
     idx_full, idx_loc = ctx_idx(torch, raw), ctx_idx(torch, local)
     idx_dup = idx_full % 8  # every update into 8 rows of each table
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -731,29 +822,21 @@ def scatter_checks(torch, spec, raw, local, caps):
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[1]
         gs = [t.to(dtype) for t in base]
-        err, ms, sort_ms, plain_ms, b = scatter_case(
+        # the plain version is index_add_, the library call itself
+        results[tag] = scatter_case(
+            torch, "3 tables at caps %dx%d %s" % (caps[0], caps[1], tag),
+            idx_loc, gs, (caps[0], caps[1], caps[1]), single=False)
+        results[tag + "@split_tables"] = scatter_case(
             torch, "3 tables %dx%d rows %s" % (N_CLIPS, N_TRACKS, tag),
             idx_full, gs, full, single=False)
-        # the plain version is index_add_, the library call itself
-        results[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=plain_ms, sort_ms=sort_ms, **b)
-        scatter_case(torch, "3 tables at caps %dx%d %s" % (caps[0], caps[1],
-                                                           tag),
-                     idx_loc, gs, (caps[0], caps[1], caps[1]), single=False)
         scatter_case(torch, "3 tables, all updates into 8 rows, %s" % tag,
                      idx_dup, gs, full, single=False)
-        err, ms, _, plain_ms, b = scatter_case(
+        results[tag + "@flat"] = scatter_case(
             torch, "flattened [23040, d] %s" % tag, idx_full.reshape(-1, 3),
             [t.reshape(-1, t.shape[-1]) for t in gs], full, single=False)
-        results[tag + "@flat"] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms,
-                                      library_ms=plain_ms, **b)
-        err, ms, _, plain_ms, b = scatter_case(
+        results[tag + "@single_table"] = scatter_case(
             torch, "single table (clip) %s" % tag, idx_full, gs, full,
             single=True)
-        results[tag + "@single_table"] = dict(max_abs_err=err, ms=ms,
-                                              plain_ms=plain_ms,
-                                              library_ms=plain_ms, **b)
     del base, gs
     torch.cuda.empty_cache()
     return results
@@ -938,8 +1021,9 @@ MAX_COUNTER_FLIPS = 8
 
 
 def eval_sweep(torch, spec):
-    """Phase 9. Returns ({triple kernel name: launches of one counted
-    triple sweep}, {(compute, tier): clips/s})."""
+    """Phase 9. Returns ({kernel name: launches of one counted sweep: the
+    3-table kernel's of the off tier (what ``auto`` runs), the triple
+    kernel's of the triple tier}, {(compute, tier): clips/s})."""
     import numpy as np
 
     from lirec_tpu_torch import config as config_lib
@@ -1038,6 +1122,8 @@ def eval_sweep(torch, spec):
                       "%s %s metrics %s" % (compute, tier, metrics))
                 if tier == "triple":
                     counts[tri] = launched[tri]
+                elif not tier:  # auto localisation: the full tables
+                    counts[three] = launched[three]
                 log("  %s localize=%-6s loss %.6f, %d batches, launches %s; "
                     "metrics %s" % (
                         compute, tier, metrics["loss"],
@@ -1476,47 +1562,47 @@ def main():
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
 
-    f32 = KERNEL_NAMES[("fused_ctx_pool", torch.float32)]
-    bf16 = KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)]
-    entries = [
-        (f32, "split_f32", "%s:178" % TPU_SRC),
-        (bf16, "split_bf16", "%s:218" % TPU_SRC),
-        (f32 + "@giant_tables", "giant", "%s:334" % TPU_SRC),
-    ]
     kernels = []
-    for name, key, replaces in entries:
-        launches = counts.get(name.split("@")[0], 0)
-        check(launches > 0, "%s was not launched by the main path" % name)
-        kernels.append({
-            "name": name, "route": "cuda", "source": CU,
-            "replaces": replaces, "launches": launches, **perf[key],
-        })
-    # scatter: one entry per instantiation, as the train path launches it
-    # (three tables); the flattened and single-table cases of phase 6 are
-    # the same kernel and go on a line of their own
-    variants = []
+    # the 3-table pool: the main path is the eval sweep (auto localisation
+    # keeps the full tables), on its own structured batch; the serve path's
+    # random rows and the giant tables are entries of their own
+    for dtype, tag, line in ((torch.float32, "f32", 178),
+                             (torch.bfloat16, "bf16", 218)):
+        name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+        check(eval_counts.get(name, 0) > 0 and counts.get(name, 0) > 0,
+              "%s was not launched by the eval sweep and the server" % name)
+        src = dict(route="cuda", source=CU,
+                   replaces="%s:%d" % (TPU_SRC, line))
+        kernels.append(dict(name=name, launches=eval_counts[name],
+                            path="eval", **src, **triple["pool_eval_" + tag]))
+        kernels.append(dict(name=name + "@random_rows", launches=counts[name],
+                            path="serve", **src, **perf["random_" + tag]))
+    f32 = KERNEL_NAMES[("fused_ctx_pool", torch.float32)]
+    kernels.append(dict(name=f32 + "@giant_tables", route="cuda", source=CU,
+                        replaces="%s:334" % TPU_SRC, launches=counts[f32],
+                        path="serve", **perf["giant"]))
+    # scatter: one entry per instantiation at the train path's shapes (three
+    # tables at the Localizer's caps); the split-scale, flattened (kernel 7)
+    # and single-table (kernel 8) cases of phase 6 are the same kernel on
+    # entries of their own, which no counted path launches
     for dtype, tag in ((torch.float32, "float32"),
                        (torch.bfloat16, "bfloat16")):
         name = scatter_accum.KERNEL_NAMES[dtype]
         launches = train_counts.get(name, 0)
         check(launches > 0, "%s was not launched by the train path" % name)
         r = scatter[tag]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SCATTER_CU,
-            "replaces": "%s:91" % SCATTER_TPU_SRC, "launches": launches,
-            **{k: v for k, v in r.items() if k != "sort_ms"},
-        })
-        # the flattened (kernel 7) and single-table (kernel 8) cases: the
-        # same kernel, held in phase 6 only (the counted paths do not
-        # launch these forms)
-        for suffix, line in (("@flat", 49), ("@single_table", 282)):
-            variants.append({
-                "name": name + suffix, "route": "cuda", "source": SCATTER_CU,
-                "replaces": "%s:%d" % (SCATTER_TPU_SRC, line),
-                "launches": 0, "path": "none", **scatter[tag + suffix]})
-        log("scatter %s: sort %.4f ms beside the kernel's %.4f ms"
-            % (tag, r["sort_ms"], r["ms"]))
-    kernels += variants
+        kernels.append(dict(name=name, route="cuda", source=SCATTER_CU,
+                            replaces="%s:91" % SCATTER_TPU_SRC,
+                            launches=launches, path="train", **r))
+        for suffix, line in (("@split_tables", 91), ("@flat", 49),
+                             ("@single_table", 282)):
+            kernels.append(dict(
+                name=name + suffix, route="cuda", source=SCATTER_CU,
+                replaces="%s:%d" % (SCATTER_TPU_SRC, line), launches=0,
+                path="none", **scatter[tag + suffix]))
+        log("scatter %s at caps: sort %.4f ms beside the kernel's %.4f ms; "
+            "launches inside the op %s" % (tag, r["sort_ms"], r["ms"],
+                                           json.dumps(r["launch_split_ms"])))
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         name = KERNEL_NAMES[("fused_ctx_pool_triple", dtype)]
         check(eval_counts.get(name, 0) > 0,

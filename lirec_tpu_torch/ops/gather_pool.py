@@ -18,6 +18,22 @@ are ``csrc/fused_ctx_pool_triple.cu``. Each is instantiated for float32 and
 bfloat16 tables and accumulates in float32; the pools write float32, the
 masked sum the table's dtype.
 
+The 3-table kernel (redesigned for Hopper) replaces the three TPU tiers
+(``_make_fused_kernel``, ``_make_fused_packed_kernel``,
+``_make_fused_hbm_kernel``). Its bytes bound counts each distinct row
+once, but every pooled row gathers its own R rows of each table, so what
+holds it is the traffic from L2 into the SMs (141.6 / 70.8 MB f32 / bf16
+at the eval sweep's shapes). It gives each thread 16-byte lanes (4 f32
+or 8 bf16 columns of one table) of a few pooled rows per block and
+issues a chunk of gathered rows' loads ahead of each add chain. The
+arithmetic is fixed, operation for operation: per column an
+``__fadd_rn`` chain of ``__fmul_rn(w_r, x_r)`` in r order, the divider
+the weights' sum in r order, ``tanhf`` of the product with its
+reciprocal. That keeps the triple kernel, the run-pool probe and the
+three eval tiers bitwise equal to it. What it reads in 16-byte lanes
+and how many pooled rows a block takes is host logic
+(``rows_aligned``, ``pool_plan``), tested on the CPU.
+
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version (``*_reference``) only for CPU tensors. For a CUDA tensor it
 launches or raises: a missing nvcc or a failed build is an error.
@@ -31,7 +47,7 @@ import torch
 from lirec_tpu_torch.ops import dispatch
 
 __all__ = [
-    "fused_ctx_pool", "fused_ctx_pool_reference",
+    "fused_ctx_pool", "fused_ctx_pool_reference", "pool_plan", "rows_aligned",
     "fused_ctx_pool_triple", "fused_ctx_pool_triple_reference",
     "gather_masked_sum", "gather_masked_sum_reference", "KERNEL_NAMES",
 ]
@@ -44,6 +60,31 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL_NAMES = {(op, dt): "%s_%s" % (op, tag)
                 for op in _SOURCES for dt, tag in _DTYPES.items()}
 MAX_CONTEXT = 2048  # at most 16 bytes of shared memory per context entry
+# csrc/fused_ctx_pool.cu: threads per block; the plan aims at this many
+# 16-byte lanes per thread, within 48 KB of staged indices and weights
+POOL_THREADS = 128
+POOL_LANES_PER_THREAD = 3
+POOL_SMEM_BYTES = 48 * 1024
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every row of the contiguous 2-D tensor `t` is whole 16-byte
+    vectors on 16-byte boundaries: the base address and the row's bytes
+    are multiples of 16."""
+    return t.data_ptr() % 16 == 0 and t.shape[-1] * t.element_size() % 16 == 0
+
+
+def pool_plan(M: int, R: int, d_clip: int, d_tr: int, elem_size: int,
+              vec_clip: bool, vec_tr: bool) -> dict:
+    """Launch geometry of the 3-table kernel: lanes per pooled row, pooled
+    rows per block (about POOL_LANES_PER_THREAD lanes per thread, and
+    their R index triples and weights within POOL_SMEM_BYTES), blocks."""
+    n = 16 // elem_size
+    lanes = ((d_clip // n if vec_clip else d_clip)
+             + 2 * (d_tr // n if vec_tr else d_tr))
+    rows = max(1, POOL_THREADS * POOL_LANES_PER_THREAD // lanes)
+    rows = min(rows, max(1, POOL_SMEM_BYTES // (16 * R)))
+    return dict(lanes=lanes, rows_per_block=rows, blocks=-(-M // rows))
 
 
 def fused_ctx_pool_reference(emb, idx, mask, guard_zero: bool):
@@ -138,10 +179,15 @@ def fused_ctx_pool(emb, idx: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((M, d_clip + 2 * d_tr), dtype=torch.float32,
                       device=emb.clip.device)
     if M:
+        vec_clip = rows_aligned(emb.clip)
+        vec_tr = rows_aligned(emb.tr1) and rows_aligned(emb.tr2)
+        plan = pool_plan(M, R, d_clip, d_tr, emb.clip.element_size(),
+                         vec_clip, vec_tr)
         _launch("fused_ctx_pool", emb.clip, 6, (
             emb.clip.data_ptr(), emb.tr1.data_ptr(), emb.tr2.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), out.data_ptr(), M, R, d_clip,
-            d_tr, int(bool(guard_zero))))
+            d_tr, int(bool(guard_zero)), plan["rows_per_block"],
+            int(vec_clip), int(vec_tr)))
     return out
 
 

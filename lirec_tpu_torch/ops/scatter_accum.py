@@ -14,10 +14,22 @@ backward runs it.
 The kernel wants the updates grouped by destination row: a stable sort of
 the row ids (``sort_by_row``, PyTorch's own sort) gives the permutation
 and each row's segment, and the kernel then sums every segment in update
-order (a block per row, and the few rows with long segments, such as the
-row every masked ctx slot points at, split over column tiles). The result
-is bitwise the plain version's in-order sum on the CPU, and it does not
-change from run to run (f32 atomics would).
+order. That order is part of the result: each output column is one f32
+chain over its row's updates, so the sum is bitwise the plain version's
+in-order sum on the CPU (and the JAX kernels'), and it does not change
+from run to run (f32 atomics would).
+
+What bounds it on the card is bytes (each update read once, each output
+written once), and on the row every masked ctx slot points at (a quarter
+of the updates) the length of that chain. The Hopper design (see the
+source's header): a one-block plan kernel lists the column tiles of the
+long segments; then, at once on two streams, one block per such tile
+streams its update rows through a shared-memory ring with 16-byte
+``cp.async`` copies while one warp adds them in order, and warps sum the
+short segments from per-lane rings of 16-byte copies, writing untouched
+rows as zeros. How the work is cut (``scatter_plan``) and which tables
+take 16-byte vectors (``rows_aligned``) is host logic, tested on the
+CPU.
 
 ``scatter_accum3`` and ``scatter_accum1`` launch the kernel for CUDA
 tensors and take the plain versions (``scatter_accum3_reference``,
@@ -35,6 +47,7 @@ from typing import Sequence
 import torch
 
 from lirec_tpu_torch.ops import dispatch
+from lirec_tpu_torch.ops.gather_pool import rows_aligned
 
 __all__ = [
     "KERNEL_NAMES",
@@ -44,6 +57,7 @@ __all__ = [
     "scatter_accum1_reference",
     "scatter_accum3",
     "scatter_accum3_reference",
+    "scatter_plan",
     "sort_by_row",
 ]
 
@@ -53,6 +67,12 @@ _SYMBOLS = {torch.float32: "scatter_accum_f32",
 # launch-count keys, one per instantiation (by update dtype)
 KERNEL_NAMES = dict(_SYMBOLS)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+# csrc/scatter_accum.cu's constants (checked against the built library):
+# the longest segment a warp sums, a hot tile's bytes of an update row,
+# the consecutive rows of one warp item
+SHORT_MAX = 32
+HOT_ROW_BYTES = 128
+RUN_ROWS = 8
 
 
 def scatter_accum1_reference(idx, g, n_rows: int) -> torch.Tensor:
@@ -95,6 +115,28 @@ def sort_by_row(idx: torch.Tensor, rows: Sequence[int]):
     return perm, offsets
 
 
+def scatter_plan(rows: Sequence[int], widths: Sequence[int], elem_size: int,
+                 n_positions: int, vec: Sequence[bool]) -> dict:
+    """How the kernel cuts the work, per table t (rows[t] x widths[t]
+    outputs, updates of elem_size bytes, read in 16-byte vectors where
+    vec[t]): a warp sums one column tile (32 lanes of 16 / elem_size
+    columns, 1 where not vec; `tiles` per row) of RUN_ROWS consecutive
+    rows, an item; `items` in all, table after table, (run, tile)
+    row-major. A segment of over SHORT_MAX updates is summed
+    in hot tiles of HOT_ROW_BYTES / elem_size columns (`hot_tiles` per
+    row); `hot_cap` bounds the hot tiles of any n_positions updates and
+    sizes the int32 workspace (`workspace_ints`)."""
+    n = 16 // elem_size
+    tiles = [-(-d // (32 * (n if v else 1))) for d, v in zip(widths, vec)]
+    hot_cols = HOT_ROW_BYTES // elem_size
+    hot_tiles = [-(-d // hot_cols) for d in widths]
+    cap = n_positions // (SHORT_MAX + 1) * max(hot_tiles, default=0)
+    return dict(tiles=tiles, hot_tiles=hot_tiles, hot_cols=hot_cols,
+                items=sum(-(-r // RUN_ROWS) * t for r, t in zip(rows, tiles)),
+                hot_cap=cap,
+                workspace_ints=1 + 2 * cap)
+
+
 def _check(idx, gs, rows, out_dtype):
     dev = idx.device
     dtype = gs[0].dtype
@@ -124,6 +166,8 @@ def _check(idx, gs, rows, out_dtype):
             raise ValueError("scatter_accum: row width must fit an int32")
     if sum(rows) >= 2**31:
         raise ValueError("scatter_accum: at most 2**31 - 1 output rows")
+    if idx.numel() >= 2**31:
+        raise ValueError("scatter_accum: at most 2**31 - 1 row ids")
 
 
 def _library():
@@ -131,15 +175,23 @@ def _library():
     from lirec_tpu_torch.ops import build
 
     lib = build.load(_SOURCE)
-    ws = lib.scatter_accum_workspace_ints
-    if ws.argtypes is None:
+    config = lib.scatter_accum_config
+    if config.argtypes is None:
         for symbol in _SYMBOLS.values():
             fn = getattr(lib, symbol)
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
                            + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-                           + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+                           + [ctypes.c_int64] + [ctypes.c_int] * 2
+                           + [ctypes.c_int64] + [ctypes.c_void_p] * 2)
             fn.restype = ctypes.c_int
-        ws.argtypes, ws.restype = [ctypes.c_int64], ctypes.c_int64
+        config.argtypes, config.restype = [ctypes.c_void_p], None
+        got = (ctypes.c_int * 5)()
+        config(ctypes.cast(got, ctypes.c_void_p))
+        want = (SHORT_MAX, HOT_ROW_BYTES, RUN_ROWS)
+        if tuple(got[:3]) != want:
+            raise RuntimeError("scatter_accum.cu has kShort, kHotRowBytes, "
+                               "kRun %s; the wrapper plans for %s"
+                               % (tuple(got[:3]), want))
     return lib
 
 
@@ -160,7 +212,11 @@ def _scatter(idx, gs, rows, out_dtype):
 def launch_sorted(gs, outs, perm, offsets) -> None:
     """The kernel alone, on updates already ordered by ``sort_by_row``:
     gs [M, d_t] updates (1 or 3 tables, one dtype, contiguous, on one CUDA
-    device), outs [rows_t, d_t] preallocated float32 or bfloat16 outputs."""
+    device), outs [rows_t, d_t] preallocated contiguous float32 or
+    bfloat16 outputs."""
+    if len(gs) not in (1, 3):
+        raise ValueError("scatter_accum launches 1 or 3 tables; got %d"
+                         % len(gs))
     name = KERNEL_NAMES[gs[0].dtype]
     out_dtype = outs[0].dtype
     shapes = dict(updates=tuple(gs[0].shape[:-1]),
@@ -174,14 +230,19 @@ def launch_sorted(gs, outs, perm, offsets) -> None:
     widths = [g.shape[-1] for g in gs] + [0] * pad
     lib = _library()
     fn = getattr(lib, _SYMBOLS[gs[0].dtype])
-    # the kernel's list of rows with long segments
-    workspace = torch.empty(lib.scatter_accum_workspace_ints(perm.numel()),
-                            dtype=torch.int32, device=perm.device)
+    vec = [rows_aligned(g) for g in gs]
+    flags = sum((v << t) | ((v and o.data_ptr() % 16 == 0) << (3 + t))
+                for t, (v, o) in enumerate(zip(vec, outs)))
+    plan = scatter_plan(n_rows[:len(gs)], widths[:len(gs)],
+                        gs[0].element_size(), perm.numel(), vec)
+    # the plan kernel's list of hot tiles, and their count
+    workspace = torch.empty(plan["workspace_ints"], dtype=torch.int32,
+                            device=perm.device)
     dispatch.record(name, "cuda", "cuda tensors", shapes)
     dispatch.launch(name, fn, gs[0].device, (
         *g_ptrs, *o_ptrs, *n_rows, *widths, len(gs), perm.data_ptr(),
-        offsets.data_ptr(), int(out_dtype == torch.bfloat16),
-        workspace.data_ptr()))
+        offsets.data_ptr(), perm.numel(), int(out_dtype == torch.bfloat16),
+        flags, plan["hot_cap"], workspace.data_ptr()))
 
 
 def scatter_accum3(idx3: torch.Tensor, g_clip: torch.Tensor,

@@ -16,9 +16,10 @@ It prints
 - the idle share: 1 - busy / the median of the unprofiled steps of the
   same run (profiling slows the host, so the profiled steps' own wall time
   would overstate it);
-- the scatter kernel (``row_kernel`` + ``hot_kernel``) and its sort (cub
-  radix sort + ``searchsorted`` kernels), in µs per step and as shares of
-  device busy;
+- the scatter's kernels (``scatter_plan_kernel``, ``scatter_hot_kernel``,
+  ``scatter_short_kernel``, the last two concurrent) and its sort (cub
+  radix sort + ``searchsorted`` kernels), each group as the union of its
+  spans in µs per step and as a share of device busy;
 - the profiler's table of the largest device items.
 
 Needs a CUDA card; exits 2 without one.
@@ -32,7 +33,8 @@ import time
 
 N_CLIPS, N_TRACKS, BATCH = 12288, 24576, 64
 WARMUP, STEPS, PROFILED = 3, 10, 5
-SCATTER_KERNELS = ("row_kernel<", "hot_kernel<")
+SCATTER_KERNELS = ("scatter_plan_kernel", "scatter_hot_kernel<",
+                   "scatter_short_kernel<")
 SORT_KERNELS = ("RadixSort", "searchsorted")
 
 
@@ -105,8 +107,8 @@ def profile(compute: str) -> dict:
         raise RuntimeError("the profiler recorded no kernel on the card")
 
     def per_step(names):
-        return sum(e - s for n, s, e in spans
-                   if any(k in n for k in names)) / PROFILED
+        return _union_us((s, e) for n, s, e in spans
+                         if any(k in n for k in names)) / PROFILED
 
     step_ms = statistics.median(times)
     busy_us = _union_us((s, e) for _, s, e in spans) / PROFILED

@@ -68,6 +68,63 @@ def test_kernel_matches_plain_version(cuda, dtype, atol, guard):
     torch.testing.assert_close(got, want, rtol=0, atol=atol, equal_nan=True)
 
 
+def _off16(t):
+    """A contiguous copy of `t` whose rows start off a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = flat[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+def _edge_inputs(device, dtype, R, Dc, Dt, M=41, Nc=60, Nt=80, seed=5):
+    """Indices with heavy duplicates, 0/1 and fractional weights, and two
+    rows without context (3 and the last)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    emb = EmbeddedTables(*(
+        torch.randn(n, d, device=device, generator=g).to(dtype)
+        for n, d in ((Nc, Dc), (Nt, Dt), (Nt, Dt))))
+    idx = torch.stack(
+        [torch.randint(0, n, (M, R), device=device, generator=g)
+         for n in (Nc, Nt, Nt)], dim=-1).to(torch.int32).contiguous()
+    mask = (torch.rand(M, R, device=device, generator=g) < 0.6).float()
+    mask[1::3] *= 0.25 + torch.rand(M, R, device=device, generator=g)[1::3]
+    mask[:, 0] = 1.0
+    mask[3] = 0.0
+    mask[-1] = 0.0
+    return emb, idx, mask
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("widths", [(1024, 256), (1000, 250)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 7, 18, 19, 64])
+def test_pool_edges_bitwise_the_triple_kernel(cuda, R, dtype, widths,
+                                              offset):
+    """The 3-table kernel's 16-byte lanes and their scalar tail: R around
+    its load chunk (9), widths that are and are not whole 16-byte vectors
+    (1000 / 250: vectors in clip, scalar columns in the tracks), tables
+    whose rows start off a 16-byte boundary, guard on and off with empty
+    rows. Bit for bit the triple kernel on the same rows (the same
+    operations in the same order), and within one ulp of the plain
+    version."""
+    emb, idx, mask = _edge_inputs(cuda, dtype, R, *widths)
+    fused, tidx = _triple_of(emb, idx)
+    if offset:
+        emb = EmbeddedTables(*(_off16(t) for t in emb))
+    atol = 2e-6 if dtype == torch.float32 else 1e-5
+    for guard in (True, False):
+        got = fused_ctx_pool(emb, idx, mask, guard)
+        tri = fused_ctx_pool_triple(fused, tidx, mask, guard)
+        torch.cuda.synchronize()
+        assert torch.equal(got.isnan(), tri.isnan())
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(tri))
+        assert bool(got[3].isnan().all()) != guard
+        want = fused_ctx_pool_reference(emb, idx, mask, guard)
+        torch.testing.assert_close(got, want, rtol=0, atol=atol,
+                                   equal_nan=True)
+
+
 def test_kernel_raises_instead_of_falling_back(cuda):
     emb, idx, mask = _inputs(cuda, torch.float32)
     with pytest.raises(ValueError, match="int32"):
@@ -149,9 +206,9 @@ def test_scatter_kernel_matches_in_order_sum(cuda, dtype, dup_rows):
     """Three tables: bitwise the plain version's in-order sum on the CPU,
     within 1e-5 of scale of index_add_ on the card (whose atomics sum in
     another order), and bitwise equal over two launches; bf16 output is
-    the f32 sum rounded. dup_rows=1 puts 414 updates into one row: past the
-    row kernel's 128 and the long-row kernel's 256-update chunk, with a
-    width (520) that ends in a partial 16-column tile."""
+    the f32 sum rounded. dup_rows=1 puts 414 updates into one row: a long
+    segment summed in hot tiles through the shared-memory ring, with a
+    width (520) that ends in a partial hot tile and a partial warp tile."""
     idx, gs = _updates(cuda, dtype, dup_rows=dup_rows)
     name = sa.KERNEL_NAMES[dtype]
     before = dispatch.launches(name)
@@ -180,6 +237,106 @@ def test_single_table_kernel_matches_in_order_sum(cuda, dtype):
     want = sa.scatter_accum1_reference(one.cpu(), gs[1].cpu(), 9)
     assert torch.equal(got.cpu(), want)
     assert bool((got[3:] == 0).all())  # untouched rows are written as zeros
+
+
+def _hot_updates(device, dtype, hot_len, n_rows=40, others=300, d=520,
+                 seed=7):
+    """One table: `hot_len` updates into row 0 at random positions among
+    `others` into rows 1.. (short segments)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = hot_len + others
+    idx = torch.randint(1, n_rows, (n,), device=device, generator=g)
+    idx[torch.randperm(n, device=device, generator=g)[:hot_len]] = 0
+    upd = torch.randn(n, d, device=device, generator=g).to(dtype)
+    return idx.to(torch.int32), upd
+
+
+def _assert_in_order(got, idx, upd, n_rows):
+    want = sa.scatter_accum1_reference(idx.cpu(), upd.cpu(), n_rows)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("hot_len", [31, 32, 33, 127, 128, 129, 255, 256,
+                                     257, 767, 768, 769, 6543])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_long_segments_at_their_boundaries(cuda, dtype, hot_len):
+    """A row whose update count straddles the kernel's boundaries: the
+    longest short segment (32), a ring stage (128 update rows), a
+    copier's cycle of update positions (two stages), the ring (six), and
+    the padding row's 6,543. Width 520: a partial hot tile (32 f32 / 64 bf16
+    columns) and a partial warp tile. Bitwise the in-order sum on the CPU,
+    and two launches bitwise equal."""
+    assert sa.SHORT_MAX == 32
+    idx, upd = _hot_updates(cuda, dtype, hot_len)
+    got = sa.scatter_accum1(idx, upd, 40)
+    again = sa.scatter_accum1(idx, upd, 40)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_in_order(got, idx, upd, 40)
+
+
+@pytest.mark.parametrize("per_row", [1, 2, 13, 14, 15, 16, 17, 31, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_short_runs_around_the_lane_ring(cuda, dtype, per_row):
+    """Every row of 21 with the same number of updates, shuffled: a warp's
+    run of 8 rows is one walk of 8 x per_row positions, around the depth of
+    a lane's copy ring (14 ahead in 16 slots) and over several chunks of 32
+    update positions (up to 256 at 32 per row). Bitwise the in-order sum
+    on the CPU, and two launches bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(per_row)
+    idx = torch.arange(21, device=cuda).repeat_interleave(per_row)
+    idx = idx[torch.randperm(idx.numel(), device=cuda, generator=g)]
+    upd = torch.randn(idx.numel(), 520, device=cuda, generator=g).to(dtype)
+    idx = idx.to(torch.int32)
+    got = sa.scatter_accum1(idx, upd, 21)
+    again = sa.scatter_accum1(idx, upd, 21)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_in_order(got, idx, upd, 21)
+
+
+@pytest.mark.parametrize("case", ["one_row", "no_updates", "sparse_rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_degenerate_segments(cuda, dtype, case):
+    """Every update into one row (each table), no update at all, and a
+    table of more rows than updates (most rows written as zeros)."""
+    n, rows = {"one_row": (700, 5), "no_updates": (0, 9),
+               "sparse_rows": (12, 3000)}[case]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    if case == "one_row":
+        idx = torch.full((n, 3), rows - 1, dtype=torch.int32, device=cuda)
+    else:
+        idx = torch.randint(0, rows, (n, 3), device=cuda,
+                            generator=g).to(torch.int32)
+    gs = [torch.randn(n, d, device=cuda, generator=g).to(dtype)
+          for d in (1040, 520, 520)]
+    got = sa.scatter_accum3(idx, *gs, rows, rows)
+    again = sa.scatter_accum3(idx, *gs, rows, rows)
+    torch.cuda.synchronize()
+    want = sa.scatter_accum3_reference(idx.cpu(), *(x.cpu() for x in gs),
+                                       rows, rows)
+    for k, a, w in zip(got, again, want):
+        assert torch.equal(k, a) and torch.equal(k.cpu(), w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_unaligned_updates(cuda, dtype):
+    """Updates that are not whole 16-byte vectors on 16-byte boundaries
+    take the kernel's scalar loads: widths 1000 / 250 (the tracks'
+    rows are not 16-byte multiples) and updates off a 16-byte boundary,
+    with a long segment (every update of 4 rows)."""
+    idx, gs = _updates(cuda, dtype, N=40, R=18, widths=(1000, 250),
+                       dup_rows=4)
+    gs = [_off16(x) for x in gs]
+    got = sa.scatter_accum3(idx, *gs, 50, 70)
+    again = sa.scatter_accum3(idx, *gs, 50, 70)
+    as_bf16 = sa.scatter_accum3(idx, *gs, 50, 70, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    want = sa.scatter_accum3_reference(idx.cpu(), *(x.cpu() for x in gs),
+                                       50, 70)
+    for k, a, b, w in zip(got, again, as_bf16, want):
+        assert torch.equal(k, a) and torch.equal(k.cpu(), w)
+        assert torch.equal(b, k.to(torch.bfloat16))
 
 
 def test_gather_h1_backward_launches_the_kernel(cuda):

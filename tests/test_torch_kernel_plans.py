@@ -1,0 +1,167 @@
+"""The host half of the redesigned 3-table pool and scatter kernels, on the
+CPU: which tables are read in 16-byte vectors, how a pooled row is cut
+into lanes, and how the scatter's work is cut into warp items and hot
+tiles. Each is held against a plain enumeration, so that what surrounds
+the kernels stays covered where there is no card (the kernels themselves
+are held on the card: tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lirec_tpu_torch.ops import gather_pool as gp
+from lirec_tpu_torch.ops import scatter_accum as sa
+
+
+def _view(dtype, n, d, offset):
+    """A contiguous [n, d] view starting `offset` elements into a buffer."""
+    flat = torch.zeros(n * d + 16, dtype=dtype)
+    return flat[offset:offset + n * d].view(n, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_aligned_matches_an_enumeration_of_the_rows(dtype):
+    """True exactly where every row is whole 16-byte vectors starting on
+    16-byte boundaries (every row's first and last byte enumerated); the
+    pool's and the scatter's wrappers decide with the same function."""
+    assert sa.rows_aligned is gp.rows_aligned
+    rows_aligned = gp.rows_aligned
+    esize = torch.tensor([], dtype=dtype).element_size()
+    seen = set()
+    for d in (1, 3, 4, 8, 250, 256, 1000, 1024):
+        for offset in range(9):
+            t = _view(dtype, 5, d, offset)
+            starts = [t.data_ptr() + r * d * esize for r in range(5)]
+            want = all(s % 16 == 0 and (s + d * esize) % 16 == 0
+                       for s in starts)
+            assert rows_aligned(t) == want, (d, offset)
+            seen.add(want)
+    assert seen == {True, False}
+
+
+def _pool_lanes(d_clip, d_tr, elem_size, vec_clip, vec_tr):
+    """The 3-table kernel's lanes of one pooled row, enumerated as the
+    kernel walks them: (table 0-2, first column in the table, columns); a
+    table read in 16-byte vectors has lanes of 16 / elem_size columns, any
+    other one column per lane."""
+    lanes = []
+    for t, (d, vec) in enumerate(((d_clip, vec_clip), (d_tr, vec_tr),
+                                  (d_tr, vec_tr))):
+        n = 16 // elem_size if vec else 1
+        lanes += [(t, c, n) for c in range(0, d, n)]
+    return lanes
+
+
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("d_clip,d_tr", [(1024, 256), (1000, 250), (40, 24),
+                                         (3, 5)])
+@pytest.mark.parametrize("vec_clip,vec_tr", [(True, True), (True, False),
+                                             (False, False)])
+def test_pool_lanes_cover_every_output_column_once(esize, d_clip, d_tr,
+                                                   vec_clip, vec_tr):
+    """Lanes of a pooled row: every column of the output row exactly once,
+    a vector lane inside its table and starting at a multiple of its
+    width; the plan counts the same lanes."""
+    n = 16 // esize
+    vec_clip = vec_clip and d_clip % n == 0  # the wrapper's precondition
+    vec_tr = vec_tr and d_tr % n == 0
+    lanes = _pool_lanes(d_clip, d_tr, esize, vec_clip, vec_tr)
+    widths = (d_clip, d_tr, d_tr)
+    start = (0, d_clip, d_clip + d_tr)
+    hits = np.zeros(d_clip + 2 * d_tr, dtype=int)
+    for t, c, k in lanes:
+        assert k == (n if (vec_clip if t == 0 else vec_tr) else 1)
+        assert c % k == 0 and c + k <= widths[t]
+        hits[start[t] + c:start[t] + c + k] += 1
+    assert (hits == 1).all()
+    plan = gp.pool_plan(1280, 18, d_clip, d_tr, esize, vec_clip, vec_tr)
+    assert plan["lanes"] == len(lanes)
+
+
+@pytest.mark.parametrize("M,R", [(1280, 18), (7, 1), (41, 64), (3, 2048)])
+@pytest.mark.parametrize("esize", [4, 2])
+def test_pool_plan_blocks_cover_the_rows_within_shared_memory(M, R, esize):
+    """Every pooled row in exactly one block; a block's staged indices and
+    weights (16 bytes per entry) within 48 KB; about three lanes per
+    thread where the row is narrow enough."""
+    plan = gp.pool_plan(M, R, 1024, 256, esize, True, True)
+    rows = plan["rows_per_block"]
+    covered = sorted(b * rows + i for b in range(plan["blocks"])
+                     for i in range(rows) if b * rows + i < M)
+    assert covered == list(range(M))
+    assert rows * R * 16 <= gp.POOL_SMEM_BYTES
+    if R <= 18:
+        per_thread = rows * plan["lanes"] / gp.POOL_THREADS
+        assert 1.5 <= per_thread <= gp.POOL_LANES_PER_THREAD
+
+
+def _item_columns(plan, rows, widths, esize, vec, item):
+    """Decode a short item as the kernel does: (table, rows, columns)."""
+    t = 0
+    first = 0
+    runs = [-(-r // sa.RUN_ROWS) for r in rows]
+    while item >= first + runs[t] * plan["tiles"][t]:
+        first += runs[t] * plan["tiles"][t]
+        t += 1
+    run, tile = divmod(item - first, plan["tiles"][t])
+    n = 16 // esize if vec[t] else 1
+    cols = [tile * 32 * n + lane * n + e for lane in range(32)
+            for e in range(n)]
+    row0 = run * sa.RUN_ROWS
+    return (t, list(range(row0, min(row0 + sa.RUN_ROWS, rows[t]))),
+            [c for c in cols if c < widths[t]])
+
+
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("widths,vec", [((1024, 512, 512), (True,) * 3),
+                                        ((1000, 250, 250),
+                                         (True, False, False)),
+                                        ((40,), (False,))])
+def test_scatter_plan_covers_every_output_once(esize, widths, vec):
+    """The warp items (runs of RUN_ROWS rows x a column tile) cover every
+    (table, row, column) of the outputs exactly once, and each table's
+    hot tiles cover its columns exactly once, one HOT_ROW_BYTES line of
+    update row each."""
+    rows = (17, 5, 8)[:len(widths)]
+    plan = sa.scatter_plan(rows, widths, esize, 1000, vec)
+    hits = [np.zeros((r, d), dtype=int) for r, d in zip(rows, widths)]
+    for item in range(plan["items"]):
+        t, rows_of, cols = _item_columns(plan, rows, widths, esize, vec,
+                                         item)
+        hits[t][np.ix_(rows_of, cols)] += 1
+    assert all((h == 1).all() for h in hits)
+    assert plan["hot_cols"] * esize == sa.HOT_ROW_BYTES
+    for d, n_tiles in zip(widths, plan["hot_tiles"]):
+        cols = [k * plan["hot_cols"] + i for k in range(n_tiles)
+                for i in range(plan["hot_cols"]) if k * plan["hot_cols"] + i
+                < d]
+        assert cols == list(range(d))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_scatter_hot_cap_holds_every_hot_tile(seed):
+    """The workspace holds the hot tiles of any updates: counted from the
+    segments of sort_by_row on skewed random ids (a padding row with a
+    quarter of the updates, and as many rows of SHORT_MAX + 1 updates as
+    fit), never more than hot_cap."""
+    rng = np.random.default_rng(seed)
+    rows, widths = (300, 500, 500), (1024, 512, 512)
+    M = 2000
+    idx = rng.integers(1, 300, size=(M, 3)).astype(np.int32)
+    idx[rng.random(M) < 0.25] = 0
+    if seed == 2:  # every row at SHORT_MAX + 1 updates: the most long rows
+        idx = np.repeat(np.arange(M // (sa.SHORT_MAX + 1)),
+                        sa.SHORT_MAX + 1)[:, None].repeat(3, 1)
+        M = len(idx)
+    perm, offsets = sa.sort_by_row(torch.from_numpy(idx.astype(np.int32)),
+                                   rows)
+    lens = (offsets[1:] - offsets[:-1]).numpy()
+    assert int(lens.sum()) == M * 3
+    for esize in (4, 2):
+        plan = sa.scatter_plan(rows, widths, esize, M * 3, (True,) * 3)
+        table = np.repeat(np.arange(3), rows)
+        hot = sum(plan["hot_tiles"][t] for t, n in zip(table, lens)
+                  if n > sa.SHORT_MAX)
+        assert 0 < hot <= plan["hot_cap"]
+        assert plan["workspace_ints"] == 1 + 2 * plan["hot_cap"]
