@@ -13,10 +13,13 @@ checkpoints, ``latest.pth.tar`` and the final ``<epochs-1>.pth.tar`` under
 ``--store-root``), all on ``--device`` (default: the card).
 ``--resume-train`` reads ``{'epoch', 'state_dict', 'optimizer'}`` from
 ``--resume-path`` and starts at epoch + 1; ``--auto-resume`` does the same
-from ``<store-root>/latest.pth.tar`` when it exists.
+from ``<store-root>/latest.pth.tar`` when it exists, and refuses to run
+where only the JAX package's ``latest.ckpt`` is there.
 
 The flags of features the port does not have yet are accepted and refuse
-to run, naming the ROADMAP.md item that ports them.
+to run, naming the ROADMAP.md item that ports them. Every flag of the JAX
+package's CLIs parses, so a command line written for it says which
+feature is missing instead of failing in argparse.
 """
 
 from __future__ import annotations
@@ -37,13 +40,18 @@ TRAIN_SPLIT = {
     "int_rel_ch": "test",
 }
 
-# flag -> the ROADMAP.md queue 1 item that ports its feature
+# flag -> the ROADMAP.md queue 1 item that ports its feature; a value other
+# than the flag's default is refused
 NOT_PORTED = {
     "ingest_cache": "'the remaining CLIs and ingest artifacts'",
     "mesh": "'multi-GPU'",
     "num_processes": "'multi-GPU'",
+    "coordinator": "'multi-GPU'",
+    "process_id": "'multi-GPU'",
     "assembly_workers": "'the rest of training', the AssemblyPool",
+    "profile": "'the rest of training', the torch.profiler trace",
 }
+JAX_FORMATS = "'checkpoint reading of the JAX package's formats'"
 TRISTATE = {"auto": None, "on": True, "off": False}
 
 
@@ -67,7 +75,8 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
                         "--resume-path and continue training")
     p.add_argument("--auto-resume", action="store_true",
                    help="continue from <store-root>/latest.pth.tar if "
-                        "present")
+                        "present (the JAX package's latest.ckpt alone is "
+                        "refused)")
     p.add_argument("--metrics-log", default="",
                    help="append JSONL training telemetry to this path")
     p.add_argument("--checkpoint-every", type=int, default=0,
@@ -114,6 +123,11 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
     p.add_argument("--per-batch-train", action="store_true",
                    help="accepted for the JAX package's command lines: "
                         "the port always trains one step per batch")
+    for flag in ("--fast-prng", "--strict-prng"):
+        p.add_argument(flag, action="store_true",
+                       help="accepted for the JAX package's command lines: "
+                            "the port draws dropout from one "
+                            "torch.Generator stream, so it changes nothing")
     p.add_argument("--device", default="cuda",
                    help="torch device of the weights, tables and sweep")
     p.add_argument("--quiet", action="store_true")
@@ -123,6 +137,11 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
     p.add_argument("--mesh", default="", help="not ported yet (refused)")
     p.add_argument("--num-processes", type=int, default=0,
                    help="not ported yet (refused)")
+    p.add_argument("--coordinator", default="",
+                   help="not ported yet (refused)")
+    p.add_argument("--process-id", type=int, default=-1,
+                   help="not ported yet (refused)")
+    p.add_argument("--profile", default="", help="not ported yet (refused)")
     return p
 
 
@@ -184,14 +203,14 @@ def load_checkpoint(path: str):
         raise SystemExit(
             "lirec_tpu_torch reads .pth.tar checkpoints only; the JAX "
             "package's msgpack / Orbax formats wait for ROADMAP.md queue 1 "
-            "'checkpoint reading of the JAX package's formats': %r" % path
+            "%s: %r" % (JAX_FORMATS, path)
         )
     return load_checkpoint_state(path)
 
 
-def _refuse_unported(args) -> None:
+def _refuse_unported(parser, args) -> None:
     for flag, item in NOT_PORTED.items():
-        if getattr(args, flag):
+        if getattr(args, flag) != parser.get_default(flag):
             raise SystemExit(
                 "--%s is not ported to lirec_tpu_torch yet (ROADMAP.md "
                 "queue 1 %s)" % (flag.replace("_", "-"), item)
@@ -199,14 +218,38 @@ def _refuse_unported(args) -> None:
     if args.checkpoint_backend != "torch":
         raise SystemExit(
             "--checkpoint-backend %s is not ported to lirec_tpu_torch: it "
-            "writes .pth.tar train states (ROADMAP.md queue 1 'checkpoint "
-            "reading of the JAX package's formats')" % args.checkpoint_backend)
+            "writes .pth.tar train states (ROADMAP.md queue 1 %s)"
+            % (args.checkpoint_backend, JAX_FORMATS))
+
+
+def _train_state_path(cfg, args) -> str:
+    """The train state a training run resumes from: --resume-path under
+    --resume-train, else under --auto-resume <store-root>/latest.pth.tar
+    if it exists; "" for a run from epoch 0. The JAX package's
+    latest.ckpt alone is refused, not passed over."""
+    if cfg.resume_train and cfg.resume_path:
+        return cfg.resume_path
+    if not args.auto_resume:
+        return ""
+    latest = os.path.join(cfg.paths.store_root, "latest.pth.tar")
+    if os.path.exists(latest):
+        return latest
+    jax_latest = os.path.join(cfg.paths.store_root, "latest.ckpt")
+    if os.path.exists(jax_latest):
+        raise SystemExit(
+            "--auto-resume found the JAX package's %s and no latest.pth.tar: "
+            "lirec_tpu_torch cannot read it yet (ROADMAP.md queue 1 %s), "
+            "and will not start over at epoch 0 beside it"
+            % (jax_latest, JAX_FORMATS))
+    return ""
 
 
 def run_entry(preset_name: str, argv=None) -> dict:
-    args = build_parser(preset_name).parse_args(argv)
-    _refuse_unported(args)
+    parser = build_parser(preset_name)
+    args = parser.parse_args(argv)
+    _refuse_unported(parser, args)
     cfg = config_from_args(preset_name, args)
+    resume_from = "" if cfg.resume else _train_state_path(cfg, args)
     verbose = not args.quiet
     train_ds, val_ds, test_ds = build_datasets(
         cfg, preset_name, workers=args.cache_workers
@@ -216,7 +259,7 @@ def run_entry(preset_name: str, argv=None) -> dict:
                           device=args.device)
     if not cfg.resume:
         return {"train": _train(cfg, args, bundle, train_ds, val_ds,
-                                test_ds, verbose)}
+                                test_ds, resume_from, verbose)}
     if cfg.resume_path:
         bundle.model.load_state_dict(load_checkpoint(cfg.resume_path))
         if verbose:
@@ -237,9 +280,10 @@ def run_entry(preset_name: str, argv=None) -> dict:
     return results
 
 
-def _train(cfg, args, bundle, train_ds, val_ds, test_ds, verbose) -> dict:
+def _train(cfg, args, bundle, train_ds, val_ds, test_ds, resume_from,
+           verbose) -> dict:
     """--train / --resume-train / --auto-resume: the epoch loop from epoch
-    0, or from the epoch after a train state's."""
+    0, or from the epoch after the train state `resume_from`'s."""
     from lirec_tpu_torch.checkpoint.saver import load_train_state
     from lirec_tpu_torch.train.loop import train
     from lirec_tpu_torch.train.optim import make_optimizer
@@ -247,13 +291,6 @@ def _train(cfg, args, bundle, train_ds, val_ds, test_ds, verbose) -> dict:
     optimizer = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
                                cfg.optim.weight_decay)
     start_epoch = 0
-    resume_from = ""
-    if cfg.resume_train and cfg.resume_path:
-        resume_from = cfg.resume_path
-    elif args.auto_resume:
-        latest = os.path.join(cfg.paths.store_root, "latest.pth.tar")
-        if os.path.exists(latest):
-            resume_from = latest
     if resume_from:
         state_dict, opt_state, epoch = load_train_state(resume_from)
         bundle.model.load_state_dict(state_dict)

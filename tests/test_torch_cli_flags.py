@@ -1,0 +1,108 @@
+"""The port's eval and training CLIs take every flag of the JAX package's
+(lirec_tpu/cli/common.py): the PRNG flags parse and change nothing, the
+flags of features not ported yet refuse to run by the ROADMAP.md item
+that ports them, and --auto-resume refuses a store root that holds only
+the JAX package's latest.ckpt instead of starting over beside it.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from lirec_tpu_torch.cli import common
+from lirec_tpu_torch.cli import train as train_cli
+
+DIM_ARGS = ["--text-dim", "16", "--visual-dim", "32", "--text-layers", "4",
+            "--joint-dim", "16", "--compute-dtype", "float32"]
+
+# flag, value (None: store_true), the refusal's item title (None: accepted)
+JAX_FLAGS = [
+    ("--fast-prng", None, None),
+    ("--strict-prng", None, None),
+    ("--profile", "trace_dir", "'the rest of training'"),
+    ("--coordinator", "localhost:1234", "'multi-GPU'"),
+    ("--process-id", "0", "'multi-GPU'"),
+]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _argv(flag, value):
+    return [flag] if value is None else [flag, value]
+
+
+@pytest.mark.parametrize("preset", ["int_rel_ch", "int_ch", "int_rels"])
+@pytest.mark.parametrize("flag,value,item", JAX_FLAGS)
+def test_jax_flags_parse(preset, flag, value, item):
+    """Each flag of the JAX package's CLIs parses for every preset."""
+    parser = common.build_parser(preset)
+    args = parser.parse_args(["--data-root", "/nonexistent"]
+                             + _argv(flag, value))
+    dest = flag[2:].replace("-", "_")
+    assert getattr(args, dest) != parser.get_default(dest)
+
+
+@pytest.mark.parametrize("flag,value,item", JAX_FLAGS)
+def test_jax_flags_accepted_or_refused_by_name(tmp_path, flag, value, item):
+    """The PRNG flags pass the refusal (the port has one dropout stream);
+    --profile, --coordinator and --process-id refuse to run, naming the
+    queue item, before any data is read. Their JAX defaults ("", "",
+    -1) given explicitly are not refused."""
+    base = ["--data-root", str(tmp_path / "no_data"), "--train"]
+    parser = common.build_parser("int_rel_ch")
+    if item is None:
+        common._refuse_unported(parser,
+                                parser.parse_args(base + _argv(flag, value)))
+    else:
+        with pytest.raises(SystemExit, match=item) as err:
+            common.run_entry("int_rel_ch", base + _argv(flag, value))
+        assert flag in str(err.value)
+    defaults = base + ["--profile", "", "--coordinator", "",
+                       "--process-id", "-1"]
+    common._refuse_unported(parser, parser.parse_args(defaults))
+
+
+@pytest.mark.parametrize("as_dir", [False, True])
+def test_auto_resume_refuses_a_jax_latest_ckpt(tmp_path, as_dir):
+    """A store root with the JAX package's latest.ckpt (a msgpack file or
+    an Orbax directory) and no latest.pth.tar: --auto-resume exits naming
+    the file and the queue item, before any data is read."""
+    store = tmp_path / "store"
+    store.mkdir()
+    latest = store / "latest.ckpt"
+    if as_dir:
+        latest.mkdir()
+    else:
+        latest.write_bytes(b"\x80")
+    argv = ["--data-root", str(tmp_path / "no_data"), "--store-root",
+            str(store), "--auto-resume", "--device", "cpu"]
+    with pytest.raises(SystemExit, match="latest.ckpt") as err:
+        train_cli.main(argv)
+    assert "checkpoint reading of the JAX package's formats" in str(
+        err.value)
+
+
+def test_auto_resume_takes_latest_pth_tar(synth_root, tmp_path):
+    """latest.pth.tar still resumes under --auto-resume, also with a JAX
+    latest.ckpt beside it; an empty store root starts at epoch 0."""
+    store = tmp_path / "store"
+    base = ["--data-root", synth_root, "--store-root", str(store),
+            "--batch-size", "8", "--device", "cpu", "--quiet",
+            "--sanity-check", "--lr", "1e-3", "--auto-resume"] + DIM_ARGS
+    first = train_cli.main(base + ["--epochs", "1", "--checkpoint-every",
+                                   "1"])
+    assert first["train"]["start_epoch"] == 0
+    assert os.path.exists(store / "latest.pth.tar")
+    (store / "latest.ckpt").write_bytes(b"\x80")
+    resumed = train_cli.main(base + ["--epochs", "2"])
+    assert resumed["train"]["start_epoch"] == 1
+    assert len(resumed["train"]["losses"]) == 1
+    assert np.isfinite(resumed["train"]["losses"][0])
