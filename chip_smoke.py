@@ -56,10 +56,11 @@
    beside the masked gather-sum, kernel 5, on the native bf16 table, at the
    TPU probe's own shapes and the clip table's). Then holds kernel 9 against
    its plain version and bit for bit against kernel 1 on the explicit run
-   indices, kernel 10 against its plain version, and kernel 5 against its
-   plain version on the same inputs as kernel 10, and times each (L2
-   flushed) beside its plain version, its bound and, for kernels 10 and 5,
-   ``embedding_bag`` on the unpacked f32 and the native bf16 table.
+   indices, kernel 10 against its plain version, and kernel 5 bit for bit
+   against an r-ordered loop and against its plain version on the same
+   inputs as kernel 10, and times each (L2 flushed) beside its plain
+   version, its bound and, for kernels 10 and 5, ``embedding_bag`` on the
+   unpacked f32 and the native bf16 table.
 12. Trains int_rel_ch from the training CLI (``cli.train.main``) at its
    published widths on a synthetic fixture of published feature widths
    (text 768 x 12 layers, visual 2048): 3 epochs with cadence evaluation at
@@ -75,8 +76,11 @@
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
 batch's local table, and the masked gather-sum (kernel 5, no product
-caller) against its plain version, and times each beside the
-``embedding_bag`` library call that computes the same function; and it
+caller) bit for bit against an r-ordered loop of separate multiplies and
+adds and against its plain version, and times each beside the
+``embedding_bag`` library call that computes the same function, with the
+triple tier's local-table build and one batch's ctx pool in each tier;
+and it
 times the 3-table kernel on that batch's own indices, as the eval sweep
 launches it, beside its plain version and three ``embedding_bag`` sums.
 
@@ -447,8 +451,10 @@ def triple_checks(torch, spec):
         log("  one batch's ctx pool, %s: triple tier (build + kernel) %.4f "
             "ms, unlocalised (3-table kernel) %.4f ms" % (
                 tag, tier_triple, tier_off))
-        results["triple_" + tag] = dict(max_abs_err=max(errs), ms=ms,
-                                        plain_ms=plain, library_ms=lib, **b)
+        results["triple_" + tag] = dict(
+            max_abs_err=max(errs), ms=ms, plain_ms=plain, library_ms=lib,
+            build_ms=build, tier_triple_ms=tier_triple, tier_off_ms=tier_off,
+            **b)
         results["pool_eval_" + tag] = eval_pool_entry(
             torch, tag, emb, idx, mask, w, div, tier_off, atol[dtype])
 
@@ -456,14 +462,16 @@ def triple_checks(torch, spec):
         table, one = emb.clip, idx[..., 0].contiguous()
         got = gather_masked_sum(table, one, mask)
         torch.cuda.synchronize()
-        want = gather_masked_sum_reference(table, one, mask)
         check(got.dtype == dtype, "gather_masked_sum %s dtype" % tag)
+        check(torch.equal(got, masked_sum_loop(torch, table, one, mask)),
+              "gather_masked_sum %s: not bitwise the r-ordered loop" % tag)
+        want = gather_masked_sum_reference(table, one, mask)
         err = float((got.float() - want.float()).abs().max())
         scale = float(want.float().abs().max())
         # f32: sums in another order; bf16: one bf16 rounding of the sum
         tol = 1e-5 * scale if dtype == torch.float32 else 2 ** -8 * scale
-        log("  gather_masked_sum %-4s max|diff| vs plain %.3e (bound %.1e)"
-            % (tag, err, tol))
+        log("  gather_masked_sum %-4s bitwise the r-ordered loop; max|diff| "
+            "vs plain %.3e (bound %.1e)" % (tag, err, tol))
         check(err <= tol, "gather_masked_sum %s disagrees" % tag)
         ms = median_ms(torch, lambda: gather_masked_sum(table, one, mask))
         plain = median_ms(torch, lambda: gather_masked_sum_reference(
@@ -479,6 +487,71 @@ def triple_checks(torch, spec):
         results["gms_" + tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                      library_ms=lib, **b)
         del emb, idx, mask, fused, tidx, table
+    torch.cuda.empty_cache()
+    return results
+
+
+def masked_sum_loop(torch, table, idx, mask):
+    """Kernel 5's function as an r-ordered eager loop of separate
+    multiplies and adds (one rounding each, no fused multiply-add) from
+    zeros, rounded to the table's dtype once: the kernel's operations in
+    its order, so the two agree bit for bit."""
+    acc = torch.zeros(idx.shape[0], table.shape[1], device=table.device)
+    rows = idx.long()
+    for r in range(idx.shape[1]):
+        acc = acc + mask[:, r, None] * table[rows[:, r]].float()
+    return acc.to(table.dtype)
+
+
+def masked_sum_probe_checks(torch):
+    """Kernel 5 at the bf16 probe's shapes (``tools/probe_bf16_pack.SHAPES``:
+    its own [512, 1024] table with M = 64, and the clip table's), on the
+    native bf16 table of the probe's values: bitwise the r-ordered loop,
+    within one bf16 rounding of the plain version; its time (L2 flushed)
+    beside the plain version's and ``embedding_bag``'s on the same bf16
+    table, and its bound. Returns {"gms_<shape>": {max_abs_err, ms,
+    plain_ms, library_ms, bound_ms, bound_by}}."""
+    import torch.nn.functional as F
+
+    from lirec_tpu_torch.ops.gather_pool import (
+        gather_masked_sum, gather_masked_sum_reference,
+    )
+    from lirec_tpu_torch.tools import probe_bf16_pack
+
+    results = {}
+    for name, (n, d, m, r) in probe_bf16_pack.SHAPES.items():
+        table, idx, mask = probe_bf16_pack.make_inputs(torch, "cuda", n, d,
+                                                       m, r)
+        native = table.to(torch.bfloat16)
+        got = gather_masked_sum(native, idx, mask)
+        torch.cuda.synchronize()
+        check(got.shape == (m, d) and got.dtype == torch.bfloat16,
+              "gather_masked_sum bf16 %s output %s %s"
+              % (name, tuple(got.shape), got.dtype))
+        check(torch.equal(got, masked_sum_loop(torch, native, idx, mask)),
+              "gather_masked_sum bf16 %s: not bitwise the r-ordered loop"
+              % name)
+        want = gather_masked_sum_reference(native, idx, mask)
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2 ** -8 * float(want.float().abs().max())
+        check(err <= tol, "gather_masked_sum bf16 %s disagrees" % name)
+        w = mask.to(torch.bfloat16)
+        ms = median_ms(torch, lambda: gather_masked_sum(native, idx, mask))
+        plain = median_ms(torch, lambda: gather_masked_sum_reference(
+            native, idx, mask))
+        lib = median_ms(torch, lambda: F.embedding_bag(
+            idx, native, per_sample_weights=w, mode="sum"))
+        moved = gathered_bytes(native, idx) + nbytes(idx, mask) + m * d * 2
+        b = bound(moved, 2 * m * r * d)
+        log("  gather_masked_sum bf16 (kernel 5) %s [%d, %d] M=%d: bitwise "
+            "the r-ordered loop, max|diff| vs plain %.3e (bound %.1e); "
+            "kernel %.4f ms, plain %.4f ms, embedding_bag (bf16 table) %.4f "
+            "ms; bound %.4f ms (%s, %.2f MB)"
+            % (name, n, d, m, err, tol, ms, plain, lib, b["bound_ms"],
+               b["bound_by"], moved / 1e6))
+        results["gms_" + name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                      library_ms=lib, **b)
+        del table, idx, mask, native, got, want, w
     torch.cuda.empty_cache()
     return results
 
@@ -1234,9 +1307,7 @@ def probe_phase(torch):
     import torch.nn.functional as F
 
     from lirec_tpu_torch.ops import dispatch, probes
-    from lirec_tpu_torch.ops.gather_pool import (
-        fused_ctx_pool, gather_masked_sum, gather_masked_sum_reference,
-    )
+    from lirec_tpu_torch.ops.gather_pool import fused_ctx_pool
     from lirec_tpu_torch.tools import probe_bf16_pack, probe_hbm_dma
 
     # ---- the counted run: the two probes' entry points
@@ -1324,49 +1395,27 @@ def probe_phase(torch):
             "vs plain %.3e (bound 1e-05), embedding_bag %.3e"
             % (name, n, d, m, err, lib_err))
         check(err < 1e-5, "packed gather-sum %s disagrees" % name)
-        # kernel 5 on the native bf16 table of the same values, the other
-        # side of the probe's comparison: one bf16 rounding of the sum
-        got5 = gather_masked_sum(native, pidx, pmask)
-        torch.cuda.synchronize()
-        want5 = gather_masked_sum_reference(native, pidx, pmask)
-        check(got5.shape == (m, d) and got5.dtype == torch.bfloat16,
-              "gather_masked_sum bf16 %s output %s %s"
-              % (name, tuple(got5.shape), got5.dtype))
-        err5 = float((got5.float() - want5.float()).abs().max())
-        tol5 = 2 ** -8 * float(want5.float().abs().max())
-        log("  gather_masked_sum bf16 (kernel 5) %s: max|diff| vs plain "
-            "%.3e (bound %.1e)" % (name, err5, tol5))
-        check(err5 <= tol5, "gather_masked_sum bf16 %s disagrees" % name)
         ms = median_ms(torch, lambda: probes.packed_gather_sum(packed, pidx,
                                                                pmask))
-        k5 = median_ms(torch, lambda: gather_masked_sum(native, pidx, pmask))
         plain = median_ms(torch, lambda: probes.packed_gather_sum_reference(
             packed, pidx, pmask))
-        plain5 = median_ms(torch, lambda: gather_masked_sum_reference(
-            native, pidx, pmask))
         lib = median_ms(torch, lambda: F.embedding_bag(
             pidx, unpacked, per_sample_weights=pmask, mode="sum"))
-        w5 = pmask.to(torch.bfloat16)
-        lib5 = median_ms(torch, lambda: F.embedding_bag(
-            pidx, native, per_sample_weights=w5, mode="sum"))
         moved = gathered_bytes(packed, pidx) + nbytes(pidx, pmask) + m * d * 4
         b = bound(moved, 2 * m * r * d)
-        k5_moved = (gathered_bytes(native, pidx) + nbytes(pidx, pmask)
-                    + m * d * 2)
-        b5 = bound(k5_moved, 2 * m * r * d)
         log("  packed gather-sum %s kernel %.4f ms, plain %.4f ms, "
             "embedding_bag (f32 table) %.4f ms; bound %.4f ms (%s, %.2f MB)"
             % (name, ms, plain, lib, b["bound_ms"], b["bound_by"],
                moved / 1e6))
-        log("  native bf16 kernel 5 %s %.4f ms, plain %.4f ms, embedding_bag "
-            "(bf16 table) %.4f ms; bound %.4f ms (%s, %.2f MB)"
-            % (name, k5, plain5, lib5, b5["bound_ms"], b5["bound_by"],
-               k5_moved / 1e6))
         results["pack_" + name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                       library_ms=lib, native_bf16_ms=k5, **b)
-        results["gms_" + name] = dict(max_abs_err=err5, ms=k5,
-                                      plain_ms=plain5, library_ms=lib5, **b5)
-        del table, pidx, pmask, packed, native, unpacked, got5, want5, w5
+                                       library_ms=lib, **b)
+        del table, pidx, pmask, packed, native, unpacked
+    # kernel 5 on the native bf16 table of the same values, the other side
+    # of the probe's comparison
+    gms = masked_sum_probe_checks(torch)
+    for name in probe_bf16_pack.SHAPES:
+        results["pack_" + name]["native_bf16_ms"] = gms["gms_" + name]["ms"]
+    results.update(gms)
     torch.cuda.empty_cache()
     return counts, results
 

@@ -34,6 +34,15 @@ three eval tiers bitwise equal to it. What it reads in 16-byte lanes
 and how many pooled rows a block takes is host logic
 (``rows_aligned``, ``pool_plan``), tested on the CPU.
 
+The triple pool and the masked sum (redesigned for Hopper) are that
+design on one table: 16-byte lanes of a few pooled rows per block, a
+chunk of gathered rows loaded ahead of each add chain, 8 staged bytes
+per context entry. Where the pooled rows are too few to give every SM a
+block (the masked sum at M = 64), ``gather_plan`` cuts each row's lanes
+into column slabs over several blocks. The triple pool's operations are
+the 3-table kernel's, so the two agree bit for bit; the masked sum's
+column is the same ``__fadd_rn`` chain, stored in the table's dtype.
+
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version (``*_reference``) only for CPU tensors. For a CUDA tensor it
 launches or raises: a missing nvcc or a failed build is an error.
@@ -48,7 +57,7 @@ from lirec_tpu_torch.ops import dispatch
 
 __all__ = [
     "fused_ctx_pool", "fused_ctx_pool_reference", "pool_plan", "rows_aligned",
-    "fused_ctx_pool_triple", "fused_ctx_pool_triple_reference",
+    "fused_ctx_pool_triple", "fused_ctx_pool_triple_reference", "gather_plan",
     "gather_masked_sum", "gather_masked_sum_reference", "KERNEL_NAMES",
 ]
 
@@ -65,6 +74,10 @@ MAX_CONTEXT = 2048  # at most 16 bytes of shared memory per context entry
 POOL_THREADS = 128
 POOL_LANES_PER_THREAD = 3
 POOL_SMEM_BYTES = 48 * 1024
+# csrc/fused_ctx_pool_triple.cu (same threads): at least this many lanes
+# per thread (measured better than three on the card)
+GATHER_LANES_PER_THREAD = 2
+CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def rows_aligned(t: torch.Tensor) -> bool:
@@ -85,6 +98,35 @@ def pool_plan(M: int, R: int, d_clip: int, d_tr: int, elem_size: int,
     rows = max(1, POOL_THREADS * POOL_LANES_PER_THREAD // lanes)
     rows = min(rows, max(1, POOL_SMEM_BYTES // (16 * R)))
     return dict(lanes=lanes, rows_per_block=rows, blocks=-(-M // rows))
+
+
+def gather_plan(M: int, R: int, width: int, elem_size: int, vec: bool,
+                sms: int = CARD_SMS) -> dict:
+    """Launch geometry of the one-table kernels (triple pool, masked sum):
+    lanes per pooled row (16-byte vectors where `vec`, else columns),
+    pooled rows per block (at least GATHER_LANES_PER_THREAD lanes per
+    thread, their R indices and weights, 8 bytes each, within
+    POOL_SMEM_BYTES), and, where that leaves fewer than `sms` blocks, one
+    row per block with its lanes cut into column slabs (slab_lanes, a
+    multiple of 32 where there are that many) so that the grid has at
+    least `sms` blocks when M x lanes allows."""
+    lanes = width // (16 // elem_size) if vec else width
+    rows = -(-POOL_THREADS * GATHER_LANES_PER_THREAD // lanes)
+    rows = min(rows, max(1, POOL_SMEM_BYTES // (8 * R)))
+    slab_lanes = lanes
+    if -(-M // rows) < sms:
+        rows = 1
+        slabs = min(lanes, -(-sms // M))
+        slab_lanes = lanes // slabs  # at least `slabs` slabs
+        if slab_lanes >= 32:
+            slab_lanes -= slab_lanes % 32
+    slabs = -(-lanes // slab_lanes)
+    return dict(lanes=lanes, rows_per_block=rows, slab_lanes=slab_lanes,
+                slabs=slabs, blocks=-(-M // rows) * slabs)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_ctx_pool_reference(emb, idx, mask, guard_zero: bool):
@@ -191,7 +233,7 @@ def fused_ctx_pool(emb, idx: torch.Tensor, mask: torch.Tensor,
     return out
 
 
-# ----------------------------------------------------- triple tier, kernel 5
+# --------------------------------------------- triple tier (kernel 4), kernel 5
 
 
 def fused_ctx_pool_triple_reference(fused, tidx, mask, guard_zero: bool):
@@ -242,6 +284,22 @@ def _check_single(op, table, idx, mask):
         raise ValueError("%s: M and the row width must fit in an int32" % op)
 
 
+def _launch_single(op, table, idx, mask, out, extra):
+    """Launch a one-table kernel on `gather_plan`'s geometry; `extra`: the
+    ints between the width and the plan (the pool's guard)."""
+    M, R = idx.shape
+    if not M:
+        return
+    width = table.shape[1]
+    vec = rows_aligned(table)
+    plan = gather_plan(M, R, width, table.element_size(), vec,
+                       _sms(table.device))
+    _launch(op, table, 4, (table.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                           out.data_ptr(), M, R, width, *extra,
+                           plan["rows_per_block"], plan["slab_lanes"],
+                           int(vec)))
+
+
 def fused_ctx_pool_triple(fused: torch.Tensor, tidx: torch.Tensor,
                           mask: torch.Tensor, guard_zero: bool
                           ) -> torch.Tensor:
@@ -260,13 +318,9 @@ def fused_ctx_pool_triple(fused: torch.Tensor, tidx: torch.Tensor,
                   table_dtype=str(fused.dtype))
     if not _route(op, fused, shapes):
         return fused_ctx_pool_triple_reference(fused, tidx, mask, guard_zero)
-    M, R = tidx.shape
-    width = fused.shape[1]
-    out = torch.empty((M, width), dtype=torch.float32, device=fused.device)
-    if M:
-        _launch(op, fused, 4, (fused.data_ptr(), tidx.data_ptr(),
-                               mask.data_ptr(), out.data_ptr(), M, R, width,
-                               int(bool(guard_zero))))
+    out = torch.empty((tidx.shape[0], fused.shape[1]), dtype=torch.float32,
+                      device=fused.device)
+    _launch_single(op, fused, tidx, mask, out, (int(bool(guard_zero)),))
     return out
 
 
@@ -285,11 +339,7 @@ def gather_masked_sum(table: torch.Tensor, idx: torch.Tensor,
                   table_dtype=str(table.dtype))
     if not _route(op, table, shapes):
         return gather_masked_sum_reference(table, idx, mask)
-    M, R = idx.shape
-    out = torch.empty((M, table.shape[1]), dtype=table.dtype,
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
                       device=table.device)
-    if M:
-        _launch(op, table, 4, (table.data_ptr(), idx.data_ptr(),
-                               mask.data_ptr(), out.data_ptr(), M, R,
-                               table.shape[1]))
+    _launch_single(op, table, idx, mask, out, ())
     return out

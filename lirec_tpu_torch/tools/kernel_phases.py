@@ -1,9 +1,12 @@
 """Phases 3 and 6 of ``chip_smoke.py``, alone, on one CUDA card, against the
 kernels of a checkout: the pool kernels (the 3-table pool on the eval
-sweep's batch, the triple kernel, the masked sum) and the scatter (at the
-Localizer's tables, and its split-scale, all-into-8-rows, flattened and
-single-table cases), each against its plain version, with median times (L2
-flushed), bounds and the scatter's device time per launch inside the op.
+sweep's batch, the triple kernel and one batch's ctx pool in each tier,
+the masked sum), the masked sum at the bf16 probe's two shapes beside
+``embedding_bag`` on the native bf16 table (phase 11's measurement), and
+the scatter (at the Localizer's tables, and its split-scale,
+all-into-8-rows, flattened and single-table cases), each against its plain
+version, with median times (L2 flushed), bounds and the scatter's device
+time per launch inside the op.
 
     python lirec_tpu_torch/tools/kernel_phases.py [TREE] [--label L]
 
@@ -61,7 +64,8 @@ def main(argv) -> int:
                                     "fused_ctx_pool_triple")))
     print("built in %.1f s" % (time.perf_counter() - t0), flush=True)
     model = ModelSpec(n_classes=101, n_rels=15)
-    out = {"triple": cs.triple_checks(torch, model)}
+    out = {"triple": cs.triple_checks(torch, model),
+           "gms_probe": cs.masked_sum_probe_checks(torch)}
     raw, local, caps = cs.train_batches(model)
     out["caps"] = caps
     out["scatter"] = cs.scatter_checks(torch, model, raw[0], local[0], caps)

@@ -90,7 +90,8 @@ def _edge_inputs(device, dtype, R, Dc, Dt, M=41, Nc=60, Nt=80, seed=5):
     mask = (torch.rand(M, R, device=device, generator=g) < 0.6).float()
     mask[1::3] *= 0.25 + torch.rand(M, R, device=device, generator=g)[1::3]
     mask[:, 0] = 1.0
-    mask[3] = 0.0
+    if M > 3:
+        mask[3] = 0.0
     mask[-1] = 0.0
     return emb, idx, mask
 
@@ -125,12 +126,71 @@ def test_pool_edges_bitwise_the_triple_kernel(cuda, R, dtype, widths,
                                    equal_nan=True)
 
 
+def _loop_sum(table, idx, mask):
+    """Kernel 5's function as an r-ordered eager loop of separate
+    multiplies and adds from zeros, rounded to the table's dtype once: the
+    kernel's operations in its order."""
+    acc = torch.zeros(idx.shape[0], table.shape[1], device=table.device)
+    for r in range(idx.shape[1]):
+        acc = acc + mask[:, r, None] * table[idx[:, r].long()].float()
+    return acc.to(table.dtype)
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("widths", [(1024, 256), (1000, 250)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 64, 1280])
+@pytest.mark.parametrize("R", [1, 7, 9, 10, 18, 19, 64])
+def test_one_table_kernel_edges_bitwise(cuda, R, M, dtype, widths, offset):
+    """Kernels 4 and 5 (16-byte lanes, scalar columns, column slabs): R
+    around the load chunk (9), fused widths 1536 / 1500 (1500 bf16 columns
+    are 3,000 bytes: scalar columns), tables whose rows start off a
+    16-byte boundary, M from one row (its lanes cut over many blocks) to
+    the eval batch's 1,280, guard on and off with empty rows. Kernel 4 bit
+    for bit kernel 1 on the corresponding index triples; kernel 5 bit for
+    bit the r-ordered loop, on the fused table and on clip."""
+    emb, idx, mask = _edge_inputs(cuda, dtype, R, *widths, M=M)
+    fused, tidx = _triple_of(emb, idx)
+    if offset:
+        fused = _off16(fused)
+        emb = EmbeddedTables(*(_off16(t) for t in emb))
+    for guard in (True, False):
+        three = fused_ctx_pool(emb, idx, mask, guard)
+        tri = fused_ctx_pool_triple(fused, tidx, mask, guard)
+        torch.cuda.synchronize()
+        assert torch.equal(three.isnan(), tri.isnan())
+        assert torch.equal(torch.nan_to_num(three), torch.nan_to_num(tri))
+        assert bool(tri[-1].isnan().all()) != guard
+    for table, ids in ((fused, tidx), (emb.clip, idx[..., 0].contiguous())):
+        got = gather_masked_sum(table, ids, mask)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert torch.equal(got, _loop_sum(table, ids, mask))
+
+
 def test_kernel_raises_instead_of_falling_back(cuda):
     emb, idx, mask = _inputs(cuda, torch.float32)
     with pytest.raises(ValueError, match="int32"):
         fused_ctx_pool(emb, idx.long(), mask, True)
     with pytest.raises(ValueError, match="on cpu"):
         fused_ctx_pool(emb, idx.cpu(), mask, True)
+
+
+@pytest.mark.parametrize("op", [
+    lambda t, i, m: fused_ctx_pool_triple(t, i, m, True), gather_masked_sum])
+def test_one_table_kernels_raise_instead_of_falling_back(cuda, op):
+    """Kernels 4 and 5 on a CUDA table: a bad dtype, device or layout
+    raises; nothing takes the plain version."""
+    emb, idx, mask = _inputs(cuda, torch.float32)
+    table, one = emb.clip, idx[..., 0].contiguous()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        op(table.half(), one, mask)
+    with pytest.raises(ValueError, match="int32"):
+        op(table, one.long(), mask)
+    with pytest.raises(ValueError, match="on cpu"):
+        op(table, one.cpu(), mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        op(table, idx[..., 0], mask)
 
 
 def _triple_of(emb, idx):
@@ -170,8 +230,8 @@ def test_triple_kernel_matches_plain_and_three_table_kernel(cuda, dtype,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gather_masked_sum_kernel_matches_plain_version(cuda, dtype):
-    """f32 sums in r order against the plain version's: f32 within 1e-5,
-    bf16 output within one bf16 rounding of the sum."""
+    """Bit for bit the r-ordered loop; against the plain version's sums:
+    f32 within 1e-5, bf16 output within one bf16 rounding of the sum."""
     emb, idx, mask = _inputs(cuda, dtype)
     table, one = emb.clip, idx[..., 0].contiguous()
     name = KERNEL_NAMES[("gather_masked_sum", dtype)]
@@ -180,6 +240,7 @@ def test_gather_masked_sum_kernel_matches_plain_version(cuda, dtype):
     torch.cuda.synchronize()
     assert dispatch.launches(name) == before + 1
     assert got.dtype == dtype
+    assert torch.equal(got, _loop_sum(table, one, mask))
     want = gather_masked_sum_reference(table, one, mask)
     tol = dict(rtol=0, atol=1e-5) if dtype == torch.float32 else dict(
         rtol=2 ** -8, atol=1e-5)

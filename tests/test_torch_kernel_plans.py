@@ -1,7 +1,8 @@
-"""The host half of the redesigned 3-table pool and scatter kernels, on the
-CPU: which tables are read in 16-byte vectors, how a pooled row is cut
-into lanes, and how the scatter's work is cut into warp items and hot
-tiles. Each is held against a plain enumeration, so that what surrounds
+"""The host half of the redesigned pool and scatter kernels, on the CPU:
+which tables are read in 16-byte vectors, how a pooled row is cut into
+lanes, how the one-table kernels (triple pool, masked sum) cut their rows
+into blocks and column slabs, and how the scatter's work is cut into warp
+items and hot tiles. Each is held against a plain enumeration, so that what surrounds
 the kernels stays covered where there is no card (the kernels themselves
 are held on the card: tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -94,6 +95,85 @@ def test_pool_plan_blocks_cover_the_rows_within_shared_memory(M, R, esize):
     if R <= 18:
         per_thread = rows * plan["lanes"] / gp.POOL_THREADS
         assert 1.5 <= per_thread <= gp.POOL_LANES_PER_THREAD
+
+
+def _gather_hits(plan, M, width, esize, vec):
+    """How many times the one-table kernel writes each output cell,
+    enumerated as it walks them: block (x, y) takes pooled rows
+    x * rows_per_block .. and lanes y * slab_lanes .. of each, item i of a
+    block row i // slab, lane i % slab; a lane is 16 / esize columns where
+    vec, else one."""
+    hits = np.zeros((M, width), dtype=int)
+    rows, slab_lanes, lanes = (plan["rows_per_block"], plan["slab_lanes"],
+                               plan["lanes"])
+    k = 16 // esize if vec else 1
+    for bx in range(-(-M // rows)):
+        m0 = bx * rows
+        n_rows = min(rows, M - m0)
+        for by in range(plan["slabs"]):
+            lane0 = by * slab_lanes
+            slab = min(slab_lanes, lanes - lane0)
+            item = np.arange(n_rows * slab)
+            g = item // slab
+            lane = lane0 + item - g * slab
+            for e in range(k):
+                np.add.at(hits, (m0 + g, lane * k + e), 1)
+    return hits
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("width", [1536, 1500, 1024, 1000])
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("M", [1, 64, 1280])
+def test_gather_plan_writes_every_output_column_once(M, esize, width,
+                                                     offset):
+    """Triple pool and masked sum: every column of every output row
+    written exactly once, over 16-byte lanes where the rows are whole
+    16-byte vectors on 16-byte boundaries (1500 bf16 columns are 3000
+    bytes: scalar) and scalar columns for a table off a 16-byte boundary;
+    the plan's block count is the grid's."""
+    n = 16 // esize
+    dtype = torch.float32 if esize == 4 else torch.bfloat16
+    vec = gp.rows_aligned(_view(dtype, 4, width, n // 2 if offset else 0))
+    assert vec == (not offset and width % n == 0)
+    plan = gp.gather_plan(M, 18, width, esize, vec)
+    assert plan["lanes"] == (width // n if vec else width)
+    hits = _gather_hits(plan, M, width, esize, vec)
+    assert (hits == 1).all()
+    assert plan["blocks"] == -(-M // plan["rows_per_block"]) * plan["slabs"]
+
+
+@pytest.mark.parametrize("width", [1536, 1500, 1024, 1000])
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("R", [1, 9, 18, 64, 2048])
+@pytest.mark.parametrize("M", [1, 64, 1280])
+def test_gather_plan_blocks_cover_the_rows_and_fill_the_card(M, R, esize,
+                                                             width):
+    """Every pooled row in exactly one block row, every lane in exactly
+    one slab; a block's staged indices and weights (8 bytes per entry)
+    within 48 KB; at least two lanes per thread where shared memory and
+    the rows allow, and no row more than that needs; and at least one
+    block per SM (132) wherever M x lanes allows it, as at M = 64."""
+    vec = width * esize % 16 == 0
+    plan = gp.gather_plan(M, R, width, esize, vec)
+    rows, slab_lanes = plan["rows_per_block"], plan["slab_lanes"]
+    covered = sorted(b * rows + i for b in range(-(-M // rows))
+                     for i in range(rows) if b * rows + i < M)
+    assert covered == list(range(M))
+    slabs = [range(s * slab_lanes, min((s + 1) * slab_lanes, plan["lanes"]))
+             for s in range(plan["slabs"])]
+    assert [lane for s in slabs for lane in s] == list(range(plan["lanes"]))
+    assert all(len(s) > 0 for s in slabs)
+    assert rows * R * 8 <= gp.POOL_SMEM_BYTES
+    want = gp.POOL_THREADS * gp.GATHER_LANES_PER_THREAD
+    per_block = rows * slab_lanes
+    assert rows == 1 or (rows - 1) * slab_lanes < want
+    assert (per_block >= want or plan["slabs"] > 1
+            or (rows + 1) * R * 8 > gp.POOL_SMEM_BYTES)
+    if M * plan["lanes"] >= gp.CARD_SMS:
+        assert plan["blocks"] >= gp.CARD_SMS
+    if M == 64:
+        assert plan["blocks"] >= 132
 
 
 def _item_columns(plan, rows, widths, esize, vec, item):
