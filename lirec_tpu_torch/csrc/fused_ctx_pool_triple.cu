@@ -58,11 +58,11 @@
 //   an aligned base, or a row width in bytes not a multiple of 16) is read
 //   by the same code with one column per lane and scalar loads; the
 //   wrapper decides (ops/gather_pool.rows_aligned).
-// Tried on the card and left out (tools/pool_variants.py, times in
-// PERF.md, PR 6): 9, 12 or 18 rows ahead (more registers, fewer blocks
+// Tried on the card and left out (tools/pool_variants.py; times in
+// PERF.md section 6): 9, 12 or 18 rows ahead (more registers, fewer blocks
 // resident; 18 ahead only wins at the bf16 probe's M = 64), three lanes
-// per thread, registers capped by __launch_bounds__ (they spill) and 256
-// threads per block. The column slabs measure level with none at M = 64:
+// per thread, registers capped by __launch_bounds__ (at 48 they spill)
+// and 256 threads per block. The column slabs measure level with none at M = 64:
 // the latency chain (launch, index staging, three chunks of gathered
 // rows), not the SM count, holds that case.
 //
