@@ -50,17 +50,21 @@
 10. Runs the int_rel_ch eval CLI (``cli.int_rel_ch.main``) on a synthetic
    fixture on the card: both splits' metrics finite.
 11. Runs the two probes' entry points on the card (counted run):
-   ``tools.probe_hbm_dma.main`` (the per-row pool, kernel 1, beside the run
-   pool, kernel 9, and the plain pool, at the serve path's shapes) and
-   ``tools.probe_bf16_pack.main`` (the packed-bf16 gather-sum, kernel 10,
-   beside the masked gather-sum, kernel 5, on the native bf16 table, at the
-   TPU probe's own shapes and the clip table's). Then holds kernel 9 against
-   its plain version and bit for bit against kernel 1 on the explicit run
-   indices, kernel 10 against its plain version, and kernel 5 bit for bit
-   against an r-ordered loop and against its plain version on the same
-   inputs as kernel 10, and times each (L2 flushed) beside its plain
-   version, its bound and, for kernels 10 and 5, ``embedding_bag`` on the
-   unpacked f32 and the native bf16 table.
+   ``tools.probe_hbm_dma.main`` (the per-row pool, kernel 1, on random rows
+   and on the explicit run indices, beside the run pool, kernel 9, and the
+   plain pool, at the serve path's shapes) and ``tools.probe_bf16_pack.
+   main`` (the packed-bf16 gather-sum, kernel 10, beside the masked
+   gather-sum, kernel 5, on the native bf16 table, at the TPU probe's own
+   shapes and the clip table's). Then (``probe_checks``) holds kernel 9
+   against its plain version and bit for bit against kernel 1 on the
+   explicit run indices, kernel 10 against its plain version and bit for
+   bit against an r-ordered loop, and kernel 5 bit for bit against an
+   r-ordered loop and against its plain version on the same inputs as
+   kernel 10, and times each (L2 flushed) beside its plain version, its
+   bound and its library yardstick: three ``embedding_bag`` sums and tanh
+   on run indices built inside the timed call (kernel 9; kernel 1 on the
+   same run indices is timed too), ``embedding_bag`` on the unpacked f32
+   table (kernel 10) and on the native bf16 table (kernel 5).
 12. Trains int_rel_ch from the training CLI (``cli.train.main``) at its
    published widths on a synthetic fixture of published feature widths
    (text 768 x 12 layers, visual 2048): 3 epochs with cadence evaluation at
@@ -82,7 +86,9 @@ adds and against its plain version, and times each beside the
 triple tier's local-table build and one batch's ctx pool in each tier;
 and it
 times the 3-table kernel on that batch's own indices, as the eval sweep
-launches it, beside its plain version and three ``embedding_bag`` sums.
+launches it, beside its plain version and three ``embedding_bag`` sums
+(``bag_pool``, the library yardstick of the serve path's random rows and
+the giant tables too).
 
 Every failure raises. There is no CPU path: without a CUDA device the
 script exits 2. Its last line is one JSON object,
@@ -257,8 +263,32 @@ def emb_width(emb):
     return emb.clip.shape[1] + 2 * emb.tr1.shape[1]
 
 
+def index_cols(idx):
+    """The three contiguous [M, R] index columns of idx [M, R, 3]."""
+    return [idx[..., k].contiguous() for k in range(3)]
+
+
+def guarded_div(torch, mask):
+    """The pool's divider under the zero guard: sum_r mask, 0 -> 1."""
+    div = mask.sum(-1, keepdim=True)
+    return torch.where(div == 0, torch.ones_like(div), div)
+
+
+def bag_pool(torch, emb, cols, w, div):
+    """The library yardstick of the 3-table pool, timed only (the port
+    never calls it): three ``embedding_bag`` sums over the index columns
+    `cols` with weights `w` (in the tables' dtype), their concatenation,
+    the divide by `div` and tanh."""
+    import torch.nn.functional as F
+
+    return torch.tanh(torch.cat([
+        F.embedding_bag(c, t, per_sample_weights=w, mode="sum")
+        for c, t in zip(cols, emb)], dim=-1).float() / div)
+
+
 def kernel_checks(torch):
-    """Phase 3. Returns {entry: {max_abs_err, ms, plain_ms}}."""
+    """Phase 3. Returns {entry: {max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by}}."""
     from lirec_tpu_torch.ops.gather_pool import (
         fused_ctx_pool, fused_ctx_pool_reference,
     )
@@ -290,20 +320,28 @@ def kernel_checks(torch):
                     emb, idx, mask, True))
                 plain = median_ms(torch, lambda: fused_ctx_pool_reference(
                     emb, idx, mask, True))
+                cols, w = index_cols(idx), mask.to(dtype)
+                div = guarded_div(torch, mask)
+                lib_err = float((bag_pool(torch, emb, cols, w, div)
+                                 - fused_ctx_pool(emb, idx, mask, True))
+                                .abs().max())
+                lib = median_ms(torch, lambda: bag_pool(torch, emb, cols, w,
+                                                        div))
                 M, R = idx.shape[:2]
                 moved = (gathered_bytes(emb.clip, idx[..., 0])
                          + gathered_bytes(emb.tr1, idx[..., 1])
                          + gathered_bytes(emb.tr2, idx[..., 2])
                          + nbytes(idx, mask) + M * emb_width(emb) * 4)
                 b = bound(moved, 2 * M * R * emb_width(emb))
-                log("  %-34s kernel %.4f ms, plain %.4f ms (median, M=%d); "
-                    "bound %.4f ms (%s, %.1f MB)" % (
-                        name, ms, plain, M, b["bound_ms"], b["bound_by"],
-                        moved / 1e6))
-                timed = dict(ms=ms, plain_ms=plain, **b)
+                log("  %-34s kernel %.4f ms, plain %.4f ms, 3 x "
+                    "embedding_bag + tanh %.4f ms (max|diff| %.1e) (median, "
+                    "M=%d); bound %.4f ms (%s, %.1f MB)" % (
+                        name, ms, plain, lib, lib_err, M, b["bound_ms"],
+                        b["bound_by"], moved / 1e6))
+                timed = dict(ms=ms, plain_ms=plain, library_ms=lib, **b)
+                del cols, w, div
             del emb, idx, mask
-        # no single PyTorch call computes the 3-table pool
-        results[key] = dict(max_abs_err=max(errs), library_ms=None, **timed)
+        results[key] = dict(max_abs_err=max(errs), **timed)
     torch.cuda.empty_cache()
     return results
 
@@ -342,10 +380,7 @@ def eval_pool_entry(torch, tag, emb, idx, mask, w, div, ms, atol):
     structured batch over split-scale tables, as the off-tier sweep
     launches it: error against the plain version, its time (`ms`, timed by
     the caller), plain and library times, and the bound on these indices.
-    The library yardstick, three ``embedding_bag`` sums, a concatenation,
-    the divide and tanh, is timed only: the port never calls it."""
-    import torch.nn.functional as F
-
+    The library yardstick is ``bag_pool``."""
     from lirec_tpu_torch.ops.gather_pool import (
         fused_ctx_pool, fused_ctx_pool_reference,
     )
@@ -356,12 +391,10 @@ def eval_pool_entry(torch, tag, emb, idx, mask, w, div, ms, atol):
     err = float((got - want).abs().max())
     check(err <= atol, "3-table pool %s on the eval batch disagrees with "
           "the plain version: %.3e" % (tag, err))
-    cols = [idx[..., k].contiguous() for k in range(3)]
+    cols = index_cols(idx)
 
     def library():
-        return torch.tanh(torch.cat([
-            F.embedding_bag(c, t, per_sample_weights=w, mode="sum")
-            for c, t in zip(cols, emb)], dim=-1).float() / div)
+        return bag_pool(torch, emb, cols, w, div)
 
     lib_err = float((library() - got).abs().max())
     plain = median_ms(torch, lambda: fused_ctx_pool_reference(
@@ -421,8 +454,7 @@ def triple_checks(torch, spec):
                 "max|diff| vs plain %.3e (atol %.0e)"
                 % (tag, guard, U, err, atol[dtype]))
             check(err <= atol[dtype], "triple %s disagrees with plain" % tag)
-        div = mask.sum(-1, keepdim=True)
-        div = torch.where(div == 0, torch.ones_like(div), div)
+        div = guarded_div(torch, mask)
         w = mask.to(dtype)
         lib_out = torch.tanh(F.embedding_bag(
             tidx, fused, per_sample_weights=w, mode="sum").float() / div)
@@ -1301,13 +1333,10 @@ def eval_cli(torch):
 
 def probe_phase(torch):
     """Phase 11. Returns ({kernel name: launches of the probes' run},
-    {entry: {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}})."""
+    ``probe_checks``' entries)."""
     import math
 
-    import torch.nn.functional as F
-
-    from lirec_tpu_torch.ops import dispatch, probes
-    from lirec_tpu_torch.ops.gather_pool import fused_ctx_pool
+    from lirec_tpu_torch.ops import dispatch
     from lirec_tpu_torch.tools import probe_bf16_pack, probe_hbm_dma
 
     # ---- the counted run: the two probes' entry points
@@ -1318,11 +1347,12 @@ def probe_phase(torch):
     counts = dispatch.launches()
     # ---- end of the counted run
     check(all(math.isfinite(dma[k + "_ms"]) and dma[k + "_ms"] > 0
-              for k in ("per_row", "per_run", "plain")), "probe_hbm_dma %s"
-          % dma)
-    log("  probe_hbm_dma (slopes, 20..120 calls): per-row %.4f ms, per-run "
-        "%.4f ms, plain %.4f ms" % (dma["per_row_ms"], dma["per_run_ms"],
-                                    dma["plain_ms"]))
+              for k in ("per_row", "per_row_runs", "per_run", "plain")),
+          "probe_hbm_dma %s" % dma)
+    log("  probe_hbm_dma (slopes, 20..120 calls): per-row %.4f ms, per-row "
+        "on the run indices %.4f ms, per-run %.4f ms, plain %.4f ms"
+        % (dma["per_row_ms"], dma["per_row_runs_ms"], dma["per_run_ms"],
+           dma["plain_ms"]))
     for name in probe_bf16_pack.SHAPES:
         r = pack[name]
         log("  probe_bf16_pack %s %s (slopes): packed i32 %.4f ms, native "
@@ -1331,6 +1361,24 @@ def probe_phase(torch):
                                                r["native_bf16_ms"],
                                                r["max_abs_err"]))
     log("  launches in the probes' run: %s" % counts)
+    return counts, probe_checks(torch)
+
+
+def probe_checks(torch):
+    """Phase 11's holds and times, outside the counted run: kernel 9 at
+    the pool probe's inputs and kernel 10 at the bf16 probe's shapes, each
+    against its plain version and bit for bit against its reference
+    arithmetic (kernel 1 on the run indices; the r-ordered loop), timed (L2
+    flushed) beside its plain version, its library yardstick and its
+    bound; kernel 5 on the native bf16 table beside kernel 10. Only the
+    wrappers of ``ops/probes.py`` are called, so ``tools/kernel_phases.py``
+    runs this on a parent tree too. Returns {entry: {max_abs_err, ms,
+    plain_ms, library_ms, bound_ms, bound_by, ...}}."""
+    import torch.nn.functional as F
+
+    from lirec_tpu_torch.ops import probes
+    from lirec_tpu_torch.ops.gather_pool import fused_ctx_pool
+    from lirec_tpu_torch.tools import probe_bf16_pack, probe_hbm_dma
 
     results = {}
     # kernel 9 at the probe's inputs: against its plain version, and bit
@@ -1338,6 +1386,7 @@ def probe_phase(torch):
     emb, idx, mask = probe_hbm_dma.make_inputs(torch, "cuda")
     run = probe_hbm_dma.run_indices(torch, idx)
     got = probes.run_pool(emb, idx, mask)
+    again = probes.run_pool(emb, idx, mask)
     rows = fused_ctx_pool(emb, run, mask, True)
     torch.cuda.synchronize()
     want = probes.run_pool_reference(emb, idx, mask)
@@ -1345,16 +1394,30 @@ def probe_phase(torch):
           "run pool output %s %s" % (tuple(got.shape), got.dtype))
     check(torch.equal(got, rows),
           "run pool: not bitwise kernel 1 on the run indices")
+    check(torch.equal(got, again), "run pool: two launches differ")
     err = float((got - want).abs().max())
-    log("  run pool (kernel 9): bitwise kernel 1 on the run indices; "
-        "max|diff| vs plain %.3e (atol 1e-05)" % err)
     check(err <= 1e-5, "run pool disagrees with the plain version")
+    # the library yardstick builds the run indices itself: the kernel
+    # reads idx[:, 0, :] only
+    div = mask.sum(-1, keepdim=True).clamp_min(1.0)
+
+    def library():
+        return bag_pool(torch, emb, index_cols(
+            probe_hbm_dma.run_indices(torch, idx)), mask, div)
+
+    lib_err = float((library() - got).abs().max())
+    log("  run pool (kernel 9): bitwise kernel 1 on the run indices, two "
+        "launches equal; max|diff| vs plain %.3e (atol 1e-05), vs 3 x "
+        "embedding_bag + tanh %.1e" % (err, lib_err))
     M, R = idx.shape[:2]
     width = emb_width(emb)
     ms = median_ms(torch, lambda: probes.run_pool(emb, idx, mask))
     per_row = median_ms(torch, lambda: fused_ctx_pool(emb, idx, mask, True))
+    per_row_runs = median_ms(torch, lambda: fused_ctx_pool(emb, run, mask,
+                                                           True))
     plain = median_ms(torch, lambda: probes.run_pool_reference(emb, idx,
                                                                 mask))
+    lib = median_ms(torch, library)
     # the runs' rows, each read once; the kernel reads idx[:, 0, :] only
     moved = (sum(gathered_bytes(t, run[..., k]) for k, t in enumerate(emb))
              + M * 3 * 4 + nbytes(mask) + M * width * 4)
@@ -1363,15 +1426,17 @@ def probe_phase(torch):
                      for k, t in enumerate(emb))
                  + nbytes(idx, mask) + M * width * 4)
     row_b = bound(row_moved, 2 * M * R * width)
-    log("  run pool kernel %.4f ms, plain %.4f ms; bound %.4f ms (%s, %.1f "
-        "MB). Per-row kernel 1 on the random rows %.4f ms; bound %.4f ms "
-        "(%.1f MB)" % (ms, plain, b["bound_ms"], b["bound_by"], moved / 1e6,
-                       per_row, row_b["bound_ms"], row_moved / 1e6))
-    # no single PyTorch call computes the pool of runs
+    log("  run pool kernel %.4f ms, plain %.4f ms, 3 x embedding_bag + tanh "
+        "(run indices built inside) %.4f ms; bound %.4f ms (%s, %.1f MB). "
+        "Per-row kernel 1 on the run indices %.4f ms, on the random rows "
+        "%.4f ms (bound %.4f ms, %.1f MB)"
+        % (ms, plain, lib, b["bound_ms"], b["bound_by"], moved / 1e6,
+           per_row_runs, per_row, row_b["bound_ms"], row_moved / 1e6))
     results["run_pool"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                               library_ms=None, per_row_ms=per_row,
+                               library_ms=lib, per_row_ms=per_row,
+                               per_row_on_runs_ms=per_row_runs,
                                per_row_bound_ms=row_b["bound_ms"], **b)
-    del emb, idx, mask, run, got, rows, want
+    del emb, idx, mask, run, got, again, rows, want
 
     # kernel 10 at the TPU probe's shapes and the clip table's
     for name, (n, d, m, r) in probe_bf16_pack.SHAPES.items():
@@ -1387,13 +1452,15 @@ def probe_phase(torch):
         want = probes.packed_gather_sum_reference(packed, pidx, pmask)
         check(got.shape == (m, d) and got.dtype == torch.float32,
               "packed gather-sum %s output %s" % (name, tuple(got.shape)))
+        check(torch.equal(got, masked_sum_loop(torch, unpacked, pidx, pmask)),
+              "packed gather-sum %s: not bitwise the r-ordered loop" % name)
         err = float((got - want).abs().max())
         lib_out = F.embedding_bag(pidx, unpacked, per_sample_weights=pmask,
                                   mode="sum")
         lib_err = float((lib_out - got).abs().max())
-        log("  packed gather-sum (kernel 10) %s [%d, %d] M=%d: max|diff| "
-            "vs plain %.3e (bound 1e-05), embedding_bag %.3e"
-            % (name, n, d, m, err, lib_err))
+        log("  packed gather-sum (kernel 10) %s [%d, %d] M=%d: bitwise the "
+            "r-ordered loop; max|diff| vs plain %.3e (bound 1e-05), "
+            "embedding_bag %.3e" % (name, n, d, m, err, lib_err))
         check(err < 1e-5, "packed gather-sum %s disagrees" % name)
         ms = median_ms(torch, lambda: probes.packed_gather_sum(packed, pidx,
                                                                pmask))
@@ -1417,7 +1484,7 @@ def probe_phase(torch):
         results["pack_" + name]["native_bf16_ms"] = gms["gms_" + name]["ms"]
     results.update(gms)
     torch.cuda.empty_cache()
-    return counts, results
+    return results
 
 
 # ------------------------------------------------------ the training CLI

@@ -1,12 +1,14 @@
-"""Phases 3 and 6 of ``chip_smoke.py``, alone, on one CUDA card, against the
-kernels of a checkout: the pool kernels (the 3-table pool on the eval
-sweep's batch, the triple kernel and one batch's ctx pool in each tier,
-the masked sum), the masked sum at the bf16 probe's two shapes beside
-``embedding_bag`` on the native bf16 table (phase 11's measurement), and
-the scatter (at the Localizer's tables, and its split-scale,
-all-into-8-rows, flattened and single-table cases), each against its plain
-version, with median times (L2 flushed), bounds and the scatter's device
-time per launch inside the op.
+"""Phases 3 and 6 of ``chip_smoke.py``, and phase 11's holds and times,
+alone, on one CUDA card, against the kernels of a checkout: the pool
+kernels (the 3-table pool on the eval sweep's batch, the triple kernel and
+one batch's ctx pool in each tier, the masked sum), the probe kernels
+(kernel 9 at the pool probe's inputs beside kernel 1 on the same runs and
+the three-``embedding_bag`` yardstick; kernel 10 at the bf16 probe's two
+shapes beside kernel 5 on the native bf16 table and ``embedding_bag``;
+``chip_smoke.probe_checks``), and the scatter (at the Localizer's tables,
+and its split-scale, all-into-8-rows, flattened and single-table cases),
+each against its plain version, with median times (L2 flushed), bounds
+and the scatter's device time per launch inside the op.
 
     python lirec_tpu_torch/tools/kernel_phases.py [TREE] [--label L]
 
@@ -59,13 +61,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(label, tree, cs.card_line(), flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(build.build, ("fused_ctx_pool", "scatter_accum",
-                                    "fused_ctx_pool_triple")))
+    sources = ("fused_ctx_pool", "scatter_accum", "fused_ctx_pool_triple",
+               "probe_hbm_dma", "probe_bf16_pack")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.build, sources))
     print("built in %.1f s" % (time.perf_counter() - t0), flush=True)
     model = ModelSpec(n_classes=101, n_rels=15)
     out = {"triple": cs.triple_checks(torch, model),
-           "gms_probe": cs.masked_sum_probe_checks(torch)}
+           "probes": cs.probe_checks(torch)}
     raw, local, caps = cs.train_batches(model)
     out["caps"] = caps
     out["scatter"] = cs.scatter_checks(torch, model, raw[0], local[0], caps)

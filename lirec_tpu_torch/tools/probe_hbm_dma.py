@@ -9,14 +9,18 @@ times, at the main path's shapes (f32 tables of 12,288 x 1024 clip rows and
 run-safe random starts, 80% of the weights 1):
 
   a) per-row: kernel 1 on the random indices (guard_zero=True);
-  b) per-run: the run pool (kernel 9, ``ops/probes.run_pool``), which reads
-     the same number of bytes as one contiguous [R, d] run per (m, table)
-     (rows idx[m, 0, k] .. idx[m, 0, k] + R - 1: a different function of
-     the indices, the same traffic), one bulk copy each;
-  c) the plain version of (a) (``fused_ctx_pool_reference``).
+  b) per-row on the runs: kernel 1 on the explicit run indices
+     (``run_indices``): the function of (c), the same rows, read as R x 3
+     row loads per pooled row;
+  c) per-run: the run pool (kernel 9, ``ops/probes.run_pool``), which reads
+     each (m, table) as one contiguous [R, d] run (rows idx[m, 0, k] ..
+     idx[m, 0, k] + R - 1: a different function of the indices than (a),
+     the same traffic), streamed by bulk copies through a ring of shared
+     memory stages;
+  d) the plain version of (a) (``fused_ctx_pool_reference``).
 
-If (b) is much faster than (a), the pool's distance from its bytes bound
-is load issue, and a run-contiguous table layout would buy the difference.
+(b) against (c) is the question: whether bulk copies of whole runs beat
+row loads of the same rows, so that a run-contiguous ctx layout would pay.
 
 Each time is ms per call: the slope of CUDA-event times between 20 and 120
 back-to-back calls (set-up and launch latency drop out), the median of 3
@@ -99,7 +103,7 @@ def run_indices(torch, idx):
 
 
 def measure(device, n_clips=N_CLIPS, n_tracks=N_TRACKS, m=M) -> dict:
-    """The three calls on `device` at the given sizes (``main`` runs the
+    """The four calls on `device` at the given sizes (``main`` runs the
     main path's): ms per call on the card, a finiteness check on the
     CPU."""
     import torch
@@ -114,8 +118,10 @@ def measure(device, n_clips=N_CLIPS, n_tracks=N_TRACKS, m=M) -> dict:
         raise SystemExit("probe_hbm_dma: no CUDA device (pass --device cpu "
                          "for a check without times)")
     emb, idx, mask = make_inputs(torch, device, n_clips, n_tracks, m)
+    run = run_indices(torch, idx)
     calls = {
         "per_row": lambda: fused_ctx_pool(emb, idx, mask, True),
+        "per_row_runs": lambda: fused_ctx_pool(emb, run, mask, True),
         "per_run": lambda: run_pool(emb, idx, mask),
         "plain": lambda: fused_ctx_pool_reference(emb, idx, mask, True),
     }

@@ -284,7 +284,8 @@ def test_probe_tools_run_on_the_cpu(monkeypatch):
     from lirec_tpu_torch.tools import probe_bf16_pack, probe_hbm_dma
 
     out = probe_hbm_dma.measure("cpu", n_clips=64, n_tracks=96, m=12)
-    assert out["per_row_ms"] is None and out["per_run_ms"] is None
+    assert all(out[k + "_ms"] is None
+               for k in ("per_row", "per_row_runs", "per_run", "plain"))
     assert out["shapes"]["idx"] == (12, 18, 3)
     out = probe_bf16_pack.measure(
         "cpu", {"probe": probe_bf16_pack.SHAPES["probe"]})
