@@ -15,33 +15,62 @@
 // since max(div, 1) and the zero guard agree on integer dividers. The two
 // differ for fractional weights whose sum is below 1.
 //
-// What bounds it: the bytes of the runs (R x (dc + 2 dt) x 4 bytes per
-// pooled row, ~110 KB at R = 18 and 1536 columns), as for the per-row pool.
-// The probe asks how much of the per-row kernel's distance from that bound
-// is the cost of issuing R x 3 row loads per pooled row.
+// What bounds it. At the probe's shapes (M = 1280 pooled rows, R = 18,
+// clip rows of 1024 and track rows of 256 f32) the distinct rows of the
+// runs and the output take 0.024 ms at the card's memory rate; every pooled
+// row reads its own 18 x 3 rows, 141.6 MB pulled from L2 into the SMs. The
+// first design (one block per pooled row holding all 110,592 B of its runs
+// in shared memory: two blocks per SM, 1,280 blocks in ~4.8 waves; a block
+// added nothing until its three runs had landed and issued no copy while
+// it added, divided and ran tanh; thread 0 summed the divider between two
+// barriers) took 0.054-0.055 ms, 45% of the bound (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md): copies and adds took turns instead of overlapping.
 //
-// Design: the Hopper counterpart of the TPU's one DMA per run is one bulk
-// copy (cp.async.bulk, the Tensor Memory Accelerator's non-tensor form) per
-// (m, table), global -> shared, completed on an mbarrier that expects the
-// runs' byte count. One block per pooled row m; thread 0 issues the three
-// copies, every thread then waits on the barrier and the threads stride
-// over the 1536 output columns, summing each column from shared memory in
-// r order (neighbouring threads read neighbouring words: no bank
-// conflicts). Shared memory per block: R x (dc + 2 dt) x 4 bytes of runs
-// (110,592 at the probe's shapes, two blocks per SM) plus the weights and
-// the barrier, set as the launch's dynamic shared memory after raising the
-// kernel's limit with cudaFuncSetAttribute. Bulk copies need 16-byte
-// aligned addresses and sizes: the wrapper checks the tables' pointers and
-// that dc and dt are multiples of 4. A run that leaves its table is not
-// copied and its output segment is NaN (no fault, no silent value).
+// Design: a producer/consumer ring of bulk copies (the Tensor Memory
+// Accelerator's non-tensor form), without tensor cores.
+// * Persistent blocks, one per SM (ops/probes.run_pool_plan: the grid is
+//   the card's SM count, or M where smaller), each walking the pooled rows
+//   blockIdx.x, blockIdx.x + gridDim.x, ...
+// * The ring: `stages` stages of shared memory, each with a full and an
+//   empty mbarrier. A stage holds a chunk of k consecutive run rows of all
+//   three tables (k rows of clip, then of tr1, then of tr2), so that every
+//   consumer lane has work in every stage.
+// * The producer: one warp, of which one lane issues, per stage, one
+//   cp.async.bulk of k x d x 4 bytes per table (a multiple of 16: the
+//   widths are multiples of 4) completing on the stage's full barrier; it
+//   runs ahead of the consumers by up to `stages` stages, into the next
+//   pooled row while they finish the last one.
+// * The consumers: 12 warps, on kernel 1's lane map (16-byte lanes of 4
+//   columns: 256 clip lanes and 2 x 64 track lanes of a 1536-wide row, one
+//   per thread; up to kMaxLanes per thread for wider rows). A thread keeps
+//   its accumulators in registers across the chunks of a pooled row, adds
+//   in r order with the _rn intrinsics (16-byte shared loads, kAhead rows
+//   ahead of the chain, the weights read through the read-only cache), and
+//   its warp releases the stage with one arrive on the empty barrier.
+// * The epilogue: each consumer thread sums the divider itself in r order,
+//   multiplies by its reciprocal, applies tanhf and stores 16-byte vectors.
+// * The ring's size depends on neither R nor the width: the wrapper raises
+//   only where one row of the three tables exceeds a stage; R is limited
+//   by MAX_CONTEXT alone.
+// * A run that leaves its table is not copied: its bytes are left out of
+//   the stage's expected count and its output segment is NaN (no fault, no
+//   silent value).
+// * A wait on either barrier kind that never completes traps after ~4M
+//   polls, so a launch fails with an error instead of hanging the card.
+// Geometries measured (tools/run_pool_variants.py; PERF.md section 6, PR
+// 7): stages of 16 KB x 8, 32 KB x 6, and whole runs x 2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr size_t kHeader = 16;  // the mbarrier, padded to 16 bytes
+constexpr int kConsumers = 384;  // ops/probes.RUN_CONSUMERS
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kMaxLanes = 6;     // ops/probes.RUN_MAX_LANES, per consumer
+constexpr int kMaxStages = 8;    // ops/probes.RUN_MAX_STAGES
+constexpr int kHeader = 128;     // the 2 x kMaxStages barriers
+constexpr int kAhead = 6;        // staged rows loaded ahead of their adds
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -56,9 +85,9 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
       : "memory");
 }
 
-// Waits for the barrier's phase `parity` to complete. A copy that never
-// lands (a fault in the copies' byte count) traps after ~4M polls, so a
-// launch fails with an error instead of hanging the card.
+// Waits for the barrier's phase of parity `parity` to complete. A wait
+// that never completes (a fault in the copies' byte count or the arrivals)
+// traps after ~4M polls, so a launch fails instead of hanging the card.
 __device__ __forceinline__ void barrier_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   for (uint32_t polls = 0; !done; ++polls) {
@@ -71,129 +100,228 @@ __device__ __forceinline__ void barrier_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// shared bytes of one block: barrier, R weights (padded to 16), the runs
-size_t smem_bytes(int R, int d_clip, int d_tr) {
-  const size_t w = (static_cast<size_t>(R) * 4 + 15) / 16 * 16;
-  return kHeader + w +
-         static_cast<size_t>(R) * (d_clip + 2 * static_cast<size_t>(d_tr)) *
-             sizeof(float);
+__device__ __forceinline__ void barrier_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ bool run_ok(int s, int n, int R) {
+  return s >= 0 && s <= n - R;
+}
+
+// The producer: one lane issues the bulk copies of every chunk of every
+// pooled row of this block, in the order the consumers take them.
+__device__ void produce(const float* __restrict__ clip,
+                        const float* __restrict__ tr1,
+                        const float* __restrict__ tr2,
+                        const int32_t* __restrict__ idx, float* ring,
+                        uint32_t full0, uint32_t empty0, int M, int R,
+                        int d_clip, int d_tr, int n_clip, int n_tr, int k,
+                        int stages) {
+  const int stage_floats = k * (d_clip + 2 * d_tr);
+  int s = 0;
+  uint32_t phase = 0;
+  for (int64_t m = blockIdx.x; m < M; m += gridDim.x) {
+    const int32_t* start = idx + m * 3 * R;  // idx[m, 0, :]
+    const int s0 = __ldg(start), s1 = __ldg(start + 1),
+              s2 = __ldg(start + 2);
+    const bool ok0 = run_ok(s0, n_clip, R), ok1 = run_ok(s1, n_tr, R),
+               ok2 = run_ok(s2, n_tr, R);
+    for (int r0 = 0; r0 < R; r0 += k) {
+      const int kk = R - r0 < k ? R - r0 : k;
+      const uint32_t full = full0 + 8 * s, empty = empty0 + 8 * s;
+      barrier_wait(empty, phase ^ 1);  // round 0 passes at once
+      float* stage = ring + static_cast<int64_t>(s) * stage_floats;
+      const uint32_t clip_bytes = static_cast<uint32_t>(kk) * d_clip * 4;
+      const uint32_t tr_bytes = static_cast<uint32_t>(kk) * d_tr * 4;
+      const uint32_t expect = (ok0 ? clip_bytes : 0) + (ok1 ? tr_bytes : 0) +
+                              (ok2 ? tr_bytes : 0);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(full), "r"(expect) : "memory");
+      if (ok0)
+        bulk_copy_g2s(stage, clip + static_cast<int64_t>(s0 + r0) * d_clip,
+                      clip_bytes, full);
+      if (ok1)
+        bulk_copy_g2s(stage + k * d_clip,
+                      tr1 + static_cast<int64_t>(s1 + r0) * d_tr, tr_bytes,
+                      full);
+      if (ok2)
+        bulk_copy_g2s(stage + k * (d_clip + d_tr),
+                      tr2 + static_cast<int64_t>(s2 + r0) * d_tr, tr_bytes,
+                      full);
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// The consumers: thread t owns the lanes t, t + kConsumers, ... of a pooled
+// row (lane = 4 output columns of one table).
+__device__ void consume(const int32_t* __restrict__ idx,
+                        const float* __restrict__ mask,
+                        float* __restrict__ out, const float* ring,
+                        uint32_t full0, uint32_t empty0, int M, int R,
+                        int d_clip, int d_tr, int n_clip, int n_tr, int k,
+                        int stages) {
+  const int width = d_clip + 2 * d_tr;
+  const int stage_floats = k * width;
+  const int lanes = width / 4;
+  const int c_clip = d_clip / 4, c_tr = d_tr / 4;
+  // per owned lane: its table, its offset in a stage's row 0, the stage's
+  // row stride for it, its first output column
+  int tab[kMaxLanes], soff[kMaxLanes], ld[kMaxLanes], ocol[kMaxLanes];
+  int nl = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxLanes; ++i) {
+    const int lane = threadIdx.x + i * kConsumers;
+    tab[i] = soff[i] = ld[i] = ocol[i] = 0;
+    if (lane < lanes) {
+      nl = i + 1;
+      if (lane < c_clip) {
+        tab[i] = 0; soff[i] = lane * 4; ld[i] = d_clip; ocol[i] = lane * 4;
+      } else {
+        const int l = lane - c_clip;
+        const int t = l < c_tr ? 1 : 2;
+        const int c = (l - (t - 1) * c_tr) * 4;
+        tab[i] = t;
+        soff[i] = k * (d_clip + (t - 1) * d_tr) + c;
+        ld[i] = d_tr;
+        ocol[i] = d_clip + (t - 1) * d_tr + c;
+      }
+    }
+  }
+  const bool leader = (threadIdx.x & 31) == 0;
+  int s = 0;
+  uint32_t phase = 0;
+  for (int64_t m = blockIdx.x; m < M; m += gridDim.x) {
+    const int32_t* start = idx + m * 3 * R;
+    const bool ok0 = run_ok(__ldg(start), n_clip, R),
+               ok1 = run_ok(__ldg(start + 1), n_tr, R),
+               ok2 = run_ok(__ldg(start + 2), n_tr, R);
+    bool ok[kMaxLanes];
+    float acc[kMaxLanes][4];
+#pragma unroll
+    for (int i = 0; i < kMaxLanes; ++i) {
+      ok[i] = tab[i] == 0 ? ok0 : tab[i] == 1 ? ok1 : ok2;
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    }
+    const float* w_row = mask + m * R;
+    for (int r0 = 0; r0 < R; r0 += k) {
+      const int kk = R - r0 < k ? R - r0 : k;
+      barrier_wait(full0 + 8 * s, phase);
+      const float* stage = ring + static_cast<int64_t>(s) * stage_floats;
+#pragma unroll
+      for (int i = 0; i < kMaxLanes; ++i) {
+        if (i >= nl || !ok[i]) continue;
+        const float* p = stage + soff[i];
+        for (int j0 = 0; j0 < kk; j0 += kAhead) {
+          float4 x[kAhead];
+          float w[kAhead];
+#pragma unroll
+          for (int j = 0; j < kAhead; ++j)
+            if (j0 + j < kk) {
+              x[j] = *reinterpret_cast<const float4*>(p + (j0 + j) * ld[i]);
+              w[j] = __ldg(w_row + r0 + j0 + j);
+            }
+#pragma unroll
+          for (int j = 0; j < kAhead; ++j)
+            if (j0 + j < kk) {
+              acc[i][0] = __fadd_rn(acc[i][0], __fmul_rn(w[j], x[j].x));
+              acc[i][1] = __fadd_rn(acc[i][1], __fmul_rn(w[j], x[j].y));
+              acc[i][2] = __fadd_rn(acc[i][2], __fmul_rn(w[j], x[j].z));
+              acc[i][3] = __fadd_rn(acc[i][3], __fmul_rn(w[j], x[j].w));
+            }
+        }
+      }
+      __syncwarp();  // the warp's reads of the stage are done
+      if (leader) barrier_arrive(empty0 + 8 * s);
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    float div = 0.f;
+    for (int r = 0; r < R; ++r) div = __fadd_rn(div, __ldg(w_row + r));
+    const float inv = __fdiv_rn(1.f, fmaxf(div, 1.f));
+    float* o = out + m * width;
+#pragma unroll
+    for (int i = 0; i < kMaxLanes; ++i) {
+      if (i >= nl) continue;
+      const float nan = __int_as_float(0x7fc00000);  // the run left its table
+      *reinterpret_cast<float4*>(o + ocol[i]) =
+          ok[i] ? make_float4(tanhf(__fmul_rn(acc[i][0], inv)),
+                              tanhf(__fmul_rn(acc[i][1], inv)),
+                              tanhf(__fmul_rn(acc[i][2], inv)),
+                              tanhf(__fmul_rn(acc[i][3], inv)))
+                : make_float4(nan, nan, nan, nan);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 run_pool_kernel(const float* __restrict__ clip, const float* __restrict__ tr1,
                 const float* __restrict__ tr2,
                 const int32_t* __restrict__ idx,
                 const float* __restrict__ mask, float* __restrict__ out,
-                int R, int d_clip, int d_tr, int n_clip, int n_tr) {
+                int M, int R, int d_clip, int d_tr, int n_clip, int n_tr,
+                int k, int stages) {
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  float* s_w = reinterpret_cast<float*>(smem + kHeader);
-  float* s_inv = reinterpret_cast<float*>(smem + 8);  // beside the barrier
-  float* buf_clip = reinterpret_cast<float*>(
-      smem + kHeader + (static_cast<size_t>(R) * 4 + 15) / 16 * 16);
-  float* buf_tr1 = buf_clip + static_cast<size_t>(R) * d_clip;
-  float* buf_tr2 = buf_tr1 + static_cast<size_t>(R) * d_tr;
-
-  const int64_t m = blockIdx.x;
-  const int32_t* start = idx + m * 3 * R;  // idx[m, 0, :]
-  const int s0 = start[0], s1 = start[1], s2 = start[2];
-  const bool ok0 = s0 >= 0 && s0 <= n_clip - R;
-  const bool ok1 = s1 >= 0 && s1 <= n_tr - R;
-  const bool ok2 = s2 >= 0 && s2 <= n_tr - R;
-  const uint32_t b = smem_addr(bar);
-
+  const uint32_t full0 = smem_addr(smem);  // full[s] at + 8 s
+  const uint32_t empty0 = full0 + 8 * kMaxStages;
+  float* ring = reinterpret_cast<float*>(smem + kHeader);
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(b)
-                 : "memory");
+    for (int s = 0; s < stages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(full0 + 8 * s) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   :: "r"(empty0 + 8 * s), "r"(kConsumers / 32) : "memory");
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    const uint32_t clip_bytes = static_cast<uint32_t>(R) * d_clip * 4;
-    const uint32_t tr_bytes = static_cast<uint32_t>(R) * d_tr * 4;
-    const uint32_t expect = (ok0 ? clip_bytes : 0) + (ok1 ? tr_bytes : 0) +
-                            (ok2 ? tr_bytes : 0);
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(b), "r"(expect) : "memory");
-    if (ok0)
-      bulk_copy_g2s(buf_clip, clip + static_cast<int64_t>(s0) * d_clip,
-                    clip_bytes, b);
-    if (ok1)
-      bulk_copy_g2s(buf_tr1, tr1 + static_cast<int64_t>(s1) * d_tr,
-                    tr_bytes, b);
-    if (ok2)
-      bulk_copy_g2s(buf_tr2, tr2 + static_cast<int64_t>(s2) * d_tr,
-                    tr_bytes, b);
   }
-  // the weights and the divider load while the runs are in flight
-  for (int i = threadIdx.x; i < R; i += blockDim.x) s_w[i] = mask[m * R + i];
-  __syncthreads();  // the barrier is initialised, the weights are staged
-  if (threadIdx.x == 0) {
-    float div = 0.f;
-    for (int r = 0; r < R; ++r) div = __fadd_rn(div, s_w[r]);
-    *s_inv = __fdiv_rn(1.f, fmaxf(div, 1.f));
+  __syncthreads();  // the only block-wide barrier
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers)
+      produce(clip, tr1, tr2, idx, ring, full0, empty0, M, R, d_clip, d_tr,
+              n_clip, n_tr, k, stages);
+    return;
   }
-  barrier_wait(b, 0);
-  __syncthreads();  // s_inv
-  const float inv = *s_inv;
-
-  const int width = d_clip + 2 * d_tr;
-  float* out_row = out + m * width;
-  for (int col = threadIdx.x; col < width; col += blockDim.x) {
-    const float* buf;
-    int c, ld;
-    bool ok;
-    if (col < d_clip) {
-      buf = buf_clip; c = col; ld = d_clip; ok = ok0;
-    } else if (col < d_clip + d_tr) {
-      buf = buf_tr1; c = col - d_clip; ld = d_tr; ok = ok1;
-    } else {
-      buf = buf_tr2; c = col - d_clip - d_tr; ld = d_tr; ok = ok2;
-    }
-    if (!ok) {
-      out_row[col] = __int_as_float(0x7fc00000);  // NaN: run out of range
-      continue;
-    }
-    float acc = 0.f;
-    for (int r = 0; r < R; ++r)
-      acc = __fadd_rn(acc, __fmul_rn(s_w[r], buf[r * ld + c]));
-    out_row[col] = tanhf(__fmul_rn(acc, inv));
-  }
+  consume(idx, mask, out, ring, full0, empty0, M, R, d_clip, d_tr, n_clip,
+          n_tr, k, stages);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The shared bytes one block needs, and the card's opt-in limit per block
-// (cudaDevAttrMaxSharedMemoryPerBlockOptin of `device`, or -1 on error).
-long long probe_hbm_dma_smem_bytes(int R, int d_clip, int d_tr) {
-  return static_cast<long long>(smem_bytes(R, d_clip, d_tr));
-}
-
-int probe_hbm_dma_smem_optin(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
-  return v;
-}
-
 // Pointers are device pointers of contiguous f32 tensors, 16-byte aligned:
 // clip [n_clip, d_clip], tr1/tr2 [n_tr, d_tr], idx int32 [M, R, 3] (only
-// idx[:, 0, :] is read), mask f32 [M, R], out f32 [M, d_clip + 2 * d_tr].
-// Returns the cudaError_t of the attribute call or the launch (0 = ok).
+// idx[:, 0, :] is read), mask f32 [M, R], out f32 [M, d_clip + 2 * d_tr];
+// d_clip and d_tr multiples of 4. The geometry is ops/probes.run_pool_plan's:
+// rows_per_chunk run rows of each table per stage, `stages` stages, `grid`
+// persistent blocks. Returns the cudaError_t of the attribute call or the
+// launch (0 = ok).
 int probe_hbm_dma_f32(const void* clip, const void* tr1, const void* tr2,
                       const void* idx, const void* mask, void* out, int M,
                       int R, int d_clip, int d_tr, int n_clip, int n_tr,
+                      int rows_per_chunk, int stages, int grid,
                       void* stream) {
-  const size_t smem = smem_bytes(R, d_clip, d_tr);
+  const int width = d_clip + 2 * d_tr;
+  if (rows_per_chunk < 1 || stages < 1 || stages > kMaxStages || grid < 1 ||
+      d_clip % 4 || d_tr % 4 || width / 4 > kConsumers * kMaxLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = kHeader + static_cast<size_t>(stages) *
+                                    rows_per_chunk * width * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       run_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  run_pool_kernel<<<M, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  run_pool_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(clip), static_cast<const float*>(tr1),
       static_cast<const float*>(tr2), static_cast<const int32_t*>(idx),
-      static_cast<const float*>(mask), static_cast<float*>(out), R, d_clip,
-      d_tr, n_clip, n_tr);
+      static_cast<const float*>(mask), static_cast<float*>(out), M, R, d_clip,
+      d_tr, n_clip, n_tr, rows_per_chunk, stages);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,9 +11,21 @@
 Counterparts of the TPU probes ``tools/probe_hbm_dma.py`` (the per-run
 DMA kernel) and ``tools/probe_bf16_pack.py`` (the packed-int32 bf16
 layout). Neither is on a product path: ``lirec_tpu_torch.tools.
-probe_hbm_dma`` and ``probe_bf16_pack`` time them beside the pool and the
-masked gather-sum (ops/gather_pool.py) to measure what row-load issue and
-row-load width cost on the card.
+probe_hbm_dma`` and ``probe_bf16_pack`` time them beside the pool on the
+same runs and the masked gather-sum on the native bf16 table
+(ops/gather_pool.py): whether bulk copies of whole runs beat row loads of
+the same rows, and whether packed words beat native bf16 rows at equal
+(16-byte) load width.
+
+Both kernels have their Hopper design (PR 7). The run pool is a ring of
+shared-memory stages filled by bulk copies (``cp.async.bulk`` on
+mbarriers) from one producer lane and drained by consumer warps, in
+persistent blocks; its chunk size, stage count and grid are host logic,
+``run_pool_plan``. The packed gather-sum is the masked sum's one-table
+design on packed words (16-byte lanes of 4 words, rows loaded ahead of
+the add chain), on ``gather_pool.gather_plan``'s geometry. Both keep the
+arithmetic of their first design operation for operation, so each equals
+it, and its reference arithmetic, bit for bit.
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version (``*_reference``) only for CPU tensors. For a CUDA tensor it
@@ -22,16 +34,17 @@ launches or raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from lirec_tpu_torch.ops import dispatch
-from lirec_tpu_torch.ops.gather_pool import MAX_CONTEXT, _check
+from lirec_tpu_torch.ops.gather_pool import (
+    CARD_SMS, MAX_CONTEXT, _check, _sms, gather_plan, rows_aligned,
+)
 
 __all__ = [
-    "run_pool", "run_pool_reference", "pack_bf16", "unpack_bf16",
-    "packed_gather_sum", "packed_gather_sum_reference", "KERNEL_NAMES",
+    "run_pool", "run_pool_reference", "run_pool_plan", "pack_bf16",
+    "unpack_bf16", "packed_gather_sum", "packed_gather_sum_reference",
+    "KERNEL_NAMES",
 ]
 
 _SOURCES = {"run_pool": "probe_hbm_dma",
@@ -39,13 +52,16 @@ _SOURCES = {"run_pool": "probe_hbm_dma",
 # launch-count keys, which are also the C symbols
 KERNEL_NAMES = {"run_pool": "probe_hbm_dma_f32",
                 "packed_gather_sum": "packed_gather_sum"}
-_SMEM_OPTIN: dict = {}  # device index -> opt-in shared bytes per block
-
-
-def _lib(op):
-    from lirec_tpu_torch.ops import build
-
-    return build.load(_SOURCES[op])
+# csrc/probe_hbm_dma.cu: consumer threads, 16-byte lanes a consumer thread
+# can own, stages the barrier header holds and its bytes; the plan's stage
+# size and count; a block's opt-in shared memory on an H100
+RUN_CONSUMERS = 384
+RUN_MAX_LANES = 6
+RUN_MAX_STAGES = 8
+RUN_HEADER_BYTES = 128
+RUN_STAGE_BYTES = 32 * 1024
+RUN_STAGES = 6
+SMEM_OPTIN = 232448
 
 
 def _launch(op, device, n_ptrs, args):
@@ -87,21 +103,33 @@ def run_pool_reference(emb, idx, mask):
     return torch.tanh(pooled * inv)
 
 
-def _smem_optin(device):
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if index not in _SMEM_OPTIN:
-        fn = _lib("run_pool").probe_hbm_dma_smem_optin
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-        _SMEM_OPTIN[index] = fn(index)
-    return _SMEM_OPTIN[index]
-
-
-def _smem_bytes(R, d_clip, d_tr):
-    fn = _lib("run_pool").probe_hbm_dma_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_longlong
-    return fn(R, d_clip, d_tr)
+def run_pool_plan(M: int, R: int, d_clip: int, d_tr: int,
+                  sms: int = CARD_SMS, stage_bytes: int = RUN_STAGE_BYTES,
+                  stages: int = RUN_STAGES) -> dict:
+    """The run pool's geometry. A stage holds rows_per_chunk consecutive
+    run rows of each table (clip, then tr1, then tr2: as many whole rows
+    of the three as fit in `stage_bytes`, at most R); a pooled row's runs
+    are chunks_per_run chunks, in r order, each of them one bulk copy per
+    table into one stage; the ring is `stages` stages behind a header of
+    barriers; one persistent block per SM (`grid`, at most M). Raises
+    where one row of the three tables exceeds a stage, or its 16-byte
+    lanes exceed what the consumers can own."""
+    width = d_clip + 2 * d_tr
+    row = width * 4
+    if row > stage_bytes:
+        raise ValueError(
+            "run_pool: one row of the three tables (%d columns, %d bytes) "
+            "exceeds a stage of %d bytes" % (width, row, stage_bytes))
+    if width // 4 > RUN_CONSUMERS * RUN_MAX_LANES:
+        raise ValueError("run_pool: %d columns exceed the consumers' %d "
+                         "lanes" % (width, RUN_CONSUMERS * RUN_MAX_LANES))
+    k = min(R, stage_bytes // row)
+    smem = RUN_HEADER_BYTES + stages * k * row
+    if not 1 <= stages <= RUN_MAX_STAGES or smem > SMEM_OPTIN:
+        raise ValueError("run_pool: %d stages of %d bytes do not fit"
+                         % (stages, k * row))
+    return dict(rows_per_chunk=k, chunks_per_run=-(-R // k), stages=stages,
+                stage_bytes=k * row, smem_bytes=smem, grid=min(M, sms))
 
 
 def run_pool(emb, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -110,9 +138,9 @@ def run_pool(emb, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     emb: models.tabular.EmbeddedTables of float32 tables (clip [Nc, dc],
     tr1/tr2 [Nt, dt], dc and dt multiples of 4); idx: int32 [M, R, 3], of
     which only idx[:, 0, :] (the runs' first rows) is read; mask: float32
-    [M, R] -> float32 [M, dc + 2 * dt]. On the card the R rows of a run
-    come in as one bulk copy into shared memory, so R x (dc + 2 dt) x 4
-    bytes must fit in a block's shared memory.
+    [M, R] -> float32 [M, dc + 2 * dt]. On the card the runs stream
+    through a ring of shared-memory stages (``run_pool_plan``), so one row
+    of the three tables must fit in a stage.
     """
     _check(emb, idx, mask)
     if emb.clip.dtype != torch.float32:
@@ -133,19 +161,15 @@ def run_pool(emb, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     for name, t in (("clip", emb.clip), ("tr1", emb.tr1), ("tr2", emb.tr2)):
         if t.data_ptr() % 16:
             raise ValueError("run_pool: %s must be 16-byte aligned" % name)
-    need, limit = _smem_bytes(R, d_clip, d_tr), _smem_optin(dev)
-    if need > limit:
-        raise ValueError(
-            "run_pool: a run of R = %d rows of %d columns needs %d bytes of "
-            "shared memory; the card allows %d per block"
-            % (R, d_clip + 2 * d_tr, need, limit))
+    plan = run_pool_plan(M, R, d_clip, d_tr, _sms(dev))
     out = torch.empty((M, d_clip + 2 * d_tr), dtype=torch.float32,
                       device=dev)
     if M:
         _launch("run_pool", dev, 6, (
             emb.clip.data_ptr(), emb.tr1.data_ptr(), emb.tr2.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), out.data_ptr(), M, R, d_clip,
-            d_tr, emb.clip.shape[0], emb.tr1.shape[0]))
+            d_tr, emb.clip.shape[0], emb.tr1.shape[0],
+            plan["rows_per_chunk"], plan["stages"], plan["grid"]))
     return out
 
 
@@ -219,10 +243,14 @@ def packed_gather_sum(packed: torch.Tensor, idx: torch.Tensor,
                           "packed_gather_sum", packed.device, shapes):
         return packed_gather_sum_reference(packed, idx, mask)
     M, R = idx.shape
-    out = torch.empty((M, 2 * packed.shape[1]), dtype=torch.float32,
+    d_half = packed.shape[1]
+    out = torch.empty((M, 2 * d_half), dtype=torch.float32,
                       device=packed.device)
     if M:
+        vec = rows_aligned(packed)
+        plan = gather_plan(M, R, d_half, 4, vec, _sms(packed.device))
         _launch("packed_gather_sum", packed.device, 4, (
             packed.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), M, R, packed.shape[1]))
+            out.data_ptr(), M, R, d_half, plan["rows_per_block"],
+            plan["slab_lanes"], int(vec)))
     return out

@@ -492,31 +492,83 @@ def test_run_pool_kernel_matches_plain_and_the_row_kernel(cuda):
     assert bool(out[2, 40:64].isnan().all())
     assert not bool(out[2, :40].isnan().any())
     assert not bool(out[2, 64:].isnan().any())
+    assert torch.equal(torch.cat([out[:2], out[3:]]),
+                       torch.cat([got[:2], got[3:]]))
+
+
+@pytest.mark.parametrize("widths", [(1024, 256), (40, 24)])
+@pytest.mark.parametrize("M", [1, 7, 1280])
+@pytest.mark.parametrize("R", [1, 18, 40, 64])
+def test_run_pool_edges_bitwise_the_row_kernel(cuda, R, M, widths):
+    """The ring around its chunk size (5 rows of the probe's widths per
+    32 KB stage; 64 rows fit one stage at 40 / 24 columns), one pooled row
+    (one block), fewer rows than SMs, and the probe's 1,280 (about ten per
+    persistent block): bit for bit kernel 1 on the run indices, and two
+    launches equal."""
+    from lirec_tpu_torch.ops import probes
+    from lirec_tpu_torch.tools.probe_hbm_dma import run_indices
+
+    g = torch.Generator(device=cuda).manual_seed(R + M)
+    emb = EmbeddedTables(*(
+        torch.randn(n, d, device=cuda, generator=g)
+        for n, d in ((400, widths[0]), (300, widths[1]), (300, widths[1]))))
+    idx = torch.stack([torch.randint(0, n - R + 1, (M, R), device=cuda,
+                                     generator=g) for n in (400, 300, 300)],
+                      dim=-1).to(torch.int32).contiguous()
+    mask = (torch.rand(M, R, device=cuda, generator=g) < 0.6).float()
+    mask[:, 0] = 1.0
+    if M > 1:
+        mask[-1] = 0.0  # a row without context: the divider's guard
+    got = probes.run_pool(emb, idx, mask)
+    again = probes.run_pool(emb, idx, mask)
+    rows = fused_ctx_pool(emb, run_indices(torch, idx), mask, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rows)
+    assert torch.equal(got, again)
 
 
 def test_run_pool_raises_instead_of_falling_back(cuda):
+    """bf16 tables are refused; a row of 3,520 columns (14 KB) streams
+    through the ring and matches kernel 1; a row wider than one stage is
+    refused."""
     from lirec_tpu_torch.ops import probes
+    from lirec_tpu_torch.tools.probe_hbm_dma import run_indices
 
     emb, idx, mask = _run_inputs(cuda)
     with pytest.raises(TypeError, match="float32"):
         probes.run_pool(EmbeddedTables(*(t.bfloat16() for t in emb)), idx,
                         mask)
     wide = EmbeddedTables(*(t.repeat(1, 40) for t in emb))  # 3,520 columns
-    with pytest.raises(ValueError, match="shared memory"):
-        probes.run_pool(wide, idx, mask)
+    got = probes.run_pool(wide, idx, mask)
+    rows = fused_ctx_pool(wide, run_indices(torch, idx), mask, True)
+    torch.cuda.synchronize()
+    assert got.shape == (idx.shape[0], 3520) and torch.equal(got, rows)
+    wider = EmbeddedTables(*(t.repeat(1, 200) for t in emb))  # 17,600
+    with pytest.raises(ValueError, match="exceeds a stage"):
+        probes.run_pool(wider, idx, mask)
 
 
-@pytest.mark.parametrize("n,d,m", [(50, 40, 37), (512, 1024, 64)])
+def _packed_case(device, n, d, m, R=18, seed=4):
+    g = torch.Generator(device=device).manual_seed(seed)
+    table = torch.randn(n, d, device=device, generator=g)
+    idx = torch.randint(0, n, (m, R), device=device, generator=g).to(
+        torch.int32)
+    mask = (torch.rand(m, R, device=device, generator=g) < 0.5).float()
+    mask[::3] *= 0.25 + torch.rand(m, R, device=device, generator=g)[::3]
+    return table, idx, mask
+
+
+@pytest.mark.parametrize("n,d,m", [(50, 40, 37), (512, 1024, 64),
+                                   (12288, 1024, 1280), (50, 6, 37),
+                                   (50, 14, 37)])
 def test_packed_gather_sum_kernel_matches_plain_version(cuda, n, d, m):
     """Kernel 10 against its plain version: the same bf16 values summed in
-    f32, within 1e-5 (the TPU probe's bound)."""
+    f32, within 1e-5 (the TPU probe's bound), and bit for bit the
+    r-ordered loop over the unpacked f32 table; D = 6 and 14 (3 and 7
+    packed words) take the scalar path."""
     from lirec_tpu_torch.ops import probes
 
-    g = torch.Generator(device=cuda).manual_seed(4)
-    table = torch.randn(n, d, device=cuda, generator=g)
-    idx = torch.randint(0, n, (m, 18), device=cuda, generator=g).to(
-        torch.int32)
-    mask = (torch.rand(m, 18, device=cuda, generator=g) < 0.5).float()
+    table, idx, mask = _packed_case(cuda, n, d, m)
     packed = probes.pack_bf16(table)
     assert torch.equal(probes.unpack_bf16(packed), table.bfloat16())
     name = probes.KERNEL_NAMES["packed_gather_sum"]
@@ -526,3 +578,23 @@ def test_packed_gather_sum_kernel_matches_plain_version(cuda, n, d, m):
     assert dispatch.launches(name) == before + 1
     want = probes.packed_gather_sum_reference(packed, idx, mask)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    unpacked = probes.unpack_bf16(packed).float()
+    assert torch.equal(got, _loop_sum(unpacked, idx, mask))
+
+
+@pytest.mark.parametrize("case", ["offset", "M1", "R1"])
+def test_packed_gather_sum_edges_bitwise(cuda, case):
+    """Kernel 10 on a table whose rows start off a 16-byte boundary (the
+    scalar path), on one output row (its lanes over many blocks) and with
+    R = 1: bit for bit the r-ordered loop."""
+    from lirec_tpu_torch.ops import probes
+
+    m, R = {"offset": (64, 18), "M1": (1, 18), "R1": (37, 1)}[case]
+    table, idx, mask = _packed_case(cuda, 512, 1024, m, R=R)
+    packed = probes.pack_bf16(table)
+    if case == "offset":
+        packed = _off16(packed)
+    got = probes.packed_gather_sum(packed, idx, mask)
+    torch.cuda.synchronize()
+    unpacked = probes.unpack_bf16(packed).float()
+    assert torch.equal(got, _loop_sum(unpacked, idx, mask))

@@ -1,10 +1,12 @@
-"""The host half of the redesigned pool and scatter kernels, on the CPU:
-which tables are read in 16-byte vectors, how a pooled row is cut into
-lanes, how the one-table kernels (triple pool, masked sum) cut their rows
-into blocks and column slabs, and how the scatter's work is cut into warp
-items and hot tiles. Each is held against a plain enumeration, so that what surrounds
-the kernels stays covered where there is no card (the kernels themselves
-are held on the card: tests/test_torch_cuda.py, chip_smoke.py).
+"""The host half of the redesigned pool, scatter and probe kernels, on the
+CPU: which tables are read in 16-byte vectors, how a pooled row is cut
+into lanes, how the one-table kernels (triple pool, masked sum, packed
+gather-sum) cut their rows into blocks and column slabs, how the scatter's
+work is cut into warp items and hot tiles, and how the run pool's runs are
+cut into bulk-copy chunks of a ring. Each is held against a plain
+enumeration, so that what surrounds the kernels stays covered where there
+is no card (the kernels themselves are held on the card:
+tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import numpy as np
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from lirec_tpu_torch.ops import gather_pool as gp
+from lirec_tpu_torch.ops import probes
 from lirec_tpu_torch.ops import scatter_accum as sa
 
 
@@ -245,3 +248,87 @@ def test_scatter_hot_cap_holds_every_hot_tile(seed):
                   if n > sa.SHORT_MAX)
         assert 0 < hot <= plan["hot_cap"]
         assert plan["workspace_ints"] == 1 + 2 * plan["hot_cap"]
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("d_half", [512, 128, 3])
+@pytest.mark.parametrize("M", [1, 64, 1280])
+def test_gather_plan_on_packed_words_writes_every_column_once(M, d_half,
+                                                              offset):
+    """The packed gather-sum (kernel 10) on gather_plan's geometry at
+    elem_size 4 over the D/2 packed words: a lane of 4 words (1 where the
+    rows are not whole 16-byte vectors on 16-byte boundaries: 3 words, or
+    a view off an aligned base) writes its low-half columns j .. and its
+    high-half columns D/2 + j ..; every output column of every row is
+    written exactly once, and the grid fills the card at M = 64."""
+    vec = gp.rows_aligned(_view(torch.int32, 4, d_half, 2 if offset else 0))
+    assert vec == (not offset and d_half % 4 == 0)
+    plan = gp.gather_plan(M, 18, d_half, 4, vec)
+    words = _gather_hits(plan, M, d_half, 4, vec)
+    hits = np.concatenate([words, words], axis=1)  # low half, high half
+    assert hits.shape == (M, 2 * d_half) and (hits == 1).all()
+    if M == 64:
+        assert plan["blocks"] >= gp.CARD_SMS
+
+
+def _run_chunks(plan, R, d_clip, d_tr):
+    """The run pool's bulk copies, enumerated in the order the producer
+    issues them for one pooled row: (first run row, rows, table, byte
+    offset in the stage, bytes), chunk by chunk, clip then tr1 then tr2."""
+    k = plan["rows_per_chunk"]
+    base = (0, k * d_clip * 4, k * (d_clip + d_tr) * 4)
+    copies = []
+    for c in range(plan["chunks_per_run"]):
+        r0 = c * k
+        rows = min(k, R - r0)
+        for t, d in enumerate((d_clip, d_tr, d_tr)):
+            copies.append((r0, rows, t, base[t], rows * d * 4))
+    return copies
+
+
+@pytest.mark.parametrize("d_clip,d_tr", [(1024, 256), (4, 4), (12, 8),
+                                         (1600, 960)])
+@pytest.mark.parametrize("R", [1, 2, 18, 37, 64, 2048])
+def test_run_pool_plan_chunks_cover_every_run_row_once(R, d_clip, d_tr):
+    """Each pooled row's three runs: every row of every run in exactly one
+    chunk, the chunks in r order; each chunk one bulk copy of a multiple
+    of 16 bytes, on a 16-byte boundary, inside its stage; the ring and its
+    barriers within a block's 232,448-byte opt-in; every pooled row in
+    exactly one persistent block, at most one block per SM; the row's
+    16-byte lanes within what the consumer threads own."""
+    M = 1280
+    plan = probes.run_pool_plan(M, R, d_clip, d_tr)
+    seen = {t: [] for t in range(3)}
+    for r0, rows, t, offset, n_bytes in _run_chunks(plan, R, d_clip, d_tr):
+        assert rows >= 1 and n_bytes % 16 == 0 and offset % 16 == 0
+        assert offset + n_bytes <= plan["stage_bytes"]
+        seen[t] += range(r0, r0 + rows)
+    assert all(seen[t] == list(range(R)) for t in range(3))
+    width = d_clip + 2 * d_tr
+    assert plan["stage_bytes"] == plan["rows_per_chunk"] * width * 4
+    assert plan["stage_bytes"] <= probes.RUN_STAGE_BYTES
+    assert plan["smem_bytes"] == (probes.RUN_HEADER_BYTES
+                                  + plan["stages"] * plan["stage_bytes"])
+    assert plan["smem_bytes"] <= probes.SMEM_OPTIN == 232448
+    assert 16 * plan["stages"] <= probes.RUN_HEADER_BYTES
+    assert plan["grid"] == min(M, gp.CARD_SMS)
+    walked = sorted(m for b in range(plan["grid"])
+                    for m in range(b, M, plan["grid"]))
+    assert walked == list(range(M))
+    assert width // 4 <= probes.RUN_CONSUMERS * probes.RUN_MAX_LANES
+
+
+def test_run_pool_plan_raises_where_a_row_exceeds_a_stage():
+    """The ring's size depends on neither R nor the width: only a row of
+    the three tables wider than a stage is refused, at any R up to
+    MAX_CONTEXT; a whole-run stage (two of them) fits at the probe's
+    R = 18, and the plan cuts a pooled row's runs into chunks at M = 1."""
+    probes.run_pool_plan(1, gp.MAX_CONTEXT, 4096, 2048)  # 32 KB rows
+    with pytest.raises(ValueError, match="exceeds a stage"):
+        probes.run_pool_plan(1, 1, 4096, 2052)
+    whole = probes.run_pool_plan(1280, 18, 1024, 256,
+                                 stage_bytes=18 * 1536 * 4, stages=2)
+    assert whole["rows_per_chunk"] == 18 and whole["chunks_per_run"] == 1
+    assert whole["smem_bytes"] <= probes.SMEM_OPTIN
+    one = probes.run_pool_plan(1, 18, 1024, 256)
+    assert one["grid"] == 1 and one["chunks_per_run"] > 1
