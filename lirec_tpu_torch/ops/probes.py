@@ -53,14 +53,16 @@ _SOURCES = {"run_pool": "probe_hbm_dma",
 KERNEL_NAMES = {"run_pool": "probe_hbm_dma_f32",
                 "packed_gather_sum": "packed_gather_sum"}
 # csrc/probe_hbm_dma.cu: consumer threads, 16-byte lanes a consumer thread
-# can own, stages the barrier header holds and its bytes; the plan's stage
-# size and count; a block's opt-in shared memory on an H100
+# can own, stages the header holds, run rows a chunk can take, and the
+# header's bytes (the barriers, then each stage's run flags and weights);
+# the plan's stage size and count; a block's opt-in shared memory on an H100
 RUN_CONSUMERS = 384
 RUN_MAX_LANES = 6
 RUN_MAX_STAGES = 8
-RUN_HEADER_BYTES = 128
-RUN_STAGE_BYTES = 32 * 1024
-RUN_STAGES = 6
+RUN_MAX_CHUNK_ROWS = 32
+RUN_HEADER_BYTES = 128 + RUN_MAX_STAGES * (16 + 4 * RUN_MAX_CHUNK_ROWS)
+RUN_STAGE_BYTES = 108 * 1024  # a pooled row's whole runs at R = 18, 1536
+RUN_STAGES = 2                # columns: the fastest geometry measured
 SMEM_OPTIN = 232448
 
 
@@ -108,12 +110,14 @@ def run_pool_plan(M: int, R: int, d_clip: int, d_tr: int,
                   stages: int = RUN_STAGES) -> dict:
     """The run pool's geometry. A stage holds rows_per_chunk consecutive
     run rows of each table (clip, then tr1, then tr2: as many whole rows
-    of the three as fit in `stage_bytes`, at most R); a pooled row's runs
-    are chunks_per_run chunks, in r order, each of them one bulk copy per
-    table into one stage; the ring is `stages` stages behind a header of
-    barriers; one persistent block per SM (`grid`, at most M). Raises
-    where one row of the three tables exceeds a stage, or its 16-byte
-    lanes exceed what the consumers can own."""
+    of the three as fit in `stage_bytes`, at most R and
+    RUN_MAX_CHUNK_ROWS); a pooled row's runs are chunks_per_run chunks, in
+    r order, each of them one bulk copy per table into one stage; the ring
+    is `stages` stages behind a header of RUN_HEADER_BYTES (barriers, and
+    each stage's weights and run flags); one persistent block per SM
+    (`grid`, at most M). Raises where one row of the three tables exceeds
+    a stage, or its 16-byte lanes exceed what the consumers keep in
+    registers (RUN_CONSUMERS x RUN_MAX_LANES lanes: 9,216 columns)."""
     width = d_clip + 2 * d_tr
     row = width * 4
     if row > stage_bytes:
@@ -123,13 +127,14 @@ def run_pool_plan(M: int, R: int, d_clip: int, d_tr: int,
     if width // 4 > RUN_CONSUMERS * RUN_MAX_LANES:
         raise ValueError("run_pool: %d columns exceed the consumers' %d "
                          "lanes" % (width, RUN_CONSUMERS * RUN_MAX_LANES))
-    k = min(R, stage_bytes // row)
-    smem = RUN_HEADER_BYTES + stages * k * row
+    k = min(R, RUN_MAX_CHUNK_ROWS, stage_bytes // row)
+    stage = k * row
+    smem = RUN_HEADER_BYTES + stages * stage
     if not 1 <= stages <= RUN_MAX_STAGES or smem > SMEM_OPTIN:
         raise ValueError("run_pool: %d stages of %d bytes do not fit"
-                         % (stages, k * row))
+                         % (stages, stage))
     return dict(rows_per_chunk=k, chunks_per_run=-(-R // k), stages=stages,
-                stage_bytes=k * row, smem_bytes=smem, grid=min(M, sms))
+                stage_bytes=stage, smem_bytes=smem, grid=min(M, sms))
 
 
 def run_pool(emb, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

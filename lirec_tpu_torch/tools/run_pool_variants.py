@@ -1,6 +1,7 @@
 """The run pool's ring geometry (kernel 9, ``csrc/probe_hbm_dma.cu``), on
 one CUDA card: the kernel as built, launched on variants of
-``ops/probes.run_pool_plan``.
+``ops/probes.run_pool_plan``, and variants of its source that split its
+time.
 
     python -m lirec_tpu_torch.tools.run_pool_variants
 
@@ -8,25 +9,24 @@ Inputs: the pool probe's (``tools/probe_hbm_dma.make_inputs``: M = 1280
 pooled rows, R = 18, clip rows of 1024 and track rows of 256 f32, 12,288 /
 24,576-row tables), and the same at a quarter of the table rows
 (``quarter_tables``: the runs' distinct rows, ~25 MB, fit in the 50 MB L2,
-where the probe's ~73 MB do not). Plans:
+where the probe's ~73 MB do not). Plans, as run rows per stage x stages
+(a 1536-wide row of the three tables is 6 KB):
 
-- ``16k_x8``: stages of up to 16 KB, 8 of them;
-- ``32k_x6``: stages of up to 32 KB, 6 of them;
-- ``36k_x6``: stages of up to 36 KB, 6 of them (the largest ring of 6);
-- ``whole_x2``: a stage per pooled row's whole runs, 2 of them (the first
-  design's shared memory per row, pipelined);
+- ``rows2_x8``: 2 rows (12 KB) x 8;
+- ``rows5_x6``: 5 rows (30 KB) x 6;
+- ``rows6_x6``: 6 rows (36 KB) x 6, the largest ring of six;
+- ``rows9_x4``: 9 rows (54 KB) x 4;
+- ``whole_x2``: a pooled row's whole runs (18 rows, 108 KB) x 2, the
+  first design's shared memory per row, pipelined (the built plan);
 - ``two_blocks``: two persistent blocks per SM (registers capped through
-  ``__launch_bounds__``), each with six stages of up to 18 KB;
+  ``__launch_bounds__``), each with 3 rows x 6;
 - ``built``: the plan as the wrapper launches it.
 
 and variants of the source that split the built kernel's time (their
 outputs are not the pool's): ``copies_only`` (the consumers wait for each
-stage and release it without reading it), ``adds_only`` (the producer
-issues no copy, the consumers add whatever the stages hold), and on top of
-``adds_only``: ``adds_w1`` (weights of 1 instead of their loads in the
-add loop), ``adds_noepi`` (no divider sum in the epilogue), ``adds_noidx``
-(every run taken as in range: no start loads in the consumers) and
-``waits_only`` (no adds either: the ring's waits and releases alone).
+stage and release it without adding), ``adds_only`` (the producer issues
+no copy, the consumers add whatever the stages hold) and ``waits_only``
+(neither: the ring's waits, releases and staged headers alone).
 
 For each, in two rounds: the median ms (L2 flushed, as
 ``chip_smoke.median_ms``), checked bit for bit against kernel 1 on the
@@ -39,35 +39,29 @@ without one.
 from __future__ import annotations
 
 import ctypes
-import functools
 import json
 import os
 import re
 import subprocess
 import sys
 
-KB = 1024
-PLANS = {"16k_x8": (16 * KB, 8), "32k_x6": (32 * KB, 6),
-         "36k_x6": (36 * KB, 6)}
+# run rows per stage (at the probe's widths), stages, blocks per SM
+PLANS = {"rows2_x8": (2, 8, 1), "rows5_x6": (5, 6, 1), "rows6_x6": (6, 6, 1),
+         "rows9_x4": (9, 4, 1), "whole_x2": (18, 2, 1),
+         "two_blocks": (3, 6, 2)}
 # source variants, as substitutions of csrc/probe_hbm_dma.cu
-_NO_ADDS = (r"if \(i >= nl \|\| !ok\[i\]\) continue;", "continue;")
+_NO_ADDS = (r"if \(i >= nl \|\| !\(ok >> tab\[i\] & 1\)\) continue;",
+            "continue;")
 _NO_COPIES = ((r'"r"\(expect\)', '"r"(0u)'),
-              (r"if \(ok(\d)\)\n", "if (false)\n"))
+              (r"if \(ok & (\d)\)\n", "if (false)\n"))
 SOURCE_VARIANTS = {
     "two_blocks": ((r"__launch_bounds__\(kThreads, 1\)",
                     "__launch_bounds__(kThreads, 2)"),),
     "copies_only": (_NO_ADDS,),
     "adds_only": _NO_COPIES,
-    "adds_w1": _NO_COPIES + ((r"w\[j\] = __ldg\(w_row \+ r0 \+ j0 \+ j\);",
-                              "w[j] = 1.f;"),),
-    "adds_noepi": _NO_COPIES + (
-        (r"for \(int r = 0; r < R; \+\+r\) div = __fadd_rn\(div, "
-         r"__ldg\(w_row \+ r\)\);", ""),),
-    "adds_noidx": _NO_COPIES + (
-        (r"run_ok\(__ldg\(start( \+ \d)?\), n_(clip|tr), R\)", "true"),),
     "waits_only": _NO_COPIES + (_NO_ADDS,),
 }
-SPLITS = tuple(k for k in SOURCE_VARIANTS if k != "two_blocks")
+SPLITS = ("copies_only", "adds_only", "waits_only")
 
 
 def _build_variant(name, subs):
@@ -123,22 +117,22 @@ def main() -> int:
     R = probe_hbm_dma.R
     row = cs.emb_width(emb) * 4
     built = probes.run_pool_plan
-    plans = {name: functools.partial(built, stage_bytes=size, stages=n)
-             for name, (size, n) in PLANS.items()}
-    plans["whole_x2"] = functools.partial(built, stage_bytes=R * row,
-                                          stages=2)
 
-    def two_blocks(M, R, d_clip, d_tr, sms=gp.CARD_SMS):
-        return built(M, R, d_clip, d_tr, 2 * sms, stage_bytes=18 * KB,
-                     stages=6)
+    def plan_of(rows, stages, per_sm):
+        def plan(M, R, d_clip, d_tr, sms=gp.CARD_SMS):
+            return built(M, R, d_clip, d_tr, per_sm * sms, stages=stages,
+                         stage_bytes=rows * row)
+        return plan
 
+    plans = {name: plan_of(*geometry) for name, geometry in PLANS.items()}
     built_lib = build.load("probe_hbm_dma")
-    runs = [(name, built_lib, plan, "") for name, plan in plans.items()]
+    runs = []
     for name, subs in SOURCE_VARIANTS.items():
         lib, regs, spills = _build_variant(name, subs)
-        runs.append((name, lib, two_blocks if name == "two_blocks" else built,
+        runs.append((name, lib, plans.pop(name, built),
                      " %s: registers %s%s" % (name, regs,
                                               ", spills" if spills else "")))
+    runs = [(name, built_lib, plan, "") for name, plan in plans.items()] + runs
     runs.append(("built", built_lib, built, ""))
     print("".join(note for *_, note in runs), flush=True)
     try:
@@ -147,7 +141,7 @@ def main() -> int:
                 times = {"kernel1_on_runs": round(cs.median_ms(
                     torch, lambda: fused_ctx_pool(emb, run, mask, True)), 4)}
                 for name, lib, plan, _ in runs:
-                    if case != "probe" and name in plans:
+                    if case != "probe" and name in PLANS:
                         continue
                     build._LIBS["probe_hbm_dma"] = lib
                     probes.run_pool_plan = plan

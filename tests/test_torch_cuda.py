@@ -500,11 +500,11 @@ def test_run_pool_kernel_matches_plain_and_the_row_kernel(cuda):
 @pytest.mark.parametrize("M", [1, 7, 1280])
 @pytest.mark.parametrize("R", [1, 18, 40, 64])
 def test_run_pool_edges_bitwise_the_row_kernel(cuda, R, M, widths):
-    """The ring around its chunk size (5 rows of the probe's widths per
-    32 KB stage; 64 rows fit one stage at 40 / 24 columns), one pooled row
-    (one block), fewer rows than SMs, and the probe's 1,280 (about ten per
-    persistent block): bit for bit kernel 1 on the run indices, and two
-    launches equal."""
+    """The ring around its chunk size (18 rows of the probe's widths per
+    stage: R = 40 and 64 take several chunks; 32 rows, the most a chunk
+    takes, at 40 / 24 columns), one pooled row (one block), fewer rows
+    than SMs, and the probe's 1,280 (about ten per persistent block): bit
+    for bit kernel 1 on the run indices, and two launches equal."""
     from lirec_tpu_torch.ops import probes
     from lirec_tpu_torch.tools.probe_hbm_dma import run_indices
 
@@ -529,8 +529,8 @@ def test_run_pool_edges_bitwise_the_row_kernel(cuda, R, M, widths):
 
 def test_run_pool_raises_instead_of_falling_back(cuda):
     """bf16 tables are refused; a row of 3,520 columns (14 KB) streams
-    through the ring and matches kernel 1; a row wider than one stage is
-    refused."""
+    through the ring and matches kernel 1; a row wider than the ring takes
+    (17,600 columns: more lanes than the consumers keep) is refused."""
     from lirec_tpu_torch.ops import probes
     from lirec_tpu_torch.tools.probe_hbm_dma import run_indices
 
@@ -544,7 +544,7 @@ def test_run_pool_raises_instead_of_falling_back(cuda):
     torch.cuda.synchronize()
     assert got.shape == (idx.shape[0], 3520) and torch.equal(got, rows)
     wider = EmbeddedTables(*(t.repeat(1, 200) for t in emb))  # 17,600
-    with pytest.raises(ValueError, match="exceeds a stage"):
+    with pytest.raises(ValueError, match="lanes"):
         probes.run_pool(wider, idx, mask)
 
 

@@ -292,8 +292,10 @@ def _run_chunks(plan, R, d_clip, d_tr):
 def test_run_pool_plan_chunks_cover_every_run_row_once(R, d_clip, d_tr):
     """Each pooled row's three runs: every row of every run in exactly one
     chunk, the chunks in r order; each chunk one bulk copy of a multiple
-    of 16 bytes, on a 16-byte boundary, inside its stage; the ring and its
-    barriers within a block's 232,448-byte opt-in; every pooled row in
+    of 16 bytes, on a 16-byte boundary, inside its stage; at most one
+    staged weight per header slot; the stages from a 128-byte boundary
+    after the header of barriers, weights and flags; the ring and its
+    header within a block's 232,448-byte opt-in; every pooled row in
     exactly one persistent block, at most one block per SM; the row's
     16-byte lanes within what the consumer threads own."""
     M = 1280
@@ -305,12 +307,14 @@ def test_run_pool_plan_chunks_cover_every_run_row_once(R, d_clip, d_tr):
         seen[t] += range(r0, r0 + rows)
     assert all(seen[t] == list(range(R)) for t in range(3))
     width = d_clip + 2 * d_tr
+    assert 1 <= plan["rows_per_chunk"] <= probes.RUN_MAX_CHUNK_ROWS
+    assert probes.RUN_HEADER_BYTES % 128 == 0
     assert plan["stage_bytes"] == plan["rows_per_chunk"] * width * 4
     assert plan["stage_bytes"] <= probes.RUN_STAGE_BYTES
     assert plan["smem_bytes"] == (probes.RUN_HEADER_BYTES
                                   + plan["stages"] * plan["stage_bytes"])
     assert plan["smem_bytes"] <= probes.SMEM_OPTIN == 232448
-    assert 16 * plan["stages"] <= probes.RUN_HEADER_BYTES
+    assert plan["stages"] <= probes.RUN_MAX_STAGES
     assert plan["grid"] == min(M, gp.CARD_SMS)
     walked = sorted(m for b in range(plan["grid"])
                     for m in range(b, M, plan["grid"]))
@@ -319,16 +323,20 @@ def test_run_pool_plan_chunks_cover_every_run_row_once(R, d_clip, d_tr):
 
 
 def test_run_pool_plan_raises_where_a_row_exceeds_a_stage():
-    """The ring's size depends on neither R nor the width: only a row of
-    the three tables wider than a stage is refused, at any R up to
-    MAX_CONTEXT; a whole-run stage (two of them) fits at the probe's
-    R = 18, and the plan cuts a pooled row's runs into chunks at M = 1."""
-    probes.run_pool_plan(1, gp.MAX_CONTEXT, 4096, 2048)  # 32 KB rows
+    """The ring's size depends on neither R nor the width: a row of the
+    three tables is refused only where it exceeds a stage or the lanes the
+    consumers keep in registers (9,216 columns), at any R up to
+    MAX_CONTEXT; the shipped stage takes a pooled row's whole runs at the
+    probe's R = 18, and the plan cuts longer runs into chunks."""
+    cols = probes.RUN_CONSUMERS * probes.RUN_MAX_LANES * 4
+    assert cols == 9216 and cols * 4 <= probes.RUN_STAGE_BYTES
+    probes.run_pool_plan(1, gp.MAX_CONTEXT, cols - 2048, 1024)
+    with pytest.raises(ValueError, match="lanes"):
+        probes.run_pool_plan(1, 1, cols - 2044, 1024)
     with pytest.raises(ValueError, match="exceeds a stage"):
-        probes.run_pool_plan(1, 1, 4096, 2052)
-    whole = probes.run_pool_plan(1280, 18, 1024, 256,
-                                 stage_bytes=18 * 1536 * 4, stages=2)
+        probes.run_pool_plan(1, 1, 4096, 1024, stage_bytes=16 * 1024)
+    whole = probes.run_pool_plan(1280, 18, 1024, 256)
     assert whole["rows_per_chunk"] == 18 and whole["chunks_per_run"] == 1
-    assert whole["smem_bytes"] <= probes.SMEM_OPTIN
-    one = probes.run_pool_plan(1, 18, 1024, 256)
-    assert one["grid"] == 1 and one["chunks_per_run"] > 1
+    assert whole["stages"] == 2 and whole["smem_bytes"] <= probes.SMEM_OPTIN
+    longer = probes.run_pool_plan(1, 64, 1024, 256)
+    assert longer["grid"] == 1 and longer["chunks_per_run"] == 4
