@@ -46,13 +46,13 @@
 //   multiple of 4, or a view off an aligned base) is read by the same code
 //   with one word per lane and scalar loads; the wrapper decides
 //   (ops/gather_pool.rows_aligned).
-// Measured (PERF.md section 6, PR 7): 0.0129 -> 0.0087-0.0089 ms at the
+// Measured (PERF.md section 6): 0.0129 -> 0.0087-0.0089 ms at the
 // probe's shape and 0.0264 -> 0.0196-0.0200 ms at the clip table's, level
 // with kernel 5 on the native bf16 table (0.0086-0.0088 / 0.0194-0.0195):
 // at equal load width the packed layout buys nothing on this card.
 // Left out: the load depth, threads per block and lanes per thread are
 // kernel 5's, whose alternatives tools/pool_variants.py measured (PERF.md
-// section 6, PR 6); kernel 10 was not varied apart from them.
+// section 6); kernel 10 was not varied apart from them.
 //
 // Indices are not range-checked: callers keep them in [0, N).
 

@@ -28,7 +28,7 @@
 // block adding nothing until its runs had landed and copying nothing while
 // it added; thread 0 summing the divider between two barriers) took
 // 0.053-0.055 ms, 45% of the bound (NVIDIA H100 80GB HBM3, 700 W; PERF.md
-// section 6, PR 7).
+// section 6).
 //
 // Design: a producer/consumer ring of bulk copies (the Tensor Memory
 // Accelerator's non-tensor form), without tensor cores.
@@ -70,7 +70,7 @@
 // * A wait on either barrier kind that never completes traps after ~4M
 //   polls, so a launch fails with an error instead of hanging the card.
 // Tried on the card and left out (tools/run_pool_variants.py; PERF.md
-// section 6, PR 7): consumers that read the starts and the weights from
+// section 6): consumers that read the starts and the weights from
 // device memory at each row and summed the divider in the epilogue (their
 // adds alone took 0.047 ms, the ring 0.060); headers inside the stages,
 // which put the copies' destinations off 128-byte boundaries (the copies

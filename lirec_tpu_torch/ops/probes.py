@@ -17,7 +17,7 @@ same runs and the masked gather-sum on the native bf16 table
 the same rows, and whether packed words beat native bf16 rows at equal
 (16-byte) load width.
 
-Both kernels have their Hopper design (PR 7). The run pool is a ring of
+Both kernels have a Hopper design. The run pool is a ring of
 shared-memory stages filled by bulk copies (``cp.async.bulk`` on
 mbarriers) from one producer lane and drained by consumer warps, in
 persistent blocks; its chunk size, stage count and grid are host logic,
