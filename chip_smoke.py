@@ -76,6 +76,26 @@
    not the packed sweep, and holds its recorded val metrics against the packed sweep's on the same weights
    (the eval CLI on that run's final checkpoint); and evaluates the first
    run's best checkpoint with the eval CLI.
+13. The Modalities model at its published widths (text 768, visual and
+   track 2048, joint 512, 101 classes), bf16 and f32, on the split-scale
+   tables: /predict at B = 1 and 64 (scores held to the forward over the
+   raw tables), 10 hybrid train steps at B = 64 with dropout 0.5 (losses
+   finite, every parameter moved), the eval sweep over the 10,789-sample
+   split in the modalities layout with its counters equal to the
+   --host-eval loop's, and the modalities CLI (eval of a seeded
+   checkpoint, 2 training epochs) on a fixture of published feature
+   widths. No kernel is on this path: every launch count must stay 0.
+14. The rels-only eval (``evaluation/runner.evaluate_rels_only``) on
+   kernels 1-2 (counted runs): on the int_rels fixture of published
+   feature widths and on a split-scale stand-in whose pairs fill every
+   bucket from 2 to 64 clips (a full flush of 64 pairs and a last one of
+   13 each), bf16 and f32, one launch per flush and metrics equal to the
+   plain pool's; then (``rels_only_pool_checks``) kernels 1-2 at each
+   bucket's shape (M = 64, R = 2 .. 64), full and last flushes with
+   all-masked rows, against the plain pool (1e-5 f32, 2e-3 bf16), timed
+   beside it, three ``embedding_bag`` sums and the bound.
+15. The text-only CLI on that fixture: 2 training epochs, then the eval of
+   its own checkpoint; no kernel launches.
 
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
@@ -103,6 +123,7 @@ rows, the giant tables and the split-scale scatter are entries of their
 own (``name@case``).
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -112,6 +133,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 from contextlib import contextmanager
@@ -135,6 +157,10 @@ PACK_CU = "lirec_tpu_torch/csrc/probe_bf16_pack.cu"
 TRAIN_B, TRAIN_STEPS = 64, 10
 EVAL_B, EVAL_FULL, EVAL_TAIL = 64, 168, 37  # a split of 10,789 samples
 EVAL_ROUNDS = 5
+RELS_BUCKETS = (2, 4, 8, 16, 32, 64)  # the rels-only eval's clip buckets
+RELS_TAIL = 13  # rows of each bucket's last flush
+PUBLISHED_FIXTURE = dict(text_dim=768, visual_dim=2048, text_layers=12)
+DEV = "cuda"  # the device of phases 13-15
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 HOLD_CYCLES = 1 << 21  # about 1 ms of spinning at the H100's clock
@@ -1600,6 +1626,534 @@ def train_cli_phase(torch):
     return counts
 
 
+# ------------------------------------------------------ the modalities model
+
+
+class SplitStandIn:
+    """What the eval loops read of a dataset, over a materialized split:
+    the class counts, a non-train mode, its length and ``materialize``
+    (the host loop slices the split as the packed sweep stages it)."""
+
+    def __init__(self, data, n_classes=101, n_rels=16):
+        self.data, self.n_classes, self.n_rels = data, n_classes, n_rels
+        self.hashidx_rels = None
+        self.mode = "test"
+
+    def __len__(self):
+        return len(self.data["labels"])
+
+    def materialize(self):
+        return self.data
+
+
+def modalities_split(spec):
+    """The eval split's size (EVAL_FULL structured B = 64 batches and an
+    EVAL_TAIL-sample tail) in the modalities layout: each sample's GT index triple
+    (feat_idx [N, 1, 3], the clip and two track rows of a structured
+    sample), its label, multi-label weights, and a soft-label set of the
+    label and, for half the samples, one more class (-1 padded)."""
+    import numpy as np
+
+    from lirec_tpu_torch.utils.fake_batch import make_structured_batch
+
+    parts = [make_structured_batch(spec, n, N_CLIPS, N_TRACKS,
+                                   rels_n_clips=1, seed=1300 + i)
+             for i, n in enumerate([EVAL_B] * EVAL_FULL + [EVAL_TAIL])]
+    fi = np.concatenate([p["feat_idx"][:, 0, :1, :] for p in parts])
+    labels = np.concatenate([p["labels"] for p in parts])
+    rng = np.random.default_rng(13)
+    soft = np.full((len(labels), spec.n_classes), -1, np.int32)
+    soft[:, 0] = labels
+    more = rng.random(len(labels)) < 0.5
+    soft[more, 1] = rng.integers(0, spec.n_classes, int(more.sum()))
+    return {
+        "feat_idx": np.ascontiguousarray(fi),
+        "labels": labels,
+        "multilab_weights": np.concatenate(
+            [p["multilab_weights"] for p in parts]),
+        "soft_labels": soft,
+    }
+
+
+def check_modalities_predictions(preds, B, label):
+    import math
+
+    check(len(preds) == B, "%s: %d predictions for %d samples"
+          % (label, len(preds), B))
+    for p in preds:
+        check(p["best_track"] == 0 and len(p["track_scores"]) == 1,
+              "%s: one hypothesis" % label)
+        check("relationships" not in p, "%s: relationships" % label)
+        check(len(p["interactions"]) == TOPK, "%s: top-k" % label)
+        for it in p["interactions"]:
+            check(0 <= it["label"] < 101 and math.isfinite(it["score"])
+                  and 0 <= it["score"] <= 1, "%s: %r" % (label, it))
+
+
+@contextmanager
+def counted_none(torch, label):
+    """A run that must launch no kernel: the counts are set to 0 before
+    it and must all still be 0 after it."""
+    from lirec_tpu_torch.ops import dispatch
+
+    dispatch.reset_launches()
+    yield
+    torch.cuda.synchronize()
+    counts = dispatch.launches()
+    check(not any(counts.values()), "%s launched kernels: %s"
+          % (label, counts))
+
+
+def modalities_phase(torch, root, card):
+    """Phase 13. Returns {"latency_ms": {compute_B: ms}, "step_ms":
+    {compute: ms}, "eval_clips_per_s": {compute: clips/s}}."""
+    import math
+
+    import numpy as np
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.cli import common
+    from lirec_tpu_torch.cli import modalities as modalities_cli
+    from lirec_tpu_torch.cli.serve import InferenceEngine
+    from lirec_tpu_torch.data.localize import Localizer
+    from lirec_tpu_torch.evaluation import packed, runner
+    from lirec_tpu_torch.evaluation.metrics import _sigmoid
+    from lirec_tpu_torch.models import tabular
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    out = {"latency_ms": {}, "step_ms": {}, "eval_clips_per_s": {}}
+    tables = data = None
+    for compute in ("bfloat16", "float32"):
+        cfg = config_lib.preset("modalities").with_runtime(
+            compute_dtype=compute).with_optim(batch_size=EVAL_B,
+                                              dropout=0.5)
+        bundle = create_model(cfg, 101, seed=0, device=DEV)
+        spec = bundle.spec
+        check((spec.text_dim, spec.visual_dim, spec.track_dim,
+               spec.joint_dim, spec.n_classes, spec.modality, spec.tracks)
+              == (768, 2048, 2048, 512, 101, "m", True),
+              "modalities published widths: %s" % (spec,))
+        if tables is None:
+            tables = make_tables(spec, N_CLIPS, N_TRACKS, seed=0)
+            data = modalities_split(spec)
+        dev_tables = {k: torch.from_numpy(v).to(DEV)
+                      for k, v in tables.items()}
+
+        # serving: /predict at B = 1 and 64
+        engine = InferenceEngine(bundle, tables, device=DEV, topk=TOPK,
+                                 max_batch=64)
+        with counted_none(torch, "modalities /predict"):
+            with serving(engine) as base:
+                for B, reps in ((1, 10), (64, 5)):
+                    fi = data["feat_idx"][:B]
+                    payload = {"samples": [{"feat_idx": f.tolist()}
+                                           for f in fi]}
+                    times = []
+                    for _ in range(1 + reps):
+                        t = time.perf_counter()
+                        status, res = http(base + "/predict", payload)
+                        times.append((time.perf_counter() - t) * 1e3)
+                        check(status == 200, "modalities %s B=%d: %s %s"
+                              % (compute, B, status, res))
+                        check_modalities_predictions(
+                            res["predictions"], B,
+                            "modalities %s B=%d" % (compute, B))
+                    with torch.inference_mode():
+                        logits = tabular.modalities_tabular(
+                            bundle.model, spec, dev_tables,
+                            torch.from_numpy(fi).to(DEV))["inters"]
+                    s = _sigmoid(logits.cpu().numpy().astype(np.float64))
+                    got = np.array([p["track_scores"][0]
+                                    for p in res["predictions"]])
+                    check(np.abs(got - s.max(axis=-1)).max() < 1e-5,
+                          "modalities %s B=%d: served scores differ from "
+                          "the forward over the raw tables" % (compute, B))
+                    key = "%s_B%d" % (compute, B)
+                    out["latency_ms"][key] = statistics.median(times[1:])
+                    log("  modalities %s /predict B=%-2d median %.2f ms over "
+                        "%d requests (%s)" % (compute, B,
+                                              out["latency_ms"][key], reps,
+                                              card))
+        del engine
+
+        # 10 hybrid train steps, B = 64, dropout 0.5, localized batches
+        raw = [{k: v[i * TRAIN_B:(i + 1) * TRAIN_B]
+                for k, v in data.items() if k != "soft_labels"}
+               for i in range(TRAIN_STEPS)]
+        batches = Localizer(spec, N_CLIPS, N_TRACKS).maybe_localize(raw)
+        before = {n: p.detach().clone()
+                  for n, p in bundle.model.named_parameters()}
+        opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
+                             cfg.optim.weight_decay)
+        step = make_train_step(bundle, opt)
+        times, losses = [], []
+        with counted_none(torch, "modalities training"):
+            for i, batch in enumerate(batches):
+                t = time.perf_counter()
+                losses.append(float(step(batch, dev_tables,
+                                         step_generators(0, i, DEV))))
+                times.append((time.perf_counter() - t) * 1e3)
+        check(all(math.isfinite(x) for x in losses),
+              "modalities %s losses %s" % (compute, losses))
+        for n, p in bundle.model.named_parameters():
+            check(not torch.equal(p.detach(), before[n]),
+                  "modalities %s: parameter %s did not move" % (compute, n))
+        out["step_ms"][compute] = statistics.median(times[1:])
+        log("  modalities %s: %d train steps (B=%d, dropout 0.5, localized "
+            "%s), losses %.4f .. %.4f; median %.2f ms/step, %.0f clips/s "
+            "(%s)" % (compute, len(batches), TRAIN_B,
+                      "uniq_clip" in batches[0], losses[0], losses[-1],
+                      out["step_ms"][compute],
+                      TRAIN_B / out["step_ms"][compute] * 1e3, card))
+        del opt, step, before
+
+        # the eval sweep over the split and the --host-eval loop (of the
+        # trained weights): the same counters
+        counters = {}
+
+        def capture(module, key):
+            orig = module.summarize_metrics
+
+            def wrapped(t, prec, prec_rels, avg_loss, *args, **kw):
+                counters[key] = ({k: v for k, v in vars(prec).items()
+                                  if isinstance(v, (int, np.integer))},
+                                 avg_loss)
+                return orig(t, prec, prec_rels, avg_loss, *args, **kw)
+            return orig, wrapped
+
+        saved = {}
+        for module, key in ((packed, "packed"), (runner, "host")):
+            saved[module], wrapped = capture(module, key)
+            module.summarize_metrics = wrapped
+        try:
+            stand_in = SplitStandIn(data)
+            with counted_none(torch, "modalities eval"):
+                swept = packed.evaluate_packed(
+                    stand_in, bundle, bundle.model, cfg, mode="test",
+                    verbose=False, data=data, tables=tables)
+                t = time.perf_counter()
+                host = runner.evaluate(stand_in, bundle, bundle.model, cfg,
+                                       mode="test", tables=tables,
+                                       verbose=False)
+                host_s = time.perf_counter() - t
+                secs = []
+                for _ in range(3):
+                    t = time.perf_counter()
+                    packed.evaluate_packed(
+                        stand_in, bundle, bundle.model, cfg, mode="test",
+                        verbose=False, data=data, tables=tables)
+                    secs.append(time.perf_counter() - t)
+        finally:
+            for module, orig in saved.items():
+                module.summarize_metrics = orig
+        (c_packed, l_packed), (c_host, l_host) = (counters["packed"],
+                                                  counters["host"])
+        check(c_packed == c_host and c_packed["total"] == len(stand_in),
+              "modalities %s: sweep counters %s != --host-eval's %s"
+              % (compute, c_packed, c_host))
+        check(abs(l_packed - l_host) <= 1e-5 * abs(l_host),
+              "modalities %s: sweep loss %r, host %r" % (compute, l_packed,
+                                                         l_host))
+        check(all(math.isfinite(v) for v in swept.values()),
+              "modalities %s metrics %s" % (compute, swept))
+        rate = len(stand_in) / statistics.median(secs)
+        out["eval_clips_per_s"][compute] = rate
+        log("  modalities %s eval sweep over %d samples: counters %s equal "
+            "to --host-eval's, loss %.6f / %.6f; median %.4f s (%.0f "
+            "clips/s; host loop %.3f s) (%s)" % (
+                compute, len(stand_in), c_packed, l_packed, l_host,
+                statistics.median(secs), rate, host_s, card))
+        del bundle, dev_tables
+        torch.cuda.empty_cache()
+
+    # the CLI on the fixture: eval of a seeded .pth.tar, then --train
+    dims = ["--data-root", root, "--device", DEV, "--quiet",
+            "--text-dim", "768", "--visual-dim", "2048",
+            "--text-layers", "12", "--joint-dim", "512", "--batch-size", "8"]
+    ckpt = os.path.join(root, "modalities.pth.tar")
+    cfg = common.config_from_args(
+        "modalities", common.build_parser("modalities").parse_args(dims))
+    train_ds, _, _ = common.build_datasets(cfg, "modalities")
+    torch.save({"state_dict": create_model(
+        cfg, train_ds.n_classes, seed=0, device="cpu").model.state_dict()},
+        ckpt)
+    with counted_none(torch, "the modalities CLI"):
+        metrics = modalities_cli.main(dims + ["--resume-path", ckpt])
+        trained = modalities_cli.main(dims + [
+            "--train", "--epochs", "2", "--store-root",
+            os.path.join(root, "mod_store")])
+    for split in ("val", "test"):
+        check(all(math.isfinite(v) for v in metrics[split].values()),
+              "modalities CLI %s metrics %s" % (split, metrics[split]))
+    losses = trained["train"]["losses"]
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+          "modalities CLI --train losses %s" % losses)
+    log("  cli.modalities.main: val %s, test %s; --train 2 epochs losses %s"
+        % (metrics["val"], metrics["test"], losses))
+    return out
+
+
+# ------------------------------------------------------- the rels-only eval
+
+
+class RelsStandIn:
+    """A split of (pair, relationship) items at split scale, as
+    ``evaluate_rels_only`` reads a dataset in ``test_rels_multi_clip``
+    mode: for every bucket (2 .. 64 clips), B + RELS_TAIL items with L in
+    (bucket / 2, bucket] clips of random rows, so that each bucket
+    flushes once full and once with fewer rows; shuffled."""
+
+    def __init__(self, spec, tables, seed=14):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        self.n_rels = 16
+        self.test_rels_multi_clip = False
+        self.tables = types.SimpleNamespace(as_dict=lambda: tables)
+        self.items = []
+        for p in RELS_BUCKETS:
+            for L in rng.integers(max(1, p // 2 + 1), p + 1,
+                                  EVAL_B + RELS_TAIL):
+                fi = np.stack([rng.integers(0, N_CLIPS, L + 1),
+                               rng.integers(0, N_TRACKS, L + 1),
+                               rng.integers(0, N_TRACKS, L + 1)],
+                              axis=-1).astype(np.int32)
+                mask = (rng.random((L, 1)) < 0.9).astype(np.int32)
+                mask[0] = 1
+                self.items.append({"feat_idx": fi, "rels_mask": mask,
+                                   "rels_label": int(rng.integers(0, 15))})
+        rng.shuffle(self.items)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        check(self.test_rels_multi_clip, "rels-only item outside the mode")
+        return self.items[i]
+
+
+def rels_flushes(lengths, B):
+    """How many flushes evaluate_rels_only makes for items of these clip
+    counts: per bucket, one per B items and one for the rest."""
+    per = {}
+    for L in lengths:
+        p = 1 << max(1, L - 1).bit_length()
+        per[p] = per.get(p, 0) + 1
+    return sum(-(-n // B) for n in per.values()), sorted(per)
+
+
+def rels_only_phase(torch, root, card):
+    """Phase 14. Returns ({kernel name: launches of the stand-in's
+    counted runs}, {kernel name: entry of the per-bucket holds and
+    times})."""
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.data.dataset import InteractionDataset, first_choice
+    from lirec_tpu_torch.data import synthetic
+    from lirec_tpu_torch.evaluation.runner import evaluate_rels_only
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    base = synthetic.make_config(root, synthetic.SyntheticSpec(
+        **PUBLISHED_FIXTURE))
+    dims = dataclasses.replace(base.dims, joint_dim=512)
+    counts = {}
+    tables = None
+    for compute in ("bfloat16", "float32"):
+        dtype = torch.bfloat16 if compute == "bfloat16" else torch.float32
+        name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+        # the int_rels fixture at published feature widths
+        cfg = config_lib.preset("int_rels", data_root=root).replace(
+            dims=dims, paths=base.paths).with_runtime(compute_dtype=compute)
+        ds = InteractionDataset(cfg, mode="val", label_chooser=first_choice)
+        ds.cache()
+        ds.init_relships()
+        bundle = create_model(cfg, ds.n_classes, n_rels=ds.n_rels - 1,
+                              seed=0, device=DEV)
+        check((bundle.spec.text_dim, bundle.spec.visual_dim,
+               bundle.spec.joint_dim) == (768, 2048, 512),
+              "int_rels fixture widths %s" % (bundle.spec,))
+        ds.test_rels_multi_clip = True
+        lengths = [ds[i]["feat_idx"].shape[0] - 1 for i in range(len(ds))]
+        ds.test_rels_multi_clip = False
+        flushes, pads = rels_flushes(lengths, EVAL_B)
+        dispatch.reset_launches()
+        got = evaluate_rels_only(ds, bundle, bundle.model, cfg,
+                                 verbose=False, batch_size=EVAL_B)
+        torch.cuda.synchronize()
+        launched = dispatch.launches()
+        plain = evaluate_rels_only(ds, bundle, bundle.model, cfg,
+                                   verbose=False, batch_size=EVAL_B,
+                                   use_kernel=False)
+        check(launched == {name: flushes}, "fixture rels-only %s launched "
+              "%s, want %d of %s" % (compute, launched, flushes, name))
+        check(got == plain, "fixture rels-only %s: kernel %s != plain %s"
+              % (compute, got, plain))
+        check(ds.test_rels_multi_clip is False, "mode not restored")
+        log("  int_rels fixture (%d pairs, L up to %d, buckets %s), %s: %s, "
+            "equal to the plain pool's; %d launches of %s"
+            % (len(ds), max(lengths), pads, compute, got, flushes, name))
+
+        # the split-scale stand-in at published widths: every bucket
+        cfg = config_lib.preset("int_rels").with_runtime(
+            compute_dtype=compute)
+        bundle = create_model(cfg, 101, n_rels=15, seed=0, device=DEV)
+        if tables is None:
+            tables = make_tables(bundle.spec, N_CLIPS, N_TRACKS, seed=0)
+            stand_in = RelsStandIn(bundle.spec, tables)
+            s_lengths = [it["feat_idx"].shape[0] - 1
+                         for it in stand_in.items]
+            s_flushes, s_pads = rels_flushes(s_lengths, EVAL_B)
+        # ---- the counted run: the rels-only eval of the stand-in
+        dispatch.reset_launches()
+        t = time.perf_counter()
+        got = evaluate_rels_only(stand_in, bundle, bundle.model, cfg,
+                                 verbose=False, batch_size=EVAL_B)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launched = dispatch.launches()
+        # ---- end of the counted run
+        plain = evaluate_rels_only(stand_in, bundle, bundle.model, cfg,
+                                   verbose=False, batch_size=EVAL_B,
+                                   use_kernel=False)
+        check(launched == {name: s_flushes}, "stand-in rels-only %s "
+              "launched %s, want %d of %s" % (compute, launched, s_flushes,
+                                              name))
+        check(got == plain, "stand-in rels-only %s: kernel %s != plain %s"
+              % (compute, got, plain))
+        counts[name] = launched.get(name, 0)
+        log("  stand-in (%d pairs, L up to %d, buckets %s, %dx%d tables), "
+            "%s: %s, equal to the plain pool's; %d launches of %s; %.3f s "
+            "(%.0f pairs/s, embed included) (%s)"
+            % (len(stand_in), max(s_lengths), s_pads, N_CLIPS, N_TRACKS,
+               compute, got, counts[name], name, secs,
+               len(stand_in) / secs, card))
+        del bundle
+        torch.cuda.empty_cache()
+    return counts, rels_only_pool_checks(torch)
+
+
+def rels_only_pool_checks(torch):
+    """Phase 14's holds and times of kernels 1-2 at the rels-only
+    buckets' shapes: M = 64 pair rows, R = the bucket, split-scale
+    embedded tables (1024 / 256 wide), clip counts in (R / 2, R] padded
+    with weight 0, the eval's unguarded divide; once full and once as a
+    last flush of RELS_TAIL rows (the rest all-masked, NaN in both
+    versions). Timed (L2 flushed) beside the plain version, three
+    ``embedding_bag`` sums and the bound. Returns {kernel name: entry
+    with the sums over the buckets and a "buckets" table}."""
+    import numpy as np
+
+    from lirec_tpu_torch.models.tabular import EmbeddedTables
+    from lirec_tpu_torch.ops.gather_pool import (
+        KERNEL_NAMES, fused_ctx_pool, fused_ctx_pool_reference,
+    )
+
+    atol = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=DEV).manual_seed(21)
+        emb = EmbeddedTables(*(
+            torch.randn(n, d, device=DEV, generator=g).to(dtype)
+            for n, d in ((N_CLIPS, 1024), (N_TRACKS, 256), (N_TRACKS, 256))))
+        buckets = {}
+        for R in RELS_BUCKETS:
+            idx = torch.stack(
+                [torch.randint(0, n, (EVAL_B, R), device=DEV, generator=g)
+                 for n in (N_CLIPS, N_TRACKS, N_TRACKS)], dim=-1
+            ).to(torch.int32)
+            lengths = np.random.default_rng(R).integers(
+                max(1, R // 2 + 1), R + 1, EVAL_B)
+            mask = torch.zeros(EVAL_B, R, device=DEV)
+            for m, L in enumerate(lengths):
+                mask[m, :L] = 1.0
+            idx[mask == 0] = 0  # pad clips are row 0, weight 0
+            idx = idx.contiguous()
+            errs = []
+            for n in (EVAL_B, RELS_TAIL):
+                m = mask.clone()
+                m[n:] = 0.0  # the rows past a last flush: all-masked
+                got = fused_ctx_pool(emb, idx, m, False)
+                torch.cuda.synchronize()
+                want = fused_ctx_pool_reference(emb, idx, m, False)
+                nan = want.isnan()
+                check(torch.equal(got.isnan(), nan)
+                      and bool(nan[n:].all()) and not bool(nan[:n].any()),
+                      "rels-only pool R=%d n=%d: NaN rows" % (R, n))
+                errs.append(float((got - want).abs()[~nan].max()))
+            err = max(errs)
+            check(err <= atol[dtype], "rels-only pool %s R=%d disagrees "
+                  "with the plain version: %.3e" % (dtype, R, err))
+            ms = median_ms(torch, lambda: fused_ctx_pool(emb, idx, mask,
+                                                         False))
+            plain = median_ms(torch, lambda: fused_ctx_pool_reference(
+                emb, idx, mask, False))
+            cols, w = index_cols(idx), mask.to(dtype)
+            div = mask.sum(-1, keepdim=True)
+            lib = median_ms(torch, lambda: bag_pool(torch, emb, cols, w, div))
+            moved = (sum(gathered_bytes(t, idx[..., k])
+                         for k, t in enumerate(emb))
+                     + nbytes(idx, mask) + EVAL_B * emb_width(emb) * 4)
+            flops = 2 * EVAL_B * R * emb_width(emb)
+            b = bound(moved, flops)
+            buckets[R] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              library_ms=lib, moved=moved, flops=flops, **b)
+            log("  rels-only pool %-4s M=%d R=%-2d: max|diff| vs plain "
+                "%.3e (atol %.0e, full and n=%d flushes); kernel %.4f ms, "
+                "plain %.4f ms, 3 x embedding_bag + tanh %.4f ms; bound "
+                "%.4f ms (%s, %.2f MB)" % (
+                    str(dtype).split(".")[1], EVAL_B, R, err, atol[dtype],
+                    RELS_TAIL, ms, plain, lib, b["bound_ms"], b["bound_by"],
+                    moved / 1e6))
+            del idx, mask, cols, w, div
+        total = bound(sum(v.pop("moved") for v in buckets.values()),
+                      sum(v.pop("flops") for v in buckets.values()))
+        name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+        results[name] = dict(
+            max_abs_err=max(v["max_abs_err"] for v in buckets.values()),
+            **{k: sum(v[k] for v in buckets.values())
+               for k in ("ms", "plain_ms", "library_ms")},
+            **total, buckets=buckets)
+        del emb
+    torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------------------------------------ the text-only CLI
+
+
+def text_only_phase(torch, root):
+    """Phase 15: the text-only CLI on the fixture, on the card: 2 epochs
+    of training, then the eval of its own checkpoint; no kernel runs."""
+    import math
+
+    from lirec_tpu_torch.cli import text_only
+
+    store = os.path.join(root, "store_text")
+    args = ["--data-root", root, "--store-root", store, "--device", DEV,
+            "--quiet", "--text-dim", "768", "--text-layers", "12",
+            "--joint-dim", "512", "--batch-size", "8"]
+    with counted_none(torch, "the text-only CLI"):
+        t = time.perf_counter()
+        trained = text_only.main(args + ["--train", "--epochs", "2"])
+        train_s = time.perf_counter() - t
+        metrics = text_only.main(args + ["--resume-path",
+                                         os.path.join(store, "1.pth.tar")])
+    losses = trained["train"]["losses"]
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+          "text-only CLI losses %s" % losses)
+    for split in ("val", "test"):
+        check(all(math.isfinite(v) for v in metrics[split].values()),
+              "text-only CLI %s metrics %s" % (split, metrics[split]))
+    log("  cli.text_only.main --train 2 epochs: losses %s (%.1f s); eval of "
+        "its 1.pth.tar: val %s, test %s" % (losses, train_s, metrics["val"],
+                                            metrics["test"]))
+
+
 def main():
     import torch
 
@@ -1674,6 +2228,24 @@ def main():
 
     log("== 12. the training CLI at published widths (counted run)")
     train_cli_phase(torch)
+
+    from lirec_tpu_torch.data import synthetic
+
+    card = card_line()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        synthetic.generate(root, synthetic.SyntheticSpec(**PUBLISHED_FIXTURE))
+        log("  (phases 13-15) fixture of published feature widths written "
+            "in %.1f s" % (time.perf_counter() - t0))
+        log("== 13. modalities at published widths: serve, train, eval "
+            "sweep, CLI (no kernel)")
+        mod = modalities_phase(torch, root, card)
+
+        log("== 14. rels-only eval on kernels 1-2 (counted runs)")
+        rels_counts, rels_pool = rels_only_phase(torch, root, card)
+
+        log("== 15. the text-only CLI (no kernel)")
+        text_only_phase(torch, root)
 
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
@@ -1766,6 +2338,15 @@ def main():
             "replaces": replaces, "launches": launches, "path": "probe",
             **probe[key],
         })
+    for dtype, line in ((torch.float32, 178), (torch.bfloat16, 218)):
+        name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+        check(rels_counts.get(name, 0) > 0,
+              "%s was not launched by the rels-only eval" % name)
+        kernels.append(dict(name=name + "@rels_only", route="cuda", source=CU,
+                            replaces="%s:%d" % (TPU_SRC, line),
+                            launches=rels_counts[name], path="rels_only",
+                            **rels_pool[name]))
+    log("modalities: " + json.dumps(mod))
     log("eval_clips_per_s: " + json.dumps(
         {"%s_%s" % (c, t if t else "off"): v
          for (c, t), v in eval_rates.items()}))

@@ -14,21 +14,27 @@
   ``state_dict`` the port's modules load, with the DataParallel
   ``module.`` prefix stripped and non-tensor entries and batch-norm buffers
   skipped, as lirec_tpu/checkpoint/torch_import.py does.
+* ``load_jax_checkpoint``: a msgpack file of the JAX package's
+  checkpoint/saver.py (``save_params``: ``{'params', 'extra'}``, the best-n
+  and converted ``.ckpt`` files; ``save_train_state``: ``{'params',
+  'opt_state', 'epoch'}``, ``latest.ckpt`` and ``<epochs-1>.ckpt``) ->
+  the ``state_dict``, the Adam state and the epoch, decoded by
+  checkpoint/msgpack.py (neither flax nor msgpack is imported).
 
-Both feed ``model.load_state_dict``; the module names already are the
+All feed ``model.load_state_dict``; the module names already are the
 reference's.
 """
 
 from __future__ import annotations
 
 import sys
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "opt_state_from_jax", "clean_state_dict",
-           "load_torch_checkpoint"]
+           "load_torch_checkpoint", "load_jax_checkpoint"]
 
 _SKIPPED_BUFFERS = ("num_batches_tracked", "running_mean", "running_var")
 
@@ -47,29 +53,44 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     return state
 
 
+_ADAM_FIELDS = ("count", "mu", "nu")
+
+
 def _adam_state(opt_state):
-    """The (count, mu, nu) entry of an optax state (a chain's tuple)."""
-    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
-        return opt_state
-    if isinstance(opt_state, (tuple, list)):
-        for part in opt_state:
-            found = _adam_state(part)
-            if found is not None:
-                return found
+    """(count, mu, nu) of the ScaleByAdamState in an optax state: the live
+    state (a chain's tuple of namedtuples) or its flax state-dict form, as
+    a msgpack file holds it (tuples as {"0": ..., "1": ...}, namedtuples
+    as dicts of their fields)."""
+    if isinstance(opt_state, dict):
+        if all(f in opt_state for f in _ADAM_FIELDS):
+            return tuple(opt_state[f] for f in _ADAM_FIELDS)
+        parts = opt_state.values()
+    elif all(hasattr(opt_state, f) for f in _ADAM_FIELDS):
+        return tuple(getattr(opt_state, f) for f in _ADAM_FIELDS)
+    elif isinstance(opt_state, (tuple, list)):
+        parts = opt_state
+    else:
+        return None
+    for part in parts:
+        found = _adam_state(part)
+        if found is not None:
+            return found
     return None
 
 
 def opt_state_from_jax(opt_state, model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer) -> Dict:
-    """optax Adam state (numpy or jax leaves) -> a state_dict that
-    ``optimizer.load_state_dict`` takes, for an optimizer over
-    ``model.parameters()``. The step count becomes each parameter's
-    ``step``; mu and nu are mapped like the params (kernels transposed)."""
+    """optax Adam state (numpy or jax leaves, live or in its state-dict
+    form) -> a state_dict that ``optimizer.load_state_dict`` takes, for an
+    optimizer over ``model.parameters()``. The step count becomes each
+    parameter's ``step``; mu and nu are mapped like the params (kernels
+    transposed)."""
     adam = _adam_state(opt_state)
     if adam is None:
         raise ValueError("no ScaleByAdamState (count, mu, nu) in the state")
-    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
-    step = float(np.asarray(adam.count))
+    count, mu, nu = adam
+    mu, nu = params_from_jax(mu), params_from_jax(nu)
+    step = float(np.asarray(count))
     names = {id(p): n for n, p in model.named_parameters()}
     template = optimizer.state_dict()
     state = {}
@@ -122,3 +143,30 @@ def load_torch_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
         "has_optimizer": "optimizer" in checkpoint,
     }
     return clean_state_dict(state_dict), meta
+
+
+def load_jax_checkpoint(path: str, model: Optional[torch.nn.Module] = None,
+                        optimizer: Optional[torch.optim.Optimizer] = None):
+    """A msgpack checkpoint of the JAX package -> (state_dict, Adam
+    state_dict or None, epoch).
+
+    Both payloads of lirec_tpu/checkpoint/saver.py are read: a
+    ``save_params`` file (``{'params', 'extra'}``; its epoch is
+    ``extra['epoch']``, 0 where it has none) and a ``save_train_state``
+    file (``{'params', 'opt_state', 'epoch'}``). The Adam state is
+    ``opt_state_from_jax`` of the file's optax state for `optimizer` over
+    `model`'s parameters, where the file has one and both are given; else
+    None."""
+    from lirec_tpu_torch.checkpoint.msgpack import msgpack_restore
+
+    with open(path, "rb") as f:
+        tree = msgpack_restore(f.read())
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError("%s is not a checkpoint of the JAX package: no "
+                         "'params' entry" % path)
+    state_dict = params_from_jax(tree["params"])
+    epoch = tree.get("epoch", (tree.get("extra") or {}).get("epoch"))
+    adam = None
+    if tree.get("opt_state") is not None and optimizer is not None:
+        adam = opt_state_from_jax(tree["opt_state"], model, optimizer)
+    return state_dict, adam, int(epoch or 0)

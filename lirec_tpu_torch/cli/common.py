@@ -2,19 +2,22 @@
 lirec_tpu/cli/common.py, ref `resume/*.py` catch_inner/pipeline).
 
 Each entry point resolves a preset config, builds the split datasets with
-the reference's split choices (`int_rels` builds its nominal train dataset
-from the **val** split, `int_ch`/`int_rel_ch` from the **test** split; ref
-resume/int_rels.py:25, int_ch.py:22, int_rel_ch.py:23), and then either
-evaluates a reference ``.pth.tar`` checkpoint on the val and test splits
+the reference's split choices (`modalities`/`int_rels` build their nominal
+train dataset from the **val** split, `int_ch`/`int_rel_ch` from the
+**test** split; ref resume/modalties.py:21, int_rels.py:25, int_ch.py:22,
+int_rel_ch.py:23), and then either
+evaluates a checkpoint (a reference ``.pth.tar`` or a msgpack ``.ckpt``
+of the JAX package) on the val and test splits
 (the packed sweep, evaluation/packed.py, or with ``--host-eval`` the
 per-batch host loop, evaluation/runner.py) or, with ``--train`` /
 ``--resume-train``, trains (train/loop.py: cadence evaluation, best-n
 checkpoints, ``latest.pth.tar`` and the final ``<epochs-1>.pth.tar`` under
 ``--store-root``), all on ``--device`` (default: the card).
-``--resume-train`` reads ``{'epoch', 'state_dict', 'optimizer'}`` from
-``--resume-path`` and starts at epoch + 1; ``--auto-resume`` does the same
-from ``<store-root>/latest.pth.tar`` when it exists, and refuses to run
-where only the JAX package's ``latest.ckpt`` is there.
+``--resume-train`` reads the weights, the Adam state and the epoch from
+``--resume-path`` (a ``.pth.tar`` train state, or the JAX package's
+msgpack ``.ckpt``) and starts at epoch + 1; ``--auto-resume`` does the same
+from ``<store-root>/latest.pth.tar``, else from the JAX package's
+``latest.ckpt``. The JAX package's Orbax directories are refused.
 
 The flags of features the port does not have yet are accepted and refuse
 to run, naming the ROADMAP.md item that ports them. Every flag of the JAX
@@ -35,6 +38,7 @@ from lirec_tpu_torch.evaluation.runner import evaluate
 from lirec_tpu_torch.models.factory import create_model
 
 TRAIN_SPLIT = {
+    "modalities": "val",
     "int_rels": "val",
     "int_ch": "test",
     "int_rel_ch": "test",
@@ -65,8 +69,8 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
         p.add_argument("--tr-correct", action="store_true",
                        help="GT-track supervision (vs weak)")
     p.add_argument("--resume-path", default=None,
-                   help="reference .pth.tar; default: the released "
-                        "checkpoint path for this preset under "
+                   help=".pth.tar or the JAX package's .ckpt; default: the "
+                        "released checkpoint path for this preset under "
                         "<data-root>/models_release")
     p.add_argument("--train", action="store_true",
                    help="train instead of evaluating a checkpoint")
@@ -75,8 +79,7 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
                         "--resume-path and continue training")
     p.add_argument("--auto-resume", action="store_true",
                    help="continue from <store-root>/latest.pth.tar if "
-                        "present (the JAX package's latest.ckpt alone is "
-                        "refused)")
+                        "present, else from the JAX package's latest.ckpt")
     p.add_argument("--metrics-log", default="",
                    help="append JSONL training telemetry to this path")
     p.add_argument("--checkpoint-every", type=int, default=0,
@@ -196,15 +199,19 @@ def build_datasets(cfg, preset_name: str, workers: int = 0):
     return train_ds, val_ds, test_ds
 
 
-def load_checkpoint(path: str):
-    """A reference .pth.tar -> the port's state_dict. The JAX package's
-    msgpack and Orbax checkpoints are refused."""
-    if os.path.isdir(path) or not path.endswith(CHECKPOINT_SUFFIXES):
+def _refuse_orbax(path: str, context: str) -> None:
+    if os.path.isdir(path):
         raise SystemExit(
-            "lirec_tpu_torch reads .pth.tar checkpoints only; the JAX "
-            "package's msgpack / Orbax formats wait for ROADMAP.md queue 1 "
-            "%s: %r" % (JAX_FORMATS, path)
-        )
+            "%s: %s is an Orbax checkpoint directory of the JAX package; "
+            "lirec_tpu_torch does not read it, as that needs "
+            "orbax.checkpoint, which imports jax (ROADMAP.md queue 1 %s)"
+            % (context, path, JAX_FORMATS))
+
+
+def load_checkpoint(path: str):
+    """A reference .pth.tar or a msgpack .ckpt of the JAX package -> the
+    port's state_dict. Orbax directories are refused."""
+    _refuse_orbax(path, "--resume-path")
     return load_checkpoint_state(path)
 
 
@@ -225,23 +232,33 @@ def _refuse_unported(parser, args) -> None:
 def _train_state_path(cfg, args) -> str:
     """The train state a training run resumes from: --resume-path under
     --resume-train, else under --auto-resume <store-root>/latest.pth.tar
-    if it exists; "" for a run from epoch 0. The JAX package's
-    latest.ckpt alone is refused, not passed over."""
+    if it exists, else the JAX package's latest.ckpt if it exists; "" for
+    a run from epoch 0. An Orbax latest.ckpt is refused, not passed
+    over."""
     if cfg.resume_train and cfg.resume_path:
+        _refuse_orbax(cfg.resume_path, "--resume-path")
         return cfg.resume_path
     if not args.auto_resume:
         return ""
-    latest = os.path.join(cfg.paths.store_root, "latest.pth.tar")
-    if os.path.exists(latest):
-        return latest
-    jax_latest = os.path.join(cfg.paths.store_root, "latest.ckpt")
-    if os.path.exists(jax_latest):
-        raise SystemExit(
-            "--auto-resume found the JAX package's %s and no latest.pth.tar: "
-            "lirec_tpu_torch cannot read it yet (ROADMAP.md queue 1 %s), "
-            "and will not start over at epoch 0 beside it"
-            % (jax_latest, JAX_FORMATS))
+    for name in ("latest.pth.tar", "latest.ckpt"):
+        latest = os.path.join(cfg.paths.store_root, name)
+        if os.path.exists(latest):
+            _refuse_orbax(latest, "--auto-resume (no latest.pth.tar, and "
+                          "no start over at epoch 0 beside it)")
+            return latest
     return ""
+
+
+def load_train_state_any(path: str, model, optimizer):
+    """(state_dict, Adam state_dict or None, epoch) of a train state: the
+    port's .pth.tar, or the JAX package's msgpack .ckpt with its optax
+    state mapped to `optimizer` over `model`'s parameters."""
+    from lirec_tpu_torch.checkpoint import load_jax_checkpoint
+    from lirec_tpu_torch.checkpoint.saver import load_train_state
+
+    if path.endswith(CHECKPOINT_SUFFIXES):
+        return load_train_state(path)
+    return load_jax_checkpoint(path, model, optimizer)
 
 
 def run_entry(preset_name: str, argv=None) -> dict:
@@ -284,7 +301,6 @@ def _train(cfg, args, bundle, train_ds, val_ds, test_ds, resume_from,
            verbose) -> dict:
     """--train / --resume-train / --auto-resume: the epoch loop from epoch
     0, or from the epoch after the train state `resume_from`'s."""
-    from lirec_tpu_torch.checkpoint.saver import load_train_state
     from lirec_tpu_torch.train.loop import train
     from lirec_tpu_torch.train.optim import make_optimizer
 
@@ -292,7 +308,8 @@ def _train(cfg, args, bundle, train_ds, val_ds, test_ds, resume_from,
                                cfg.optim.weight_decay)
     start_epoch = 0
     if resume_from:
-        state_dict, opt_state, epoch = load_train_state(resume_from)
+        state_dict, opt_state, epoch = load_train_state_any(
+            resume_from, bundle.model, optimizer)
         bundle.model.load_state_dict(state_dict)
         if opt_state:
             optimizer.load_state_dict(opt_state)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict
@@ -219,16 +220,23 @@ CHECKPOINT_SUFFIXES = (".pth.tar", ".pth", ".tar")
 
 
 def load_checkpoint_state(path: str) -> Dict[str, torch.Tensor]:
-    """A reference .pth.tar checkpoint -> the port's state_dict. The JAX
-    package's own msgpack and Orbax formats need flax and are not read."""
-    if not path.endswith(CHECKPOINT_SUFFIXES):
-        raise ValueError(
-            "lirec_tpu_torch reads reference .pth.tar checkpoints only; got "
-            "%r" % path
-        )
-    from lirec_tpu_torch.checkpoint import load_torch_checkpoint
+    """A checkpoint file -> the port's state_dict: a reference (or the
+    port's own) ``.pth.tar``, or a msgpack file of the JAX package
+    (``.ckpt``, read by checkpoint/msgpack.py without flax). The JAX
+    package's Orbax directories need orbax.checkpoint, which imports jax,
+    and are refused."""
+    from lirec_tpu_torch.checkpoint import (
+        load_jax_checkpoint, load_torch_checkpoint,
+    )
 
-    state, _ = load_torch_checkpoint(path)
+    if os.path.isdir(path):
+        raise ValueError(
+            "%r is an Orbax checkpoint directory of the JAX package; "
+            "lirec_tpu_torch reads .pth.tar and msgpack .ckpt files" % path)
+    if path.endswith(CHECKPOINT_SUFFIXES):
+        state, _ = load_torch_checkpoint(path)
+        return state
+    state, _, _ = load_jax_checkpoint(path)
     return state
 
 

@@ -1,12 +1,12 @@
 """Model and loss selection (counterpart of lirec_tpu/models/factory.py).
 
 Ported: the packed forwards of the mid-fusion presets (``int_rel_ch``,
-``int_ch``, ``int_rels``): at eval the embed-then-gather path over
-embedded tables (models/tabular.py) with the eval sweep's ctx
-localisation keys, in training the hybrid path (models/hybrid.py), with
-the batch-local tables of data/localize.py; and the loss each preset
-trains with. The dense forwards and the modalities model are later
-slices, and say so.
+``int_ch``, ``int_rels``) and of the Modalities model (``modalities``, the
+text-only ablation): at eval the embed-then-gather path over embedded
+tables (models/tabular.py) with the eval sweep's ctx localisation keys, in
+training the hybrid path (models/hybrid.py), with the batch-local tables
+of data/localize.py; and the loss each preset trains with. The dense
+forwards are a later slice, and say so.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from torch import nn
 from lirec_tpu_torch.models import hybrid, tabular
 from lirec_tpu_torch.models import losses as losses_lib
 from lirec_tpu_torch.models.midfusion import init_midfusion
+from lirec_tpu_torch.models.modalities import init_modalities
 from lirec_tpu_torch.models.spec import ModelSpec
 
 __all__ = ["ModelBundle", "create_model", "apply_model"]
@@ -49,15 +50,14 @@ def apply_model(
     data/localize.localize_eval_ctx[_triples] pools its context from
     batch-local embedded ctx rows. use_kernel=False takes the plain ctx
     pool (eval) or the plain scatter in the backward (training), for
-    comparisons.
+    comparisons. The Modalities model (``spec.mod_check``) reads slot 0
+    of ``feat_idx`` only and launches no kernel.
     """
     if "feat_idx" not in batch:
         raise NotImplementedError(
             "lirec_tpu_torch ports the packed forwards only; dense "
             "`features` batches are not ported yet"
         )
-    if spec.mod_check:
-        raise NotImplementedError("the modalities model is not ported yet")
     if use_tabular is None:
         use_tabular = deterministic
     device = next(model.parameters()).device
@@ -74,6 +74,12 @@ def apply_model(
     if rels_mask is not None:
         rels_mask = torch.as_tensor(rels_mask, dtype=torch.float32,
                                     device=device)
+    if spec.mod_check:
+        if use_tabular:
+            return tabular.modalities_tabular(model, spec, tables, feat_idx,
+                                              embedded=embedded)
+        return hybrid.modalities_hybrid(model, spec, tables, feat_idx,
+                                        deterministic=deterministic, rng=rng)
     if use_tabular:
         ctx_triple = None
         if embedded is not None and spec.ctx and "ctx_triples" in batch:
@@ -163,12 +169,11 @@ def create_model(cfg, n_classes: int, n_rels: int = 0,
     ``cfg.optim.seed``) and then moved to `device` (the card unless the
     caller asks for the CPU)."""
     spec = ModelSpec.from_config(cfg, n_classes, n_rels)
-    if spec.mod_check:
-        raise NotImplementedError("the modalities model is not ported yet")
     gen = torch.Generator().manual_seed(
         cfg.optim.seed if seed is None else seed
     )
-    model = init_midfusion(spec, gen).to(device)
+    init = init_modalities if spec.mod_check else init_midfusion
+    model = init(spec, gen).to(device)
 
     def apply_fn(model, batch, tables=None, embedded=None, **kw):
         return apply_model(model, spec, batch, tables=tables,

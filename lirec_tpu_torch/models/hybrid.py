@@ -229,6 +229,44 @@ def midfusion_hybrid(
     return {"inters": ints_out, "rels": rels_out}
 
 
-def modalities_hybrid(*args, **kwargs):
-    """The modalities model is not ported yet (modalities slice)."""
-    raise NotImplementedError("the modalities model is not ported yet")
+def modalities_hybrid(
+    model,
+    spec,
+    tables: Dict,
+    feat_idx: torch.Tensor,
+    deterministic: bool = False,
+    rng: Optional[torch.Generator] = None,
+) -> Dict[str, torch.Tensor]:
+    """Modalities over packed batches, hybrid layering. feat_idx [B, 1, 3]
+    or [B, 3] -> {"inters": [B, n_classes]}.
+
+    Each branch's first layer runs over its table, its rows are gathered
+    by plain indexing (the JAX package's gather is plain XLA indexing
+    too), then dropout -> relu -> the second layer. With tracks on, the
+    track branches run under every modality, as in the JAX package, so the
+    dropout calls keep its order (txt, vis, tr1, tr2, the output)."""
+    cdt = compute_dtype(spec)
+    drop = DropoutRng(rng)
+    p = spec.dropout
+    if feat_idx.dim() == 3:
+        feat_idx = feat_idx[:, 0, :]
+    idx = feat_idx.long()
+
+    def branch(n1, n2, table, which):
+        h = linear(model.get_submodule(n1), table, cdt)[idx[..., which]]
+        h = torch.relu(dropout(h, p, drop, deterministic))
+        return linear(model.get_submodule(n2), h, cdt)
+
+    parts = []
+    if spec.modality in ("m", "t"):
+        parts.append(branch("txt_ints", "txt2_ints", tables["text"], 0))
+    if spec.modality in ("m", "v"):
+        parts.append(branch("vis_ints", "vis2_ints", tables["visual"], 0))
+    if spec.tracks:
+        tr1 = branch("tracks1_ints", "tracks12_ints", tables["track"], 1)
+        tr2 = branch("tracks2_ints", "tracks22_ints", tables["track"], 2)
+        if spec.modality == "m":
+            parts += [tr1, tr2]
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    out = dropout(torch.tanh(out), p, drop, deterministic)
+    return {"inters": linear(model.out_ints, out, cdt)}

@@ -31,9 +31,11 @@ __all__ = [
     "EmbeddedTables",
     "embed_tables",
     "embed_all",
+    "embed_modalities",
     "ctx_table_dtype",
     "midfusion_maxtracks_tabular",
     "midfusion_tabular",
+    "modalities_tabular",
 ]
 
 
@@ -70,12 +72,36 @@ def ctx_table_dtype(spec) -> torch.dtype:
     return torch.bfloat16 if spec.compute_dtype == "bfloat16" else torch.float32
 
 
-def embed_all(model, spec, tables: Dict) -> Dict[str, EmbeddedTables]:
+def embed_modalities(model, spec, tables: Dict) -> Dict[str, torch.Tensor]:
+    """The Modalities model's branch MLPs over the tables, keyed ``txt`` /
+    ``vis`` (clip rows) and ``tr1`` / ``tr2`` (track rows), in the head's
+    concatenation order; the branches ``modalities_tabular`` reads (the
+    track branches under modality 'm' only, as in the JAX package)."""
+    cdt = compute_dtype(spec)
+    out: Dict[str, torch.Tensor] = {}
+    if spec.modality in ("m", "t"):
+        out["txt"] = _two_layer(model, "txt_ints", "txt2_ints",
+                                tables["text"], cdt)
+    if spec.modality in ("m", "v"):
+        out["vis"] = _two_layer(model, "vis_ints", "vis2_ints",
+                                tables["visual"], cdt)
+    if spec.tracks and spec.modality == "m":
+        out["tr1"] = _two_layer(model, "tracks1_ints", "tracks12_ints",
+                                tables["track"], cdt)
+        out["tr2"] = _two_layer(model, "tracks2_ints", "tracks22_ints",
+                                tables["track"], cdt)
+    return out
+
+
+def embed_all(model, spec, tables: Dict) -> Dict:
     """All branch embeddings of the tables, computed once (the weights are
     frozen at eval, so this amortizes over every request or batch). The
-    ctx tables are cast to ``ctx_table_dtype(spec)``."""
-    out: Dict[str, EmbeddedTables] = {}
-    if spec.ints and not spec.mod_check:
+    ctx tables are cast to ``ctx_table_dtype(spec)``. The Modalities
+    model's go under ``mod`` (``embed_modalities``)."""
+    out: Dict = {}
+    if spec.mod_check:
+        out["mod"] = embed_modalities(model, spec, tables)
+    elif spec.ints:
         out["ints"] = embed_tables(model, "ints", tables, spec)
     if spec.ctx:
         dt = ctx_table_dtype(spec)
@@ -215,3 +241,27 @@ def midfusion_tabular(
     rels_out = linear(model.out_ctx, output_ctx, cdt) if spec.ctx else None
     ints_out = linear(model.out_ints, output_ints, cdt) if spec.ints else None
     return {"inters": ints_out, "rels": rels_out}
+
+
+def modalities_tabular(
+    model,
+    spec,
+    tables: Optional[Dict],
+    feat_idx: torch.Tensor,
+    embedded: Optional[Dict] = None,
+) -> Dict[str, torch.Tensor]:
+    """Modalities eval forward over tables. feat_idx: [B, 1, 3] or [B, 3]
+    -> {"inters": [B, n_classes]}. The branch MLPs run over the tables
+    (``embed_modalities``), or are read from ``embedded["mod"]``
+    (embed_all), and their rows are gathered per sample: txt and vis by
+    the clip id, tr1 and tr2 by the two track ids."""
+    cdt = compute_dtype(spec)
+    if feat_idx.dim() == 3:
+        feat_idx = feat_idx[:, 0, :]
+    idx = feat_idx.long()
+    emb = (embedded["mod"] if embedded and "mod" in embedded
+           else embed_modalities(model, spec, tables))
+    column = {"txt": 0, "vis": 0, "tr1": 1, "tr2": 2}
+    parts = [emb[k][idx[..., column[k]]] for k in emb]
+    out = torch.tanh(parts[0] if len(parts) == 1 else torch.cat(parts, -1))
+    return {"inters": linear(model.out_ints, out, cdt)}

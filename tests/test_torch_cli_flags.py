@@ -1,8 +1,10 @@
 """The port's eval and training CLIs take every flag of the JAX package's
 (lirec_tpu/cli/common.py): the PRNG flags parse and change nothing, the
 flags of features not ported yet refuse to run by the ROADMAP.md item
-that ports them, and --auto-resume refuses a store root that holds only
-the JAX package's latest.ckpt instead of starting over beside it.
+that ports them, and --auto-resume refuses a store root whose only train
+state is the JAX package's Orbax latest.ckpt instead of starting over
+beside it (its msgpack latest.ckpt resumes:
+tests/test_torch_jax_checkpoints.py).
 """
 
 import os
@@ -70,18 +72,15 @@ def test_jax_flags_accepted_or_refused_by_name(tmp_path, flag, value, item):
     common._refuse_unported(parser, parser.parse_args(defaults))
 
 
-@pytest.mark.parametrize("as_dir", [False, True])
+@pytest.mark.parametrize("as_dir", [True])
 def test_auto_resume_refuses_a_jax_latest_ckpt(tmp_path, as_dir):
-    """A store root with the JAX package's latest.ckpt (a msgpack file or
-    an Orbax directory) and no latest.pth.tar: --auto-resume exits naming
-    the file and the queue item, before any data is read."""
+    """A store root with the JAX package's latest.ckpt as an Orbax
+    directory and no latest.pth.tar: --auto-resume exits naming the file
+    and the queue item, before any data is read."""
     store = tmp_path / "store"
     store.mkdir()
     latest = store / "latest.ckpt"
-    if as_dir:
-        latest.mkdir()
-    else:
-        latest.write_bytes(b"\x80")
+    latest.mkdir()
     argv = ["--data-root", str(tmp_path / "no_data"), "--store-root",
             str(store), "--auto-resume", "--device", "cpu"]
     with pytest.raises(SystemExit, match="latest.ckpt") as err:

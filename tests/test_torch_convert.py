@@ -84,6 +84,9 @@ def test_clean_state_dict_rejects_unknown_entries():
         clean_state_dict({"weights": torch.zeros(2)})
 
 
-def test_serve_reads_only_pth_checkpoints():
+def test_serve_reads_only_pth_checkpoints(tmp_path):
+    """Serving reads .pth.tar files and the JAX package's msgpack .ckpt
+    files (tests/test_torch_jax_checkpoints.py); an Orbax checkpoint
+    directory is refused, naming the formats it reads."""
     with pytest.raises(ValueError, match=".pth.tar"):
-        load_checkpoint_state("/nonexistent/params.msgpack")
+        load_checkpoint_state(str(tmp_path))

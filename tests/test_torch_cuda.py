@@ -126,6 +126,46 @@ def test_pool_edges_bitwise_the_triple_kernel(cuda, R, dtype, widths,
                                    equal_nan=True)
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("M", [1, 7, 64])
+@pytest.mark.parametrize("R", [2, 4, 8, 16, 32, 64, 128])
+def test_pool_at_the_rels_only_buckets(cuda, R, M, dtype, atol):
+    """Kernels 1 (f32 tables) and 2 (bf16) at the shapes the rels-only
+    eval launches them: M pair rows of a bucket, R its power-of-two clip
+    count, the embedded rows of the published widths (1024 / 256 wide).
+    Pad clips have weight 0; the last row is all pad (a flush with n < B),
+    and with the guard off (the eval's) it is NaN in both versions. Within
+    the limits of the eval phases (1e-5 f32, 2e-3 bf16) of the plain
+    version, the NaN rows equal, one launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(R * 100 + M)
+    emb = EmbeddedTables(*(
+        torch.randn(n, d, device=cuda, generator=g).to(dtype)
+        for n, d in ((300, 1024), (500, 256), (500, 256))))
+    idx = torch.stack(
+        [torch.randint(0, n, (M, R), device=cuda, generator=g)
+         for n in (300, 500, 500)], dim=-1).to(torch.int32)
+    mask = torch.zeros(M, R, device=cuda)
+    lengths = torch.randint(1, R + 1, (M,), generator=g, device=cuda)
+    for m in range(M):
+        mask[m, : int(lengths[m])] = 1.0
+    idx[mask == 0] = 0  # pad clips point at row 0, as the buckets do
+    mask[-1] = 0.0
+    idx = idx.contiguous()
+    name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+    for guard in (False, True):
+        before = dispatch.launches(name)
+        got = fused_ctx_pool(emb, idx, mask, guard)
+        torch.cuda.synchronize()
+        assert dispatch.launches(name) == before + 1
+        want = fused_ctx_pool_reference(emb, idx, mask, guard)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert bool(got[-1].isnan().all()) != guard
+        assert not bool(got[:-1].isnan().any())
+        torch.testing.assert_close(got, want, rtol=0, atol=atol,
+                                   equal_nan=True)
+
+
 def _loop_sum(table, idx, mask):
     """Kernel 5's function as an r-ordered eager loop of separate
     multiplies and adds from zeros, rounded to the table's dtype once: the

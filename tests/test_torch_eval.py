@@ -178,6 +178,7 @@ def _capture(monkeypatch, module, store, key):
     ("int_rel_ch", "test", 16),  # the ragged tail and the size-1 skip
     ("int_ch", "test", 8),
     ("int_rels", "val", 5),
+    ("modalities", "val", 8),  # the plain branch with soft_gt, no ctx
 ])
 def test_evaluate_packed_matches_jax(synth_root, monkeypatch, preset, mode,
                                      batch_size):
@@ -252,6 +253,7 @@ def _capture_accumulators(monkeypatch, module, store, key):
     ("int_rel_ch", "test", 8),
     ("int_ch", "test", 8),
     ("int_rels", "val", 5),
+    ("modalities", "val", 8),
 ])
 def test_host_evaluate_matches_jax(synth_root, monkeypatch, preset, mode,
                                    batch_size):
@@ -350,7 +352,8 @@ def test_bf16_triple_forward_matches_jax(synth_root):
 def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
     """The eval CLI with --device cpu on a reference-format checkpoint of
     seeded weights: finite metric dicts for both splits, the same with
-    --host-eval; flags of what is not ported refuse to run."""
+    --host-eval; flags of what is not ported, and an Orbax checkpoint
+    directory, refuse to run."""
     from lirec_tpu_torch.cli import common, int_rel_ch
 
     ckpt = tmp_path / "weights.pth.tar"
@@ -383,6 +386,159 @@ def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
         with pytest.raises(SystemExit, match=match):
             int_rel_ch.main(args + extra)
     bad = list(args)
-    bad[bad.index(str(ckpt))] = str(tmp_path / "2.ckpt")
-    with pytest.raises(SystemExit, match="pth.tar"):
+    orbax = tmp_path / "2.ckpt"
+    orbax.mkdir()  # the JAX package's Orbax checkpoints are directories
+    bad[bad.index(str(ckpt))] = str(orbax)
+    with pytest.raises(SystemExit, match="Orbax"):
         int_rel_ch.main(bad)
+
+
+# ------------------------------------------- rels-only eval and details
+
+
+def _rels_only_pair(root, compute="float32"):
+    """int_rels on the val split with the first label choice, as the JAX
+    package's tests/test_graph_api.py builds it, on both sides, with the
+    same weights."""
+    from lirec_tpu.data.dataset import first_choice
+    from lirec_tpu_torch.data.dataset import first_choice as port_first
+
+    sides = []
+    for lib, syn, dataset, chooser in (
+            (config_lib, synthetic, InteractionDataset, first_choice),
+            (port_config, port_synthetic, PortDataset, port_first)):
+        cfg = _cfg(lib, syn, root, "int_rels", 8, compute)
+        ds = dataset(cfg, mode="val", label_chooser=chooser)
+        ds.cache()
+        ds.init_relships()
+        sides.append((cfg, ds))
+    (jc, jd), (pc, pd) = sides
+    jb = jax_create_model(jc, jd.n_classes, n_rels=jd.n_rels - 1)
+    pb = create_model(pc, pd.n_classes, n_rels=pd.n_rels - 1, device="cpu")
+    pb.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray,
+                                                          jb.params)))
+    return (jc, jd, jb), (pc, pd, pb)
+
+
+def _capture_rels_updates(monkeypatch, module, store, key):
+    """Record each RelationshipsAcc.update call: (logits, labels,
+    hashes), one per flushed bucket."""
+    orig = module.RelationshipsAcc.update
+    calls = store.setdefault(key, [])
+
+    def wrapped(self, pr_probs, gt, hashes):
+        calls.append((np.array(pr_probs, np.float32), np.asarray(gt).copy(),
+                      np.asarray(hashes).copy()))
+        return orig(self, pr_probs, gt, hashes)
+
+    monkeypatch.setattr(module.RelationshipsAcc, "update", wrapped)
+
+
+@pytest.mark.parametrize("batch_size", [64, 3])
+def test_rels_only_eval_matches_jax(synth_root, monkeypatch, batch_size):
+    """evaluate_rels_only on both sides: rels_top1 / rels_top3 exactly
+    equal, each flushed bucket's rels logits at f32 rtol 2e-6 with the
+    same labels and hashes in the same order (B = 3: flushes at n = B and
+    a last flush with n < B per bucket), the plain pool equal to the pool
+    wrapper's path, and test_rels_multi_clip restored on both sides."""
+    from lirec_tpu.evaluation import metrics as jax_metrics
+    from lirec_tpu.evaluation import runner as jax_runner
+    from lirec_tpu_torch.evaluation import metrics as port_metrics
+    from lirec_tpu_torch.evaluation import runner as port_runner
+
+    (jc, jd, jb), (pc, pd, pb) = _rels_only_pair(synth_root)
+    calls = {}
+    _capture_rels_updates(monkeypatch, jax_metrics, calls, "jax")
+    _capture_rels_updates(monkeypatch, port_metrics, calls, "port")
+    want = jax_runner.evaluate_rels_only(jd, jb, jb.params, jc,
+                                         verbose=False,
+                                         batch_size=batch_size)
+    got = port_runner.evaluate_rels_only(pd, pb, pb.model, pc,
+                                         verbose=False,
+                                         batch_size=batch_size)
+    assert got == want
+    assert 0 < got["rels_top3"] and got["rels_top1"] <= got["rels_top3"]
+    assert jd.test_rels_multi_clip is False
+    assert pd.test_rels_multi_clip is False
+    assert len(calls["port"]) == len(calls["jax"]) > 1
+    for (pl, pg, ph), (jl, jg, jh) in zip(calls["port"], calls["jax"]):
+        np.testing.assert_array_equal(pg, jg)
+        np.testing.assert_array_equal(ph, jh)
+        np.testing.assert_allclose(pl, jl, rtol=2e-6, atol=1e-7)
+    if batch_size == 3:
+        sizes = {len(g) for _, g, _ in calls["port"]}
+        assert 3 in sizes and min(sizes) < 3
+    plain = port_runner.evaluate_rels_only(pd, pb, pb.model, pc,
+                                           verbose=False,
+                                           batch_size=batch_size,
+                                           use_kernel=False)
+    assert plain == got
+
+
+def test_rels_only_buckets_are_powers_of_two(synth_root, monkeypatch):
+    """Each flushed bucket is [B, padded + 1, 3] / [B, padded, 1] with
+    padded the next power of two >= the items' clip counts (at least 2),
+    every pad row and clip has weight 0, and the buckets flush in sorted
+    order at the end; the fixture's largest L is far below the kernels'
+    MAX_CONTEXT."""
+    from lirec_tpu_torch.evaluation import runner as port_runner
+    from lirec_tpu_torch.ops.gather_pool import MAX_CONTEXT
+
+    _, (pc, pd, pb) = _rels_only_pair(synth_root)
+    pd.test_rels_multi_clip = True
+    lengths = [pd[i]["feat_idx"].shape[0] - 1 for i in range(len(pd))]
+    pd.test_rels_multi_clip = False
+    from lirec_tpu_torch.models import tabular
+
+    seen = []
+    real = tabular.midfusion_tabular
+
+    def spy(model, spec, tables, feat_idx, rels_mask, **kw):
+        seen.append((tuple(feat_idx.shape), tuple(rels_mask.shape),
+                     int(rels_mask.sum())))
+        return real(model, spec, tables, feat_idx, rels_mask, **kw)
+
+    monkeypatch.setattr(tabular, "midfusion_tabular", spy)
+    port_runner.evaluate_rels_only(pd, pb, pb.model, pc, verbose=False,
+                                   batch_size=4)
+    pads = sorted({1 << max(1, L - 1).bit_length() for L in lengths})
+    assert {s[0][1] - 1 for s in seen} == set(pads)
+    for (fshape, mshape, _) in seen:
+        assert fshape[0] == mshape[0] == 4 and fshape[2] == 3
+        assert mshape == (4, fshape[1] - 1, 1)
+    tail = [s[0][1] - 1 for s in seen[-len(pads):]]
+    assert tail == sorted(tail)
+    assert sum(s[2] for s in seen) > 0
+    assert max(lengths) < MAX_CONTEXT
+
+
+@pytest.mark.parametrize("preset,mode,batch_size", [
+    ("modalities", "val", 8),
+    ("int_rels", "val", 5),
+    ("int_rel_ch", "test", 8),
+])
+def test_host_evaluate_details_match_jax(synth_root, preset, mode,
+                                         batch_size):
+    """evaluate(return_details=True): the confusion matrix equal to the
+    JAX package's, and its accumulators (the relationship one where the
+    preset has it) beside the metric dict."""
+    from lirec_tpu.evaluation import runner as jax_runner
+    from lirec_tpu_torch.evaluation import runner as port_runner
+
+    (jc, jd, jb), (pc, pd, pb) = _pair(synth_root, preset, mode, batch_size)
+    want = jax_runner.evaluate(jd, jb, jb.params, jc, mode=mode,
+                               verbose=False, return_details=True)
+    got = port_runner.evaluate(pd, pb, pb.model, pc, mode=mode,
+                               verbose=False, return_details=True)
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(got["conf_mat"], want["conf_mat"])
+    assert got["conf_mat"].shape == (pd.n_classes, pd.n_classes)
+    if preset != "int_rel_ch":  # the grounding presets fill no matrix
+        assert got["conf_mat"].sum() > 0
+    assert got["accumulator"].total == want["accumulator"].total
+    if "rels_accumulator" in want:
+        assert got["rels_accumulator"]._gt == want["rels_accumulator"]._gt
+    plain = port_runner.evaluate(pd, pb, pb.model, pc, mode=mode,
+                                 verbose=False)
+    assert plain == {k: v for k, v in got.items() if k not in (
+        "conf_mat", "accumulator", "rels_accumulator")}

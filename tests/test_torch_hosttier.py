@@ -137,3 +137,42 @@ def test_eval_localization_is_identical():
         for g, w in zip(got, want):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("html", [False, True])
+@pytest.mark.parametrize("mode", ["train", "val", "test"])
+def test_text_only_dataset_is_identical(synth_root, mode, html):
+    """The text-only ablation's dataset (data/text_dataset.py): the same
+    classes and movies, the same text table, and per sample the same
+    feat_idx, local label, weights, debug meta (html=True) and dense row."""
+    from lirec_tpu.data import text_dataset as jax_text
+    from lirec_tpu_torch.data import text_dataset as port_text
+
+    sides = []
+    for lib, syn in ((jax_text, synthetic), (port_text, port_synthetic)):
+        base = syn.make_config(synth_root)
+        cfg = lib.preset_text_only(data_root=synth_root)
+        cfg = cfg.replace(dims=dataclasses.replace(base.dims, visual_dim=0),
+                          paths=base.paths)
+        ds = lib.TextOnlyDataset(cfg, mode=mode, html=html)
+        ds.cache()
+        sides.append(ds)
+    jd, pd = sides
+    assert (pd.n_classes, pd.movie_idxs, len(pd)) == (jd.n_classes,
+                                                     jd.movie_idxs, len(jd))
+    assert len(pd) > 0
+    _assert_same_arrays(pd.tables.as_dict(), jd.tables.as_dict())
+    if html:
+        assert pd.idx2inter == jd.idx2inter
+    for i in range(len(jd)):
+        want, got = jd[i], pd[i]
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            if k == "meta":
+                assert got[k] == v
+            else:
+                assert np.asarray(got[k]).dtype == np.asarray(v).dtype, k
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
+        dense_w, dense_g = jd.to_dense(want), pd.to_dense(got)
+        np.testing.assert_array_equal(dense_g["features"],
+                                      dense_w["features"])

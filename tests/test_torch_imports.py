@@ -1,7 +1,8 @@
-"""lirec_tpu_torch never imports jax, flax or optax, nor anything of the
-JAX package lirec_tpu or of the repo-root tools/ directory (the TPU
+"""lirec_tpu_torch never imports jax, flax, optax or msgpack, nor anything
+of the JAX package lirec_tpu or of the repo-root tools/ directory (the TPU
 probes), not even transitively or at run time (its target
-machine has no jax; the port carries its own copy of the host tier), and
+machine has no jax; the port carries its own copy of the host tier and its
+own msgpack decoder), and
 chip_smoke.py refuses to run without a CUDA card or without the repository
 around it."""
 
@@ -26,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
 bad = sorted(m for m in sys.modules if m.split(".")[0]
-             in ("jax", "jaxlib", "flax", "optax", "lirec_tpu", "tools"))
+             in ("jax", "jaxlib", "flax", "optax", "msgpack", "lirec_tpu",
+                 "tools"))
 print(len(names), "modules")
 print("BAD", bad)
 """
@@ -38,7 +40,7 @@ import importlib.abc, sys
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "lirec_tpu", "tools"):
+                                  "msgpack", "lirec_tpu", "tools"):
             raise ImportError("blocked: " + name)
         return None
 
@@ -100,6 +102,21 @@ from lirec_tpu_torch.tools import probe_bf16_pack, probe_hbm_dma
 probe_hbm_dma.measure("cpu", n_clips=64, n_tracks=96, m=8)
 probe_bf16_pack.measure("cpu", {"probe": probe_bf16_pack.SHAPES["probe"]})
 print("TRAIN_CLI", out["train"]["losses"])
+
+# the text-only CLI: one epoch, then the eval of the JAX package's .ckpt
+from lirec_tpu_torch.checkpoint import load_jax_checkpoint
+from lirec_tpu_torch.cli import text_only
+text_root, ckpt = sys.argv[2], sys.argv[3]
+state, adam, epoch = load_jax_checkpoint(ckpt)
+assert state and adam is None and epoch == 4, (adam, epoch)
+text = ["--data-root", text_root, "--store-root", os.path.join(root, "st"),
+        "--text-dim", "16", "--text-layers", "4", "--joint-dim", "16",
+        "--batch-size", "8", "--device", "cpu", "--quiet"]
+out = text_only.main(text + ["--train", "--epochs", "1"])
+assert all(math.isfinite(v) for v in out["train"]["losses"])
+metrics = text_only.main(text + ["--resume-path", ckpt])
+assert all(math.isfinite(v) for m in metrics.values() for v in m.values())
+print("TEXT_ONLY", sorted(metrics))
 """
 
 
@@ -119,21 +136,44 @@ def test_port_imports_no_jax():
     assert n >= 15  # every module of the package was found and imported
 
 
+def _jax_text_only_ckpt(root, path):
+    """A save_params .ckpt of the JAX package's text-only model, sized for
+    the fixture at `root` (written here, where flax may be imported)."""
+    from lirec_tpu.checkpoint import save_params
+    from lirec_tpu.data.text_dataset import TextOnlyDataset, preset_text_only
+    from lirec_tpu.models.factory import create_model as jax_create_model
+
+    cfg = preset_text_only(data_root=root).with_dims(
+        text_dim=16, visual_dim=0, text_layers=4, joint_dim=16)
+    n_classes = TextOnlyDataset(cfg, mode="train").n_classes
+    save_params(path, jax_create_model(cfg, n_classes).params,
+                extra={"epoch": 4})
+
+
 def test_train_runs_with_jax_blocked(tmp_path):
-    """In a process where importing jax, jaxlib, optax, flax or anything of
-    lirec_tpu raises, on a fixture from the port's own generator: one epoch
-    of the port's train(), the serve CLI's engine builder, the
-    int_rel_ch eval CLI, one epoch of the training CLI with cadence
-    evaluation and checkpoints, and the two probes on the CPU (the
+    """In a process where importing jax, jaxlib, optax, flax, msgpack or
+    anything of lirec_tpu raises, on a fixture from the port's own
+    generator: one epoch of the port's train(), the serve CLI's engine
+    builder, the int_rel_ch eval CLI, one epoch of the training CLI with
+    cadence evaluation and checkpoints, the two probes on the CPU (the
     run-time paths: assembly plan, Localizer, native libraries, eval
-    localisation, the sweep, the saver)."""
+    localisation, the sweep, the saver), and the text-only CLI's training
+    and its eval of a .ckpt that the JAX package wrote."""
+    from lirec_tpu_torch.data import synthetic
+
+    text_root = str(tmp_path / "text")
+    synthetic.generate(text_root)
+    ckpt = str(tmp_path / "jax_text.ckpt")
+    _jax_text_only_ckpt(text_root, ckpt)
     proc = subprocess.run(
-        [sys.executable, "-c", _RUN_WITHOUT_JAX, str(tmp_path / "mg")],
+        [sys.executable, "-c", _RUN_WITHOUT_JAX, str(tmp_path / "mg"),
+         text_root, ckpt],
         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "LOSSES [" in proc.stdout, proc.stdout
     assert "ENGINE" in proc.stdout and "CLI ['test', 'val']" in proc.stdout
     assert "TRAIN_CLI [" in proc.stdout, proc.stdout
+    assert "TEXT_ONLY ['test', 'val']" in proc.stdout, proc.stdout
 
 
 def _imported_modules(path):
@@ -157,7 +197,7 @@ def test_port_source_names_no_jax_package_import():
     bad = [(os.path.relpath(p, ROOT), m) for p in paths
            for m in _imported_modules(p)
            if m.split(".")[0] in ("lirec_tpu", "jax", "jaxlib", "flax",
-                                  "optax", "tools")]
+                                  "optax", "msgpack", "tools")]
     assert bad == []
 
 

@@ -83,7 +83,9 @@ def test_pool_lanes_cover_every_output_column_once(esize, d_clip, d_tr,
     assert plan["lanes"] == len(lanes)
 
 
-@pytest.mark.parametrize("M,R", [(1280, 18), (7, 1), (41, 64), (3, 2048)])
+@pytest.mark.parametrize("M,R", [(1280, 18), (7, 1), (41, 64), (3, 2048)]
+                         # the rels-only eval's buckets
+                         + [(64, r) for r in (2, 4, 8, 16, 32, 64, 128)])
 @pytest.mark.parametrize("esize", [4, 2])
 def test_pool_plan_blocks_cover_the_rows_within_shared_memory(M, R, esize):
     """Every pooled row in exactly one block; a block's staged indices and
