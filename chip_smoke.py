@@ -96,6 +96,25 @@
    beside it, three ``embedding_bag`` sums and the bound.
 15. The text-only CLI on that fixture: 2 training epochs, then the eval of
    its own checkpoint; no kernel launches.
+16. Data parallelism (parallel/, counted runs), after printing the card's
+   compute mode (a mode that forbids two processes on the card fails the
+   phase): (a) a process group of one over NCCL in this process sweeps
+   phase 9's split over a data mesh of one (its carry bitwise phase 9's,
+   169 pool launches per dtype) and takes phase 7's 10 steps through the
+   DistributedDataParallel step (losses and parameters bitwise phase 7's,
+   one scatter launch per step), printing its ms/step beside phase 7's;
+   (b) two ranks share the card over gloo (``parallel/dist.spawn`` of
+   ``tools/dist_check.rank_run``, under a time limit; NCCL refuses two
+   ranks on one device): each sweeps its block of the split in bf16 and
+   f32, the all-reduced counters equal phase 9's exactly and the loss sums
+   agree within rtol 2e-6, then 3 deterministic f32 steps on its half of
+   each batch agree with one process within rtol 1e-5: each step's loss
+   and gradient (against its scale) with one process's at the parameters
+   the step started from, and the losses with one process's own 3 steps
+   (the parameters' difference after Adam is printed);
+   each rank's launches of kernels 1-2 and 6 come back with its result
+   and must be non-zero. A failed group, rank or time limit fails the
+   run; nothing falls back to one process or to the CPU.
 
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
@@ -120,7 +139,8 @@ the path that launches it: the 3-table pool on the eval sweep's batch
 (launches: one off-tier sweep, what ``auto`` runs), the scatter at the
 Localizer's tables (launches: phase 7's steps); the serve path's random
 rows, the giant tables and the split-scale scatter are entries of their
-own (``name@case``).
+own (``name@case``); ``name@dist`` entries give phase 16's launches (the
+world of one's and each rank's).
 """
 
 import dataclasses
@@ -164,6 +184,8 @@ DEV = "cuda"  # the device of phases 13-15
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 HOLD_CYCLES = 1 << 21  # about 1 ms of spinning at the H100's clock
+DIST_TIMEOUT = 300  # seconds for phase 16(b)'s two ranks, start to join
+DIST_STEPS = 3  # phase 16(b)'s deterministic data-parallel steps
 
 
 def log(*args):
@@ -997,7 +1019,8 @@ def step_grads(torch, bundle, batch, tables, use_kernel):
 
 def train_path(torch, batches):
     """Phase 7 on localized host batches. Returns ({kernel name:
-    launches}, {compute: ms/step})."""
+    launches}, {compute: ms/step}, {compute: (losses, final parameters on
+    the host)}; phase 16 holds its data-parallel steps to the last)."""
     import numpy as np
 
     from lirec_tpu_torch import config as config_lib
@@ -1009,7 +1032,7 @@ def train_path(torch, batches):
     from lirec_tpu_torch.train.optim import make_optimizer
 
     cfg = config_lib.preset("int_rel_ch")
-    counts, step_ms = {}, {}
+    counts, step_ms, finals = {}, {}, {}
     tables = None
     for compute in ("bfloat16", "float32"):
         bundle = create_model(cfg.with_runtime(compute_dtype=compute), 101,
@@ -1072,6 +1095,8 @@ def train_path(torch, batches):
                   "%s: parameter %s did not move" % (compute, n))
         counts[name] = counted[name]
         step_ms[compute] = statistics.median(times[1:])
+        finals[compute] = (losses, {n: p.detach().cpu() for n, p in
+                                    bundle.model.named_parameters()})
         log("  %s: %d steps, losses %.4f .. %.4f, %d launches of %s; "
             "median %.2f ms/step (first %.1f ms), %.0f clips/s"
             % (compute, len(batches), losses[0], losses[-1], counted[name],
@@ -1079,7 +1104,7 @@ def train_path(torch, batches):
                TRAIN_B / step_ms[compute] * 1e3))
         del bundle, opt, step, before, with_kernel, plain
         torch.cuda.empty_cache()
-    return counts, step_ms
+    return counts, step_ms, finals
 
 
 def train_entry(torch):
@@ -1154,7 +1179,9 @@ MAX_COUNTER_FLIPS = 8
 def eval_sweep(torch, spec):
     """Phase 9. Returns ({kernel name: launches of one counted sweep: the
     3-table kernel's of the off tier (what ``auto`` runs), the triple
-    kernel's of the triple tier}, {(compute, tier): clips/s})."""
+    kernel's of the triple tier}, {(compute, tier): clips/s}, {"split":
+    the split, "carries": {compute: the off tier's carry}}; phase 16 holds
+    its sharded sweeps to the last)."""
     import numpy as np
 
     from lirec_tpu_torch import config as config_lib
@@ -1199,7 +1226,7 @@ def eval_sweep(torch, spec):
         return finish(carry, *args, **kw)
 
     packed.finish_from_carry = capture
-    tables, counts, rates = None, {}, {}
+    tables, counts, rates, off_carries = None, {}, {}, {}
     try:
         for compute in ("bfloat16", "float32"):
             dtype = torch.bfloat16 if compute == "bfloat16" else \
@@ -1268,6 +1295,7 @@ def eval_sweep(torch, spec):
                           "sweep's" % (compute, tier, key))
             log("  %s: the three tiers' carries are bitwise equal"
                 % compute)
+            off_carries[compute] = carries[False]
             sweep(None, use_kernel=False)
             plain = captured["carry"]
             base = carries[False]
@@ -1315,7 +1343,7 @@ def eval_sweep(torch, spec):
             torch.cuda.empty_cache()
     finally:
         packed.finish_from_carry = finish
-    return counts, rates
+    return counts, rates, {"split": data, "carries": off_carries}
 
 
 def eval_cli(torch):
@@ -2154,6 +2182,244 @@ def text_only_phase(torch, root):
                                             metrics["test"]))
 
 
+
+# ------------------------------------------------------ data parallelism
+
+
+def compute_mode():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    check(out, "nvidia-smi printed no compute mode")
+    return out[0]
+
+
+def dist_phase(torch, local, train_finals, step_ms, eval_ref):
+    """Phase 16: (a) a world of one over NCCL in this process: the sweep
+    of phase 9's split and phase 7's 10 steps through the data-parallel
+    paths, bitwise phase 9's carries and phase 7's losses and parameters,
+    ms/step beside phase 7's; (b) two ranks sharing the one card over
+    gloo (parallel/dist.spawn, tools/dist_check.rank_run): the sweep split
+    between them, its all-reduced counters equal to phase 9's and its float
+    sums within rtol 2e-6, and DIST_STEPS deterministic f32 steps whose
+    losses and gradients are within rtol 1e-5 of one process's at the
+    same parameters, and whose losses are within rtol 1e-5 of one
+    process's own steps (the parameters after Adam are reported). Returns ({kernel name:
+    launches in (a)'s counted runs}, [each rank's launch counts])."""
+    import numpy as np
+
+    import torch.distributed
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
+    from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES as SCATTER
+    from lirec_tpu_torch.parallel import dist
+    from lirec_tpu_torch.parallel.step import make_dp_train_step
+    from lirec_tpu_torch.tools import dist_check
+    from lirec_tpu_torch.train.loop import (
+        _to_device, make_train_step, step_generators, train_loss,
+    )
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    mode = compute_mode()
+    log("  compute mode: %s; %d card(s) visible" % (
+        mode, torch.cuda.device_count()))
+    check(mode not in ("Exclusive_Process", "Prohibited"),
+          "compute mode %s: two processes cannot share the card" % mode)
+    cfg = config_lib.preset("int_rel_ch")
+    split = eval_ref["split"]
+    host_tables = dev_tables = None
+    counts = {}
+    with tempfile.TemporaryDirectory() as work:
+        dist.initialize_distributed("file://" + os.path.join(work, "nccl1"),
+                                    1, 0, "cuda")
+        try:
+            check(torch.distributed.get_backend() == "nccl", "backend %s"
+                  % torch.distributed.get_backend())
+            mesh = dist.make_mesh((1, 1))
+            for compute in ("bfloat16", "float32"):
+                dtype = torch.bfloat16 if compute == "bfloat16" else \
+                    torch.float32
+                ccfg = cfg.with_runtime(compute_dtype=compute)
+                bundle = create_model(ccfg, 101, n_rels=15, seed=0,
+                                      device="cuda")
+                if host_tables is None:
+                    host_tables = make_tables(bundle.spec, N_CLIPS, N_TRACKS,
+                                              seed=0)
+                    dev_tables = {k: torch.from_numpy(v).cuda()
+                                  for k, v in host_tables.items()}
+                pool = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+                # ---- counted run: the sweep over a world of one
+                dispatch.reset_launches()
+                carry = packed.sweep_carry(
+                    split_stand_in(), bundle, bundle.model,
+                    ccfg.with_optim(batch_size=EVAL_B), mode="test",
+                    data=split, tables=host_tables, localize_ctx=False,
+                    mesh=mesh)
+                torch.cuda.synchronize()
+                swept = dispatch.launches()
+                # ---- end of the counted run
+                want = eval_ref["carries"][compute]
+                check(set(carry) == set(want), "carry keys")
+                for key, v in want.items():
+                    check(np.array_equal(carry[key], v), "%s: the world-of-"
+                          "one sweep's %s differs from phase 9's"
+                          % (compute, key))
+                counts[pool] = swept.get(pool, 0)
+                check(counts[pool] == EVAL_FULL + 1,
+                      "%s: world-of-one sweep launched %s" % (compute, swept))
+                opt = make_optimizer(bundle.model.parameters(),
+                                     cfg.optim.lr, cfg.optim.weight_decay)
+                step = make_dp_train_step(bundle, opt, mesh, TRAIN_B)
+                scatter = SCATTER[dtype]
+                # ---- counted run: phase 7's steps over a world of one
+                dispatch.reset_launches()
+                times, losses = [], []
+                for i, batch in enumerate(local):
+                    t = time.perf_counter()
+                    losses.append(float(step(batch, dev_tables,
+                                             step_generators(0, i, "cuda"))))
+                    times.append((time.perf_counter() - t) * 1e3)
+                torch.cuda.synchronize()
+                stepped = dispatch.launches()
+                # ---- end of the counted run
+                want_losses, want_params = train_finals[compute]
+                check(losses == want_losses, "%s: world-of-one losses %s, "
+                      "phase 7's %s" % (compute, losses, want_losses))
+                for n, p in bundle.model.named_parameters():
+                    check(torch.equal(p.detach().cpu(), want_params[n]),
+                          "%s: world-of-one parameter %s differs from "
+                          "phase 7's" % (compute, n))
+                counts[scatter] = stepped.get(scatter, 0)
+                check(counts[scatter] == len(local),
+                      "%s: world-of-one steps launched %s" % (compute,
+                                                              stepped))
+                ms = statistics.median(times[1:])
+                log("  (a) NCCL world of one, %s: sweep carry bitwise phase "
+                    "9's (%d launches of %s); %d steps bitwise phase 7's "
+                    "(%d launches of %s): median %.2f ms/step against phase "
+                    "7's %.2f ms (DDP's overhead %+.2f ms)" % (
+                        compute, counts[pool], pool, len(local),
+                        counts[scatter], scatter, ms, step_ms[compute],
+                        ms - step_ms[compute]))
+                del bundle, opt, step
+                torch.cuda.empty_cache()
+        finally:
+            torch.distributed.destroy_process_group()
+
+        # (b) two ranks on the one card over gloo
+        job = {"split": os.path.join(work, "split.pt"),
+               "batches": os.path.join(work, "batches.pt"),
+               "device": "cuda", "preset": "int_rel_ch", "n_classes": 101,
+               "n_rels": 15,
+               "seed": 0, "n_clips": N_CLIPS, "n_tracks": N_TRACKS,
+               "eval_b": EVAL_B, "train_b": TRAIN_B}
+        torch.save(split, job["split"])
+        torch.save(local[:DIST_STEPS], job["batches"])
+        t0 = time.perf_counter()
+        ranks = dist.spawn(dist_check.rank_run, 2, devices="cuda",
+                           backend="gloo", timeout=DIST_TIMEOUT, args=(job,),
+                           workdir=work)
+        wall = time.perf_counter() - t0
+    fcfg = cfg.with_runtime(compute_dtype="float32")
+    bundle = create_model(fcfg, 101, n_rels=15, seed=0, device="cuda")
+    opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
+                         cfg.optim.weight_decay)
+    step = make_train_step(bundle, opt, deterministic=True)
+    want_losses = [float(step(batch, dev_tables,
+                              step_generators(0, i, "cuda")))
+                   for i, batch in enumerate(local[:DIST_STEPS])]
+    want_params = {n: p.detach().to("cpu", copy=True)
+                   for n, p in bundle.model.named_parameters()}
+    lead = ranks[0].value
+    check(all(r.value["params_sum"] == lead["params_sum"] for r in ranks),
+          "the ranks' parameters differ: sums %s"
+          % [r.value["params_sum"] for r in ranks])
+    # each step: its all-reduced gradient against the one-process
+    # gradient at the same parameters (the ones that step started from),
+    # within rtol 1e-5 of each tensor's scale, and its loss
+    grad_worst = 0.0
+    for i, batch in enumerate(local[:DIST_STEPS]):
+        with torch.no_grad():
+            for n, p in bundle.model.named_parameters():
+                p.copy_(lead["before"][i][n])
+        bundle.model.zero_grad(set_to_none=True)
+        loss = train_loss(bundle, _to_device(batch, "cuda"), dev_tables,
+                          step_generators(0, i, "cuda"), deterministic=True)
+        loss.backward()
+        loss = float(loss.detach())
+        check(abs(loss - lead["losses"][i]) <= 1e-5 * abs(loss),
+              "step %d: loss %s, one process at the same parameters %s"
+              % (i, lead["losses"][i], loss))
+        for n, p in bundle.model.named_parameters():
+            g = p.grad.detach().cpu()
+            scale = float(g.abs().max()) or 1.0
+            err = float((lead["grads"][i][n] - g).abs().max()) / scale
+            grad_worst = max(grad_worst, err)
+            check(err <= 1e-5, "step %d: gradient %s differs from one "
+                  "process's at the same parameters by %.3e of its scale"
+                  % (i, n, err))
+    # the parameters after Adam: reported (see tools/dist_check.py)
+    param_worst, param_beyond, n_elems = 0.0, 0, 0
+    for n, p in want_params.items():
+        d = (lead["params"][n] - p).abs().double()
+        scale = float(p.abs().max()) or 1.0
+        param_worst = max(param_worst, float(d.max()) / scale)
+        param_beyond += int((d > 1e-5 * (p.abs().double() + scale)).sum())
+        n_elems += p.numel()
+    rank_launches = []
+    for r, result in enumerate(ranks):
+        out = result.value
+        for compute, carry in out["carries"].items():
+            want = eval_ref["carries"][compute]
+            for key, v in want.items():
+                if v.dtype.kind == "f":
+                    check(np.allclose(carry[key], v, rtol=2e-6, atol=0),
+                          "rank %d %s: %s %s against phase 9's %s"
+                          % (r, compute, key, carry[key], v))
+                else:
+                    check(np.array_equal(carry[key], v), "rank %d %s: "
+                          "counter %s %s against phase 9's %s"
+                          % (r, compute, key, carry[key], v))
+        check(np.allclose(out["losses"], want_losses, rtol=1e-5, atol=0),
+              "rank %d: losses %s, one process %s" % (r, out["losses"],
+                                                      want_losses))
+        launched = dict(result.launches)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+            check(launched.get(name, 0) > 0, "rank %d launched no %s"
+                  % (r, name))
+        check(launched.get(SCATTER[torch.float32], 0) == DIST_STEPS,
+              "rank %d: %d steps, launches %s" % (r, DIST_STEPS, launched))
+        rank_launches.append(launched)
+        log("  (b) gloo rank %d of 2 on the one card: sweep %.3f s (bf16) / "
+            "%.3f s (f32) for its block, all-reduced counters equal phase "
+            "9's, loss sums %.6e / %.6e against %.6e / %.6e (rtol 2e-6); "
+            "%d deterministic f32 steps: losses %s (one process %s); "
+            "launches %s" % (
+                r, out["sweep_s"]["bfloat16"], out["sweep_s"]["float32"],
+                float(out["carries"]["bfloat16"]["loss_sum"]),
+                float(out["carries"]["float32"]["loss_sum"]),
+                float(eval_ref["carries"]["bfloat16"]["loss_sum"]),
+                float(eval_ref["carries"]["float32"]["loss_sum"]),
+                DIST_STEPS, out["losses"], want_losses, launched))
+    log("  (b) each step's gradient against one process's at the same "
+        "parameters: worst |diff| / scale %.3e (bound 1e-5); the "
+        "parameters after %d Adam steps against one process's: worst "
+        "|diff| / scale %.3e, %d of %d elements beyond rtol 1e-5 "
+        "(reported, not held)"
+        % (grad_worst, DIST_STEPS, param_worst, param_beyond, n_elems))
+    log("  (b) two ranks: %.1f s from spawn to join" % wall)
+    del bundle, opt, step
+    torch.cuda.empty_cache()
+    return counts, rank_launches
+
+
 def main():
     import torch
 
@@ -2212,13 +2478,13 @@ def main():
     scatter = scatter_checks(torch, spec, raw[0], local[0], caps)
 
     log("== 7. int_rel_ch training at published widths (counted run)")
-    train_counts, step_ms = train_path(torch, local)
+    train_counts, step_ms, train_finals = train_path(torch, local)
 
     log("== 8. train() on a synthetic fixture")
     train_entry(torch)
 
     log("== 9. int_rel_ch eval sweep at published widths (counted runs)")
-    eval_counts, eval_rates = eval_sweep(torch, spec)
+    eval_counts, eval_rates, eval_ref = eval_sweep(torch, spec)
 
     log("== 10. eval CLI entry point")
     eval_cli(torch)
@@ -2246,6 +2512,11 @@ def main():
 
         log("== 15. the text-only CLI (no kernel)")
         text_only_phase(torch, root)
+
+    log("== 16. data parallelism: a world of one over NCCL, two ranks on "
+        "the card over gloo (counted runs)")
+    dist_counts, rank_launches = dist_phase(torch, local, train_finals,
+                                            step_ms, eval_ref)
 
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
@@ -2346,6 +2617,21 @@ def main():
                             replaces="%s:%d" % (TPU_SRC, line),
                             launches=rels_counts[name], path="rels_only",
                             **rels_pool[name]))
+    # phase 16: the same kernels through the data-parallel paths, at the
+    # same shapes as their main entries (whose numbers they repeat):
+    # launches of the world of one's counted runs and of each rank's run
+    for name, entry_of in (
+            (KERNEL_NAMES[("fused_ctx_pool", torch.float32)], "eval"),
+            (KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)], "eval"),
+            (scatter_accum.KERNEL_NAMES[torch.float32], "train"),
+            (scatter_accum.KERNEL_NAMES[torch.bfloat16], "train")):
+        main_entry = next(k for k in kernels if k["name"] == name
+                          and k.get("path") == entry_of)
+        per_rank = [launched.get(name, 0) for launched in rank_launches]
+        kernels.append(dict(main_entry, name=name + "@dist", path="dist",
+                            launches=dist_counts[name] + sum(per_rank),
+                            world_of_one_launches=dist_counts[name],
+                            rank_launches=per_rank))
     log("modalities: " + json.dumps(mod))
     log("eval_clips_per_s: " + json.dumps(
         {"%s_%s" % (c, t if t else "off"): v

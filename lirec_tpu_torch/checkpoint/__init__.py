@@ -6,5 +6,7 @@ from lirec_tpu_torch.checkpoint.convert import (  # noqa: F401
     load_jax_checkpoint,
     load_torch_checkpoint,
     opt_state_from_jax,
+    opt_state_to_jax,
     params_from_jax,
+    params_to_jax,
 )

@@ -9,6 +9,11 @@
   a ``torch.optim.Adam`` ``state_dict`` (``step``, ``exp_avg``,
   ``exp_avg_sq`` per parameter, the moments laid out as the weights), so a
   JAX training state carries on in the port.
+* ``params_to_jax`` / ``opt_state_to_jax``: their inverses, the port's
+  weights and ``torch.optim.Adam`` state as the JAX package's params tree
+  and the state-dict form of its optax chain (add_decayed_weights ->
+  scale_by_adam -> scale_by_learning_rate, lirec_tpu/train/optim.py), as
+  numpy arrays, for checkpoint/saver.py's msgpack files.
 * ``load_torch_checkpoint``: a reference ``.pth.tar`` file (ref
   ``mlp/train.py:99-106``: ``{'epoch', 'state_dict', 'optimizer'}``) -> the
   ``state_dict`` the port's modules load, with the DataParallel
@@ -33,8 +38,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "opt_state_from_jax", "clean_state_dict",
-           "load_torch_checkpoint", "load_jax_checkpoint"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "params_to_jax",
+           "opt_state_to_jax", "clean_state_dict", "load_torch_checkpoint",
+           "load_jax_checkpoint"]
 
 _SKIPPED_BUFFERS = ("num_batches_tracked", "running_mean", "running_var")
 
@@ -51,6 +57,22 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
             np.array(leaf["bias"], np.float32)
         )
     return state
+
+
+def params_to_jax(state_dict: Dict) -> Dict[str, Dict[str, np.ndarray]]:
+    """Port state_dict (tensors on any device) -> the JAX package's params
+    tree of f32 numpy arrays, the inverse of ``params_from_jax`` (bitwise:
+    the weight transposed back into the kernel)."""
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in state_dict.items():
+        base, kind = key.rsplit(".", 1)
+        name = "gates_ints" if base == "gates_ints.fc_out" else base
+        value = value.detach().to("cpu", torch.float32).numpy()
+        leaf = params.setdefault(name, {})
+        leaf["kernel" if kind == "weight" else "bias"] = (
+            np.ascontiguousarray(value.T) if kind == "weight" else
+            value.copy())
+    return params
 
 
 _ADAM_FIELDS = ("count", "mu", "nu")
@@ -104,6 +126,46 @@ def opt_state_from_jax(opt_state, model: torch.nn.Module,
                 "exp_avg_sq": nu[name].reshape(param.shape),
             }
     return {"state": state, "param_groups": template["param_groups"]}
+
+
+def _sorted(tree):
+    """A nest of dicts with every level's keys in sorted order, as optax
+    lays out the moments (it builds them with jax.tree.map)."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def opt_state_to_jax(model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer) -> Dict:
+    """A ``torch.optim.Adam`` over ``model.parameters()`` -> the state-dict
+    form of the JAX package's optax chain, as flax writes it: {"0": {}
+    (add_decayed_weights, only with a weight decay), "1": {"count", "mu",
+    "nu"} (scale_by_adam), "2": {} (scale_by_learning_rate)}, with the
+    moments laid out as ``params_to_jax`` lays out the weights (in optax's
+    sorted order) and the step count as an int32 scalar array; the
+    inverse of
+    ``opt_state_from_jax``. Before the first step the moments are zero."""
+    groups = optimizer.param_groups
+    decays = {g["weight_decay"] for g in groups}
+    if len(groups) != 1 or len(decays) != 1:
+        raise ValueError("opt_state_to_jax maps one parameter group; the "
+                         "optimizer has %d" % len(groups))
+    names = {id(p): n for n, p in model.named_parameters()}
+    mu, nu, steps = {}, {}, set()
+    for param in groups[0]["params"]:
+        state = optimizer.state.get(param) or {}
+        zero = torch.zeros_like(param)
+        mu[names[id(param)]] = state.get("exp_avg", zero)
+        nu[names[id(param)]] = state.get("exp_avg_sq", zero)
+        steps.add(int(state["step"]) if "step" in state else 0)
+    if len(steps) != 1:
+        raise ValueError("parameters at different Adam steps: %s"
+                         % sorted(steps))
+    adam = {"count": np.asarray(steps.pop(), np.int32),
+            "mu": _sorted(params_to_jax(mu)), "nu": _sorted(params_to_jax(nu))}
+    chain = ([{}] if decays.pop() else []) + [adam, {}]
+    return {str(i): part for i, part in enumerate(chain)}
 
 
 def clean_state_dict(state_dict: Dict) -> Dict[str, torch.Tensor]:

@@ -16,8 +16,19 @@ checkpoints, ``latest.pth.tar`` and the final ``<epochs-1>.pth.tar`` under
 ``--resume-train`` reads the weights, the Adam state and the epoch from
 ``--resume-path`` (a ``.pth.tar`` train state, or the JAX package's
 msgpack ``.ckpt``) and starts at epoch + 1; ``--auto-resume`` does the same
-from ``<store-root>/latest.pth.tar``, else from the JAX package's
-``latest.ckpt``. The JAX package's Orbax directories are refused.
+from ``<store-root>/latest.pth.tar``, else from ``latest.ckpt`` (the JAX
+package's, or the port's own under ``--checkpoint-backend msgpack``,
+which writes the JAX package's msgpack files). The JAX package's Orbax
+directories are neither read nor written.
+
+Data parallelism (parallel/dist.py), with the JAX package's flags: ``--mesh
+Dx1`` in a single process spawns D local ranks (``cuda``: D visible cards;
+``--device cpu``: D gloo processes); ``--num-processes N --coordinator
+HOST:PORT --process-id R`` joins process R of an N-process group (one per
+card, across nodes), with a data mesh of N unless ``--mesh`` says the
+same. Every rank trains or evaluates its rows of every batch and the sweep
+is sharded over the ranks; only rank 0 prints and writes. A ``model`` axis
+(``--mesh DxM``, M > 1) is refused by name.
 
 The flags of features the port does not have yet are accepted and refuse
 to run, naming the ROADMAP.md item that ports them. Every flag of the JAX
@@ -29,13 +40,17 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 from lirec_tpu_torch import config as config_lib
 from lirec_tpu_torch.cli.serve import CHECKPOINT_SUFFIXES, load_checkpoint_state
 from lirec_tpu_torch.data.dataset import InteractionDataset
 from lirec_tpu_torch.evaluation.packed import evaluate_packed
-from lirec_tpu_torch.evaluation.runner import evaluate
+from lirec_tpu_torch.evaluation.runner import MESH_HOST_EVAL, evaluate
 from lirec_tpu_torch.models.factory import create_model
+from lirec_tpu_torch.parallel.dist import (
+    MODEL_AXIS_ITEM, in_rank, initialize_distributed, make_mesh, spawn,
+)
 
 TRAIN_SPLIT = {
     "modalities": "val",
@@ -48,15 +63,16 @@ TRAIN_SPLIT = {
 # than the flag's default is refused
 NOT_PORTED = {
     "ingest_cache": "'the remaining CLIs and ingest artifacts'",
-    "mesh": "'multi-GPU'",
-    "num_processes": "'multi-GPU'",
-    "coordinator": "'multi-GPU'",
-    "process_id": "'multi-GPU'",
     "assembly_workers": "'the rest of training', the AssemblyPool",
     "profile": "'the rest of training', the torch.profiler trace",
 }
-JAX_FORMATS = "'checkpoint reading of the JAX package's formats'"
+ORBAX = ("the JAX package's Orbax checkpoints (ROADMAP.md, not ported: "
+         "their manifest and array nodes are zstd-compressed, and neither "
+         "Python's standard library nor this package has zstd)")
 TRISTATE = {"auto": None, "on": True, "off": False}
+# seconds a --mesh run's local ranks may take, start to end; None: no
+# deadline (a hung collective still fails after dist.DEFAULT_TIMEOUT)
+SPAWN_TIMEOUT = None
 
 
 def build_parser(preset_name: str) -> argparse.ArgumentParser:
@@ -83,12 +99,13 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
     p.add_argument("--metrics-log", default="",
                    help="append JSONL training telemetry to this path")
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="save a resumable latest.pth.tar every N epochs")
+                   help="save a resumable latest.pth.tar (latest.ckpt "
+                        "under msgpack) every N epochs")
     p.add_argument("--checkpoint-backend", default="torch",
                    choices=["torch", "msgpack", "orbax"],
-                   help="train-state format: torch (.pth.tar); the JAX "
-                        "package's msgpack and orbax are not ported "
-                        "(refused)")
+                   help="train-state format: torch (.pth.tar) or the JAX "
+                        "package's msgpack (.ckpt); its orbax is not "
+                        "ported (refused)")
     p.add_argument("--cache-workers", type=int, default=0,
                    help="thread pool size for feature precompute IO")
     p.add_argument("--assembly-workers", type=int, default=0,
@@ -134,15 +151,17 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device of the weights, tables and sweep")
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--mesh", default="",
+                   help="DATAxMODEL, e.g. 4x1: data parallelism over DATA "
+                        "processes, one per card (MODEL > 1 is not ported)")
+    p.add_argument("--num-processes", type=int, default=0,
+                   help="processes of a multi-node group (one per card)")
+    p.add_argument("--coordinator", default="",
+                   help="HOST:PORT of process 0 (or a file:// path)")
+    p.add_argument("--process-id", type=int, default=-1,
+                   help="this process's rank in the group")
     # not ported yet: accepted, then refused (run_entry)
     p.add_argument("--ingest-cache", default="",
-                   help="not ported yet (refused)")
-    p.add_argument("--mesh", default="", help="not ported yet (refused)")
-    p.add_argument("--num-processes", type=int, default=0,
-                   help="not ported yet (refused)")
-    p.add_argument("--coordinator", default="",
-                   help="not ported yet (refused)")
-    p.add_argument("--process-id", type=int, default=-1,
                    help="not ported yet (refused)")
     p.add_argument("--profile", default="", help="not ported yet (refused)")
     return p
@@ -203,9 +222,7 @@ def _refuse_orbax(path: str, context: str) -> None:
     if os.path.isdir(path):
         raise SystemExit(
             "%s: %s is an Orbax checkpoint directory of the JAX package; "
-            "lirec_tpu_torch does not read it, as that needs "
-            "orbax.checkpoint, which imports jax (ROADMAP.md queue 1 %s)"
-            % (context, path, JAX_FORMATS))
+            "lirec_tpu_torch does not read %s" % (context, path, ORBAX))
 
 
 def load_checkpoint(path: str):
@@ -222,11 +239,48 @@ def _refuse_unported(parser, args) -> None:
                 "--%s is not ported to lirec_tpu_torch yet (ROADMAP.md "
                 "queue 1 %s)" % (flag.replace("_", "-"), item)
             )
-    if args.checkpoint_backend != "torch":
+    if args.checkpoint_backend == "orbax":
+        raise SystemExit("--checkpoint-backend orbax: lirec_tpu_torch does "
+                         "not write " + ORBAX)
+
+
+def mesh_shape(args):
+    """(data, model) of --mesh / --num-processes, or None for one
+    process, with the JAX package's checks and messages; a model axis is
+    refused by name."""
+    if args.num_processes > 1 and (args.process_id < 0
+                                   or not args.coordinator):
+        raise SystemExit("--num-processes needs --coordinator HOST:PORT "
+                         "and --process-id")
+    if not args.mesh:
+        return (args.num_processes, 1) if args.num_processes > 1 else None
+    if args.host_eval:
+        raise SystemExit(MESH_HOST_EVAL)
+    try:
+        shape = tuple(int(x) for x in args.mesh.lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2:
+        raise SystemExit("--mesh expects DATAxMODEL, e.g. 4x2")
+    data, model = shape
+    if model != 1:
         raise SystemExit(
-            "--checkpoint-backend %s is not ported to lirec_tpu_torch: it "
-            "writes .pth.tar train states (ROADMAP.md queue 1 %s)"
-            % (args.checkpoint_backend, JAX_FORMATS))
+            "--mesh %s: a 'model' axis is not ported to lirec_tpu_torch "
+            "(ROADMAP.md queue 1 %s); use --mesh %dx1"
+            % (args.mesh, MODEL_AXIS_ITEM, data))
+    if args.num_processes > 1 and data != args.num_processes:
+        raise SystemExit(
+            "--mesh %dx1 needs %d processes, one per card; "
+            "--num-processes is %d" % (data, data, args.num_processes))
+    if args.num_processes <= 1 and not in_rank():
+        import torch
+
+        visible = (torch.cuda.device_count()
+                   if torch.device(args.device).type == "cuda" else data)
+        if data > visible:
+            raise SystemExit("--mesh %dx%d needs %d devices; %d visible"
+                             % (data, model, data, visible))
+    return shape
 
 
 def _train_state_path(cfg, args) -> str:
@@ -262,12 +316,51 @@ def load_train_state_any(path: str, model, optimizer):
 
 
 def run_entry(preset_name: str, argv=None) -> dict:
+    import multiprocessing
+
+    if multiprocessing.parent_process() is not None and not in_rank():
+        # an unguarded launching script re-imported by a spawned process:
+        # without this the child would run the entry again, and could join
+        # the parent's process group
+        raise RuntimeError(
+            "run_entry re-executed inside a multiprocessing child: guard "
+            "the launching script with `if __name__ == '__main__':` "
+            "(spawned workers re-import __main__)")
+    argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser(preset_name)
     args = parser.parse_args(argv)
     _refuse_unported(parser, args)
+    shape = mesh_shape(args)
+    if shape is None or shape[0] == 1:
+        return _run(preset_name, args, None)
+    if args.num_processes > 1:
+        import torch.distributed
+
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, args.device)
+        if not args.mesh and args.process_id == 0 and not args.quiet:
+            print("no --mesh given: using data-only mesh %dx1" % shape[0])
+        try:
+            return _run(preset_name, args, make_mesh(shape))
+        finally:
+            torch.distributed.destroy_process_group()
+    if in_rank():
+        return _run(preset_name, args, make_mesh(shape))
+    import torch
+
+    # each rank runs this entry again, inside the group (in_rank)
+    ranks = spawn(run_entry, shape[0],
+                  devices=torch.device(args.device).type,
+                  args=(preset_name, argv), timeout=SPAWN_TIMEOUT)
+    return ranks[0].value
+
+
+def _run(preset_name: str, args, mesh) -> dict:
+    """Evaluate or train in this process; with a data `mesh`, as one of
+    its ranks (every rank runs this; rank 0 prints)."""
     cfg = config_from_args(preset_name, args)
     resume_from = "" if cfg.resume else _train_state_path(cfg, args)
-    verbose = not args.quiet
+    verbose = not args.quiet and (mesh is None or mesh.rank == 0)
     train_ds, val_ds, test_ds = build_datasets(
         cfg, preset_name, workers=args.cache_workers
     )
@@ -276,7 +369,7 @@ def run_entry(preset_name: str, argv=None) -> dict:
                           device=args.device)
     if not cfg.resume:
         return {"train": _train(cfg, args, bundle, train_ds, val_ds,
-                                test_ds, resume_from, verbose)}
+                                test_ds, resume_from, verbose, mesh)}
     if cfg.resume_path:
         bundle.model.load_state_dict(load_checkpoint(cfg.resume_path))
         if verbose:
@@ -292,13 +385,13 @@ def run_entry(preset_name: str, argv=None) -> dict:
         else:
             results[mode] = evaluate_packed(
                 ds, bundle, bundle.model, cfg, mode=mode, verbose=verbose,
-                localize_ctx=TRISTATE[args.eval_localize],
+                localize_ctx=TRISTATE[args.eval_localize], mesh=mesh,
             )
     return results
 
 
 def _train(cfg, args, bundle, train_ds, val_ds, test_ds, resume_from,
-           verbose) -> dict:
+           verbose, mesh) -> dict:
     """--train / --resume-train / --auto-resume: the epoch loop from epoch
     0, or from the epoch after the train state `resume_from`'s."""
     from lirec_tpu_torch.train.loop import train
@@ -324,7 +417,8 @@ def _train(cfg, args, bundle, train_ds, val_ds, test_ds, resume_from,
         checkpoint_every=args.checkpoint_every, drop_last=args.drop_last,
         host_eval=args.host_eval,
         localize_tables=TRISTATE[args.localize_tables],
-        eval_localize=TRISTATE[args.eval_localize],
+        eval_localize=TRISTATE[args.eval_localize], mesh=mesh,
+        checkpoint_backend=args.checkpoint_backend,
     )
     return {"losses": out["losses"], "start_epoch": start_epoch,
             "final_path": out["final_path"],

@@ -8,6 +8,9 @@ memory with ``data/plan.build_plan``; the JAX package's disk cache is not
 ported) or, where there is none, per sample from ``default_rng((seed,
 epoch, i))`` streams. ``EpochIterator`` is its shuffled train form. The
 ``AssemblyPool`` worker processes and the dense layout are not ported.
+``local_batch`` cuts a data-parallel rank's rows out of a global batch
+(counterpart of ``global_batch_from_local`` of lirec_tpu/parallel/mesh.py,
+seen from the rank's side).
 """
 
 from __future__ import annotations
@@ -17,7 +20,10 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
-__all__ = ["collate", "BatchIterator", "EpochIterator"]
+__all__ = ["collate", "BatchIterator", "EpochIterator", "local_batch"]
+
+# batch-level keys: the localized tables' unique-row ids, no sample axis
+BATCH_LEVEL_KEYS = ("uniq_clip", "uniq_track")
 
 
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -125,3 +131,15 @@ class EpochIterator(BatchIterator):
                  drop_last: bool = False):
         super().__init__(dataset, batch_size, shuffle=True,
                          drop_last=drop_last, seed=seed)
+
+
+def local_batch(batch: Dict, mesh) -> Dict:
+    """This rank's rows of a global host batch over the data axis `mesh`
+    (parallel/dist.DataMesh): its contiguous block of every per-sample
+    array (parallel/dist.process_local_slice); the batch-level ``uniq_*``
+    ids stay whole, as the JAX package replicates them."""
+    from lirec_tpu_torch.parallel.dist import process_local_slice
+
+    rows = process_local_slice(mesh, len(batch["labels"]))
+    return {k: v if k in BATCH_LEVEL_KEYS else v[rows]
+            for k, v in batch.items()}

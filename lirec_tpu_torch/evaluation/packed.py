@@ -21,8 +21,13 @@ table; False and None keep the full tables (measured on the card, the
 triple tier's per-batch local-table build costs more than its kernel
 saves: PERF.md). Every tier gives bitwise the same carry.
 
-Not ported: the cross-process reduction ``allreduce_carry`` and the mesh
-(multi-GPU), the TPU's VMEM cost model of the localisation gate, and the
+Over a data mesh of several processes (parallel/dist.py), each process
+sweeps its own contiguous block of full batches (the last one also takes
+the ragged tail), so the reference's batch boundaries stay where they
+were, and ``allreduce_carry`` combines the carries: every process ends
+with the global carry and the same metrics.
+
+Not ported: the TPU's VMEM cost model of the localisation gate, and the
 ``LIREC_TPU_EVAL_LOCALIZE`` switch.
 """
 
@@ -41,12 +46,41 @@ __all__ = [
     "evaluate_packed",
     "device_sweep_builder",
     "finish_from_carry",
+    "allreduce_carry",
+    "sweep_carry",
     "inject_loc",
     "loc_apply_data",
 ]
 
 MODEL_KEYS = ("feat_idx", "rels_mask", "ctx_uniq_clip", "ctx_uniq_track",
               "ctx_tidx", "ctx_triples")
+
+
+def allreduce_carry(carry: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Combine the processes' host carries into the global one (each
+    process swept its own block of batches); every process gets it.
+
+    Counters, loss sums and the RelationshipsAcc score table are summed.
+    ``rels_seen`` is the port's count of valid rows per hash, so its sum is
+    both the JAX package's any-reduce (nonzero where any process saw the
+    hash) and the one-process count; ``rels_gt`` is a consistent label per
+    hash, the max over the processes that saw it. The carries are small:
+    they are gathered through the group as host copies. A no-op for one
+    process."""
+    from lirec_tpu_torch.parallel.dist import all_gather_object
+
+    ranks = all_gather_object(carry)
+    if len(ranks) == 1:
+        return carry
+    out = {}
+    for key in carry:
+        stacked = np.stack([r[key] for r in ranks])
+        if key == "rels_gt":
+            seen = np.stack([r["rels_seen"] for r in ranks]) > 0
+            out[key] = np.where(seen, stacked, 0).max(axis=0)
+        else:
+            out[key] = stacked.sum(axis=0)
+    return out
 
 
 def _topk_counters(logits, gt, n_classes, soft_labels=None):
@@ -367,22 +401,24 @@ def _gate_local(loc, ctx):
     return loc
 
 
-def evaluate_packed(
+def sweep_carry(
     dataset,
     bundle,
     model,
     cfg,
     mode: str = "val",
     tables: Optional[Dict] = None,
-    verbose: bool = True,
     data: Optional[Dict[str, np.ndarray]] = None,
     batch_size: Optional[int] = None,
     use_kernel: bool = True,
     localize_ctx=None,
-) -> Dict[str, float]:
-    """Evaluation of a whole split on ``model``'s device; returns the same
-    metric dict (and prints the same lines) as the JAX package's
-    evaluate_packed."""
+    mesh=None,
+) -> Dict[str, np.ndarray]:
+    """The sweep's carry of a whole split, on the host: the counters
+    ``finish_from_carry`` turns into metrics. Over a data `mesh`
+    (parallel/dist.DataMesh) of several processes, this process sweeps its
+    block of full batches and the carries are combined
+    (``allreduce_carry``)."""
     t = cfg.tasks
     n_rels = dataset.n_rels
     n_classes = dataset.n_classes
@@ -395,6 +431,15 @@ def evaluate_packed(
     n_full, tail = divmod(N, B)
     if tail == 1:
         tail = 0  # ref test.py:38-39: size-1 batches are skipped
+    if mesh is not None and mesh.size > 1:
+        # batch-granular blocks keep the reference's batch boundaries: the
+        # last process also takes the ragged tail
+        lo = n_full * mesh.rank // mesh.size
+        hi = n_full * (mesh.rank + 1) // mesh.size
+        last = tail if mesh.rank == mesh.size - 1 else 0
+        data = {k: np.asarray(v)[lo * B: hi * B + last]
+                for k, v in data.items()}
+        n_full, tail = hi - lo, last
     if tables is None:
         tables = dataset.tables.as_dict()
 
@@ -436,7 +481,36 @@ def evaluate_packed(
             }
             carry = step(model, tables, embedded, carry, tail_batch)
         carry = {k: v.cpu().numpy() for k, v in carry.items()}
-    return finish_from_carry(carry, t, n_rels, n_hashes, mode, verbose)
+    return allreduce_carry(carry) if mesh is not None else carry
+
+
+def evaluate_packed(
+    dataset,
+    bundle,
+    model,
+    cfg,
+    mode: str = "val",
+    tables: Optional[Dict] = None,
+    verbose: bool = True,
+    data: Optional[Dict[str, np.ndarray]] = None,
+    batch_size: Optional[int] = None,
+    use_kernel: bool = True,
+    localize_ctx=None,
+    mesh=None,
+) -> Dict[str, float]:
+    """Evaluation of a whole split on ``model``'s device; returns the same
+    metric dict (and prints the same lines) as the JAX package's
+    evaluate_packed. With a data `mesh` of several processes
+    (parallel/dist.DataMesh), every process calls it; each sweeps its
+    block of batches (``sweep_carry``) and all return the global
+    metrics."""
+    carry = sweep_carry(dataset, bundle, model, cfg, mode=mode,
+                        tables=tables, data=data, batch_size=batch_size,
+                        use_kernel=use_kernel, localize_ctx=localize_ctx,
+                        mesh=mesh)
+    n_hashes = len(getattr(dataset, "hashidx_rels", ()) or ())
+    return finish_from_carry(carry, cfg.tasks, dataset.n_rels, n_hashes,
+                             mode, verbose)
 
 
 def finish_from_carry(

@@ -22,6 +22,9 @@ power-of-two buckets of clips, each flushed at the batch size through the
 eval forward, whose ctx pool is the CUDA kernel on the card (kernel 1 on
 f32 tables, kernel 2 on bf16) at M = the batch size and R = the bucket.
 
+The host loop does not run over a data mesh: only the packed sweep is
+sharded over processes (``MESH_HOST_EVAL``, the JAX package's refusal).
+
 Not ported: dense batches and ``jit_apply``.
 """
 
@@ -32,7 +35,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["evaluate", "evaluate_rels_only", "summarize_metrics"]
+__all__ = ["evaluate", "evaluate_rels_only", "summarize_metrics",
+           "MESH_HOST_EVAL"]
+
+MESH_HOST_EVAL = "--mesh only shards the packed eval sweep; drop --host-eval"
 
 MODEL_KEYS = ("feat_idx", "rels_mask")
 
@@ -152,13 +158,17 @@ def evaluate(
     tables: Optional[Dict] = None,
     verbose: bool = True,
     return_details: bool = False,
+    mesh=None,
 ) -> Dict[str, float]:
     """One evaluation pass of `model` (on its own device) over `dataset`;
     returns {'total', 'ints'[, 'rels'][, 'tracks', 'joint'], 'loss'} (ref
     test.py:138-145). `tables` default to the dataset's; numpy arrays or
     tensors. return_details=True adds 'conf_mat' (the [n_classes,
     n_classes] confusion matrix of the presets that fill it),
-    'accumulator' and, where there is one, 'rels_accumulator'."""
+    'accumulator' and, where there is one, 'rels_accumulator'. A data
+    mesh of more than one process is refused (MESH_HOST_EVAL)."""
+    if mesh is not None and mesh.size > 1:
+        raise ValueError(MESH_HOST_EVAL)
     from lirec_tpu_torch.data.pipeline import BatchIterator
     from lirec_tpu_torch.evaluation.device_metrics import (
         grounding_predictions,

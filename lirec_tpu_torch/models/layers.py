@@ -58,6 +58,25 @@ def linear(layer: nn.Linear, x: torch.Tensor,
     return nn.functional.linear(x, w, layer.bias)
 
 
+def draw_rows(draw, shape, generator, device, dtype=None):
+    """``draw(shape, generator=, device=)`` (``torch.rand`` or an
+    in-place sampler's factory), where `shape`'s first axis is rows of a
+    batch. Inside a data-parallel step (parallel/dist.sharded_batch) the
+    draw is made at the global batch's shape, the same on every rank, and
+    this rank's block of rows is kept, so the masks are the
+    single-process run's; outside it, the plain draw."""
+    from lirec_tpu_torch.parallel.dist import batch_shard
+
+    shard = batch_shard()
+    kw = {} if dtype is None else {"dtype": dtype}
+    if shard is None:
+        return draw(shape, generator=generator, device=device, **kw)
+    n = shape[0]
+    full = draw((n * shard.size,) + tuple(shape[1:]), generator=generator,
+                device=device, **kw)
+    return full[shard.rank * n:(shard.rank + 1) * n]
+
+
 class DropoutRng:
     """The dropout stream of one forward: a ``torch.Generator`` on the
     activations' device (None: no randomness, e.g. at eval), drawn from in
@@ -73,13 +92,15 @@ def dropout(x: torch.Tensor, rate: float, rng: DropoutRng,
     """Inverted dropout: keep each element with probability 1 - rate and
     scale it by 1 / (1 - rate); the identity when deterministic or
     rate == 0. (The JAX package drew 16-bit words on the TPU to cut its RNG
-    cost; one f32 uniform per element is drawn here.)"""
+    cost; one f32 uniform per element is drawn here.) Inside a
+    data-parallel step the masks are drawn for the global batch and this
+    rank keeps its rows (draw_rows)."""
     if deterministic or rate == 0.0:
         return x
     if rng.generator is None:
         raise ValueError("dropout needs a generator unless deterministic")
     rng.calls += 1
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=rng.generator, device=x.device)
+    u = draw_rows(torch.rand, x.shape, rng.generator, x.device)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))

@@ -13,6 +13,14 @@ positive hypothesis with ``torch.multinomial`` from an explicit
 An optional ``batch['loss_weight']`` ([B], 0/1) excludes padded rows from
 every per-sample mean, so a batch padded to the full size gives the values
 and gradients of the unpadded one.
+
+Inside a data-parallel step (parallel/dist.sharded_batch) the batch is one
+rank's block of rows of a global batch: every mean keeps its numerator
+from the rank's rows and takes its denominator (row count, ``loss_weight``
+sum, rels-valid count, class-weight sum) summed over the ranks, without
+gradient (``batch_total``), and ``tr_cat_distr`` samples at the global
+batch's shape. The ranks' losses then add up to the global batch's loss,
+and their gradients to its gradient. Outside one, nothing changes.
 """
 
 from __future__ import annotations
@@ -21,7 +29,9 @@ from typing import Dict, Optional
 
 import torch
 
+from lirec_tpu_torch.models.layers import draw_rows
 from lirec_tpu_torch.ops.select import select_along_axis
+from lirec_tpu_torch.parallel.dist import batch_shard, batch_total
 
 __all__ = [
     "max_margin_ce_loss",
@@ -48,10 +58,13 @@ def _batch_weight(batch: Dict) -> Optional[torch.Tensor]:
 
 def _wmean(per_sample: torch.Tensor, w: Optional[torch.Tensor]):
     """Mean over real rows: padded rows (weight 0) drop out of both the sum
-    and the divisor."""
+    and the divisor (the global batch's, in a data-parallel step)."""
     if w is None:
-        return per_sample.mean()
-    return (per_sample * w).sum() / w.sum().clamp(min=1.0)
+        shard = batch_shard()
+        if shard is None:
+            return per_sample.mean()
+        return per_sample.sum() / (per_sample.shape[0] * shard.size)
+    return (per_sample * w).sum() / batch_total(w.sum()).clamp(min=1.0)
 
 
 def _pair_margin(scores, pos, neg_mask, margin: float) -> torch.Tensor:
@@ -63,11 +76,22 @@ def _pair_margin(scores, pos, neg_mask, margin: float) -> torch.Tensor:
     return terms.sum(dim=1)
 
 
+def _exponential(shape, generator=None, device=None, dtype=None):
+    return torch.empty(shape, dtype=dtype, device=device).exponential_(
+        1, generator=generator)
+
+
 def _sample(probs: torch.Tensor, rng: torch.Generator) -> torch.Tensor:
-    """One category per row, with probability proportional to `probs`."""
+    """One category per row, with probability proportional to `probs`. In
+    a data-parallel step: torch.multinomial's own one-sample method
+    (argmax of probs / Exp(1) draws), with the draws made for the global
+    batch (layers.draw_rows)."""
     if rng is None:
         raise ValueError("tr_cat_distr sampling needs a generator")
-    return torch.multinomial(probs, 1, generator=rng).squeeze(1)
+    if batch_shard() is None:
+        return torch.multinomial(probs, 1, generator=rng).squeeze(1)
+    q = draw_rows(_exponential, probs.shape, rng, probs.device, probs.dtype)
+    return (probs / q).argmax(dim=-1)
 
 
 def max_margin_ce_loss(outputs: Dict, batch: Dict, *, margin: float):
@@ -112,7 +136,8 @@ def multitask_max_margin_loss(outputs: Dict, batch: Dict, n_rels: int, *,
         s = torch.sigmoid(rels)
         pos = select_along_axis(s, safe_target, axis=1)
         per_sample = _pair_margin(s, pos, neg_mask, margin)
-        loss = loss + (per_sample * valid).sum() / valid.sum().clamp(min=1.0)
+        loss = loss + (per_sample * valid).sum() / batch_total(
+            valid.sum()).clamp(min=1.0)
     return loss
 
 
@@ -127,7 +152,7 @@ def multitask_ce_loss(outputs: Dict, batch: Dict, n_rels: int, *,
         w = weights[target]
         if bw is not None:
             w = w * bw
-        loss = (nll * w).sum() / w.sum().clamp(min=1e-12)
+        loss = (nll * w).sum() / batch_total(w.sum()).clamp(min=1e-12)
     else:
         loss = _wmean(nll, bw)
     target_rels = batch["rels_label"].reshape(-1).long()
@@ -138,7 +163,7 @@ def multitask_ce_loss(outputs: Dict, batch: Dict, n_rels: int, *,
     safe_target = target_rels.clamp(0, rels.shape[-1] - 1)
     nll_r = -select_along_axis(torch.log_softmax(rels, dim=-1), safe_target,
                                1)
-    count = valid.sum()
+    count = batch_total(valid.sum())
     rel_loss = (nll_r * valid).sum() / count.clamp(min=1.0)
     return loss + torch.where(count > 0, rel_loss, torch.zeros_like(rel_loss))
 

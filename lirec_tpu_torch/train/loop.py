@@ -21,13 +21,23 @@ materialized once per run. Checkpoints go under ``cfg.paths.store_root``:
 the best-n files and ``index.json`` (``save_model``; every 30 epochs too
 with ``save_model_often``), ``latest.pth.tar`` every ``checkpoint_every``
 epochs, and ``<epochs-1>.pth.tar`` at the end, each a ``torch.save`` of
-``{'epoch', 'state_dict', 'optimizer'}``.
+``{'epoch', 'state_dict', 'optimizer'}``; with ``checkpoint_backend=
+"msgpack"`` the JAX package's files instead (``latest.ckpt``,
+``<epochs-1>.ckpt``, best-n ``v%.4f_ep%d.ckpt`` params files).
+
+With a data ``mesh`` (parallel/dist.py: one process per card, every
+process runs train() on the same datasets), every process builds the same
+shuffled global batches and steps its own rows of each
+(parallel/step.make_dp_train_step; the batch size must divide by the data
+axis); the cadence runs the sharded sweep, whose all-reduced metrics give
+every process the same best-n decisions; only process 0 prints, logs and
+writes checkpoints, between barriers.
 
 As in the JAX package, the epoch iterator starts at epoch 0 whatever
 ``start_epoch`` is: a resumed run replays the shuffle order of epoch 0
 onwards while its step generators follow the true epoch (ROADMAP.md queue
-3). Not ported, and raised rather than skipped: a device mesh (multi-GPU
-slice) and dense batches. The one-dispatch epoch sweep of the JAX package
+3). Not ported, and raised rather than skipped: a mesh with a ``model``
+axis, and dense batches. The one-dispatch epoch sweep of the JAX package
 is not ported.
 """
 
@@ -40,15 +50,18 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from lirec_tpu_torch.checkpoint.saver import BestNSaver, save_train_state
+from lirec_tpu_torch.checkpoint.saver import (
+    BACKENDS, BestNSaver, save_train_state_any,
+)
 from lirec_tpu_torch.data.localize import Localizer
 from lirec_tpu_torch.data.pipeline import EpochIterator
 from lirec_tpu_torch.evaluation.packed import evaluate_packed
-from lirec_tpu_torch.evaluation.runner import evaluate
+from lirec_tpu_torch.evaluation.runner import MESH_HOST_EVAL, evaluate
+from lirec_tpu_torch.parallel import dist
 from lirec_tpu_torch.train.optim import make_optimizer
 from lirec_tpu_torch.utils.meters import Averaging, MetricsLogger
 
-__all__ = ["train", "make_train_step", "step_generators"]
+__all__ = ["train", "make_train_step", "train_loss", "step_generators"]
 
 MODEL_KEYS = ("feat_idx", "rels_mask", "uniq_clip", "uniq_track")
 
@@ -85,26 +98,37 @@ def _to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def make_train_step(bundle, optimizer):
-    """step(batch, tables, generators, tr_sum_max_flag=True) -> loss: one
-    forward (dropout on) + loss + backward + optimizer step of
-    ``bundle.model`` on a host batch (checked, then moved to the model's
-    device). `tables`: the feature tables as tensors on that device;
+def train_loss(bundle, batch, tables, generators, tr_sum_max_flag=True,
+               deterministic: bool = False):
+    """The training forward (the hybrid one; dropout on unless
+    deterministic) and the loss of a batch of device tensors.
     `generators`: (dropout, loss) from ``step_generators``."""
-    model = bundle.model
-    device = next(model.parameters()).device
+    gen_drop, gen_loss = generators
+    outputs = bundle.apply(
+        bundle.model, {k: batch[k] for k in MODEL_KEYS if k in batch},
+        tables=tables, deterministic=deterministic, rng=gen_drop,
+        use_tabular=False)
+    return bundle.loss(outputs, batch, rng=gen_loss,
+                       tr_sum_max_flag=tr_sum_max_flag)
+
+
+def make_train_step(bundle, optimizer, deterministic: bool = False):
+    """step(batch, tables, generators, tr_sum_max_flag=True) -> loss: one
+    forward (dropout on unless deterministic) + loss + backward +
+    optimizer step of ``bundle.model`` on a host batch (checked, then
+    moved to the model's device). `tables`: the feature tables as tensors
+    on that device; `generators`: (dropout, loss) from
+    ``step_generators``. parallel/step.make_dp_train_step is its
+    data-parallel form."""
+    device = next(bundle.model.parameters()).device
 
     def step(batch, tables, generators, tr_sum_max_flag=True):
         check_indices(batch, tables["text"].shape[0],
                       tables["track"].shape[0])
         batch = _to_device(batch, device)
-        gen_drop, gen_loss = generators
-        model_batch = {k: batch[k] for k in MODEL_KEYS if k in batch}
         optimizer.zero_grad(set_to_none=True)
-        outputs = bundle.apply(model, model_batch, tables=tables,
-                               deterministic=False, rng=gen_drop)
-        loss = bundle.loss(outputs, batch, rng=gen_loss,
-                           tr_sum_max_flag=tr_sum_max_flag)
+        loss = train_loss(bundle, batch, tables, generators,
+                          tr_sum_max_flag, deterministic)
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -157,6 +181,7 @@ def train(
     host_eval: bool = False,
     localize_tables: Optional[bool] = None,
     eval_localize=None,
+    checkpoint_backend: str = "torch",
 ) -> Dict:
     """Run the epoch loop on ``bundle.model``'s device; returns {'model',
     'optimizer', 'saver', 'losses' (mean per epoch), 'final_path',
@@ -166,16 +191,20 @@ def train(
     moved to the device once. `optimizer` defaults to ``make_optimizer``
     over the model's parameters (pass one to resume, with its state from a
     train checkpoint or checkpoint.opt_state_from_jax). `eval_localize` is
-    the cadence sweep's ``localize_ctx``."""
+    the cadence sweep's ``localize_ctx``. `mesh`: a parallel/dist.DataMesh
+    or a (data, model) shape over this process group. `checkpoint_backend`:
+    'torch' (.pth.tar) or 'msgpack' (the JAX package's .ckpt files)."""
     o, t = cfg.optim, cfg.tasks
-    later = []
-    if mesh is not None:
-        later.append("a device mesh (multi-GPU slice)")
     if dense:
-        later.append("dense batches")
-    if later:
         raise NotImplementedError("lirec_tpu_torch.train does not port "
-                                  "yet: " + "; ".join(later))
+                                  "yet: dense batches")
+    if mesh is not None:
+        mesh = dist.make_mesh(mesh)
+        if host_eval:
+            raise ValueError(MESH_HOST_EVAL)
+    lead = mesh is None or mesh.rank == 0  # the process that writes
+    verbose = verbose and lead
+    suffix = BACKENDS[checkpoint_backend]
     model = bundle.model
     device = next(model.parameters()).device
     if tables is None:
@@ -191,20 +220,26 @@ def train(
                               n_clips=tables["text"].shape[0],
                               n_tracks=tables["track"].shape[0],
                               force=localize_tables)
-    step = make_train_step(bundle, optimizer)
+    if mesh is None:
+        step = make_train_step(bundle, optimizer)
+    else:
+        from lirec_tpu_torch.parallel.step import make_dp_train_step
+
+        step = make_dp_train_step(bundle, optimizer, mesh, o.batch_size)
     iterator = EpochIterator(train_dataset, o.batch_size, seed=o.seed,
                              drop_last=drop_last)
     tr_sum_max_flag = t.tr_sum_max_flag
-    metrics_log = MetricsLogger(metrics_log_path)
+    metrics_log = MetricsLogger(metrics_log_path if lead else None)
     store = cfg.paths.store_root
-    saver = BestNSaver(path=store, n=o.keep_best_n)
+    saver = BestNSaver(path=store, n=o.keep_best_n,
+                       backend=checkpoint_backend)
     eval_data: Dict[int, Dict] = {}
 
     def cadence_eval(ds, mode, tables=None):
         # datasets without the packed interface keep the host loop
         if host_eval or not hasattr(ds, "materialize"):
             return evaluate(ds, bundle, model, cfg, mode=mode, tables=tables,
-                            verbose=verbose)
+                            verbose=verbose, mesh=mesh)
         # each split materialized once for the whole run (the train split's
         # eval-time context draws are frozen with it)
         data = eval_data.get(id(ds))
@@ -212,11 +247,19 @@ def train(
             data = eval_data[id(ds)] = ds.materialize()
         return evaluate_packed(ds, bundle, model, cfg, mode=mode,
                                tables=tables, verbose=verbose, data=data,
-                               localize_ctx=eval_localize)
+                               localize_ctx=eval_localize, mesh=mesh)
 
     def train_state():
         return {"state_dict": model.state_dict(),
                 "optimizer": optimizer.state_dict()}
+
+    def write(fn, *args):
+        """fn(*args) on process 0 only, the others waiting at barriers
+        before and after (the JAX package's process-0 writes)."""
+        dist.barrier("before a checkpoint")
+        if lead:
+            fn(*args)
+        dist.barrier("after a checkpoint")
 
     losses = []
     for epoch in range(start_epoch, o.epochs):
@@ -267,21 +310,23 @@ def train(
                 if test_dataset is not None:
                     cadence_eval(test_dataset, "test")
         if o.save_model and o.save_model_often and epoch % 30 == 0:
-            saver.save()
+            write(saver.save)
         if checkpoint_every and store and (epoch + 1) % checkpoint_every == 0:
             # a resumable state (the reference has no failure recovery,
             # SURVEY.md 5.3); --auto-resume picks it up
-            state = train_state()
-            save_train_state(ops.join(store, "latest.pth.tar"),
-                             state["state_dict"], state["optimizer"], epoch)
+            write(save_train_state_any, ops.join(store, "latest" + suffix),
+                  model, optimizer, epoch, checkpoint_backend)
 
     final_path = ""
     if o.save_model and store:
-        final_path = ops.join(store, "%d.pth.tar" % (o.epochs - 1))
-        state = train_state()
-        save_train_state(final_path, state["state_dict"], state["optimizer"],
-                         o.epochs - 1)
-        saver.save()
+        final_path = ops.join(store, "%d%s" % (o.epochs - 1, suffix))
+
+        def final():
+            save_train_state_any(final_path, model, optimizer, o.epochs - 1,
+                                 checkpoint_backend)
+            saver.save()
+
+        write(final)
     return {
         "model": model,
         "optimizer": optimizer,

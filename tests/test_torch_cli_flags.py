@@ -1,9 +1,11 @@
 """The port's eval and training CLIs take every flag of the JAX package's
-(lirec_tpu/cli/common.py): the PRNG flags parse and change nothing, the
-flags of features not ported yet refuse to run by the ROADMAP.md item
-that ports them, and --auto-resume refuses a store root whose only train
-state is the JAX package's Orbax latest.ckpt instead of starting over
-beside it (its msgpack latest.ckpt resumes:
+(lirec_tpu/cli/common.py): the PRNG flags parse and change nothing,
+--coordinator and --process-id alone are accepted and change nothing (as
+in the JAX package; with --num-processes they form a process group:
+tests/test_torch_dist_cli.py), the flags of features not ported yet refuse
+to run by the ROADMAP.md item that ports them, and --auto-resume refuses a
+store root whose only train state is the JAX package's Orbax latest.ckpt
+instead of starting over beside it (its msgpack latest.ckpt resumes:
 tests/test_torch_jax_checkpoints.py).
 """
 
@@ -24,8 +26,8 @@ JAX_FLAGS = [
     ("--fast-prng", None, None),
     ("--strict-prng", None, None),
     ("--profile", "trace_dir", "'the rest of training'"),
-    ("--coordinator", "localhost:1234", "'multi-GPU'"),
-    ("--process-id", "0", "'multi-GPU'"),
+    ("--coordinator", "localhost:1234", None),
+    ("--process-id", "0", None),
 ]
 
 
@@ -54,10 +56,11 @@ def test_jax_flags_parse(preset, flag, value, item):
 
 @pytest.mark.parametrize("flag,value,item", JAX_FLAGS)
 def test_jax_flags_accepted_or_refused_by_name(tmp_path, flag, value, item):
-    """The PRNG flags pass the refusal (the port has one dropout stream);
-    --profile, --coordinator and --process-id refuse to run, naming the
-    queue item, before any data is read. Their JAX defaults ("", "",
-    -1) given explicitly are not refused."""
+    """The PRNG flags pass the refusal (the port has one dropout stream),
+    and so do --coordinator and --process-id without --num-processes;
+    --profile refuses to run, naming the queue item, before any data is
+    read. The JAX defaults ("", "", -1) given explicitly are not
+    refused."""
     base = ["--data-root", str(tmp_path / "no_data"), "--train"]
     parser = common.build_parser("int_rel_ch")
     if item is None:
@@ -76,7 +79,8 @@ def test_jax_flags_accepted_or_refused_by_name(tmp_path, flag, value, item):
 def test_auto_resume_refuses_a_jax_latest_ckpt(tmp_path, as_dir):
     """A store root with the JAX package's latest.ckpt as an Orbax
     directory and no latest.pth.tar: --auto-resume exits naming the file
-    and the queue item, before any data is read."""
+    and why Orbax is not read (its zstd compression), before any data is
+    read."""
     store = tmp_path / "store"
     store.mkdir()
     latest = store / "latest.ckpt"
@@ -85,8 +89,7 @@ def test_auto_resume_refuses_a_jax_latest_ckpt(tmp_path, as_dir):
             str(store), "--auto-resume", "--device", "cpu"]
     with pytest.raises(SystemExit, match="latest.ckpt") as err:
         train_cli.main(argv)
-    assert "checkpoint reading of the JAX package's formats" in str(
-        err.value)
+    assert "Orbax" in str(err.value) and "zstd" in str(err.value)
 
 
 def test_auto_resume_takes_latest_pth_tar(synth_root, tmp_path):

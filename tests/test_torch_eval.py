@@ -352,8 +352,10 @@ def test_bf16_triple_forward_matches_jax(synth_root):
 def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
     """The eval CLI with --device cpu on a reference-format checkpoint of
     seeded weights: finite metric dicts for both splits, the same with
-    --host-eval; flags of what is not ported, and an Orbax checkpoint
-    directory, refuse to run."""
+    --host-eval; --mesh with --host-eval and --num-processes without
+    --coordinator refuse with the JAX package's messages (--mesh 2x1 runs:
+    tests/test_torch_dist_cli.py); flags of what is not ported, and an
+    Orbax checkpoint directory, refuse to run."""
     from lirec_tpu_torch.cli import common, int_rel_ch
 
     ckpt = tmp_path / "weights.pth.tar"
@@ -378,8 +380,9 @@ def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
         for key, v in out[split].items():
             np.testing.assert_allclose(host[split][key], v, rtol=2e-6,
                                        atol=1e-7, err_msg=key)
-    for extra, match in ((["--mesh", "2x1"], "multi-GPU"),
-                         (["--num-processes", "2"], "multi-GPU"),
+    for extra, match in ((["--mesh", "2x1", "--host-eval"],
+                          "drop --host-eval"),
+                         (["--num-processes", "2"], "needs --coordinator"),
                          (["--assembly-workers", "2"], "AssemblyPool"),
                          (["--checkpoint-backend", "orbax"], "orbax"),
                          (["--ingest-cache", "x.npz"], "--ingest-cache")):

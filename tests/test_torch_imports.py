@@ -2,7 +2,9 @@
 of the JAX package lirec_tpu or of the repo-root tools/ directory (the TPU
 probes), not even transitively or at run time (its target
 machine has no jax; the port carries its own copy of the host tier and its
-own msgpack decoder), and
+own msgpack decoder and encoder); neither do the rank processes that
+parallel/dist.spawn starts, nor the rank functions of the two-rank tests
+(tests/torch_dist_worker.py); and
 chip_smoke.py refuses to run without a CUDA card or without the repository
 around it."""
 
@@ -26,6 +28,7 @@ names = ["lirec_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
+import tests.torch_dist_worker  # noqa: F401
 bad = sorted(m for m in sys.modules if m.split(".")[0]
              in ("jax", "jaxlib", "flax", "optax", "msgpack", "lirec_tpu",
                  "tools"))
@@ -117,6 +120,20 @@ assert all(math.isfinite(v) for v in out["train"]["losses"])
 metrics = text_only.main(text + ["--resume-path", ckpt])
 assert all(math.isfinite(v) for m in metrics.values() for v in m.values())
 print("TEXT_ONLY", sorted(metrics))
+
+
+def main():
+    # rank processes start from a fresh interpreter: each reports what it
+    # imported, after running the two-rank training CLI's entry
+    from lirec_tpu_torch.parallel import dist
+    from tests import torch_dist_worker
+
+    ranks = dist.spawn(torch_dist_worker.foreign_modules, 2, timeout=240)
+    print("RANKS", [r.value for r in ranks])
+
+
+if __name__ == "__main__":
+    main()
 """
 
 
@@ -174,6 +191,7 @@ def test_train_runs_with_jax_blocked(tmp_path):
     assert "ENGINE" in proc.stdout and "CLI ['test', 'val']" in proc.stdout
     assert "TRAIN_CLI [" in proc.stdout, proc.stdout
     assert "TEXT_ONLY ['test', 'val']" in proc.stdout, proc.stdout
+    assert "RANKS [[], []]" in proc.stdout, proc.stdout
 
 
 def _imported_modules(path):
@@ -188,9 +206,11 @@ def _imported_modules(path):
 
 def test_port_source_names_no_jax_package_import():
     """No `import lirec_tpu...` / `from lirec_tpu... import` (nor of jax
-    or the repo-root tools/) anywhere in the port or in chip_smoke.py, at
-    any depth of the code."""
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    or the repo-root tools/) anywhere in the port (parallel/ included), in
+    chip_smoke.py or in the two-rank tests' rank functions, at any depth
+    of the code."""
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "torch_dist_worker.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "lirec_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 40

@@ -589,13 +589,16 @@ def test_step_generators_are_two_seeded_streams():
 
 
 def test_train_raises_for_what_is_not_ported(synth_root, tmp_path):
-    """A mesh and dense batches still raise; cadence evaluation on a
+    """A mesh with a 'model' axis is refused by name, naming its ROADMAP
+    item, and dense batches still raise; cadence evaluation on a
     val_dataset and checkpoint writing, refused before, now run."""
+    from lirec_tpu_torch.parallel.dist import MODEL_AXIS_ITEM
+
     cfg, ds = _synth_setup(synth_root, 7, port=True,
                            store_root=str(tmp_path))
     pb = create_model(cfg, ds.n_classes,
                       n_rels=max(len(ds.rels_list) - 1, 0), device="cpu")
-    for kw, match in ((dict(mesh=object()), "multi-GPU"),
+    for kw, match in ((dict(mesh=(1, 2)), MODEL_AXIS_ITEM),
                       (dict(dense=True), "dense")):
         with pytest.raises(NotImplementedError, match=match):
             train(cfg, pb, ds, verbose=False, **kw)
