@@ -115,6 +115,26 @@
    each rank's launches of kernels 1-2 and 6 come back with its result
    and must be non-zero. A failed group, rank or time limit fails the
    run; nothing falls back to one process or to the CPU.
+17. The rest of training: (a) the dense forwards (reference-layout rows
+   gathered on the card) of int_rel_ch, int_ch and modalities at published
+   widths against the packed eval forward on phase 9's first batch
+   (int_rel_ch's through kernel 1 / 2), f32 within 1e-5 and bf16 within
+   2e-3; (b) three dense int_rel_ch train steps at B = 64 from batches
+   that ``InteractionDataset.to_dense`` gathers on the host ([64, 20, 19,
+   6912] f32), staged by ``data/pipeline.prefetch_to_device``: finite
+   losses, the host, copy and step times; (c) the training CLI on the
+   published-widths fixture without the assembly plan
+   (``LIREC_TPU_NO_PLAN=1``), in process and with ``--assembly-workers
+   2``: bitwise the same losses, every epoch from the worker pool (not
+   its fallback, by ``dispatch``); (d) phase 7's 10 steps in turns with
+   host batches and with batches staged by ``prefetch_to_device``
+   (``PREFETCH_TURNS``, three runs of each): each run's losses and
+   parameters bitwise phase 7's, each run's median ms/step; (e) the
+   workers' run
+   also had ``--profile``: its trace names
+   the pool kernel and the scatter kernel; (f) the assembly plan's disk
+   cache on the fixture: a miss, then a hit on a second dataset, with the
+   build and load times.
 
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
@@ -186,6 +206,10 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 HOLD_CYCLES = 1 << 21  # about 1 ms of spinning at the H100's clock
 DIST_TIMEOUT = 300  # seconds for phase 16(b)'s two ranks, start to join
 DIST_STEPS = 3  # phase 16(b)'s deterministic data-parallel steps
+# phase 17(d)'s runs of phase 7's steps, host batches against prefetched
+# ones in alternating pairs
+PREFETCH_TURNS = ("plain", "prefetch", "prefetch", "plain", "plain",
+                  "prefetch")
 
 
 def log(*args):
@@ -2420,6 +2444,343 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
     return counts, rank_launches
 
 
+# ------------------------------------------------------ the rest of training
+
+
+def dense_of(torch, tables, feat_idx):
+    """Reference-layout rows [..., text | visual | track1 | track2] of
+    `feat_idx` gathered from the tables on the card."""
+    idx = feat_idx.long()
+    return torch.cat([tables["text"][idx[..., 0]],
+                      tables["visual"][idx[..., 0]],
+                      tables["track"][idx[..., 1]],
+                      tables["track"][idx[..., 2]]], dim=-1)
+
+
+def dense_forward_checks(torch, spec):
+    """Phase 17(a): the dense forwards of int_rel_ch, int_ch and modalities
+    at published widths against the packed eval forward on the same
+    samples (phase 9's first structured batch; int_rel_ch's packed forward
+    pools through kernel 1 / 2), f32 and bf16. Returns {case: max|diff|}."""
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.models.tabular import embed_all
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
+    from lirec_tpu_torch.utils.fake_batch import (
+        make_structured_batch, make_tables,
+    )
+
+    host = make_structured_batch(spec, EVAL_B, N_CLIPS, N_TRACKS, seed=900)
+    fi = torch.from_numpy(host["feat_idx"]).cuda()
+    mask = torch.from_numpy(host["rels_mask"]).cuda()
+    layouts = {
+        "int_rel_ch": ({"feat_idx": fi, "rels_mask": mask}, 15),
+        "int_ch": ({"feat_idx": fi[:, :, :1].contiguous()}, 0),
+        "modalities": ({"feat_idx": fi[:, 0, :1].contiguous()}, 0),
+    }
+    atol = {"float32": 1e-5, "bfloat16": 2e-3}
+    tables = None
+    errs = {}
+    for preset, (packed, n_rels) in layouts.items():
+        for compute in ("float32", "bfloat16"):
+            cfg = config_lib.preset(preset).with_runtime(
+                compute_dtype=compute)
+            bundle = create_model(cfg, 101, n_rels=n_rels, seed=0,
+                                  device="cuda")
+            if tables is None:
+                tables = {k: torch.from_numpy(v).cuda() for k, v in
+                          make_tables(bundle.spec, N_CLIPS, N_TRACKS,
+                                      seed=0).items()}
+            feats = dense_of(torch, tables, packed["feat_idx"])
+            if preset == "int_ch":
+                feats = feats[:, :, 0]  # the dataset's ctx-off [B, T, D]
+            dense = dict(packed, features=feats)
+            del dense["feat_idx"]
+            dtype = torch.bfloat16 if compute == "bfloat16" else torch.float32
+            pool = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+            with torch.inference_mode():
+                embedded = embed_all(bundle.model, bundle.spec, tables)
+                dispatch.reset_launches()
+                want = bundle.apply(bundle.model, packed, tables=tables,
+                                    embedded=embedded)
+                torch.cuda.synchronize()
+                launched = dispatch.launches(pool)
+                got = bundle.apply(bundle.model, dense)
+                torch.cuda.synchronize()
+            check(launched == (1 if preset == "int_rel_ch" else 0),
+                  "%s %s packed forward: %d launches of %s"
+                  % (preset, compute, launched, pool))
+            for key, w in want.items():
+                if w is None:
+                    check(got[key] is None, "%s %s" % (preset, key))
+                    continue
+                check(tuple(got[key].shape) == tuple(w.shape)
+                      and bool(torch.isfinite(got[key]).all()),
+                      "%s %s %s: shape %s, finite %s" % (
+                          preset, compute, key, tuple(got[key].shape),
+                          bool(torch.isfinite(got[key]).all())))
+                err = float((got[key] - w).abs().max())
+                errs["%s_%s_%s" % (preset, compute, key)] = err
+                log("  (a) %s %s %s %s: dense vs packed max|diff| %.3e "
+                    "(atol %.0e)" % (preset, compute, key,
+                                     tuple(w.shape), err, atol[compute]))
+                check(err <= atol[compute], "%s %s %s: the dense forward "
+                      "disagrees with the packed one" % (preset, compute,
+                                                         key))
+            del bundle, embedded, want, got, dense, feats
+            torch.cuda.empty_cache()
+    return errs
+
+
+def dense_train_steps(torch, raw):
+    """Phase 17(b): three dense int_rel_ch train steps at B = 64 and
+    published widths (bf16, the preset's compute, dropout 0.5), from
+    batches that InteractionDataset.to_dense gathers per sample on the
+    host, staged by prefetch_to_device. Returns the times."""
+    import numpy as np
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.data.dataset import InteractionDataset
+    from lirec_tpu_torch.data.pipeline import collate, prefetch_to_device
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    cfg = config_lib.preset("int_rel_ch")
+    bundle = create_model(cfg, 101, n_rels=15, seed=0, device="cuda")
+    tb = types.SimpleNamespace(**make_tables(bundle.spec, N_CLIPS, N_TRACKS,
+                                             seed=0))
+    ds = types.SimpleNamespace(tables=tb, cfg=cfg)  # what to_dense reads
+    step = make_train_step(bundle, make_optimizer(
+        bundle.model.parameters(), cfg.optim.lr, cfg.optim.weight_decay))
+    out = {"host_to_dense_ms": [], "h2d_ms": [], "step_ms": [],
+           "batch_bytes": 0}
+    losses = []
+    dispatch.reset_launches()
+    for i, batch in enumerate(raw[:3]):
+        t = time.perf_counter()
+        dense = collate([InteractionDataset.to_dense(
+            ds, {k: v[j] for k, v in batch.items()})
+            for j in range(len(batch["labels"]))])
+        out["host_to_dense_ms"].append((time.perf_counter() - t) * 1e3)
+        check(dense["features"].shape == (TRAIN_B, 20, 19, 6912),
+              "dense batch %s" % (dense["features"].shape,))
+        out["batch_bytes"] = sum(v.nbytes for v in dense.values())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        staged = next(prefetch_to_device(iter([dense]), "cuda"))
+        torch.cuda.synchronize()
+        out["h2d_ms"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        loss = float(step(staged, None, step_generators(0, i, "cuda")))
+        out["step_ms"].append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+        del dense, staged
+    torch.cuda.synchronize()
+    check(all(np.isfinite(losses)), "dense train losses %s" % losses)
+    check(dispatch.launches() == {}, "dense steps launched %s"
+          % dispatch.launches())
+    out["losses"] = losses
+    log("  (b) 3 dense int_rel_ch steps at B=%d (features [%d, 20, 19, "
+        "6912] f32, %.1f MB a batch): losses %s; host to_dense %s ms, "
+        "pinned + H2D copy %s ms, step %s ms (the first with warm-up)"
+        % (TRAIN_B, TRAIN_B, out["batch_bytes"] / 1e6, losses,
+           ["%.1f" % x for x in out["host_to_dense_ms"]],
+           ["%.1f" % x for x in out["h2d_ms"]],
+           ["%.1f" % x for x in out["step_ms"]]))
+    del bundle, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefetched_train_path(torch, local, train_finals, step_ms):
+    """Phase 17(d): phase 7's 10 steps again, in turns with the batches as
+    phase 7 passes them (host arrays, copied inside the step) and staged
+    by prefetch_to_device (pinned memory, a side copy stream), PREFETCH_
+    TURNS, each run from phase 7's seed; every run's losses and parameters
+    bitwise phase 7's. Returns {compute: {"plain", "prefetch": median
+    ms/step over all runs of each, and each run's median}}."""
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.data.pipeline import prefetch_to_device
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    cfg = config_lib.preset("int_rel_ch")
+    tables = None
+    ms = {}
+    for compute in ("bfloat16", "float32"):
+        want_losses, want_params = train_finals[compute]
+        times = {"plain": [], "prefetch": []}
+        runs = {"plain": [], "prefetch": []}
+        for mode in PREFETCH_TURNS:
+            bundle = create_model(cfg.with_runtime(compute_dtype=compute),
+                                  101, n_rels=15, seed=0, device="cuda")
+            if tables is None:
+                tables = {k: torch.from_numpy(v).cuda() for k, v in
+                          make_tables(bundle.spec, N_CLIPS, N_TRACKS,
+                                      seed=0).items()}
+            opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
+                                 cfg.optim.weight_decay)
+            step = make_train_step(bundle, opt)
+            source = (prefetch_to_device(iter(local), "cuda")
+                      if mode == "prefetch" else local)
+            losses, run = [], []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i, batch in enumerate(source):
+                if mode == "prefetch":
+                    check(all(v.is_cuda for v in batch.values()),
+                          "not staged")
+                losses.append(float(step(batch, tables,
+                                         step_generators(0, i, "cuda"))))
+                run.append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+            check(losses == want_losses, "%s %s: losses %s != phase 7's %s"
+                  % (compute, mode, losses, want_losses))
+            for n, p in bundle.model.named_parameters():
+                check(torch.equal(p.detach().cpu(), want_params[n]),
+                      "%s %s: parameter %s differs from phase 7's"
+                      % (compute, mode, n))
+            times[mode] += run[1:]
+            runs[mode].append(statistics.median(run[1:]))
+            del bundle, opt, step
+            torch.cuda.empty_cache()
+        ms[compute] = {k: statistics.median(v) for k, v in times.items()}
+        ms[compute]["runs"] = runs
+        log("  (d) %s: phase 7's 10 steps in turns %s, each bitwise phase "
+            "7's (losses and parameters); median %.2f ms/step plain, %.2f "
+            "prefetched (phase 7: %.2f); each run's median: plain %s, "
+            "prefetched %s" % (
+                compute, "/".join(PREFETCH_TURNS), ms[compute]["plain"],
+                ms[compute]["prefetch"], step_ms[compute],
+                ["%.2f" % x for x in runs["plain"]],
+                ["%.2f" % x for x in runs["prefetch"]]))
+    return ms
+
+
+def plan_cache_checks(root):
+    """Phase 17(f): on the published-widths fixture, the assembly plan's
+    disk cache: a miss (build and save) on one dataset, then a hit (load
+    and spot check) on a second dataset over the same data. Returns the
+    times."""
+    import shutil
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.data import synthetic
+    from lirec_tpu_torch.data.dataset import InteractionDataset
+    from lirec_tpu_torch.ops import dispatch
+
+    base = synthetic.make_config(root, synthetic.SyntheticSpec(
+        **PUBLISHED_FIXTURE))
+    cfg = config_lib.preset("int_rel_ch", data_root=root)
+    cfg = cfg.replace(dims=base.dims, paths=base.paths)
+    shutil.rmtree(os.path.join(cfg.paths.visual_features, "cached",
+                               "plans"), ignore_errors=True)
+    out = {}
+    for case, reason in (("build_s", "built+saved"),
+                         ("load_s", "hit+verified")):
+        ds = InteractionDataset(cfg, mode="train")
+        ds.cache()
+        ds.init_relships()
+        t = time.perf_counter()
+        plan = ds.assembly_plan()
+        out[case] = time.perf_counter() - t
+        rec = dispatch.last_dispatch("assembly_plan_cache")
+        check(plan is not None and rec["reason"] == reason,
+              "plan cache: %s, expected %s" % (rec, reason))
+    out["samples"] = len(ds)
+    log("  (f) assembly plan of %d samples: built and saved in %.3f s "
+        "(miss), loaded and spot-checked in %.3f s on a second dataset "
+        "(hit)" % (out["samples"], out["build_s"], out["load_s"]))
+    return out
+
+
+def pool_and_profile_cli(torch, root):
+    """Phase 17(c) and (e): the training CLI on the published-widths
+    fixture with no assembly plan (LIREC_TPU_NO_PLAN=1), 2 epochs, once in
+    process and once with --assembly-workers 2 and --profile: the losses
+    bitwise equal, every epoch assembled by the pool (dispatch), and the
+    trace naming the pool kernel (kernel 1/2, the cadence sweep) and the
+    scatter (kernel 6, the steps). Returns the times."""
+    import glob
+
+    from lirec_tpu_torch.cli import train as train_cli
+    from lirec_tpu_torch.data.pipeline import ASSEMBLY
+    from lirec_tpu_torch.ops import dispatch
+
+    prof = os.path.join(root, "profile")
+    args = ["--data-root", root, "--device", "cuda", "--quiet",
+            "--text-dim", "768", "--visual-dim", "2048", "--text-layers",
+            "12", "--joint-dim", "512", "--epochs", "2"]
+    runs = {}
+    saved = os.environ.get("LIREC_TPU_NO_PLAN")
+    os.environ["LIREC_TPU_NO_PLAN"] = "1"
+    try:
+        for workers in (0, 2):
+            extra = ["--store-root", os.path.join(root, "store_pool%d"
+                                                  % workers)]
+            if workers:
+                extra += ["--assembly-workers", str(workers), "--profile",
+                          prof]
+            before = dispatch.decisions(ASSEMBLY)
+            t = time.perf_counter()
+            out = train_cli.main(args + extra)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            after = dispatch.decisions(ASSEMBLY)
+            runs[workers] = (out["train"]["losses"], secs, {
+                p: after.get(p, 0) - before.get(p, 0) for p in after})
+    finally:
+        if saved is None:
+            os.environ.pop("LIREC_TPU_NO_PLAN", None)
+        else:
+            os.environ["LIREC_TPU_NO_PLAN"] = saved
+    (l0, s0, d0), (l2, s2, d2) = runs[0], runs[2]
+    check(d0.get("per-sample", 0) == 2 and not d0.get("pool"),
+          "in-process run's assembly %s" % d0)
+    check(d2.get("pool", 0) == 2 and not d2.get("fallback"),
+          "--assembly-workers 2 run's assembly %s: the pool must run" % d2)
+    check(l2 == l0, "--assembly-workers 2 losses %s != in-process %s"
+          % (l2, l0))
+    log("  (c) training CLI, no plan, 2 epochs: in process %.1f s, losses "
+        "%s; --assembly-workers 2 (+ --profile) %.1f s, losses bitwise "
+        "equal; assembly decisions %s / %s" % (s0, l0, s2, d0, d2))
+    path = os.path.join(prof, "train.json")
+    check(os.path.exists(path), "--profile wrote no %s: %s"
+          % (path, glob.glob(os.path.join(prof, "*"))))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    named = {key: sorted(k for k in kernels if key in k)[:2]
+             for key in ("fused_ctx_pool_kernel", "scatter_short_kernel")}
+    check(all(named.values()), "the trace names no pool or scatter "
+          "kernel: %s" % named)
+    log("  (e) --profile wrote %s (%.1f MB, %d events, %d kernel names); "
+        "the pool and scatter kernels in it: %s"
+        % (os.path.relpath(path, root), os.path.getsize(path) / 1e6,
+           len(events), len(kernels), json.dumps(named)))
+    return {"in_process_s": s0, "workers_profiled_s": s2}
+
+
+def rest_of_training_phase(torch, spec, root, raw, local, train_finals,
+                           step_ms):
+    """Phase 17: the dense path, the prefetch, the assembly workers,
+    --profile and the plan cache, on the card."""
+    out = {"dense_errs": dense_forward_checks(torch, spec)}
+    out["dense_train"] = dense_train_steps(torch, raw)
+    out["prefetch_ms"] = prefetched_train_path(torch, local, train_finals,
+                                               step_ms)
+    out["pool_cli"] = pool_and_profile_cli(torch, root)
+    out["plan_cache"] = plan_cache_checks(root)
+    return out
+
+
 def main():
     import torch
 
@@ -2501,7 +2862,7 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         synthetic.generate(root, synthetic.SyntheticSpec(**PUBLISHED_FIXTURE))
-        log("  (phases 13-15) fixture of published feature widths written "
+        log("  (phases 13-17) fixture of published feature widths written "
             "in %.1f s" % (time.perf_counter() - t0))
         log("== 13. modalities at published widths: serve, train, eval "
             "sweep, CLI (no kernel)")
@@ -2513,10 +2874,15 @@ def main():
         log("== 15. the text-only CLI (no kernel)")
         text_only_phase(torch, root)
 
-    log("== 16. data parallelism: a world of one over NCCL, two ranks on "
-        "the card over gloo (counted runs)")
-    dist_counts, rank_launches = dist_phase(torch, local, train_finals,
-                                            step_ms, eval_ref)
+        log("== 16. data parallelism: a world of one over NCCL, two ranks "
+            "on the card over gloo (counted runs)")
+        dist_counts, rank_launches = dist_phase(torch, local, train_finals,
+                                                step_ms, eval_ref)
+
+        log("== 17. the rest of training: dense forwards and steps, the "
+            "prefetch, the assembly workers, --profile, the plan cache")
+        rest = rest_of_training_phase(torch, spec, root, raw, local,
+                                      train_finals, step_ms)
 
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
@@ -2637,6 +3003,7 @@ def main():
         {"%s_%s" % (c, t if t else "off"): v
          for (c, t), v in eval_rates.items()}))
     log("train_ms_per_step: " + json.dumps(step_ms))
+    log("rest_of_training: " + json.dumps(rest))
     log("latency_ms: " + json.dumps(
         {"%s_B%d" % k: v for k, v in latency.items()}))
     log(json.dumps({"kernels": kernels}))

@@ -30,6 +30,13 @@ same. Every rank trains or evaluates its rows of every batch and the sweep
 is sharded over the ranks; only rank 0 prints and writes. A ``model`` axis
 (``--mesh DxM``, M > 1) is refused by name.
 
+``--assembly-workers N`` assembles the train batches in N worker processes
+where no assembly plan applies (the same batches; inside each rank under
+``--mesh``), and ``--profile DIR`` writes a ``torch.profiler`` Chrome trace
+of the training run and of each evaluation into DIR (utils/profiling.py:
+``train.json``, ``val.json``, ``test.json``, with ``.rank<r>`` before
+``.json`` in a data-parallel rank).
+
 The flags of features the port does not have yet are accepted and refuse
 to run, naming the ROADMAP.md item that ports them. Every flag of the JAX
 package's CLIs parses, so a command line written for it says which
@@ -63,8 +70,6 @@ TRAIN_SPLIT = {
 # than the flag's default is refused
 NOT_PORTED = {
     "ingest_cache": "'the remaining CLIs and ingest artifacts'",
-    "assembly_workers": "'the rest of training', the AssemblyPool",
-    "profile": "'the rest of training', the torch.profiler trace",
 }
 ORBAX = ("the JAX package's Orbax checkpoints (ROADMAP.md, not ported: "
          "their manifest and array nodes are zstd-compressed, and neither "
@@ -109,8 +114,9 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
     p.add_argument("--cache-workers", type=int, default=0,
                    help="thread pool size for feature precompute IO")
     p.add_argument("--assembly-workers", type=int, default=0,
-                   help="sample-assembly worker processes: not ported "
-                        "(any value above 0 is refused)")
+                   help="sample-assembly worker processes (the reference "
+                        "ran 4 DataLoader workers); 0 = in-process. "
+                        "Identical batches at any worker count")
     p.add_argument("--drop-last", action="store_true",
                    help="drop the leftover train batch (non-parity: the "
                         "reference trains on it)")
@@ -163,7 +169,9 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
     # not ported yet: accepted, then refused (run_entry)
     p.add_argument("--ingest-cache", default="",
                    help="not ported yet (refused)")
-    p.add_argument("--profile", default="", help="not ported yet (refused)")
+    p.add_argument("--profile", default="",
+                   help="write a torch.profiler Chrome trace of the "
+                        "train/eval work into this directory")
     return p
 
 
@@ -355,6 +363,16 @@ def run_entry(preset_name: str, argv=None) -> dict:
     return ranks[0].value
 
 
+def _traced(args, mesh, name: str, fn, /, *fn_args, **kwargs):
+    """fn(*fn_args, **kwargs) under a torch.profiler trace written to
+    ``--profile``/<name>[.rank<r>].json when --profile is set."""
+    from lirec_tpu_torch.utils.profiling import trace
+
+    rank = None if mesh is None else mesh.rank
+    with trace(args.profile, device=args.device, name=name, rank=rank):
+        return fn(*fn_args, **kwargs)
+
+
 def _run(preset_name: str, args, mesh) -> dict:
     """Evaluate or train in this process; with a data `mesh`, as one of
     its ranks (every rank runs this; rank 0 prints)."""
@@ -380,11 +398,13 @@ def _run(preset_name: str, args, mesh) -> dict:
             print("testing on %s set" % ("validation" if mode == "val"
                                          else mode))
         if args.host_eval:
-            results[mode] = evaluate(ds, bundle, bundle.model, cfg,
-                                     mode=mode, verbose=verbose)
+            results[mode] = _traced(args, mesh, mode, evaluate, ds, bundle,
+                                    bundle.model, cfg, mode=mode,
+                                    verbose=verbose)
         else:
-            results[mode] = evaluate_packed(
-                ds, bundle, bundle.model, cfg, mode=mode, verbose=verbose,
+            results[mode] = _traced(
+                args, mesh, mode, evaluate_packed, ds, bundle, bundle.model,
+                cfg, mode=mode, verbose=verbose,
                 localize_ctx=TRISTATE[args.eval_localize], mesh=mesh,
             )
     return results
@@ -410,7 +430,8 @@ def _train(cfg, args, bundle, train_ds, val_ds, test_ds, resume_from,
         if verbose:
             print("resumed training state from %s (epoch %d)"
                   % (resume_from, epoch))
-    out = train(
+    out = _traced(
+        args, mesh, "train", train,
         cfg, bundle, train_ds, val_dataset=val_ds, test_dataset=test_ds,
         optimizer=optimizer, verbose=verbose, start_epoch=start_epoch,
         metrics_log_path=args.metrics_log or None,
@@ -419,6 +440,7 @@ def _train(cfg, args, bundle, train_ds, val_ds, test_ds, resume_from,
         localize_tables=TRISTATE[args.localize_tables],
         eval_localize=TRISTATE[args.eval_localize], mesh=mesh,
         checkpoint_backend=args.checkpoint_backend,
+        assembly_workers=args.assembly_workers,
     )
     return {"losses": out["losses"], "start_epoch": start_epoch,
             "final_path": out["final_path"],

@@ -849,18 +849,20 @@ class InteractionDataset:
         class's per-sample path at ~100x the speed (see data/plan.py);
         invalidated if the label chooser is swapped after building.
 
-        Built in memory once per label chooser (the JAX package's disk
-        cache, data/plan_cache.py, is not ported)."""
+        Disk-cached across processes (data/plan_cache.py): the ~28 s
+        build at real scale is paid once per dataset content, then
+        reloaded in ~a second with a fingerprint + bitwise spot-check
+        gate (LIREC_TPU_NO_PLAN_CACHE=1 opts out)."""
         import os
 
-        from lirec_tpu_torch.data.plan import build_plan
+        from lirec_tpu_torch.data import plan_cache
 
         if os.environ.get("LIREC_TPU_NO_PLAN"):
             return None
         cached = getattr(self, "_assembly_plan", None)
         if cached is not None and cached[0] is self.label_chooser:
             return cached[1]
-        plan = build_plan(self)
+        plan = plan_cache.get_or_build(self)
         self._assembly_plan = (self.label_chooser, plan)
         return plan
 

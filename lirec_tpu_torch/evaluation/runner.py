@@ -22,10 +22,14 @@ power-of-two buckets of clips, each flushed at the batch size through the
 eval forward, whose ctx pool is the CUDA kernel on the card (kernel 1 on
 f32 tables, kernel 2 on bf16) at M = the batch size and R = the bucket.
 
+With ``dense=True`` the loop runs over dense batches (each sample's
+``features`` rows in the reference layout, data/pipeline.BatchIterator's
+dense layout) through the dense forwards: no tables and no ``embed_all``.
+
 The host loop does not run over a data mesh: only the packed sweep is
 sharded over processes (``MESH_HOST_EVAL``, the JAX package's refusal).
 
-Not ported: dense batches and ``jit_apply``.
+Not ported: ``jit_apply``.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ __all__ = ["evaluate", "evaluate_rels_only", "summarize_metrics",
 
 MESH_HOST_EVAL = "--mesh only shards the packed eval sweep; drop --host-eval"
 
-MODEL_KEYS = ("feat_idx", "rels_mask")
+MODEL_KEYS = ("features", "feat_idx", "rels_mask")
 
 
 def _host(x) -> np.ndarray:
@@ -159,11 +163,12 @@ def evaluate(
     verbose: bool = True,
     return_details: bool = False,
     mesh=None,
+    dense: bool = False,
 ) -> Dict[str, float]:
     """One evaluation pass of `model` (on its own device) over `dataset`;
     returns {'total', 'ints'[, 'rels'][, 'tracks', 'joint'], 'loss'} (ref
     test.py:138-145). `tables` default to the dataset's; numpy arrays or
-    tensors. return_details=True adds 'conf_mat' (the [n_classes,
+    tensors; dense=True takes dense batches and no tables. return_details=True adds 'conf_mat' (the [n_classes,
     n_classes] confusion matrix of the presets that fill it),
     'accumulator' and, where there is one, 'rels_accumulator'. A data
     mesh of more than one process is refused (MESH_HOST_EVAL)."""
@@ -186,17 +191,20 @@ def evaluate(
     conf_mat = np.zeros((dataset.n_classes, dataset.n_classes))
     losses = []
     device = next(model.parameters()).device
-    if tables is None:
+    if tables is None and not dense:
         tables = dataset.tables.as_dict()
-    it = BatchIterator(dataset, cfg.optim.batch_size, shuffle=False)
+    it = BatchIterator(dataset, cfg.optim.batch_size, shuffle=False,
+                       dense=dense)
     dispatch.record("eval_loop", "host", mode,
-                    {"batch_size": cfg.optim.batch_size})
+                    {"batch_size": cfg.optim.batch_size, "dense": dense})
     loss_rng = (torch.Generator(device=device) if t.tr_cat_distr
                 else None)
     model.eval()
     with torch.inference_mode():
-        tables = _device_tables(tables, device)
-        embedded = embed_all(model, bundle.spec, tables)
+        embedded = None
+        if not dense:
+            tables = _device_tables(tables, device)
+            embedded = embed_all(model, bundle.spec, tables)
         for batch in it:
             if len(np.atleast_1d(batch["labels"])) == 1:
                 continue  # ref test.py:38-39

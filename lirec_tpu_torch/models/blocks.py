@@ -1,8 +1,15 @@
-"""Shared model building blocks (counterpart of lirec_tpu/models/blocks.py)."""
+"""Shared model building blocks (counterpart of lirec_tpu/models/blocks.py).
+
+The packed paths gather per-modality rows from the feature tables
+(models/tabular.py, models/hybrid.py); the dense path slices a
+reference-layout row ``[text | visual | track1 | track2]`` into a
+`FeatSlices` (``slices_from_dense``) and runs the same ``nn.Linear``s over
+it (``modality_embed``).
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -15,7 +22,29 @@ from lirec_tpu_torch.models.layers import (
     linear,
 )
 
-__all__ = ["GatingUnit", "init_modality_mlps", "init_gate", "gate_apply"]
+__all__ = ["FeatSlices", "slices_from_dense", "GatingUnit",
+           "init_modality_mlps", "modality_embed", "init_gate", "gate_apply"]
+
+
+class FeatSlices(NamedTuple):
+    text: torch.Tensor  # [..., text_dim]
+    visual: torch.Tensor  # [..., visual_dim]
+    track1: torch.Tensor  # [..., track_dim]
+    track2: torch.Tensor  # [..., track_dim]
+
+    def index(self, *idx) -> "FeatSlices":
+        return FeatSlices(*(a[idx] for a in self))
+
+
+def slices_from_dense(features: torch.Tensor, spec) -> FeatSlices:
+    """Split a reference-layout row [text | visual | track1 | track2]."""
+    t, v, k = spec.text_dim, spec.visual_dim, spec.track_dim
+    return FeatSlices(
+        text=features[..., :t],
+        visual=features[..., t: t + v],
+        track1=features[..., t + v: t + v + k],
+        track2=features[..., t + v + k:],
+    )
 
 
 def init_modality_mlps(spec, prefix: str,
@@ -36,6 +65,28 @@ def init_modality_mlps(spec, prefix: str,
         name % prefix: init_linear(i, o, generator)
         for name, (i, o) in shapes.items()
     }
+
+
+def modality_embed(model: nn.Module, prefix: str, s: FeatSlices, spec,
+                   rng: DropoutRng, deterministic: bool) -> torch.Tensor:
+    """linear -> dropout -> relu -> linear per modality over slices with
+    any leading axes, concatenated [txt j | vis j | tr1 j/2 | tr2 j/2]
+    (ref mlp/model.py:152-169), with the per-modality ``nn.Linear``s of
+    `model` (``init_modality_mlps``' names under `prefix`)."""
+    p = spec.dropout
+    cdt = compute_dtype(spec)
+
+    def two_layer(name1, name2, x):
+        h = linear(model.get_submodule(name1 % prefix), x, cdt)
+        h = torch.relu(dropout(h, p, rng, deterministic))
+        return linear(model.get_submodule(name2 % prefix), h, cdt)
+
+    return torch.cat([
+        two_layer("txt_%s", "txt2_%s", s.text),
+        two_layer("vis_%s", "vis2_%s", s.visual),
+        two_layer("tracks1_%s", "tracks12_%s", s.track1),
+        two_layer("tracks2_%s", "tracks22_%s", s.track2),
+    ], dim=-1)
 
 
 class GatingUnit(nn.Module):

@@ -5,8 +5,9 @@ Ported: the packed forwards of the mid-fusion presets (``int_rel_ch``,
 text-only ablation): at eval the embed-then-gather path over embedded
 tables (models/tabular.py) with the eval sweep's ctx localisation keys, in
 training the hybrid path (models/hybrid.py), with the batch-local tables
-of data/localize.py; and the loss each preset trains with. The dense
-forwards are a later slice, and say so.
+of data/localize.py; the dense forwards over reference-layout
+``features`` rows (models/midfusion.py, models/modalities.py), the JAX
+package's parity oracle; and the loss each preset trains with.
 """
 
 from __future__ import annotations
@@ -18,8 +19,13 @@ from torch import nn
 
 from lirec_tpu_torch.models import hybrid, tabular
 from lirec_tpu_torch.models import losses as losses_lib
-from lirec_tpu_torch.models.midfusion import init_midfusion
-from lirec_tpu_torch.models.modalities import init_modalities
+from lirec_tpu_torch.models.blocks import slices_from_dense
+from lirec_tpu_torch.models.midfusion import (
+    init_midfusion, midfusion_forward, midfusion_maxtracks_forward,
+)
+from lirec_tpu_torch.models.modalities import (
+    init_modalities, modalities_forward,
+)
 from lirec_tpu_torch.models.spec import ModelSpec
 
 __all__ = ["ModelBundle", "create_model", "apply_model"]
@@ -38,7 +44,9 @@ def apply_model(
 ) -> Dict:
     """Forward of a packed batch (``feat_idx`` index triples resolved
     against ``tables``, or at eval against their ``embedded`` form from
-    models/tabular.embed_all).
+    models/tabular.embed_all), or of a dense one (``features`` rows in the
+    reference layout; `tables`, `embedded`, `use_kernel` and
+    `use_tabular` do not apply, and no kernel runs).
 
     At eval (deterministic, the default) the embed-then-gather path runs;
     use_tabular=False, or deterministic=False with a dropout generator
@@ -54,10 +62,7 @@ def apply_model(
     of ``feat_idx`` only and launches no kernel.
     """
     if "feat_idx" not in batch:
-        raise NotImplementedError(
-            "lirec_tpu_torch ports the packed forwards only; dense "
-            "`features` batches are not ported yet"
-        )
+        return _apply_dense(model, spec, batch, deterministic, rng)
     if use_tabular is None:
         use_tabular = deterministic
     device = next(model.parameters()).device
@@ -115,6 +120,31 @@ def apply_model(
     return forward(model, spec, tables, feat_idx, rels_mask,
                    deterministic=deterministic, rng=rng,
                    use_kernel=use_kernel)
+
+
+def _apply_dense(model: nn.Module, spec: ModelSpec, batch: Dict,
+                 deterministic: bool, rng: Optional[torch.Generator]) -> Dict:
+    """The dense forwards (the features branch of the JAX package's
+    apply_model): the Modalities model reads the GT row, MaxTracks a
+    ctx-off [B, T, D] batch as [B, T, 1, D]."""
+    device = next(model.parameters()).device
+    s = slices_from_dense(torch.as_tensor(batch["features"],
+                                          dtype=torch.float32,
+                                          device=device), spec)
+    if spec.mod_check:
+        if s.text.dim() == 3:  # [B, 1, D] -> the GT row
+            s = s.index(slice(None), 0)
+        return modalities_forward(model, spec, s, deterministic, rng)
+    rels_mask = batch.get("rels_mask")
+    if rels_mask is not None:
+        rels_mask = torch.as_tensor(rels_mask, dtype=torch.float32,
+                                    device=device)
+    if spec.tr_maximize:
+        if s.text.dim() == 3:  # ctx-off dense [B, T, D] -> [B, T, 1, D]
+            s = type(s)(*(a[:, :, None, :] for a in s))
+        return midfusion_maxtracks_forward(model, spec, s, rels_mask,
+                                           deterministic, rng)
+    return midfusion_forward(model, spec, s, rels_mask, deterministic, rng)
 
 
 def _make_loss(cfg, n_rels: int) -> Callable:

@@ -5,19 +5,23 @@ per-modality 2-layer MLPs on the GT feature row, concatenated, tanh +
 dropout, a linear head. The modality subset (``'m'`` / ``'t'`` / ``'v'``)
 and the optional track branches follow the reference flags. The eval
 forward over the tables is models/tabular.modalities_tabular, the training
-forward models/hybrid.modalities_hybrid; the dense forward is not ported.
+forward models/hybrid.modalities_hybrid, and ``modalities_forward`` the
+dense forward over reference-layout GT rows.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from lirec_tpu_torch.models.layers import init_linear
+from lirec_tpu_torch.models.blocks import FeatSlices
+from lirec_tpu_torch.models.layers import (
+    DropoutRng, compute_dtype, dropout, init_linear, linear,
+)
 
-__all__ = ["Modalities", "init_modalities"]
+__all__ = ["Modalities", "init_modalities", "modalities_forward"]
 
 
 class Modalities(nn.Module):
@@ -58,3 +62,37 @@ def init_modalities(spec, generator: torch.Generator) -> Modalities:
         out_dim += j
     layers["out_ints"] = init_linear(out_dim, spec.n_classes, generator)
     return Modalities(layers).eval()
+
+
+def modalities_forward(model: nn.Module, spec, s: FeatSlices,
+                       deterministic: bool = True,
+                       rng: Optional[torch.Generator] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """s: GT-row slices with leading batch axes [B]; rng: the dropout
+    generator. Returns {'inters': [B, C]}. The track branches run whenever
+    ``spec.tracks`` is on, as in the JAX package, so the dropout calls keep
+    its order (txt, vis, tr1, tr2, the output)."""
+    drop = DropoutRng(rng)
+    p = spec.dropout
+    cdt = compute_dtype(spec)
+
+    def two_layer(n1, n2, x):
+        h = linear(model.get_submodule(n1), x, cdt)
+        h = torch.relu(dropout(h, p, drop, deterministic))
+        return linear(model.get_submodule(n2), h, cdt)
+
+    txt = vis = None
+    if spec.modality in ("m", "t"):
+        txt = two_layer("txt_ints", "txt2_ints", s.text)
+    if spec.modality in ("m", "v"):
+        vis = two_layer("vis_ints", "vis2_ints", s.visual)
+    if spec.tracks:
+        tr1 = two_layer("tracks1_ints", "tracks12_ints", s.track1)
+        tr2 = two_layer("tracks2_ints", "tracks22_ints", s.track2)
+    if spec.modality == "m":
+        out = torch.cat([txt, vis] + ([tr1, tr2] if spec.tracks else []),
+                        dim=-1)
+    else:
+        out = txt if spec.modality == "t" else vis
+    out = dropout(torch.tanh(out), p, drop, deterministic)
+    return {"inters": linear(model.out_ints, out, cdt)}

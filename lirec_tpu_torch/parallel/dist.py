@@ -232,8 +232,10 @@ def _rank_main(fn, args, rank_id, world_size, init, device, backend,
         torch.save(RankResult(value, dispatch.launches())._asdict(),
                    out_path)
     except BaseException:
+        # the time first: spawn reports the rank that failed first (a
+        # failure ends the other ranks' collectives, and they fail after)
         with open(out_path + ".err", "w") as f:
-            f.write(traceback.format_exc())
+            f.write("%d\n%s" % (time.time_ns(), traceback.format_exc()))
         raise
     finally:
         td = _group()
@@ -270,8 +272,11 @@ def spawn(fn: Callable, world_size: int, devices: str = "cpu",
             os.remove(store)  # a FileStore file is for one group only
         outs = [os.path.join(workdir, "rank%d.pt" % r)
                 for r in range(world_size)]
+        # not daemonic, so that a rank may start worker processes of its
+        # own (data/pipeline.AssemblyPool); the finally below stops every
+        # rank on failure and at the deadline
         procs = [ctx.Process(
-            target=_rank_main, daemon=True,
+            target=_rank_main, daemon=False,
             args=(fn, tuple(args), r, world_size, "file://" + store, devices,
                   backend, timeout or DEFAULT_TIMEOUT, outs[r]))
             for r in range(world_size)]
@@ -292,8 +297,9 @@ def spawn(fn: Callable, world_size: int, devices: str = "cpu",
 
 
 def _join(procs, outs, timeout: Optional[float]) -> None:
-    """Wait for every rank; raise on the first one that fails, or when the
-    deadline (if any) passes."""
+    """Wait for every rank; raise when one fails (naming the rank that
+    failed first, _first_failure), or when the deadline (if any)
+    passes."""
     deadline = None if timeout is None else time.monotonic() + timeout
     pending = {p.sentinel: r for r, p in enumerate(procs)}
     while pending:
@@ -308,15 +314,34 @@ def _join(procs, outs, timeout: Optional[float]) -> None:
             r = pending.pop(sentinel)
             procs[r].join()
             if procs[r].exitcode != 0:
+                r = _first_failure(procs, outs, r)
                 raise RuntimeError("rank %d of %d failed:\n%s" % (
                     r, len(procs), _traceback(outs[r] + ".err",
-                                              procs[r].exitcode)))
+                                              procs[r].exitcode)[1]))
 
 
-def _traceback(path: str, exitcode) -> str:
-    """The traceback a failed rank wrote, or what is known without one."""
+def _first_failure(procs, outs, r: int, grace: float = 10.0) -> int:
+    """The rank that failed first, given that rank `r` has failed: the
+    others get `grace` seconds to end (a failed rank breaks its peers'
+    collectives), then the earliest traceback written wins. A rank `r`
+    that died without writing one (a signal) is the cause itself."""
+    if _traceback(outs[r] + ".err", None)[0] is None:
+        return r
+    end = time.monotonic() + grace
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    written = [(_traceback(o + ".err", None)[0], q)
+               for q, o in enumerate(outs)]
+    return min((t, q) for t, q in written if t is not None)[1]
+
+
+def _traceback(path: str, exitcode):
+    """(the time it was written in ns, the traceback) of a failed rank,
+    or (None, what is known without one)."""
     try:
         with open(path) as f:
-            return f.read()
+            stamp, text = f.read().split("\n", 1)
+        return int(stamp), text
     except FileNotFoundError:
-        return "(no traceback: the process ended with code %s)" % exitcode
+        return None, ("(no traceback: the process ended with code %s)"
+                      % exitcode)

@@ -59,10 +59,12 @@ def make_dp_train_step(bundle, optimizer, mesh: dist.DataMesh,
     batch's loss: train/loop.make_train_step over the data axis `mesh`.
     `batch` is the global host batch (every rank passes the same one; a
     ragged one is padded here to `batch_size`, which must divide by the
-    data axis), `tables` this rank's device tables. deterministic=True
-    turns dropout off."""
+    data axis), or this rank's rows of the padded global batch as
+    data/pipeline.prefetch_to_device staged them; `tables` this rank's
+    device tables (None for dense batches). deterministic=True turns
+    dropout off."""
     from lirec_tpu_torch.train.loop import (
-        _pad_batch, _to_device, check_indices,
+        _pad_batch, _to_device, check_batch, staged,
     )
 
     if batch_size % mesh.size:
@@ -77,11 +79,11 @@ def make_dp_train_step(bundle, optimizer, mesh: dist.DataMesh,
         device_ids=[device.index] if device.type == "cuda" else None)
 
     def step(batch, tables, generators, tr_sum_max_flag=True):
-        check_indices(batch, tables["text"].shape[0],
-                      tables["track"].shape[0])
-        if len(batch["labels"]) != batch_size:
-            batch = _pad_batch(batch, batch_size)
-        batch = _to_device(local_batch(batch, mesh), device)
+        if not staged(batch, device):
+            check_batch(batch, tables)
+            if len(batch["labels"]) != batch_size:
+                batch = _pad_batch(batch, batch_size)
+            batch = _to_device(local_batch(batch, mesh), device)
         optimizer.zero_grad(set_to_none=True)
         with dist.sharded_batch(mesh):
             loss = ddp(batch, tables, generators, tr_sum_max_flag,

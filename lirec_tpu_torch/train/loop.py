@@ -2,13 +2,19 @@
 lirec_tpu/train/loop.py), eager, one step per batch.
 
 Per epoch: the shuffled batches of data/pipeline.EpochIterator (size-1
-batches skipped, ref :55-56), localized together to batch-local tables
-(data/localize.Localizer), a ragged last batch padded to the full batch
-size with ``loss_weight`` 0 (one batch shape per epoch; padded rows drop
-out of every loss mean), then one forward + loss + backward + Adam step
-each. Step i of epoch e draws its dropout masks and its loss sampling from
-two ``torch.Generator``s seeded from (seed, e * 100003 + i), as the JAX
-package folds its key. The ``tr_sum_max`` curriculum flips at epoch 20
+batches skipped, ref :55-56; ``assembly_workers`` > 0 assembles them in
+an AssemblyPool of worker processes, bitwise the same batches), localized
+together to batch-local tables (data/localize.Localizer), a ragged last
+batch padded to the full batch size with ``loss_weight`` 0 (one batch
+shape per epoch; padded rows drop out of every loss mean), then staged on
+the device ahead of their steps (data/pipeline.prefetch_to_device: pinned
+memory and a side copy stream on a card) and one forward + loss +
+backward + Adam step each. ``dense=True`` trains on dense batches (the
+reference layout, the JAX package's parity oracle): no tables, no
+Localizer, batches streamed rather than collected per epoch, and the
+cadence runs the host loop over dense batches. Step i of epoch e draws
+its dropout masks and its loss sampling from two ``torch.Generator``s
+seeded from (seed, e * 100003 + i), as the JAX package folds its key. The ``tr_sum_max`` curriculum flips at epoch 20
 (ref :49-51).
 
 Every ``test_fr`` epochs, with a ``val_dataset``, the cadence evaluation
@@ -37,12 +43,12 @@ As in the JAX package, the epoch iterator starts at epoch 0 whatever
 ``start_epoch`` is: a resumed run replays the shuffle order of epoch 0
 onwards while its step generators follow the true epoch (ROADMAP.md queue
 3). Not ported, and raised rather than skipped: a mesh with a ``model``
-axis, and dense batches. The one-dispatch epoch sweep of the JAX package
-is not ported.
+axis. The one-dispatch epoch sweep of the JAX package is not ported.
 """
 
 from __future__ import annotations
 
+import collections
 import os.path as ops
 import time
 from typing import Dict, Optional
@@ -54,7 +60,9 @@ from lirec_tpu_torch.checkpoint.saver import (
     BACKENDS, BestNSaver, save_train_state_any,
 )
 from lirec_tpu_torch.data.localize import Localizer
-from lirec_tpu_torch.data.pipeline import EpochIterator
+from lirec_tpu_torch.data.pipeline import (
+    EpochIterator, local_batch, prefetch_to_device,
+)
 from lirec_tpu_torch.evaluation.packed import evaluate_packed
 from lirec_tpu_torch.evaluation.runner import MESH_HOST_EVAL, evaluate
 from lirec_tpu_torch.parallel import dist
@@ -63,7 +71,8 @@ from lirec_tpu_torch.utils.meters import Averaging, MetricsLogger
 
 __all__ = ["train", "make_train_step", "train_loss", "step_generators"]
 
-MODEL_KEYS = ("feat_idx", "rels_mask", "uniq_clip", "uniq_track")
+MODEL_KEYS = ("features", "feat_idx", "rels_mask", "uniq_clip",
+              "uniq_track")
 
 
 def step_generators(seed: int, offset: int, device):
@@ -93,6 +102,22 @@ def check_indices(batch: Dict, n_clips: int, n_tracks: int) -> None:
             raise ValueError("%s index out of range [0, %d)" % (name, n))
 
 
+def check_batch(batch: Dict, tables: Optional[Dict]) -> None:
+    """check_indices of a packed host batch against `tables`; a dense
+    batch has no row ids."""
+    if tables is not None and "feat_idx" in batch:
+        check_indices(batch, tables["text"].shape[0],
+                      tables["track"].shape[0])
+
+
+def staged(batch: Dict, device) -> bool:
+    """True for a batch of tensors on `device`'s type (as
+    data/pipeline.prefetch_to_device stages them, checked before), False
+    for a host batch."""
+    return all(isinstance(v, torch.Tensor) and v.device.type == device.type
+               for v in batch.values())
+
+
 def _to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
             for k, v in batch.items()}
@@ -116,16 +141,17 @@ def make_train_step(bundle, optimizer, deterministic: bool = False):
     """step(batch, tables, generators, tr_sum_max_flag=True) -> loss: one
     forward (dropout on unless deterministic) + loss + backward +
     optimizer step of ``bundle.model`` on a host batch (checked, then
-    moved to the model's device). `tables`: the feature tables as tensors
-    on that device; `generators`: (dropout, loss) from
-    ``step_generators``. parallel/step.make_dp_train_step is its
-    data-parallel form."""
+    moved to the model's device) or on one that
+    data/pipeline.prefetch_to_device staged there. `tables`: the feature
+    tables as tensors on that device (None for dense batches);
+    `generators`: (dropout, loss) from ``step_generators``.
+    parallel/step.make_dp_train_step is its data-parallel form."""
     device = next(bundle.model.parameters()).device
 
     def step(batch, tables, generators, tr_sum_max_flag=True):
-        check_indices(batch, tables["text"].shape[0],
-                      tables["track"].shape[0])
-        batch = _to_device(batch, device)
+        if not staged(batch, device):
+            check_batch(batch, tables)
+            batch = _to_device(batch, device)
         optimizer.zero_grad(set_to_none=True)
         loss = train_loss(bundle, batch, tables, generators,
                           tr_sum_max_flag, deterministic)
@@ -182,6 +208,7 @@ def train(
     localize_tables: Optional[bool] = None,
     eval_localize=None,
     checkpoint_backend: str = "torch",
+    assembly_workers: int = 0,
 ) -> Dict:
     """Run the epoch loop on ``bundle.model``'s device; returns {'model',
     'optimizer', 'saver', 'losses' (mean per epoch), 'final_path',
@@ -193,11 +220,10 @@ def train(
     train checkpoint or checkpoint.opt_state_from_jax). `eval_localize` is
     the cadence sweep's ``localize_ctx``. `mesh`: a parallel/dist.DataMesh
     or a (data, model) shape over this process group. `checkpoint_backend`:
-    'torch' (.pth.tar) or 'msgpack' (the JAX package's .ckpt files)."""
+    'torch' (.pth.tar) or 'msgpack' (the JAX package's .ckpt files).
+    `assembly_workers`: the epoch iterator's worker processes (0: in this
+    process); `dense`: train on dense batches, without tables."""
     o, t = cfg.optim, cfg.tasks
-    if dense:
-        raise NotImplementedError("lirec_tpu_torch.train does not port "
-                                  "yet: dense batches")
     if mesh is not None:
         mesh = dist.make_mesh(mesh)
         if host_eval:
@@ -207,15 +233,16 @@ def train(
     suffix = BACKENDS[checkpoint_backend]
     model = bundle.model
     device = next(model.parameters()).device
-    if tables is None:
+    if tables is None and not dense:
         tables = train_dataset.tables.as_dict()
-    tables = {k: torch.as_tensor(tables[k], dtype=torch.float32,
-                                 device=device)
-              for k in ("text", "visual", "track")}
+    if tables is not None:
+        tables = {k: torch.as_tensor(tables[k], dtype=torch.float32,
+                                     device=device)
+                  for k in ("text", "visual", "track")}
     if optimizer is None:
         optimizer = make_optimizer(model.parameters(), o.lr, o.weight_decay)
     localizer = None
-    if localize_tables is not False:
+    if localize_tables is not False and tables is not None and not dense:
         localizer = Localizer(bundle.spec,
                               n_clips=tables["text"].shape[0],
                               n_tracks=tables["track"].shape[0],
@@ -227,7 +254,8 @@ def train(
 
         step = make_dp_train_step(bundle, optimizer, mesh, o.batch_size)
     iterator = EpochIterator(train_dataset, o.batch_size, seed=o.seed,
-                             drop_last=drop_last)
+                             drop_last=drop_last, dense=dense,
+                             workers=assembly_workers)
     tr_sum_max_flag = t.tr_sum_max_flag
     metrics_log = MetricsLogger(metrics_log_path if lead else None)
     store = cfg.paths.store_root
@@ -236,10 +264,11 @@ def train(
     eval_data: Dict[int, Dict] = {}
 
     def cadence_eval(ds, mode, tables=None):
-        # datasets without the packed interface keep the host loop
-        if host_eval or not hasattr(ds, "materialize"):
+        # datasets without the packed interface, and dense runs, keep the
+        # host loop
+        if host_eval or dense or not hasattr(ds, "materialize"):
             return evaluate(ds, bundle, model, cfg, mode=mode, tables=tables,
-                            verbose=verbose, mesh=mesh)
+                            verbose=verbose, mesh=mesh, dense=dense)
         # each split materialized once for the whole run (the train split's
         # eval-time context draws are frozen with it)
         data = eval_data.get(id(ds))
@@ -261,61 +290,87 @@ def train(
             fn(*args)
         dist.barrier("after a checkpoint")
 
-    losses = []
-    for epoch in range(start_epoch, o.epochs):
-        if t.tr_sum_max and epoch >= 20:
-            tr_sum_max_flag = True  # curriculum flip (ref :49-51)
-        batch_time, data_time, loss_meter = (Averaging(), Averaging(),
-                                             Averaging())
-        start = end = time.time()
-        batches = _collect_batches(iterator)
-        if localizer is not None:
-            batches = localizer.maybe_localize(batches)
-        data_time.update(time.time() - end)
-        epoch_losses = []
-        for i, batch in enumerate(batches):
+    def host_batches(batches, sizes):
+        """Each batch padded, checked and (under a mesh) cut to this
+        rank's rows, its unpadded size appended to `sizes`."""
+        for batch in batches:
             n = batch["labels"].shape[0]
             if n != o.batch_size:
                 batch = _pad_batch(batch, o.batch_size)
-            loss = step(batch, tables,
-                        step_generators(o.seed, epoch * 100003 + i, device),
-                        tr_sum_max_flag=tr_sum_max_flag)
-            loss = float(loss)
-            epoch_losses.append(loss)
-            loss_meter.update(loss, n)
-            batch_time.update(time.time() - end)
-            end = time.time()
-            if verbose and i and i % 10 == 0:
-                print("Epoch: [%d][%d/%d]\tTime %.3f (%.3f)\tLoss %.4f "
-                      "(%.4f)" % (epoch, i, len(batches), batch_time.val,
-                                  batch_time.avg, loss_meter.val,
-                                  loss_meter.avg))
-        losses.append(float(np.mean(epoch_losses)) if epoch_losses else 0.0)
-        if verbose:
-            print("epoch %d loss: %f (%.2fs)"
-                  % (epoch, losses[-1], time.time() - start))
-        metrics_log.log({"epoch": epoch, "loss": losses[-1],
-                         "batch_time_avg": batch_time.avg,
-                         "data_time_avg": data_time.avg})
+            check_batch(batch, tables)
+            if mesh is not None:
+                batch = local_batch(batch, mesh)
+            sizes.append(n)
+            yield batch
 
-        if epoch % o.test_fr == 0 and val_dataset is not None:
-            # each dataset evaluates with its own tables; only the train
-            # split reuses the training ones (ref :75-91)
-            cadence_eval(train_dataset, "train", tables=tables)
-            check_val = {k: v for k, v in cadence_eval(
-                val_dataset, "val").items() if k != "loss"}
-            if saver.check(check_val):
-                saver.update(check_val, dict(train_state(), epoch=epoch),
-                             epoch)
-                if test_dataset is not None:
-                    cadence_eval(test_dataset, "test")
-        if o.save_model and o.save_model_often and epoch % 30 == 0:
-            write(saver.save)
-        if checkpoint_every and store and (epoch + 1) % checkpoint_every == 0:
-            # a resumable state (the reference has no failure recovery,
-            # SURVEY.md 5.3); --auto-resume picks it up
-            write(save_train_state_any, ops.join(store, "latest" + suffix),
-                  model, optimizer, epoch, checkpoint_backend)
+    losses = []
+    try:
+        for epoch in range(start_epoch, o.epochs):
+            if t.tr_sum_max and epoch >= 20:
+                tr_sum_max_flag = True  # curriculum flip (ref :49-51)
+            batch_time, data_time, loss_meter = (Averaging(), Averaging(),
+                                                 Averaging())
+            start = end = time.time()
+            if localizer is not None:
+                # the Localizer sizes its tables over the whole epoch
+                batches = localizer.maybe_localize(
+                    _collect_batches(iterator))
+            else:
+                # streamed: a dense epoch does not fit in host memory
+                batches = (b for b in iterator
+                           if (b["labels"].shape[0] if b["labels"].ndim
+                               else 1) > 1)
+            sizes = collections.deque()
+            epoch_losses = []
+            for i, batch in enumerate(prefetch_to_device(
+                    host_batches(batches, sizes), device)):
+                data_time.update(time.time() - end)
+                n = sizes.popleft()
+                loss = step(batch, tables, step_generators(
+                    o.seed, epoch * 100003 + i, device),
+                    tr_sum_max_flag=tr_sum_max_flag)
+                loss = float(loss)
+                epoch_losses.append(loss)
+                loss_meter.update(loss, n)
+                batch_time.update(time.time() - end)
+                end = time.time()
+                if verbose and i and i % 10 == 0:
+                    print("Epoch: [%d][%d/%d]\tTime %.3f (%.3f)\tData %.3f "
+                          "(%.3f)\tLoss %.4f (%.4f)"
+                          % (epoch, i, len(iterator), batch_time.val,
+                             batch_time.avg, data_time.val, data_time.avg,
+                             loss_meter.val, loss_meter.avg))
+            losses.append(float(np.mean(epoch_losses)) if epoch_losses
+                          else 0.0)
+            if verbose:
+                print("epoch %d loss: %f (%.2fs)"
+                      % (epoch, losses[-1], time.time() - start))
+            metrics_log.log({"epoch": epoch, "loss": losses[-1],
+                             "batch_time_avg": batch_time.avg,
+                             "data_time_avg": data_time.avg})
+
+            if epoch % o.test_fr == 0 and val_dataset is not None:
+                # each dataset evaluates with its own tables; only the
+                # train split reuses the training ones (ref :75-91)
+                cadence_eval(train_dataset, "train", tables=tables)
+                check_val = {k: v for k, v in cadence_eval(
+                    val_dataset, "val").items() if k != "loss"}
+                if saver.check(check_val):
+                    saver.update(check_val, dict(train_state(), epoch=epoch),
+                                 epoch)
+                    if test_dataset is not None:
+                        cadence_eval(test_dataset, "test")
+            if o.save_model and o.save_model_often and epoch % 30 == 0:
+                write(saver.save)
+            if (checkpoint_every and store
+                    and (epoch + 1) % checkpoint_every == 0):
+                # a resumable state (the reference has no failure
+                # recovery, SURVEY.md 5.3); --auto-resume picks it up
+                write(save_train_state_any,
+                      ops.join(store, "latest" + suffix), model, optimizer,
+                      epoch, checkpoint_backend)
+    finally:
+        iterator.close()  # stop the assembly workers
 
     final_path = ""
     if o.save_model and store:

@@ -2,8 +2,11 @@
 (lirec_tpu/cli/common.py): the PRNG flags parse and change nothing,
 --coordinator and --process-id alone are accepted and change nothing (as
 in the JAX package; with --num-processes they form a process group:
-tests/test_torch_dist_cli.py), the flags of features not ported yet refuse
-to run by the ROADMAP.md item that ports them, and --auto-resume refuses a
+tests/test_torch_dist_cli.py), --profile and --assembly-workers are
+accepted (what they do: tests/test_torch_profiling.py,
+tests/test_torch_assembly_pool.py and the training CLI case below), the
+flags of features not ported yet refuse to run by the ROADMAP.md item that
+ports them, and --auto-resume refuses a
 store root whose only train state is the JAX package's Orbax latest.ckpt
 instead of starting over beside it (its msgpack latest.ckpt resumes:
 tests/test_torch_jax_checkpoints.py).
@@ -25,9 +28,11 @@ DIM_ARGS = ["--text-dim", "16", "--visual-dim", "32", "--text-layers", "4",
 JAX_FLAGS = [
     ("--fast-prng", None, None),
     ("--strict-prng", None, None),
-    ("--profile", "trace_dir", "'the rest of training'"),
+    ("--profile", "trace_dir", None),
+    ("--assembly-workers", "2", None),
     ("--coordinator", "localhost:1234", None),
     ("--process-id", "0", None),
+    ("--ingest-cache", "x.npz", "'the remaining CLIs and ingest artifacts'"),
 ]
 
 
@@ -57,10 +62,10 @@ def test_jax_flags_parse(preset, flag, value, item):
 @pytest.mark.parametrize("flag,value,item", JAX_FLAGS)
 def test_jax_flags_accepted_or_refused_by_name(tmp_path, flag, value, item):
     """The PRNG flags pass the refusal (the port has one dropout stream),
-    and so do --coordinator and --process-id without --num-processes;
-    --profile refuses to run, naming the queue item, before any data is
-    read. The JAX defaults ("", "", -1) given explicitly are not
-    refused."""
+    and so do --profile, --assembly-workers, and --coordinator and
+    --process-id without --num-processes; --ingest-cache refuses to run,
+    naming the queue item, before any data is read. The JAX defaults
+    ("", "", -1) given explicitly are not refused."""
     base = ["--data-root", str(tmp_path / "no_data"), "--train"]
     parser = common.build_parser("int_rel_ch")
     if item is None:
@@ -108,3 +113,25 @@ def test_auto_resume_takes_latest_pth_tar(synth_root, tmp_path):
     assert resumed["train"]["start_epoch"] == 1
     assert len(resumed["train"]["losses"]) == 1
     assert np.isfinite(resumed["train"]["losses"][0])
+
+
+@pytest.mark.parametrize("mesh", [[], ["--mesh", "2x1"]])
+def test_train_cli_with_assembly_workers(synth_root, tmp_path, monkeypatch,
+                                         mesh):
+    """--assembly-workers 2 with no assembly plan (LIREC_TPU_NO_PLAN=1):
+    the training CLI's losses are the in-process run's, in one process
+    bitwise, and under --mesh 2x1 (each rank runs its own pool: the ranks
+    are not daemonic) within the data-parallel contract's rtol 1e-5."""
+    monkeypatch.setenv("LIREC_TPU_NO_PLAN", "1")
+    monkeypatch.setattr(common, "SPAWN_TIMEOUT", 300)
+    base = ["--data-root", synth_root, "--batch-size", "8", "--device",
+            "cpu", "--quiet", "--sanity-check", "--lr", "1e-3", "--epochs",
+            "2"] + DIM_ARGS
+    want = train_cli.main(base + ["--store-root", str(tmp_path / "a")])
+    got = train_cli.main(base + ["--store-root", str(tmp_path / "b"),
+                                 "--assembly-workers", "2"] + mesh)
+    if mesh:
+        np.testing.assert_allclose(got["train"]["losses"],
+                                   want["train"]["losses"], rtol=1e-5)
+    else:
+        assert got["train"]["losses"] == want["train"]["losses"]

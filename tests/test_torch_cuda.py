@@ -494,6 +494,117 @@ def test_one_train_step_on_the_card(cuda, compute):
         assert not torch.equal(p.detach(), before[n]), n
 
 
+def _small_int_rel_ch(compute, device):
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.models.factory import create_model
+
+    cfg = config_lib.preset("int_rel_ch").with_dims(
+        text_dim=32, visual_dim=64, joint_dim=256).with_runtime(
+        compute_dtype=compute)
+    return cfg, create_model(cfg, 9, n_rels=6, seed=0, device=device)
+
+
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_prefetched_steps_are_bitwise_the_host_steps(cuda, compute):
+    """data/pipeline.prefetch_to_device stages each batch in pinned memory
+    and copies it on a side stream: three train steps on the staged
+    batches give bitwise the losses and parameters of the same steps on
+    host batches."""
+    from lirec_tpu_torch.data.pipeline import prefetch_to_device
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
+
+    batches = None
+    runs = []
+    for prefetch in (False, True):
+        _, pb = _small_int_rel_ch(compute, cuda)
+        if batches is None:
+            batches = [make_batch(pb.spec, 4, 64, 96, seed=s)
+                       for s in range(3)]
+            tables = {k: torch.from_numpy(v).to(cuda)
+                      for k, v in make_tables(pb.spec, 64, 96).items()}
+        step = make_train_step(pb, make_optimizer(pb.model.parameters(),
+                                                  1e-3))
+        source = prefetch_to_device(iter(batches), cuda) if prefetch \
+            else batches
+        losses = []
+        for i, batch in enumerate(source):
+            if prefetch:
+                assert all(t.is_cuda for t in batch.values())
+            losses.append(step(batch, tables, step_generators(0, i, cuda)))
+        torch.cuda.synchronize()
+        runs.append((torch.stack(losses), {n: p.detach().clone() for n, p
+                                           in pb.model.named_parameters()}))
+    (want, want_p), (got, got_p) = runs
+    assert torch.equal(got, want)
+    for n, p in want_p.items():
+        assert torch.equal(got_p[n], p), n
+
+
+def test_prefetch_stages_from_pinned_memory(cuda, monkeypatch):
+    """Every array is pinned before its copy, and the yielded tensors
+    hold the host values."""
+    import numpy as np
+
+    from lirec_tpu_torch.data import pipeline
+
+    pinned = []
+    orig = torch.Tensor.pin_memory
+
+    def spy(t, *a, **kw):
+        out = orig(t, *a, **kw)
+        pinned.append(out.is_pinned())
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "pin_memory", spy)
+    host = [{"a": np.arange(12, dtype=np.float32).reshape(3, 4) + i,
+             "b": np.full(5, i, np.int32)} for i in range(4)]
+    got = list(pipeline.prefetch_to_device(iter(host), cuda, size=2))
+    assert pinned == [True] * 8
+    for g, h in zip(got, host):
+        for k in h:
+            assert g[k].is_cuda
+            np.testing.assert_array_equal(g[k].cpu().numpy(), h[k])
+
+
+@pytest.mark.parametrize("compute,atol", [("float32", 1e-5),
+                                          ("bfloat16", 2e-3)])
+def test_dense_forward_matches_the_packed_forward(cuda, compute, atol):
+    """The dense forward (reference-layout rows gathered on the card) and
+    the packed eval forward (embed, then the pool kernel) on the same
+    samples agree within 1e-5 (f32) / 2e-3 (bf16) of the logits' scale;
+    the packed one launched the pool kernel."""
+    from lirec_tpu_torch.models.tabular import embed_all
+    from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
+
+    _, pb = _small_int_rel_ch(compute, cuda)
+    tables = {k: torch.from_numpy(v).to(cuda)
+              for k, v in make_tables(pb.spec, 64, 96, seed=1).items()}
+    batch = make_batch(pb.spec, 8, 64, 96, seed=3)
+    packed = {k: torch.from_numpy(batch[k]).to(cuda)
+              for k in ("feat_idx", "rels_mask")}
+    idx = packed["feat_idx"].long()
+    dense = {"features": torch.cat([tables["text"][idx[..., 0]],
+                                    tables["visual"][idx[..., 0]],
+                                    tables["track"][idx[..., 1]],
+                                    tables["track"][idx[..., 2]]], dim=-1),
+             "rels_mask": packed["rels_mask"]}
+    dtype = torch.bfloat16 if compute == "bfloat16" else torch.float32
+    name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+    with torch.no_grad():
+        embedded = embed_all(pb.model, pb.spec, tables)
+        launches = dispatch.launches(name)
+        want = pb.apply(pb.model, packed, tables=tables, embedded=embedded)
+        torch.cuda.synchronize()
+        assert dispatch.launches(name) == launches + 1
+        got = pb.apply(pb.model, dense)
+    for key in ("inters", "rels"):
+        scale = float(want[key].abs().max())
+        err = float((got[key] - want[key]).abs().max())
+        assert err <= atol * max(scale, 1.0), (key, err, scale)
+
+
 # ------------------------------------------------ the probes, kernels 9-10
 
 

@@ -354,8 +354,9 @@ def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
     seeded weights: finite metric dicts for both splits, the same with
     --host-eval; --mesh with --host-eval and --num-processes without
     --coordinator refuse with the JAX package's messages (--mesh 2x1 runs:
-    tests/test_torch_dist_cli.py); flags of what is not ported, and an
-    Orbax checkpoint directory, refuse to run."""
+    tests/test_torch_dist_cli.py); --assembly-workers, which only the
+    training batches use, leaves the metrics as they are; flags of what is
+    not ported, and an Orbax checkpoint directory, refuse to run."""
     from lirec_tpu_torch.cli import common, int_rel_ch
 
     ckpt = tmp_path / "weights.pth.tar"
@@ -383,11 +384,13 @@ def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
     for extra, match in ((["--mesh", "2x1", "--host-eval"],
                           "drop --host-eval"),
                          (["--num-processes", "2"], "needs --coordinator"),
-                         (["--assembly-workers", "2"], "AssemblyPool"),
                          (["--checkpoint-backend", "orbax"], "orbax"),
-                         (["--ingest-cache", "x.npz"], "--ingest-cache")):
+                         (["--ingest-cache", "x.npz"],
+                          "--ingest-cache.*'the remaining CLIs and ingest "
+                          "artifacts'")):
         with pytest.raises(SystemExit, match=match):
             int_rel_ch.main(args + extra)
+    assert int_rel_ch.main(args + ["--assembly-workers", "2"]) == out
     bad = list(args)
     orbax = tmp_path / "2.ckpt"
     orbax.mkdir()  # the JAX package's Orbax checkpoints are directories

@@ -6,7 +6,9 @@ own msgpack decoder and encoder); neither do the rank processes that
 parallel/dist.spawn starts, nor the rank functions of the two-rank tests
 (tests/torch_dist_worker.py); and
 chip_smoke.py refuses to run without a CUDA card or without the repository
-around it."""
+around it. The assembly worker processes (data/pipeline.AssemblyPool)
+import none of it either.
+"""
 
 import ast
 import os
@@ -73,6 +75,18 @@ bundle = create_model(cfg, ds.n_classes, n_rels=max(len(ds.rels_list) - 1, 0),
 out = train(cfg, bundle, ds, verbose=False, localize_tables=True)
 assert out["localized_tables"], out
 print("LOSSES", out["losses"])
+
+# the assembly workers: one epoch from a pool of 2 (no plan), and what a
+# worker has imported after unpickling the dataset, and which cards it sees
+from lirec_tpu_torch.data.pipeline import ASSEMBLY, AssemblyPool
+from lirec_tpu_torch.ops import dispatch
+from tests import torch_dist_worker
+os.environ["LIREC_TPU_NO_PLAN"] = "1"
+train(cfg, bundle, ds, verbose=False, assembly_workers=2)
+with AssemblyPool(ds, 1) as pool:
+    facts = pool._pool.apply(torch_dist_worker.pool_worker_facts)
+del os.environ["LIREC_TPU_NO_PLAN"]
+print("POOL", dispatch.decisions(ASSEMBLY).get("pool", 0), facts)
 
 dims = ["--text-dim", "16", "--visual-dim", "32", "--text-layers", "4",
         "--joint-dim", "16"]
@@ -170,7 +184,9 @@ def _jax_text_only_ckpt(root, path):
 def test_train_runs_with_jax_blocked(tmp_path):
     """In a process where importing jax, jaxlib, optax, flax, msgpack or
     anything of lirec_tpu raises, on a fixture from the port's own
-    generator: one epoch of the port's train(), the serve CLI's engine
+    generator: one epoch of the port's train(), one more from two assembly
+    workers (which report no foreign import after unpickling the dataset,
+    and an empty CUDA_VISIBLE_DEVICES), the serve CLI's engine
     builder, the int_rel_ch eval CLI, one epoch of the training CLI with
     cadence evaluation and checkpoints, the two probes on the CPU (the
     run-time paths: assembly plan, Localizer, native libraries, eval
@@ -192,6 +208,7 @@ def test_train_runs_with_jax_blocked(tmp_path):
     assert "TRAIN_CLI [" in proc.stdout, proc.stdout
     assert "TEXT_ONLY ['test', 'val']" in proc.stdout, proc.stdout
     assert "RANKS [[], []]" in proc.stdout, proc.stdout
+    assert "POOL 1 ([], '')" in proc.stdout, proc.stdout
 
 
 def _imported_modules(path):

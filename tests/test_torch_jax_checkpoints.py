@@ -34,6 +34,7 @@ from lirec_tpu_torch.cli import common
 from lirec_tpu_torch.cli import train as train_cli
 from lirec_tpu_torch.models.factory import create_model
 from lirec_tpu_torch.train.optim import make_optimizer
+from tests.jax_cache_guard import isolated_xla_cache  # noqa: F401
 
 DIM_ARGS = ["--text-dim", "16", "--visual-dim", "32", "--text-layers", "4",
             "--joint-dim", "16", "--compute-dtype", "float32"]

@@ -20,6 +20,7 @@ from lirec_tpu_torch.checkpoint import params_from_jax
 from lirec_tpu_torch.models.factory import create_model
 from lirec_tpu_torch.models.modalities import Modalities
 from lirec_tpu_torch.models.tabular import embed_all
+from tests.jax_cache_guard import isolated_xla_cache  # noqa: F401
 
 N_CLIPS, N_TRACKS, N_CLASSES = 40, 60, 9
 DIM_ARGS = ["--text-dim", "16", "--visual-dim", "32", "--text-layers", "4",

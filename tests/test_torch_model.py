@@ -194,11 +194,23 @@ def test_midfusion_slice_unguarded_empty_context():
 
 
 def test_apply_rejects_what_is_not_ported():
+    """Dense `features` batches, refused before, now run through the dense
+    forwards, for the mid-fusion and the Modalities models (parity with
+    the JAX package: tests/test_torch_dense.py); a row of the wrong width
+    is refused by the first layer."""
     _, pb = _pair()
-    with pytest.raises(NotImplementedError, match="dense"):
+    s = pb.spec
+    width = s.text_dim + s.visual_dim + 2 * s.track_dim
+    out = pb.apply(pb.model, {
+        "features": np.zeros((2, 3, 5, width), np.float32),
+        "rels_mask": np.ones((2, 3, 4), np.float32)})
+    assert tuple(out["inters"].shape) == (2, 3, s.n_classes)
+    assert tuple(out["rels"].shape) == (2, 3, s.n_rels)
+    with pytest.raises(RuntimeError):
         pb.apply(pb.model, {"features": np.zeros((1, 4), np.float32)})
-    # the modalities model is ported (tests/test_torch_modalities.py); its
-    # dense batches are not
     mod = create_model(config_lib.preset("modalities"), 9, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense"):
-        mod.apply(mod.model, {"features": np.zeros((1, 4), np.float32)})
+    s = mod.spec
+    width = s.text_dim + s.visual_dim + 2 * s.track_dim
+    out = mod.apply(mod.model, {"features": np.zeros((2, 1, width),
+                                                     np.float32)})
+    assert tuple(out["inters"].shape) == (2, 9)

@@ -255,3 +255,32 @@ def grads_of(leaves):
     not reach one)."""
     return {k: (np.zeros(v.shape, np.float32) if v.grad is None
                 else v.grad.numpy()) for k, v in leaves.items()}
+
+
+def pool_worker_facts():
+    """(the foreign modules of foreign_modules(), CUDA_VISIBLE_DEVICES as
+    the process sees it), from inside a data/pipeline.AssemblyPool
+    worker, which has unpickled the dataset."""
+    import os
+
+    from lirec_tpu_torch.data import pipeline
+
+    assert pipeline._POOL_DATASET is not None
+    return foreign_modules(), os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def pool_train_rank(root, state_path, workers):
+    """train() over a data mesh of the whole group with `workers` assembly
+    workers in this rank (int_rel_ch train split, batch 8, 2 epochs,
+    dropout 0, lr 1e-3); returns (losses per epoch, this rank's batch
+    assembly decisions)."""
+    from lirec_tpu_torch.data.pipeline import ASSEMBLY
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.train.loop import train
+
+    cfg, ds = port_setup(root, "int_rel_ch", "train", 8, epochs=2,
+                         save_model=False, lr=1e-3, dropout=0.0)
+    bundle = _bundle(cfg, ds, state_path)
+    got = train(cfg, bundle, ds, verbose=False, mesh=(dist.world(), 1),
+                assembly_workers=workers)
+    return got["losses"], dispatch.decisions(ASSEMBLY)
