@@ -206,6 +206,7 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 HOLD_CYCLES = 1 << 21  # about 1 ms of spinning at the H100's clock
 DIST_TIMEOUT = 300  # seconds for phase 16(b)'s two ranks, start to join
 DIST_STEPS = 3  # phase 16(b)'s deterministic data-parallel steps
+FIXTURE_HASH_SEED = "7"  # the string-hash seed of every synthetic fixture
 # phase 17(d)'s runs of phase 7's steps, host batches against prefetched
 # ones in alternating pairs
 PREFETCH_TURNS = ("plain", "prefetch", "prefetch", "plain", "plain",
@@ -236,6 +237,19 @@ def card_line():
     ).stdout.strip().splitlines()
     check(out, "nvidia-smi printed no card")
     return out[0]
+
+
+def write_fixture(root, **spec):
+    """``synthetic.generate(root, SyntheticSpec(**spec))`` in a child
+    process under PYTHONHASHSEED=7: the generator orders some rows by set
+    iteration, so its files change with the string-hash seed, and with
+    them the losses of the phases that train on the fixture."""
+    code = ("import json, sys; from lirec_tpu_torch.data import synthetic; "
+            "synthetic.generate(sys.argv[1], "
+            "synthetic.SyntheticSpec(**json.loads(sys.argv[2])))")
+    subprocess.run([sys.executable, "-c", code, root, json.dumps(spec)],
+                   cwd=ROOT, check=True, timeout=600,
+                   env=dict(os.environ, PYTHONHASHSEED=FIXTURE_HASH_SEED))
 
 
 # --------------------------------------------------------------- kernels
@@ -831,12 +845,11 @@ def main_path(torch):
 
 def entry_point(torch):
     """Phase 5: the CLI's own engine builder on a synthetic fixture."""
-    from lirec_tpu_torch.data import synthetic
     from lirec_tpu_torch.utils.fake_batch import make_batch
     from lirec_tpu_torch.cli.serve import build_engine_from_args, make_parser
 
     with tempfile.TemporaryDirectory() as root:
-        synthetic.generate(root)
+        write_fixture(root)
         args = make_parser().parse_args([
             "--data-root", root, "--text-dim", "16", "--visual-dim", "32",
             "--text-layers", "4", "--joint-dim", "16", "--device", "cuda",
@@ -1144,7 +1157,7 @@ def train_entry(torch):
     from lirec_tpu_torch.train.loop import train
 
     with tempfile.TemporaryDirectory() as root:
-        synthetic.generate(root)
+        write_fixture(root)
         base = synthetic.make_config(root)
         cfg = config_lib.preset("int_rel_ch", data_root=root)
         cfg = cfg.replace(dims=base.dims, paths=base.paths).with_optim(
@@ -1376,12 +1389,11 @@ def eval_cli(torch):
     import math
 
     from lirec_tpu_torch.cli import common, int_rel_ch
-    from lirec_tpu_torch.data import synthetic
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.ops import dispatch
 
     with tempfile.TemporaryDirectory() as root:
-        synthetic.generate(root)
+        write_fixture(root)
         ckpt = os.path.join(root, "weights.pth.tar")
         args = ["--data-root", root, "--resume-path", ckpt,
                 "--batch-size", "8", "--device", "cuda", "--quiet",
@@ -1576,7 +1588,6 @@ def train_cli_phase(torch):
     from lirec_tpu_torch.cli import int_rel_ch
     from lirec_tpu_torch.cli import train as train_cli
     from lirec_tpu_torch.checkpoint.saver import load_train_state
-    from lirec_tpu_torch.data import synthetic
     from lirec_tpu_torch.ops import dispatch, scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
 
@@ -1585,8 +1596,7 @@ def train_cli_phase(torch):
 
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        synthetic.generate(root, synthetic.SyntheticSpec(
-            text_dim=768, visual_dim=2048, text_layers=12))
+        write_fixture(root, **PUBLISHED_FIXTURE)
         log("  fixture of published feature widths written in %.1f s"
             % (time.perf_counter() - t0))
         store = os.path.join(root, "store")
@@ -2856,12 +2866,10 @@ def main():
     log("== 12. the training CLI at published widths (counted run)")
     train_cli_phase(torch)
 
-    from lirec_tpu_torch.data import synthetic
-
     card = card_line()
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        synthetic.generate(root, synthetic.SyntheticSpec(**PUBLISHED_FIXTURE))
+        write_fixture(root, **PUBLISHED_FIXTURE)
         log("  (phases 13-17) fixture of published feature widths written "
             "in %.1f s" % (time.perf_counter() - t0))
         log("== 13. modalities at published widths: serve, train, eval "

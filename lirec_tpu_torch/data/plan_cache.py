@@ -24,19 +24,21 @@ exact failure class ops/dispatch.py exists to kill):
 Opt out with ``LIREC_TPU_NO_PLAN_CACHE=1`` (the in-memory build path is
 unchanged). Files live next to the feature cache:
 ``<visual_features>/cached/plans/<mode>_<fingerprint>.npz``, beside the
-JAX package's. The fingerprint pickles the dataset's state, which names
-its classes' modules, so the two packages' fingerprints of the same data
-differ and neither finds the other's file under its own name; a file
-that does reach the other package's loader is held to the same
-fingerprint check and spot check (tests/test_torch_plan_cache.py).
+JAX package's. One file serves both packages: the fingerprint pickles the
+dataset's state, which names its classes' modules, and the port pickles
+each of its own module names as the JAX package's (``_JaxNamesPickler``),
+so both packages hash the same bytes over the same data; each loads the
+other's file through its own spot check (tests/test_torch_plan_cache.py).
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import os
 import pickle
+import types
 import uuid
 from typing import Dict, Optional
 
@@ -53,7 +55,15 @@ _MAX_BYTES = 4 * 1024**3  # the plans directory's budget before pruning
 
 
 def dataset_fingerprint(ds) -> str:
-    """Hash of everything plan building reads.
+    """Hash of everything plan building reads: the JAX package's
+    fingerprint of the same data (``jax_names_dumps`` of
+    ``reduced_state``)."""
+    blob = jax_names_dumps(reduced_state(ds))
+    return hashlib.blake2b(blob, digest_size=16).hexdigest()
+
+
+def reduced_state(ds) -> dict:
+    """What the fingerprint hashes.
 
     The reduced state is the dataset's pickle state with the two
     float-heavy members replaced: `tables` keeps only its dims, row
@@ -68,7 +78,7 @@ def dataset_fingerprint(ds) -> str:
     state.pop("features", None)
     tb = state.pop("tables", None)
     chooser = state.pop("label_chooser", None)
-    reduced = {
+    return {
         "version": PLAN_CACHE_VERSION,
         "state": state,
         "tables": None
@@ -79,12 +89,62 @@ def dataset_fingerprint(ds) -> str:
             tb._clip_index, tb._track_index,
         ),
         "chooser": "%s.%s" % (
-            getattr(chooser, "__module__", ""),
+            _jax_name(getattr(chooser, "__module__", "")),
             getattr(chooser, "__name__", repr(chooser)),
         ),
     }
-    blob = pickle.dumps(reduced, protocol=4)
-    return hashlib.blake2b(blob, digest_size=16).hexdigest()
+
+
+def jax_names_dumps(obj) -> bytes:
+    """``pickle.dumps(obj, protocol=4)`` with the port's modules named as
+    the JAX package's (``_JaxNamesPickler``)."""
+    buf = io.BytesIO()
+    _JaxNamesPickler(buf, protocol=4).dump(obj)
+    return buf.getvalue()
+
+
+_PORT, _JAX = "lirec_tpu_torch", "lirec_tpu"
+
+
+def _jax_name(module: str) -> str:
+    """The JAX package's name of a module of the port (others as they
+    are): the port's modules are copies under its own package."""
+    if module == _PORT or module.startswith(_PORT + "."):
+        return _JAX + module[len(_PORT):]
+    return module
+
+
+class _JaxNamesPickler(pickle._Pickler):
+    """The pure-Python pickler, writing every global of the port under
+    the JAX package's module name: its bytes are those of the JAX
+    package's ``pickle.dumps(reduced, protocol=4)`` over the same data.
+
+    The C pickler memoises each module string *object* it writes (a second
+    class of the same module refers back to it). So each renamed string is
+    made once per original string object and kept with it, which makes the
+    memo here hit where the C pickler's hits: a fresh string each time, or
+    one per module name, would give other bytes."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._renamed = {}  # id(original) -> (original, renamed)
+
+    def save_global(self, obj, name=None):
+        if name is None:
+            name = getattr(obj, "__qualname__", None) or obj.__name__
+        module = pickle.whichmodule(obj, name)
+        if _jax_name(module) == module:
+            return super().save_global(obj, name)
+        if id(module) not in self._renamed:
+            self._renamed[id(module)] = (module, _jax_name(module))
+        self.save(self._renamed[id(module)][1])
+        self.save(name)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+    # the base class's table binds its own save_global to functions
+    dispatch = dict(pickle._Pickler.dispatch)
+    dispatch[types.FunctionType] = save_global
 
 
 def cache_path(ds, fingerprint: str) -> Optional[str]:

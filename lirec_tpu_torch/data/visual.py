@@ -19,11 +19,22 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["VisualFeatureReader", "roi_pool_tracks"]
+__all__ = ["VisualFeatureReader", "roi_pool_tracks", "check_width"]
 
 # Face-to-person bbox expansion ratios (ref visual_features.py:115-117).
 FH0, FH1 = 0.10, 0.25
 FW0, FW1 = 0.35, 0.65
+
+
+def check_width(features: np.ndarray, visual_dim: int) -> None:
+    """Refuse I3D features [T, C, h, w] whose C is not `visual_dim` (a
+    dataset configured for another feature width than the files have)."""
+    if features.shape[1] != visual_dim:
+        raise ValueError(
+            "roi_pool_tracks: the features have %d channels "
+            "(features.shape[1]) but visual_dim is %d; the dataset's "
+            "visual_dim must be the feature files' width"
+            % (features.shape[1], visual_dim))
 
 
 def roi_pool_tracks(
@@ -34,7 +45,9 @@ def roi_pool_tracks(
     visual_dim: int,
 ) -> np.ndarray:
     """Per-track-element person-bbox mean pooling over the feature grid
-    (ref visual_features.py:105-135). features: [T, C, h, w]."""
+    (ref visual_features.py:105-135). features: [T, C, h, w], C =
+    `visual_dim`."""
+    check_width(features, visual_dim)
     out = np.zeros((len(track), visual_dim), dtype=features.dtype)
     hgrid, wgrid = features.shape[2], features.shape[3]
     sh, sw = hgrid / resolution[0], wgrid / resolution[1]

@@ -9,6 +9,8 @@ from typing import List
 
 import numpy as np
 
+from lirec_tpu_torch.data.visual import check_width
+
 _lib = None
 _tried = False
 
@@ -50,7 +52,10 @@ def roi_pool_tracks(
     sampling_fr: float,
     visual_dim: int,
 ) -> np.ndarray:
-    """Drop-in for data.visual.roi_pool_tracks (same semantics)."""
+    """Drop-in for data.visual.roi_pool_tracks (same semantics). The
+    features' channel count must be `visual_dim`: the native op writes C
+    columns per row into rows `visual_dim` wide."""
+    check_width(features, visual_dim)
     lib = _load()
     feats = np.ascontiguousarray(features, dtype=np.float32)
     elems = np.array(

@@ -176,3 +176,31 @@ def test_text_only_dataset_is_identical(synth_root, mode, html):
         dense_w, dense_g = jd.to_dense(want), pd.to_dense(got)
         np.testing.assert_array_equal(dense_g["features"],
                                       dense_w["features"])
+
+
+def test_roi_pool_refuses_another_width(tmp_path):
+    """Features 2048 channels wide read with visual_dim=32: both of the
+    port's ROI pools raise by name (the native one used to write 2048
+    columns into rows 32 wide and corrupt the heap), and so does a
+    dataset configured narrower than its feature files."""
+    from lirec_tpu_torch.data import visual
+    from lirec_tpu_torch.native import bindings
+
+    feats = np.random.default_rng(0).standard_normal(
+        (3, 2048, 3, 4)).astype(np.float32)
+    track = [dict(x=40.0, y=30.0, w=20.0, h=24.0, frame=16)]
+    for pool in (visual.roi_pool_tracks, bindings.roi_pool_tracks):
+        with pytest.raises(ValueError, match="roi_pool_tracks.*2048.*32"):
+            pool(feats, track, [240, 320], 0.0625, 32)
+    np.testing.assert_array_equal(
+        bindings.roi_pool_tracks(feats, track, [240, 320], 0.0625, 2048),
+        visual.roi_pool_tracks(feats, track, [240, 320], 0.0625, 2048))
+
+    root = str(tmp_path / "wide")
+    port_synthetic.generate(root, port_synthetic.SyntheticSpec(visual_dim=64))
+    base = port_synthetic.make_config(root)  # visual_dim 32
+    cfg = port_config.preset("int_rel_ch", data_root=root)
+    ds = PortDataset(cfg.replace(dims=base.dims, paths=base.paths),
+                     mode="val")
+    with pytest.raises(ValueError, match="64 channels.*visual_dim is 32"):
+        ds.cache()

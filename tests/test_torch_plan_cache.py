@@ -10,11 +10,9 @@ two packages write beside each other:
    fail the load-time bitwise spot check and are deleted, and the env
    opt-out writes nothing;
 3. the JAX package's files and the port's: the two fingerprints of the
-   same data differ (each pickles its own classes' module names), so
-   neither package finds the other's file under its own name; a file of
-   the other package under this one's name fails the fingerprint check,
-   and the other package's plan arrays stamped with this one's
-   fingerprint load only through the bitwise spot check.
+   same data are equal (the port pickles its modules under the JAX
+   package's names), so both packages use one file, and each loads the
+   other's through its own bitwise spot check.
 """
 
 import os
@@ -24,6 +22,7 @@ import pytest
 
 from lirec_tpu import config as jax_config
 from lirec_tpu.data import plan_cache as jax_plan_cache
+from lirec_tpu.data import synthetic as jax_synthetic
 from lirec_tpu.data.dataset import InteractionDataset as JaxDataset
 from lirec_tpu.ops import dispatch as jax_dispatch
 from lirec_tpu_torch import config as config_lib
@@ -44,9 +43,9 @@ def root(tmp_path_factory):
 
 
 def _dataset(root, mode="train", chooser=None, jax=False):
-    base = synthetic.make_config(root)
-    lib, dataset = ((jax_config, JaxDataset) if jax
-                    else (config_lib, InteractionDataset))
+    lib, syn, dataset = ((jax_config, jax_synthetic, JaxDataset) if jax
+                         else (config_lib, synthetic, InteractionDataset))
+    base = syn.make_config(root)
     cfg = lib.preset("int_rel_ch", data_root=root)
     cfg = cfg.replace(dims=base.dims, paths=base.paths)
     kw = {} if chooser is None else {"label_chooser": chooser}
@@ -163,55 +162,77 @@ def test_incompatible_dataset_skips_cache(root):
 
 
 def test_the_jax_packages_files_are_checked_or_ignored(root):
-    """Both packages over the same data: different fingerprints and file
-    names, each builds and saves its own; the JAX package's file under the
-    port's name is rejected by the fingerprint check (and the port's under
-    the JAX package's name by the JAX loader); the JAX package's plan
-    arrays stamped with the port's fingerprint pass the port's bitwise spot
-    check and assemble the port's per-sample batches."""
-    port_ds, jax_ds = _dataset(root), _dataset(root, jax=True)
-    port_fp = plan_cache.dataset_fingerprint(port_ds)
-    jax_fp = jax_plan_cache.dataset_fingerprint(jax_ds)
-    assert port_fp != jax_fp
-    port_path = plan_cache.cache_path(port_ds, port_fp)
-    jax_path = jax_plan_cache.cache_path(jax_ds, jax_fp)
-    assert os.path.dirname(port_path) == os.path.dirname(jax_path)
-    for path in (port_path, jax_path):
+    """Both packages over the same data: equal fingerprints, one file. The
+    port loads the JAX package's file through its bitwise spot check and
+    assembles its own per-sample batches from it; the JAX package loads
+    the port's file through its own; a JAX-written file whose arrays were
+    altered fails the port's spot check and is rebuilt."""
+    for mode in ("train", "val"):
+        port_ds, jax_ds = _dataset(root, mode), _dataset(root, mode, jax=True)
+        port_fp = plan_cache.dataset_fingerprint(port_ds)
+        assert port_fp == jax_plan_cache.dataset_fingerprint(jax_ds)
+        assert plan_cache.reduced_state(port_ds)["chooser"] == \
+            "lirec_tpu.data.dataset.random_choice"
+        path = plan_cache.cache_path(port_ds, port_fp)
+        assert path == jax_plan_cache.cache_path(jax_ds, port_fp)
         if os.path.exists(path):
             os.remove(path)
-    jax_plan = jax_ds.assembly_plan()
-    assert jax_dispatch.last_dispatch("assembly_plan_cache")["reason"] == \
-        "built+saved"
-    port_ds.assembly_plan()
-    assert dispatch.last_dispatch("assembly_plan_cache")["reason"] == \
-        "built+saved"
-    assert os.path.exists(port_path) and os.path.exists(jax_path)
 
-    # the other package's file under this one's name
-    with open(jax_path, "rb") as f:
-        jax_bytes = f.read()
-    with open(port_path, "rb") as f:
-        port_bytes = f.read()
-    with open(port_path, "wb") as f:
-        f.write(jax_bytes)
-    assert plan_cache.load_plan(port_path, port_fp, port_ds) is None
-    assert dispatch.last_dispatch("assembly_plan_cache")["reason"] == \
-        "cache-mismatch"
-    with open(jax_path, "wb") as f:
-        f.write(port_bytes)
-    assert jax_plan_cache.load_plan(jax_path, jax_fp, jax_ds) is None
-    assert jax_dispatch.last_dispatch("assembly_plan_cache")["reason"] == \
-        "cache-mismatch"
+        # the JAX package writes, the port loads
+        jax_plan = jax_ds.assembly_plan()
+        assert jax_dispatch.last_dispatch("assembly_plan_cache")[
+            "reason"] == "built+saved"
+        plan = port_ds.assembly_plan()
+        assert dispatch.last_dispatch("assembly_plan_cache")["reason"] == \
+            "hit+verified"
+        assert plan.n_dynamic == jax_plan.n_dynamic
+        order = np.random.default_rng(1).permutation(len(port_ds))
+        ref = _reference_epoch(port_ds, order, seed=2, epoch=1)
+        for use_native in (True, False):
+            _assert_tree_equal(ref, plan.assemble(order, 2, 1,
+                                                  use_native=use_native))
 
-    # the JAX package's plan arrays, stamped with the port's fingerprint
-    plan_cache.save_plan(port_path, jax_plan, port_fp)
-    plan = plan_cache.load_plan(port_path, port_fp, port_ds)
-    assert plan is not None
+        # the port writes, the JAX package loads
+        os.remove(path)
+        port_ds2, jax_ds2 = (_dataset(root, mode),
+                             _dataset(root, mode, jax=True))
+        port_ds2.assembly_plan()
+        assert dispatch.last_dispatch("assembly_plan_cache")["reason"] == \
+            "built+saved"
+        assert jax_ds2.assembly_plan() is not None
+        assert jax_dispatch.last_dispatch("assembly_plan_cache")[
+            "reason"] == "hit+verified"
+
+    # a JAX-written file of the right fingerprint and altered arrays
+    os.remove(path)
+    jax_plan.static["labels"] = jax_plan.static["labels"].copy()
+    jax_plan.static["labels"][0] += 1
+    jax_plan_cache.save_plan(path, jax_plan, port_fp)
+    assert plan_cache.load_plan(path, port_fp, _dataset(root, "val")) is None
     assert dispatch.last_dispatch("assembly_plan_cache")["reason"] == \
-        "hit+verified"
-    order = np.random.default_rng(1).permutation(len(port_ds))
-    ref = _reference_epoch(port_ds, order, seed=2, epoch=1)
-    for use_native in (True, False):
-        _assert_tree_equal(ref, plan.assemble(order, 2, 1,
-                                              use_native=use_native))
-    os.remove(jax_path)
+        "cache-verify-failed"
+    assert not os.path.exists(path)
+
+
+@pytest.mark.parametrize("preset", ["int_rel_ch", "int_rels", "int_ch",
+                                    "modalities"])
+def test_fingerprints_are_equal(root, preset):
+    """The two packages' fingerprints of every preset's splits are equal:
+    the port's pickle names the JAX package's modules, and its memo
+    refers back where the C pickler's does."""
+    for mode in ("train", "val", "test"):
+        states = []
+        for lib, syn, dataset in (
+                (jax_config, jax_synthetic, JaxDataset),
+                (config_lib, synthetic, InteractionDataset)):
+            base = syn.make_config(root)
+            cfg = lib.preset(preset, data_root=root)
+            ds = dataset(cfg.replace(dims=base.dims, paths=base.paths),
+                         mode=mode)
+            ds.cache()
+            if cfg.tasks.rels or cfg.tasks.rels_multitask:
+                ds.init_relships()
+            states.append(ds)
+        jax_ds, port_ds = states
+        assert plan_cache.dataset_fingerprint(port_ds) == \
+            jax_plan_cache.dataset_fingerprint(jax_ds), mode
