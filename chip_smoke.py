@@ -135,6 +135,24 @@
    the pool kernel and the scatter kernel; (f) the assembly plan's disk
    cache on the fixture: a miss, then a hit on a second dataset, with the
    build and load times.
+18. The remaining CLIs on that fixture, at the published widths: (a)
+   ``cli.ingest.main`` writes the int_rel_ch and int_rels ingest artifacts
+   (seconds, MB); (b) the int_rel_ch eval CLI on a seeded ``.pth.tar``, in
+   bf16 and f32, without ``--ingest-cache``, writing the artifact and
+   loading it (counted runs, kernels 1-2): the three metric dicts equal
+   (counters exactly, floats bitwise), and the datasets' start-up built
+   against loaded; (c) the int_rels eval CLI from its artifact on the card
+   (counted run: kernel 8, the single-table scatter of the relationship
+   score table, at least once per batch) and on the CPU (the plain
+   versions), the same counters; then the test split's sweep carry on the
+   card, its ``rels_table`` bitwise the CPU's in-order sum of the same
+   update rows, its integer counters equal to the CPU sweep's; kernel 8
+   held and timed on that sweep's first batch beside ``index_add_`` and
+   the bound; (d) ``cli.convert_checkpoint.main`` of the int_rel_ch
+   ``.pth.tar`` (18.4M parameters) and the eval CLI on the ``.ckpt``, with
+   (b)'s metrics; (e) ``extract-text --backend fake`` over the fixture's
+   dialogs, ``verify-features check`` of its output and ``graphs-demo``
+   on the fixture's graphs (host checks).
 
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
@@ -160,7 +178,12 @@ the path that launches it: the 3-table pool on the eval sweep's batch
 Localizer's tables (launches: phase 7's steps); the serve path's random
 rows, the giant tables and the split-scale scatter are entries of their
 own (``name@case``); ``name@dist`` entries give phase 16's launches (the
-world of one's and each rank's).
+world of one's and each rank's), ``name@ingest`` phase 18(b)'s, and the
+scatter's ``@int_rels`` entry kernel 8 at phase 18(c)'s sweep.
+
+Every synthetic fixture is written in a child process under a fixed
+string-hash seed (``write_fixture``), so that two runs train on the same
+files.
 """
 
 import dataclasses
@@ -2791,6 +2814,259 @@ def rest_of_training_phase(torch, spec, root, raw, local, train_finals,
     return out
 
 
+PUBLISHED_DIMS = dict(text_dim=768, visual_dim=2048, text_layers=12,
+                      joint_dim=512)
+
+
+def dim_args(dims):
+    return [a for k, v in dims.items()
+            for a in ("--" + k.replace("_", "-"), str(v))]
+
+
+def seeded_checkpoint(torch, root, preset, artifact, path, dims):
+    """A reference-format .pth.tar of seeded weights for `preset` on the
+    fixture, sized by the class counts in its ingest `artifact`. Returns
+    the eval CLI's config of the fixture."""
+    from lirec_tpu_torch.cli import common
+    from lirec_tpu_torch.data.artifact import load_ingest
+    from lirec_tpu_torch.models.factory import create_model
+
+    cfg = common.config_from_args(preset, common.build_parser(
+        preset).parse_args(["--data-root", root] + dim_args(dims)))
+    train = load_ingest(artifact, cfg)["train"]
+    model = create_model(cfg, train.n_classes,
+                         n_rels=max(len(train.rels_list) - 1, 0), seed=0,
+                         device="cpu").model
+    torch.save({"state_dict": model.state_dict(), "epoch": 0}, path)
+    return cfg
+
+
+def ingest_and_eval_clis(torch, root, device, dims):
+    """Phase 18 (a), (b) and (d). Returns (ingest artifacts, launches of
+    (b), the numbers logged)."""
+    from lirec_tpu_torch.cli import common, convert_checkpoint, ingest
+    from lirec_tpu_torch.cli import int_rel_ch
+    from lirec_tpu_torch.data.artifact import load_ingest
+    from lirec_tpu_torch.ops import dispatch
+
+    work = os.path.join(root, "phase18")
+    os.makedirs(work, exist_ok=True)
+    out, arts = {}, {}
+    # (a) the ingest CLI: one artifact per preset
+    for preset in ("int_rel_ch", "int_rels"):
+        arts[preset] = os.path.join(work, "ingest_%s.npz" % preset)
+        t = time.perf_counter()
+        ingest.main(["--data-root", root, "--preset", preset, "--out",
+                     arts[preset]] + dim_args(dims))
+        out["ingest_" + preset] = dict(
+            s=time.perf_counter() - t,
+            MB=os.path.getsize(arts[preset]) / 1e6)
+        log("  (a) cli.ingest.main --preset %s: %.2f s, %.2f MB"
+            % (preset, out["ingest_" + preset]["s"],
+               out["ingest_" + preset]["MB"]))
+
+    # (b) the int_rel_ch eval CLI without an artifact, writing one, and
+    # loading it (counted runs: kernels 1-2)
+    ckpt = os.path.join(work, "int_rel_ch.pth.tar")
+    cfg = seeded_checkpoint(torch, root, "int_rel_ch", arts["int_rel_ch"],
+                            ckpt, dims)
+    base = ["--data-root", root, "--device", device, "--quiet"] + \
+        dim_args(dims)
+    metrics = {}
+    dispatch.reset_launches()
+    for compute in ("bfloat16", "float32"):
+        cache = os.path.join(work, "cli_%s.npz" % compute)
+        args = base + ["--resume-path", ckpt, "--compute-dtype", compute]
+        runs = [int_rel_ch.main(args)]
+        runs.append(int_rel_ch.main(args + ["--ingest-cache", cache]))
+        check(os.path.exists(cache), "--ingest-cache wrote no %s" % cache)
+        written = os.stat(cache).st_mtime_ns
+        runs.append(int_rel_ch.main(args + ["--ingest-cache", cache]))
+        check(os.stat(cache).st_mtime_ns == written,
+              "--ingest-cache rewrote the artifact it should have loaded")
+        # counters exactly and floats bitwise: the same dicts
+        check(runs[0] == runs[1] == runs[2], "%s: the eval CLI's metrics "
+              "without / writing / loading the artifact differ: %s"
+              % (compute, runs))
+        metrics[compute] = runs[0]
+        log("  (b) cli.int_rel_ch.main %s, without / writing / loading "
+            "--ingest-cache: val %s, test %s, all three equal"
+            % (compute, runs[0]["val"], runs[0]["test"]))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launched = dispatch.launches()
+    # the datasets' start-up: built from the fixture against loaded
+    t = time.perf_counter()
+    common.build_datasets(cfg, "int_rel_ch")
+    out["build_datasets_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    load_ingest(arts["int_rel_ch"], cfg)
+    out["load_ingest_s"] = time.perf_counter() - t
+    log("  (b) start-up of the three datasets: build_datasets %.3f s, "
+        "load_ingest %.3f s" % (out["build_datasets_s"],
+                                out["load_ingest_s"]))
+
+    # (d) convert-checkpoint, then the eval CLI on the .ckpt
+    converted = os.path.join(work, "int_rel_ch.ckpt")
+    t = time.perf_counter()
+    convert_checkpoint.main(["--src", ckpt, "--dst", converted])
+    out["convert_s"] = time.perf_counter() - t
+    got = int_rel_ch.main(base + ["--resume-path", converted,
+                                  "--compute-dtype", "bfloat16"])
+    check(got == metrics["bfloat16"], "the eval CLI on the converted .ckpt "
+          "%s != on the .pth.tar %s" % (got, metrics["bfloat16"]))
+    log("  (d) cli.convert_checkpoint.main of %.1f MB: %.2f s; the eval "
+        "CLI on the .ckpt gives (b)'s metrics" % (
+            os.path.getsize(ckpt) / 1e6, out["convert_s"]))
+    return arts, launched, out
+
+
+def int_rels_sweep_checks(torch, root, arts, device, dims):
+    """Phase 18 (c): the int_rels eval CLI from its artifact on `device`
+    (the counted run: kernel 8 once per batch) and on the CPU (the plain
+    versions), then the sweep's rels_table against the CPU's in-order sum
+    of the same update rows. Returns (launches, the test split's recorded
+    scatter calls, the numbers logged)."""
+    import numpy as np
+
+    from lirec_tpu_torch.cli import int_rels
+    from lirec_tpu_torch.data.artifact import load_ingest
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch, scatter_accum
+
+    ckpt = os.path.join(root, "phase18", "int_rels.pth.tar")
+    cfg = seeded_checkpoint(torch, root, "int_rels", arts["int_rels"], ckpt,
+                            dims)
+    args = ["--data-root", root, "--resume-path", ckpt, "--quiet",
+            "--compute-dtype", "float32", "--ingest-cache",
+            arts["int_rels"]] + dim_args(dims)
+    dispatch.reset_launches()
+    card = int_rels.main(args + ["--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launched = dispatch.launches()
+    plain = int_rels.main(args + ["--device", "cpu"])
+    for split in ("val", "test"):
+        for key, v in plain[split].items():
+            if key == "loss":
+                check(abs(card[split][key] - v) <= 1e-5 * abs(v),
+                      "int_rels %s loss %r on %s, %r on the CPU"
+                      % (split, card[split][key], device, v))
+            else:
+                check(card[split][key] == v, "int_rels %s %s %r on %s, %r "
+                      "on the CPU" % (split, key, card[split][key], device,
+                                      v))
+    splits = load_ingest(arts["int_rels"], cfg)
+    B = cfg.optim.batch_size
+    batches = 0
+    for split in ("val", "test"):
+        n_full, tail = divmod(len(splits[split]), B)
+        batches += n_full + (tail > 1)
+    log("  (c) cli.int_rels.main from its artifact on %s and on the CPU: "
+        "val %s, test %s (the same counters); %d batches" % (
+            device, card["val"], card["test"], batches))
+
+    # the test split's carry on the device, every scatter call recorded
+    # (its ids and rows: the running table, then the batch's updates),
+    # and on the CPU
+    ds = splits["test"]
+    state = torch.load(ckpt, map_location="cpu")["state_dict"]
+    carries, calls = {}, []
+    real = scatter_accum.scatter_accum1  # the sweep's step imports it
+
+    def recording(ids, rows, n_rows):
+        calls.append((ids.clone(), rows.clone(), n_rows))
+        return real(ids, rows, n_rows)
+
+    for side, dev in (("device", device), ("cpu", "cpu")):
+        bundle = create_model(cfg, ds.n_classes,
+                              n_rels=max(len(ds.rels_list) - 1, 0),
+                              device=dev)
+        bundle.model.load_state_dict(state)
+        scatter_accum.scatter_accum1 = recording if side == "device" \
+            else real
+        try:
+            carries[side] = packed.sweep_carry(ds, bundle, bundle.model,
+                                               cfg, mode="test")
+        finally:
+            scatter_accum.scatter_accum1 = real
+    check(calls, "the int_rels sweep made no scatter call")
+    table = None
+    for ids, rows, n_rows in calls:
+        rows = rows.cpu()
+        if table is not None:
+            rows = torch.cat([table, rows[n_rows:]])
+        table = scatter_accum.scatter_accum1_reference(ids.cpu(), rows,
+                                                       n_rows)
+    got = carries["device"]
+    check(np.array_equal(table.numpy(), got["rels_table"]),
+          "the sweep's rels_table is not the in-order sum of its updates")
+    for key, v in carries["cpu"].items():
+        if key == "rels_table":
+            check(np.allclose(got[key], v, rtol=1e-5, atol=1e-6),
+                  "rels_table on %s against the CPU sweep's" % device)
+        elif np.issubdtype(v.dtype, np.integer):
+            check(np.array_equal(got[key], v), "carry %s on %s %s, on the "
+                  "CPU %s" % (key, device, got[key], v))
+    diff = float(np.abs(got["rels_table"] - carries["cpu"]["rels_table"])
+                 .max())
+    log("  (c) the test split's rels_table [%d, %d] over %d scatter calls: "
+        "bitwise the CPU's in-order sum of the same update rows; %.3e from "
+        "the CPU sweep's own (other GEMMs), integer counters equal"
+        % (*got["rels_table"].shape, len(calls), diff))
+    return launched, calls, dict(batches=batches, rels_table_vs_cpu=diff)
+
+
+def host_tools_checks(root, dims):
+    """Phase 18 (e): extract-text (fake backend), verify-features check on
+    its output, graphs-demo on the fixture's graphs."""
+    import contextlib
+    import io
+
+    from lirec_tpu_torch.cli import extract_text, graphs_demo
+    from lirec_tpu_torch.cli import verify_features
+    from lirec_tpu_torch.data import synthetic
+
+    text_out = os.path.join(root, "phase18", "bert")
+    t = time.perf_counter()
+    n = extract_text.main(["--data-root", root, "--out-dir", text_out,
+                           "--backend", "fake", "--quiet", "--text-dim",
+                           str(dims["text_dim"]), "--text-layers",
+                           str(dims["text_layers"])])
+    secs = time.perf_counter() - t
+    bad = verify_features.main(["check", "--text-root", text_out])
+    check(n > 0 and bad == [], "extract-text wrote %d scenes, verify-"
+          "features found %s" % (n, bad))
+    graphs = synthetic.make_config(root, synthetic.SyntheticSpec(
+        **PUBLISHED_FIXTURE)).paths.annotations
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = graphs_demo.main([graphs])
+    check(rc == 0, "graphs-demo returned %s" % rc)
+    log("  (e) extract-text --backend fake: %d scenes in %.2f s, verify-"
+        "features check: no mismatch; graphs-demo: exit 0, %d lines"
+        % (n, secs, len(printed.getvalue().splitlines())))
+
+
+def remaining_clis_phase(torch, root, device=DEV, dims=None):
+    """Phase 18 on the published-widths fixture. Returns (launches of (b),
+    launches of (c), kernel 8's entry at the int_rels sweep's shapes, the
+    numbers logged)."""
+    dims = dims or PUBLISHED_DIMS
+    arts, ingest_counts, out = ingest_and_eval_clis(torch, root, device,
+                                                     dims)
+    rels_counts, calls, out["int_rels"] = int_rels_sweep_checks(
+        torch, root, arts, device, dims)
+    host_tools_checks(root, dims)
+    ids, rows, n_rows = calls[0]  # the first batch: table rows + updates
+    idx = ids[:, None].expand(-1, 3).contiguous()
+    entry = scatter_case(torch, "kernel 8 at the int_rels sweep", idx,
+                         [rows], [n_rows], single=True)
+    entry["shapes"] = dict(updates=list(rows.shape), rows=n_rows)
+    return ingest_counts, rels_counts, entry, out
+
+
 def main():
     import torch
 
@@ -2891,6 +3167,12 @@ def main():
             "prefetch, the assembly workers, --profile, the plan cache")
         rest = rest_of_training_phase(torch, spec, root, raw, local,
                                       train_finals, step_ms)
+
+        log("== 18. the remaining CLIs: ingest artifacts, the eval CLIs "
+            "from them, convert-checkpoint, extract-text, verify-features, "
+            "graphs-demo (counted runs)")
+        ingest_counts, int_rels_counts, k8, clis = remaining_clis_phase(
+            torch, root)
 
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
@@ -3006,12 +3288,33 @@ def main():
                             launches=dist_counts[name] + sum(per_rank),
                             world_of_one_launches=dist_counts[name],
                             rank_launches=per_rank))
+    # phase 18: kernels 1-2 through the eval CLI from an ingest artifact,
+    # at the same shapes as their eval entries (whose numbers they repeat),
+    # and kernel 8 on the int_rels sweep's own inputs
+    for dtype in (torch.float32, torch.bfloat16):
+        name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+        check(ingest_counts.get(name, 0) > 0,
+              "%s was not launched by the eval CLI from an artifact" % name)
+        main_entry = next(k for k in kernels if k["name"] == name
+                          and k.get("path") == "eval")
+        kernels.append(dict(main_entry, name=name + "@ingest", path="ingest",
+                            launches=ingest_counts[name]))
+    name = scatter_accum.KERNEL_NAMES[torch.float32]
+    check(int_rels_counts.get(name, 0) >= clis["int_rels"]["batches"],
+          "%s launched %d times by the int_rels sweep of %d batches"
+          % (name, int_rels_counts.get(name, 0), clis["int_rels"]["batches"]))
+    kernels.append(dict(name=name + "@int_rels", route="cuda",
+                        source=SCATTER_CU,
+                        replaces="%s:282" % SCATTER_TPU_SRC,
+                        launches=int_rels_counts[name], path="int_rels",
+                        **k8))
     log("modalities: " + json.dumps(mod))
     log("eval_clips_per_s: " + json.dumps(
         {"%s_%s" % (c, t if t else "off"): v
          for (c, t), v in eval_rates.items()}))
     log("train_ms_per_step: " + json.dumps(step_ms))
     log("rest_of_training: " + json.dumps(rest))
+    log("remaining_clis: " + json.dumps(clis))
     log("latency_ms: " + json.dumps(
         {"%s_B%d" % k: v for k, v in latency.items()}))
     log(json.dumps({"kernels": kernels}))

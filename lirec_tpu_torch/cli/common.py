@@ -37,10 +37,16 @@ of the training run and of each evaluation into DIR (utils/profiling.py:
 ``train.json``, ``val.json``, ``test.json``, with ``.rank<r>`` before
 ``.json`` in a data-parallel rank).
 
-The flags of features the port does not have yet are accepted and refuse
-to run, naming the ROADMAP.md item that ports them. Every flag of the JAX
-package's CLIs parses, so a command line written for it says which
-feature is missing instead of failing in argparse.
+``--ingest-cache PATH`` (evaluation only) starts from a serialized ingest
+artifact (data/artifact.py; written by ``lirec-tpu-torch-ingest`` or by the
+JAX package's ``lirec-tpu-ingest``, the same file): loaded when it exists,
+else the datasets are built and the artifact written, by rank 0 alone
+under ``--mesh`` / ``--num-processes`` (the other ranks use the datasets
+they built).
+
+Every flag of the JAX package's CLIs parses; a feature the port does not
+have (a ``model`` mesh axis, Orbax checkpoints) refuses to run by name
+instead of failing in argparse.
 """
 
 from __future__ import annotations
@@ -66,11 +72,6 @@ TRAIN_SPLIT = {
     "int_rel_ch": "test",
 }
 
-# flag -> the ROADMAP.md queue 1 item that ports its feature; a value other
-# than the flag's default is refused
-NOT_PORTED = {
-    "ingest_cache": "'the remaining CLIs and ingest artifacts'",
-}
 ORBAX = ("the JAX package's Orbax checkpoints (ROADMAP.md, not ported: "
          "their manifest and array nodes are zstd-compressed, and neither "
          "Python's standard library nor this package has zstd)")
@@ -166,9 +167,12 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
                    help="HOST:PORT of process 0 (or a file:// path)")
     p.add_argument("--process-id", type=int, default=-1,
                    help="this process's rank in the group")
-    # not ported yet: accepted, then refused (run_entry)
     p.add_argument("--ingest-cache", default="",
-                   help="not ported yet (refused)")
+                   help="eval-only: path to a serialized ingest artifact "
+                        "(.npz). Loaded when present (skips graph mining "
+                        "and feature pooling entirely); written after a "
+                        "fresh ingest otherwise. Create offline with "
+                        "`python -m lirec_tpu_torch.cli.ingest`.")
     p.add_argument("--profile", default="",
                    help="write a torch.profiler Chrome trace of the "
                         "train/eval work into this directory")
@@ -240,13 +244,7 @@ def load_checkpoint(path: str):
     return load_checkpoint_state(path)
 
 
-def _refuse_unported(parser, args) -> None:
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag) != parser.get_default(flag):
-            raise SystemExit(
-                "--%s is not ported to lirec_tpu_torch yet (ROADMAP.md "
-                "queue 1 %s)" % (flag.replace("_", "-"), item)
-            )
+def _refuse_unported(args) -> None:
     if args.checkpoint_backend == "orbax":
         raise SystemExit("--checkpoint-backend orbax: lirec_tpu_torch does "
                          "not write " + ORBAX)
@@ -337,7 +335,7 @@ def run_entry(preset_name: str, argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser(preset_name)
     args = parser.parse_args(argv)
-    _refuse_unported(parser, args)
+    _refuse_unported(args)
     shape = mesh_shape(args)
     if shape is None or shape[0] == 1:
         return _run(preset_name, args, None)
@@ -373,15 +371,41 @@ def _traced(args, mesh, name: str, fn, /, *fn_args, **kwargs):
         return fn(*fn_args, **kwargs)
 
 
+def _datasets(cfg, preset_name: str, args, mesh, verbose: bool):
+    """The train, val and test datasets: from the --ingest-cache artifact
+    where it exists, else built (and, with --ingest-cache, written to it by
+    rank 0 alone: every rank of a mesh builds the same datasets, and two
+    writers must not race on one file)."""
+    from lirec_tpu_torch.data.artifact import load_ingest, save_ingest
+
+    path = args.ingest_cache
+    if path and not cfg.resume:
+        raise SystemExit(
+            "--ingest-cache serves the eval paths; training draws fresh "
+            "per-epoch context subsets and needs the live dataset"
+        )
+    if path and os.path.exists(path):
+        splits = load_ingest(path, cfg)
+        if verbose:
+            print("loaded ingest artifact: %s" % path)
+        return splits["train"], splits["val"], splits["test"]
+    datasets = build_datasets(cfg, preset_name, workers=args.cache_workers)
+    if path and (mesh is None or mesh.rank == 0):
+        save_ingest(path, cfg, dict(zip(("train", "val", "test"),
+                                        datasets)))
+        if verbose:
+            print("wrote ingest artifact: %s" % path)
+    return datasets
+
+
 def _run(preset_name: str, args, mesh) -> dict:
     """Evaluate or train in this process; with a data `mesh`, as one of
     its ranks (every rank runs this; rank 0 prints)."""
     cfg = config_from_args(preset_name, args)
     resume_from = "" if cfg.resume else _train_state_path(cfg, args)
     verbose = not args.quiet and (mesh is None or mesh.rank == 0)
-    train_ds, val_ds, test_ds = build_datasets(
-        cfg, preset_name, workers=args.cache_workers
-    )
+    train_ds, val_ds, test_ds = _datasets(cfg, preset_name, args, mesh,
+                                          verbose)
     n_rels = max(len(train_ds.rels_list) - 1, 0)
     bundle = create_model(cfg, train_ds.n_classes, n_rels=n_rels,
                           device=args.device)

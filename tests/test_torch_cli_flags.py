@@ -4,9 +4,9 @@
 in the JAX package; with --num-processes they form a process group:
 tests/test_torch_dist_cli.py), --profile and --assembly-workers are
 accepted (what they do: tests/test_torch_profiling.py,
-tests/test_torch_assembly_pool.py and the training CLI case below), the
-flags of features not ported yet refuse to run by the ROADMAP.md item that
-ports them, and --auto-resume refuses a
+tests/test_torch_assembly_pool.py and the training CLI case below), so is
+--ingest-cache (what it does: tests/test_torch_ingest.py), and
+--auto-resume refuses a
 store root whose only train state is the JAX package's Orbax latest.ckpt
 instead of starting over beside it (its msgpack latest.ckpt resumes:
 tests/test_torch_jax_checkpoints.py).
@@ -24,7 +24,8 @@ from lirec_tpu_torch.cli import train as train_cli
 DIM_ARGS = ["--text-dim", "16", "--visual-dim", "32", "--text-layers", "4",
             "--joint-dim", "16", "--compute-dtype", "float32"]
 
-# flag, value (None: store_true), the refusal's item title (None: accepted)
+# flag, value (None: store_true), the refusal's item title (None: accepted;
+# every flag of the JAX package's CLIs is ported)
 JAX_FLAGS = [
     ("--fast-prng", None, None),
     ("--strict-prng", None, None),
@@ -32,7 +33,7 @@ JAX_FLAGS = [
     ("--assembly-workers", "2", None),
     ("--coordinator", "localhost:1234", None),
     ("--process-id", "0", None),
-    ("--ingest-cache", "x.npz", "'the remaining CLIs and ingest artifacts'"),
+    ("--ingest-cache", "x.npz", None),
 ]
 
 
@@ -62,22 +63,16 @@ def test_jax_flags_parse(preset, flag, value, item):
 @pytest.mark.parametrize("flag,value,item", JAX_FLAGS)
 def test_jax_flags_accepted_or_refused_by_name(tmp_path, flag, value, item):
     """The PRNG flags pass the refusal (the port has one dropout stream),
-    and so do --profile, --assembly-workers, and --coordinator and
-    --process-id without --num-processes; --ingest-cache refuses to run,
-    naming the queue item, before any data is read. The JAX defaults
-    ("", "", -1) given explicitly are not refused."""
+    and so do --profile, --assembly-workers, --coordinator and --process-id
+    without --num-processes, and --ingest-cache. The JAX defaults ("", "",
+    -1) given explicitly are not refused."""
+    assert item is None
     base = ["--data-root", str(tmp_path / "no_data"), "--train"]
     parser = common.build_parser("int_rel_ch")
-    if item is None:
-        common._refuse_unported(parser,
-                                parser.parse_args(base + _argv(flag, value)))
-    else:
-        with pytest.raises(SystemExit, match=item) as err:
-            common.run_entry("int_rel_ch", base + _argv(flag, value))
-        assert flag in str(err.value)
+    common._refuse_unported(parser.parse_args(base + _argv(flag, value)))
     defaults = base + ["--profile", "", "--coordinator", "",
                        "--process-id", "-1"]
-    common._refuse_unported(parser, parser.parse_args(defaults))
+    common._refuse_unported(parser.parse_args(defaults))
 
 
 @pytest.mark.parametrize("as_dir", [True])

@@ -10,6 +10,8 @@ held against the plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -355,8 +357,9 @@ def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
     --host-eval; --mesh with --host-eval and --num-processes without
     --coordinator refuse with the JAX package's messages (--mesh 2x1 runs:
     tests/test_torch_dist_cli.py); --assembly-workers, which only the
-    training batches use, leaves the metrics as they are; flags of what is
-    not ported, and an Orbax checkpoint directory, refuse to run."""
+    training batches use, and --ingest-cache (written, then loaded) leave
+    the metrics as they are; --checkpoint-backend orbax and an Orbax
+    checkpoint directory refuse to run."""
     from lirec_tpu_torch.cli import common, int_rel_ch
 
     ckpt = tmp_path / "weights.pth.tar"
@@ -384,13 +387,15 @@ def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
     for extra, match in ((["--mesh", "2x1", "--host-eval"],
                           "drop --host-eval"),
                          (["--num-processes", "2"], "needs --coordinator"),
-                         (["--checkpoint-backend", "orbax"], "orbax"),
-                         (["--ingest-cache", "x.npz"],
-                          "--ingest-cache.*'the remaining CLIs and ingest "
-                          "artifacts'")):
+                         (["--checkpoint-backend", "orbax"], "orbax")):
         with pytest.raises(SystemExit, match=match):
             int_rel_ch.main(args + extra)
     assert int_rel_ch.main(args + ["--assembly-workers", "2"]) == out
+    # an ingest artifact, written by the first run and loaded by the second
+    art = str(tmp_path / "ingest.npz")
+    for _ in range(2):
+        assert int_rel_ch.main(args + ["--ingest-cache", art]) == out
+    assert os.path.exists(art)
     bad = list(args)
     orbax = tmp_path / "2.ckpt"
     orbax.mkdir()  # the JAX package's Orbax checkpoints are directories
