@@ -223,7 +223,8 @@ EVAL_ROUNDS = 5
 RELS_BUCKETS = (2, 4, 8, 16, 32, 64)  # the rels-only eval's clip buckets
 RELS_TAIL = 13  # rows of each bucket's last flush
 PUBLISHED_FIXTURE = dict(text_dim=768, visual_dim=2048, text_layers=12)
-DEV = "cuda"  # the device of phases 13-15
+PUBLISHED_DIMS = dict(PUBLISHED_FIXTURE, joint_dim=512)  # the CLIs' widths
+DEV = "cuda"  # the device of phases 13-15 and 18
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 HOLD_CYCLES = 1 << 21  # about 1 ms of spinning at the H100's clock
@@ -2814,10 +2815,6 @@ def rest_of_training_phase(torch, spec, root, raw, local, train_finals,
     return out
 
 
-PUBLISHED_DIMS = dict(text_dim=768, visual_dim=2048, text_layers=12,
-                      joint_dim=512)
-
-
 def dim_args(dims):
     return [a for k, v in dims.items()
             for a in ("--" + k.replace("_", "-"), str(v))]
@@ -3049,11 +3046,10 @@ def host_tools_checks(root, dims):
         % (n, secs, len(printed.getvalue().splitlines())))
 
 
-def remaining_clis_phase(torch, root, device=DEV, dims=None):
-    """Phase 18 on the published-widths fixture. Returns (launches of (b),
-    launches of (c), kernel 8's entry at the int_rels sweep's shapes, the
-    numbers logged)."""
-    dims = dims or PUBLISHED_DIMS
+def remaining_clis_phase(torch, root, device, dims):
+    """Phase 18 on the published-widths fixture, the CLIs at `dims` on
+    `device`. Returns (launches of (b), launches of (c), kernel 8's entry
+    at the int_rels sweep's shapes, the numbers logged)."""
     arts, ingest_counts, out = ingest_and_eval_clis(torch, root, device,
                                                      dims)
     rels_counts, calls, out["int_rels"] = int_rels_sweep_checks(
@@ -3172,7 +3168,7 @@ def main():
             "from them, convert-checkpoint, extract-text, verify-features, "
             "graphs-demo (counted runs)")
         ingest_counts, int_rels_counts, k8, clis = remaining_clis_phase(
-            torch, root)
+            torch, root, DEV, PUBLISHED_DIMS)
 
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
