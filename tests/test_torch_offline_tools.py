@@ -136,7 +136,9 @@ def test_verify_features_copy_and_check(synth_root, tmp_path, capsys):
         n = mod.main(["copy", "--src", src, "--dst", dst])
         again = mod.copy_features(src, dst, verbose=False)  # idempotent
         clean = mod.main(["check", "--text-root", dst])
-        movie = sorted(os.listdir(dst))[0]
+        # a scene of the first movie (other tests may add directories
+        # beside the movies of the session's fixture)
+        movie = sorted(d for d in os.listdir(dst) if d.startswith("tt"))[0]
         files = sorted(f for f in os.listdir(ops.join(dst, movie))
                        if f.endswith(".npy"))
         path = ops.join(dst, movie, files[0])
