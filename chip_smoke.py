@@ -140,8 +140,11 @@
    (seconds, MB); (b) the int_rel_ch eval CLI on a seeded ``.pth.tar``, in
    bf16 and f32, without ``--ingest-cache``, writing the artifact and
    loading it (counted runs, kernels 1-2): the three metric dicts equal
-   (counters exactly, floats bitwise), and the datasets' start-up built
-   against loaded; (c) the int_rels eval CLI from its artifact on the card
+   (counters exactly, floats bitwise); the f32 artifact through the plain
+   versions on the CPU, the same counters and the loss within 1e-5;
+   kernels 1-2 held against the plain version and timed on the loading
+   run's first pool call, beside ``embedding_bag`` and the bound; and the
+   datasets' start-up built against loaded; (c) the int_rels eval CLI from its artifact on the card
    (counted run: kernel 8, the single-table scatter of the relationship
    score table, at least once per batch) and on the CPU (the plain
    versions), the same counters; then the test split's sweep carry on the
@@ -178,8 +181,9 @@ the path that launches it: the 3-table pool on the eval sweep's batch
 Localizer's tables (launches: phase 7's steps); the serve path's random
 rows, the giant tables and the split-scale scatter are entries of their
 own (``name@case``); ``name@dist`` entries give phase 16's launches (the
-world of one's and each rank's), ``name@ingest`` phase 18(b)'s, and the
-scatter's ``@int_rels`` entry kernel 8 at phase 18(c)'s sweep.
+world of one's and each rank's), ``name@ingest`` kernels 1-2 at phase
+18(b)'s first pool call (its ``shapes``), and the scatter's
+``@int_rels`` entry kernel 8 at phase 18(c)'s sweep.
 
 Every synthetic fixture is written in a child process under a fixed
 string-hash seed (``write_fixture``), so that two runs train on the same
@@ -485,20 +489,26 @@ def fuse(torch, emb, tri):
                       emb.tr2[tri[:, 2]]], dim=-1)
 
 
-def eval_pool_entry(torch, tag, emb, idx, mask, w, div, ms, atol):
-    """The 3-table pool (kernels 1-3) on the eval sweep's own inputs, a
-    structured batch over split-scale tables, as the off-tier sweep
-    launches it: error against the plain version, its time (`ms`, timed by
-    the caller), plain and library times, and the bound on these indices.
-    The library yardstick is ``bag_pool``."""
+def eval_pool_entry(torch, tag, emb, idx, mask, w, div, ms, atol,
+                    guard=True):
+    """The 3-table pool (kernels 1-3) on an eval sweep's own inputs (phase
+    9: a structured batch over split-scale tables, as the off-tier sweep
+    launches it): error against the plain version, its time (`ms`, timed
+    by the caller), plain and library times, and the bound on these
+    indices. The library yardstick is ``bag_pool``. Without the zero
+    guard, rows with no context are NaN in both versions and the error
+    is taken over the others."""
     from lirec_tpu_torch.ops.gather_pool import (
         fused_ctx_pool, fused_ctx_pool_reference,
     )
 
-    got = fused_ctx_pool(emb, idx, mask, True)
+    got = fused_ctx_pool(emb, idx, mask, guard)
     torch.cuda.synchronize()
-    want = fused_ctx_pool_reference(emb, idx, mask, True)
-    err = float((got - want).abs().max())
+    want = fused_ctx_pool_reference(emb, idx, mask, guard)
+    nan = want.isnan()
+    check(torch.equal(got.isnan(), nan), "3-table pool %s: NaN positions "
+          "differ from the plain version's" % tag)
+    err = float((got - want).abs()[~nan].max())
     check(err <= atol, "3-table pool %s on the eval batch disagrees with "
           "the plain version: %.3e" % (tag, err))
     cols = index_cols(idx)
@@ -506,9 +516,9 @@ def eval_pool_entry(torch, tag, emb, idx, mask, w, div, ms, atol):
     def library():
         return bag_pool(torch, emb, cols, w, div)
 
-    lib_err = float((library() - got).abs().max())
+    lib_err = float((library() - got).abs()[~nan].max())
     plain = median_ms(torch, lambda: fused_ctx_pool_reference(
-        emb, idx, mask, True))
+        emb, idx, mask, guard))
     lib = median_ms(torch, library)
     M, R = idx.shape[:2]
     moved = (sum(gathered_bytes(t, idx[..., k]) for k, t in enumerate(emb))
@@ -2838,13 +2848,32 @@ def seeded_checkpoint(torch, root, preset, artifact, path, dims):
     return cfg
 
 
+def same_metrics(card, plain, label, device):
+    """An eval CLI's metrics on `device` against the CPU's plain versions:
+    every counter-derived value exactly, the loss within 1e-5."""
+    for split in ("val", "test"):
+        for key, v in plain[split].items():
+            if key == "loss":
+                check(abs(card[split][key] - v) <= 1e-5 * abs(v),
+                      "%s %s loss %r on %s, %r on the CPU"
+                      % (label, split, card[split][key], device, v))
+            else:
+                check(card[split][key] == v, "%s %s %s %r on %s, %r on "
+                      "the CPU" % (label, split, key, card[split][key],
+                                   device, v))
+
+
 def ingest_and_eval_clis(torch, root, device, dims):
     """Phase 18 (a), (b) and (d). Returns (ingest artifacts, launches of
-    (b), the numbers logged)."""
+    (b), kernels 1-2's entries at (b)'s own inputs, the numbers
+    logged)."""
     from lirec_tpu_torch.cli import common, convert_checkpoint, ingest
     from lirec_tpu_torch.cli import int_rel_ch
     from lirec_tpu_torch.data.artifact import load_ingest
+    from lirec_tpu_torch.models import tabular
+    from lirec_tpu_torch.models.tabular import EmbeddedTables
     from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.gather_pool import fused_ctx_pool
 
     work = os.path.join(root, "phase18")
     os.makedirs(work, exist_ok=True)
@@ -2863,13 +2892,22 @@ def ingest_and_eval_clis(torch, root, device, dims):
                out["ingest_" + preset]["MB"]))
 
     # (b) the int_rel_ch eval CLI without an artifact, writing one, and
-    # loading it (counted runs: kernels 1-2)
+    # loading it (counted runs: kernels 1-2); the loading run records the
+    # pool's first call (the val split's first batch), held and timed below
     ckpt = os.path.join(work, "int_rel_ch.pth.tar")
     cfg = seeded_checkpoint(torch, root, "int_rel_ch", arts["int_rel_ch"],
                             ckpt, dims)
     base = ["--data-root", root, "--device", device, "--quiet"] + \
         dim_args(dims)
-    metrics = {}
+    metrics, first = {}, {}
+    real = tabular.fused_ctx_pool
+
+    def recording(emb, idx, mask, guard):
+        first.setdefault(emb.clip.dtype, (
+            EmbeddedTables(*(t.clone() for t in emb)), idx.clone(),
+            mask.clone(), guard))
+        return real(emb, idx, mask, guard)
+
     dispatch.reset_launches()
     for compute in ("bfloat16", "float32"):
         cache = os.path.join(work, "cli_%s.npz" % compute)
@@ -2878,7 +2916,11 @@ def ingest_and_eval_clis(torch, root, device, dims):
         runs.append(int_rel_ch.main(args + ["--ingest-cache", cache]))
         check(os.path.exists(cache), "--ingest-cache wrote no %s" % cache)
         written = os.stat(cache).st_mtime_ns
-        runs.append(int_rel_ch.main(args + ["--ingest-cache", cache]))
+        tabular.fused_ctx_pool = recording
+        try:
+            runs.append(int_rel_ch.main(args + ["--ingest-cache", cache]))
+        finally:
+            tabular.fused_ctx_pool = real
         check(os.stat(cache).st_mtime_ns == written,
               "--ingest-cache rewrote the artifact it should have loaded")
         # counters exactly and floats bitwise: the same dicts
@@ -2889,9 +2931,33 @@ def ingest_and_eval_clis(torch, root, device, dims):
         log("  (b) cli.int_rel_ch.main %s, without / writing / loading "
             "--ingest-cache: val %s, test %s, all three equal"
             % (compute, runs[0]["val"], runs[0]["test"]))
-    if device == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     launched = dispatch.launches()
+    # the f32 artifact through the plain versions on the CPU
+    plain = int_rel_ch.main(
+        ["--data-root", root, "--device", "cpu", "--quiet"] + dim_args(dims)
+        + ["--resume-path", ckpt, "--compute-dtype", "float32",
+           "--ingest-cache", os.path.join(work, "cli_float32.npz")])
+    same_metrics(metrics["float32"], plain, "int_rel_ch", device)
+    log("  (b) cli.int_rel_ch.main float32 from the artifact on the CPU "
+        "(plain versions): the same counters, loss within 1e-5")
+    # kernels 1-2 held against the plain version and timed on the loading
+    # run's first pool call
+    pool = {}
+    for dtype, tag, atol in ((torch.float32, "f32", 2e-6),
+                             (torch.bfloat16, "bf16", 1e-5)):
+        check(dtype in first, "the eval CLI from an artifact made no %s "
+              "pool call" % tag)
+        emb, idx, mask, guard = first[dtype]
+        ms = median_ms(torch, lambda: fused_ctx_pool(emb, idx, mask, guard))
+        div = (guarded_div(torch, mask) if guard
+               else mask.sum(-1, keepdim=True))
+        pool[tag] = eval_pool_entry(torch, tag + "@ingest", emb, idx, mask,
+                                    mask.to(dtype), div, ms, atol, guard)
+        pool[tag]["shapes"] = dict(
+            M=idx.shape[0], R=idx.shape[1], guard=guard,
+            clip=list(emb.clip.shape), tracks=list(emb.tr1.shape))
+        log("  (b) the %s pool's inputs: %s" % (tag, pool[tag]["shapes"]))
     # the datasets' start-up: built from the fixture against loaded
     t = time.perf_counter()
     common.build_datasets(cfg, "int_rel_ch")
@@ -2915,7 +2981,7 @@ def ingest_and_eval_clis(torch, root, device, dims):
     log("  (d) cli.convert_checkpoint.main of %.1f MB: %.2f s; the eval "
         "CLI on the .ckpt gives (b)'s metrics" % (
             os.path.getsize(ckpt) / 1e6, out["convert_s"]))
-    return arts, launched, out
+    return arts, launched, pool, out
 
 
 def int_rels_sweep_checks(torch, root, arts, device, dims):
@@ -2944,16 +3010,7 @@ def int_rels_sweep_checks(torch, root, arts, device, dims):
         torch.cuda.synchronize()
     launched = dispatch.launches()
     plain = int_rels.main(args + ["--device", "cpu"])
-    for split in ("val", "test"):
-        for key, v in plain[split].items():
-            if key == "loss":
-                check(abs(card[split][key] - v) <= 1e-5 * abs(v),
-                      "int_rels %s loss %r on %s, %r on the CPU"
-                      % (split, card[split][key], device, v))
-            else:
-                check(card[split][key] == v, "int_rels %s %s %r on %s, %r "
-                      "on the CPU" % (split, key, card[split][key], device,
-                                      v))
+    same_metrics(card, plain, "int_rels", device)
     splits = load_ingest(arts["int_rels"], cfg)
     B = cfg.optim.batch_size
     batches = 0
@@ -3048,10 +3105,11 @@ def host_tools_checks(root, dims):
 
 def remaining_clis_phase(torch, root, device, dims):
     """Phase 18 on the published-widths fixture, the CLIs at `dims` on
-    `device`. Returns (launches of (b), launches of (c), kernel 8's entry
-    at the int_rels sweep's shapes, the numbers logged)."""
-    arts, ingest_counts, out = ingest_and_eval_clis(torch, root, device,
-                                                     dims)
+    `device`. Returns (launches of (b), kernels 1-2's entries at (b)'s
+    inputs, launches of (c), kernel 8's entry at the int_rels sweep's
+    shapes, the numbers logged)."""
+    arts, ingest_counts, ingest_pool, out = ingest_and_eval_clis(
+        torch, root, device, dims)
     rels_counts, calls, out["int_rels"] = int_rels_sweep_checks(
         torch, root, arts, device, dims)
     host_tools_checks(root, dims)
@@ -3060,7 +3118,7 @@ def remaining_clis_phase(torch, root, device, dims):
     entry = scatter_case(torch, "kernel 8 at the int_rels sweep", idx,
                          [rows], [n_rows], single=True)
     entry["shapes"] = dict(updates=list(rows.shape), rows=n_rows)
-    return ingest_counts, rels_counts, entry, out
+    return ingest_counts, ingest_pool, rels_counts, entry, out
 
 
 def main():
@@ -3167,8 +3225,8 @@ def main():
         log("== 18. the remaining CLIs: ingest artifacts, the eval CLIs "
             "from them, convert-checkpoint, extract-text, verify-features, "
             "graphs-demo (counted runs)")
-        ingest_counts, int_rels_counts, k8, clis = remaining_clis_phase(
-            torch, root, DEV, PUBLISHED_DIMS)
+        ingest_counts, ingest_pool, int_rels_counts, k8, clis = \
+            remaining_clis_phase(torch, root, DEV, PUBLISHED_DIMS)
 
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
@@ -3285,16 +3343,17 @@ def main():
                             world_of_one_launches=dist_counts[name],
                             rank_launches=per_rank))
     # phase 18: kernels 1-2 through the eval CLI from an ingest artifact,
-    # at the same shapes as their eval entries (whose numbers they repeat),
-    # and kernel 8 on the int_rels sweep's own inputs
-    for dtype in (torch.float32, torch.bfloat16):
+    # held and timed on that run's first pool call, and kernel 8 on the
+    # int_rels sweep's own inputs
+    for dtype, tag, line in ((torch.float32, "f32", 178),
+                             (torch.bfloat16, "bf16", 218)):
         name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
         check(ingest_counts.get(name, 0) > 0,
               "%s was not launched by the eval CLI from an artifact" % name)
-        main_entry = next(k for k in kernels if k["name"] == name
-                          and k.get("path") == "eval")
-        kernels.append(dict(main_entry, name=name + "@ingest", path="ingest",
-                            launches=ingest_counts[name]))
+        kernels.append(dict(name=name + "@ingest", route="cuda", source=CU,
+                            replaces="%s:%d" % (TPU_SRC, line),
+                            launches=ingest_counts[name], path="ingest",
+                            **ingest_pool[tag]))
     name = scatter_accum.KERNEL_NAMES[torch.float32]
     check(int_rels_counts.get(name, 0) >= clis["int_rels"]["batches"],
           "%s launched %d times by the int_rels sweep of %d batches"

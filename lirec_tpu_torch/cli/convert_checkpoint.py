@@ -14,8 +14,8 @@ package's ``save_params`` (lirec_tpu/checkpoint/saver.py), which its
 ``load_params`` reads and this package's eval CLIs read as well.
 
 ``--verify`` additionally loads the SAME .pth.tar into the live torch
-reference (--reference, default: $LIREC_TPU_REFERENCE, or a directory
-``reference`` beside this checkout), runs this package's model (on
+reference (--reference, default: $LIREC_TPU_REFERENCE; without either
+``--verify`` is refused), runs this package's model (on
 ``--device``) and the reference's on a seeded fixture batch, and compares
 the outputs. Dims and head sizes are inferred from the checkpoint tensors;
 only the model family needs ``--preset``.

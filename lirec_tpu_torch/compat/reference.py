@@ -1,6 +1,6 @@
 """Bridge to run the actual reference implementation (at
-$LIREC_TPU_REFERENCE, or else a directory ``reference`` beside this
-repository's checkout) on the synthetic fixtures — the
+$LIREC_TPU_REFERENCE; unset or empty means absent, there is no default
+path) on the synthetic fixtures — the
 `convert-checkpoint --verify` activation check. A copy of
 lirec_tpu/compat/reference.py; ``write_mg_pickle`` reads the port's
 data/graphs.py.
@@ -23,13 +23,11 @@ import pickle
 import sys
 import types
 
-REFERENCE = os.environ.get("LIREC_TPU_REFERENCE", os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))), "reference"))
+REFERENCE = os.environ.get("LIREC_TPU_REFERENCE", "")
 
 
 def reference_available() -> bool:
-    return os.path.isdir(REFERENCE)
+    return bool(REFERENCE) and os.path.isdir(REFERENCE)
 
 
 class ShimDiGraph:
@@ -57,6 +55,9 @@ def import_reference():
     global _ref_modules
     if _ref_modules is not None:
         return _ref_modules
+    if not reference_available():
+        raise FileNotFoundError(
+            "no reference tree at %r (set LIREC_TPU_REFERENCE)" % REFERENCE)
     for name in ("plotly", "plotly.graph_objs", "plotly.graph_objs.layout"):
         if name not in sys.modules:
             sys.modules[name] = types.ModuleType(name)

@@ -29,6 +29,10 @@ dataset's state, which names its classes' modules, and the port pickles
 each of its own module names as the JAX package's (``_JaxNamesPickler``),
 so both packages hash the same bytes over the same data; each loads the
 other's file through its own spot check (tests/test_torch_plan_cache.py).
+That pickler is pure Python and slower than the C one, so it runs once
+per dataset: the fingerprint is kept beside the plans in
+``<mode>_<C-pickler hash>.fp`` and later runs look it up under the C
+pickler's hash of the same state (``cached_fingerprint``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import io
 import json
 import os
 import pickle
+import re
 import types
 import uuid
 from typing import Dict, Optional
@@ -46,8 +51,8 @@ import numpy as np
 
 from lirec_tpu_torch.ops import dispatch
 
-__all__ = ["dataset_fingerprint", "cache_path", "save_plan", "load_plan",
-           "get_or_build"]
+__all__ = ["dataset_fingerprint", "cached_fingerprint", "cache_path",
+           "save_plan", "load_plan", "get_or_build"]
 
 PLAN_CACHE_VERSION = 1
 _VERIFY_SAMPLES = 4  # per class (dynamic / static), per executor
@@ -58,7 +63,41 @@ def dataset_fingerprint(ds) -> str:
     """Hash of everything plan building reads: the JAX package's
     fingerprint of the same data (``jax_names_dumps`` of
     ``reduced_state``)."""
-    blob = jax_names_dumps(reduced_state(ds))
+    return _digest(jax_names_dumps(reduced_state(ds)))
+
+
+def cached_fingerprint(ds, directory: str) -> str:
+    """``dataset_fingerprint(ds)``, with the pure-Python pickle made once
+    per dataset: the C pickler's hash of the same reduced state (the port's
+    own module names) keys a small file in `directory` that holds the
+    fingerprint. The JAX-named bytes are a renaming of the C pickler's
+    (the same memo), so one key never stands for two fingerprints."""
+    state = reduced_state(ds)
+    alias = os.path.join(directory, "%s_%s.fp" % (
+        ds.mode, _digest(pickle.dumps(state, protocol=4))))
+    try:
+        with open(alias) as f:
+            fp = f.read()
+        if re.fullmatch("[0-9a-f]{32}", fp):
+            return fp
+    except OSError:
+        pass
+    fp = _digest(jax_names_dumps(state))
+    tmp = "%s.tmp.%d.%s" % (alias, os.getpid(), uuid.uuid4().hex[:8])
+    try:
+        os.makedirs(directory, exist_ok=True)
+        with open(tmp, "w") as f:
+            f.write(fp)
+        os.replace(tmp, alias)
+    except OSError:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+    return fp
+
+
+def _digest(blob: bytes) -> str:
     return hashlib.blake2b(blob, digest_size=16).hexdigest()
 
 
@@ -147,14 +186,20 @@ class _JaxNamesPickler(pickle._Pickler):
     dispatch[types.FunctionType] = save_global
 
 
-def cache_path(ds, fingerprint: str) -> Optional[str]:
-    """Cache file location, or None when the dataset has no usable root."""
+def plans_dir(ds) -> Optional[str]:
+    """The plans' directory, or None when the dataset has no usable
+    root."""
     root = getattr(getattr(ds.cfg, "paths", None), "data_root", "")
     if not root:
         return None
-    base = os.path.join(
-        ds.cfg.paths.visual_features, "cached", "plans"
-    )
+    return os.path.join(ds.cfg.paths.visual_features, "cached", "plans")
+
+
+def cache_path(ds, fingerprint: str) -> Optional[str]:
+    """Cache file location, or None when the dataset has no usable root."""
+    base = plans_dir(ds)
+    if base is None:
+        return None
     return os.path.join(base, "%s_%s.npz" % (ds.mode, fingerprint))
 
 
@@ -299,10 +344,11 @@ def get_or_build(ds):
         return plan_lib.build_plan(ds)
 
     disabled = bool(os.environ.get("LIREC_TPU_NO_PLAN_CACHE"))
+    base = plans_dir(ds)
     fp = None
-    if not disabled:
+    if not disabled and base:
         try:
-            fp = dataset_fingerprint(ds)
+            fp = cached_fingerprint(ds, base)
         except Exception:
             fp = None  # unpicklable custom dataset state: build in-memory
     path = cache_path(ds, fp) if fp else None

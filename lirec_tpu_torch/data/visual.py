@@ -19,22 +19,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from lirec_tpu_torch.native.bindings import check_width
+
 __all__ = ["VisualFeatureReader", "roi_pool_tracks", "check_width"]
 
 # Face-to-person bbox expansion ratios (ref visual_features.py:115-117).
 FH0, FH1 = 0.10, 0.25
 FW0, FW1 = 0.35, 0.65
-
-
-def check_width(features: np.ndarray, visual_dim: int) -> None:
-    """Refuse I3D features [T, C, h, w] whose C is not `visual_dim` (a
-    dataset configured for another feature width than the files have)."""
-    if features.shape[1] != visual_dim:
-        raise ValueError(
-            "roi_pool_tracks: the features have %d channels "
-            "(features.shape[1]) but visual_dim is %d; the dataset's "
-            "visual_dim must be the feature files' width"
-            % (features.shape[1], visual_dim))
 
 
 def roi_pool_tracks(

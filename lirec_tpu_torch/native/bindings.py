@@ -9,8 +9,6 @@ from typing import List
 
 import numpy as np
 
-from lirec_tpu_torch.data.visual import check_width
-
 _lib = None
 _tried = False
 
@@ -43,6 +41,17 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def check_width(features: np.ndarray, visual_dim: int) -> None:
+    """Refuse I3D features [T, C, h, w] whose C is not `visual_dim` (a
+    dataset configured for another feature width than the files have)."""
+    if features.shape[1] != visual_dim:
+        raise ValueError(
+            "roi_pool_tracks: the features have %d channels "
+            "(features.shape[1]) but visual_dim is %d; the dataset's "
+            "visual_dim must be the feature files' width"
+            % (features.shape[1], visual_dim))
 
 
 def roi_pool_tracks(

@@ -13,7 +13,11 @@ two ways of pickling its reduced state (``data/plan_cache.reduced_state``):
   (what the fingerprint hashed while it named the port's own modules);
 - ``jax_names_s``: ``plan_cache.jax_names_dumps``, the pure-Python
   pickler that names the port's modules as the JAX package's (what
-  ``dataset_fingerprint`` hashes now).
+  ``dataset_fingerprint`` hashes now);
+
+and ``cached_hit_s``, the whole of ``plan_cache.cached_fingerprint`` once
+its file is written (the C pickler's hash and the file's read: what every
+start-up after the first pays).
 
 It prints the median of each and the bytes pickled as one JSON line. A
 host measurement: no card is used.
@@ -49,9 +53,16 @@ def measure(movies: int, rounds: int = 5) -> dict:
         ds = InteractionDataset(cfg, mode="train")
         ds.cache()
         ds.init_relships()
-        times = {"c_pickler_s": [], "jax_names_s": []}
+        times = {"c_pickler_s": [], "jax_names_s": [], "cached_hit_s": []}
         sizes = {}
+        plans = plan_cache.plans_dir(ds)
+        want = plan_cache.cached_fingerprint(ds, plans)  # writes its file
+        assert want == plan_cache.dataset_fingerprint(ds)
         for _ in range(rounds):
+            t = time.perf_counter()
+            fp = plan_cache.cached_fingerprint(ds, plans)
+            times["cached_hit_s"].append(time.perf_counter() - t)
+            assert fp == want
             for key, dumps in (
                     ("c_pickler_s", lambda s: pickle.dumps(s, protocol=4)),
                     ("jax_names_s", plan_cache.jax_names_dumps)):

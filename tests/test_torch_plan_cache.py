@@ -12,7 +12,9 @@ two packages write beside each other:
 3. the JAX package's files and the port's: the two fingerprints of the
    same data are equal (the port pickles its modules under the JAX
    package's names), so both packages use one file, and each loads the
-   other's through its own bitwise spot check.
+   other's through its own bitwise spot check; that pickle is made once
+   per dataset, later runs finding the fingerprint under the C pickler's
+   hash.
 """
 
 import os
@@ -236,3 +238,35 @@ def test_fingerprints_are_equal(root, preset):
         jax_ds, port_ds = states
         assert plan_cache.dataset_fingerprint(port_ds) == \
             jax_plan_cache.dataset_fingerprint(jax_ds), mode
+
+
+def test_the_slow_pickle_is_made_once_per_dataset(root, tmp_path,
+                                                   monkeypatch):
+    """`cached_fingerprint` pickles under the JAX package's names on its
+    first call only: it keeps the fingerprint in `<mode>_<C hash>.fp`,
+    and a second dataset over the same data reads it there and loads the
+    plan without the pure-Python pickler. A damaged file is made anew."""
+    ds = _dataset(root, "val")
+    want = plan_cache.dataset_fingerprint(ds)
+    jax_fp = jax_plan_cache.dataset_fingerprint(_dataset(root, "val",
+                                                         jax=True))
+    assert plan_cache.cached_fingerprint(ds, str(tmp_path)) == want == jax_fp
+    (alias,) = os.listdir(tmp_path)
+    assert alias.startswith("val_") and alias.endswith(".fp")
+    assert (tmp_path / alias).read_text() == want
+
+    def refuse(obj):
+        raise AssertionError("the pure-Python pickler ran again")
+
+    ds.assembly_plan()  # writes the plan and the fingerprint's file
+    with monkeypatch.context() as m:
+        m.setattr(plan_cache, "jax_names_dumps", refuse)
+        ds2 = _dataset(root, "val")
+        assert plan_cache.cached_fingerprint(ds2, str(tmp_path)) == want
+        assert ds2.assembly_plan() is not None
+        assert dispatch.last_dispatch("assembly_plan_cache")["reason"] == \
+            "hit+verified"
+
+    (tmp_path / alias).write_text("not a fingerprint")
+    assert plan_cache.cached_fingerprint(ds, str(tmp_path)) == want
+    assert (tmp_path / alias).read_text() == want
