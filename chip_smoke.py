@@ -156,6 +156,26 @@
    (b)'s metrics; (e) ``extract-text --backend fake`` over the fixture's
    dialogs, ``verify-features check`` of its output and ``graphs-demo``
    on the fixture's graphs (host checks).
+19. The one-dispatch sweeps as CUDA graphs (utils/graphs.StepGraph), the
+   default on the card everywhere above (phases 8, 9, 10, 12-18 run them):
+   (a) phase 7's 10 batches through the epoch sweep (train/sweep.
+   EpochSweep), bf16 and f32, counted: one replay per step after the
+   first step's warm-up, losses and parameters bitwise phase 7's per-batch
+   steps, a chunked run (3 steps a chunk) bitwise too, then epochs of
+   the graph sweep and of the per-batch eager steps in turns
+   (``SWEEP_TURNS``), ms/step each, and the capture's time; (b) phase 9's
+   split as a graph and as eager steps in every tier: carries bitwise
+   each other's and phase 9's, launch counts equal (counted: 169 of the
+   3-table pool per off-tier sweep), ms/batch as slopes over 84 and 168
+   batches in turns, the captures' times; (c) the training CLI on the
+   published-widths fixture, one epoch with and without
+   ``--per-batch-train``: ``epoch_sweep_used`` True and False, the
+   ``train_loop`` path taken, the same loss; (d) phase 18's int_rels eval
+   CLI from its artifact at B = 64 (its splits are one partial batch: the
+   tail's eager step, kernel 8 twice) and at B = 8 (full batches as
+   replays; kernel 8 once per batch), then the test split's sweep at B =
+   8 as a graph and eagerly: ``rels_table`` and counters bitwise, launches
+   equal.
 
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
@@ -183,7 +203,10 @@ rows, the giant tables and the split-scale scatter are entries of their
 own (``name@case``); ``name@dist`` entries give phase 16's launches (the
 world of one's and each rank's), ``name@ingest`` kernels 1-2 at phase
 18(b)'s first pool call (its ``shapes``), and the scatter's
-``@int_rels`` entry kernel 8 at phase 18(c)'s sweep.
+``@int_rels`` entry kernel 8 at phase 18(c)'s sweep; ``name@graph``
+entries give phase 19's launches from graph replays (kernels 1-2 and 6,
+with their main entries' numbers), and ``@int_rels_graph`` kernel 8's at
+phase 19(d)'s B = 8 (with the ``@int_rels`` entry's numbers).
 
 Every synthetic fixture is written in a child process under a fixed
 string-hash seed (``write_fixture``), so that two runs train on the same
@@ -239,6 +262,11 @@ FIXTURE_HASH_SEED = "7"  # the string-hash seed of every synthetic fixture
 # ones in alternating pairs
 PREFETCH_TURNS = ("plain", "prefetch", "prefetch", "plain", "plain",
                   "prefetch")
+# phase 19(a): epochs of the graph sweep and of the per-batch eager steps in
+# turns, and the steps of a chunk in the chunked run (10 steps: 3, 3, 3, 1)
+SWEEP_TURNS = ("eager", "graph", "graph", "eager")
+SWEEP_CHUNK = 3
+INT_RELS_GRAPH_B = 8  # phase 19(d)'s batch: full batches, graph replays
 
 
 def log(*args):
@@ -2396,8 +2424,9 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
         wall = time.perf_counter() - t0
     fcfg = cfg.with_runtime(compute_dtype="float32")
     bundle = create_model(fcfg, 101, n_rels=15, seed=0, device="cuda")
+    # not capturable, as the ranks' Adam (tools/dist_check.py says why)
     opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
-                         cfg.optim.weight_decay)
+                         cfg.optim.weight_decay, capturable=False)
     step = make_train_step(bundle, opt, deterministic=True)
     want_losses = [float(step(batch, dev_tables,
                               step_generators(0, i, "cuda")))
@@ -3120,6 +3149,337 @@ def remaining_clis_phase(torch, root, device, dims):
     entry["shapes"] = dict(updates=list(rows.shape), rows=n_rows)
     return ingest_counts, ingest_pool, rels_counts, entry, out
 
+# ------------------------------------------------- phase 19: the sweeps
+
+
+def train_sweep_checks(torch, batches, finals):
+    """Phase 19 (a): phase 7's batches through the epoch sweep's CUDA
+    graph (the counted run), bitwise phase 7's per-batch losses and
+    parameters, and a chunked sweep bitwise too; then epochs of the graph
+    sweep and of the per-batch eager steps in turns on one model, ms/step
+    each."""
+    import numpy as np
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.train.sweep import SEED_STRIDE, EpochSweep
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    cfg = config_lib.preset("int_rel_ch")
+    tables, out, counts = None, {}, {}
+    for compute in ("bfloat16", "float32"):
+        name = KERNEL_NAMES[torch.bfloat16 if compute == "bfloat16"
+                            else torch.float32]
+        want_losses, want_params = finals[compute]
+
+        def fresh(max_steps=512):
+            bundle = create_model(cfg.with_runtime(compute_dtype=compute),
+                                  101, n_rels=15, seed=0, device="cuda")
+            opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
+                                 cfg.optim.weight_decay)
+            return bundle, opt, EpochSweep(bundle, opt, tables, 0, TRAIN_B,
+                                           sweep_max_steps=max_steps,
+                                           graph=True)
+
+        def held(bundle, losses, label):
+            check(losses == want_losses, "%s %s losses %s, phase 7's %s"
+                  % (compute, label, losses, want_losses))
+            for n, p in bundle.model.named_parameters():
+                check(torch.equal(p.detach().cpu(), want_params[n]),
+                      "%s %s: parameter %s differs from phase 7's"
+                      % (compute, label, n))
+
+        if tables is None:
+            spec = create_model(cfg, 101, n_rels=15, seed=0,
+                                device="cpu").spec
+            tables = {k: torch.from_numpy(v).cuda() for k, v in make_tables(
+                spec, N_CLIPS, N_TRACKS, seed=0).items()}
+        bundle, opt, sweep = fresh()
+        torch.cuda.synchronize()
+        # ---- the counted run: one epoch of the sweep
+        dispatch.reset_launches()
+        t = time.perf_counter()
+        losses = sweep.fetch(sweep.run(batches, 0))
+        first_ms = (time.perf_counter() - t) * 1e3
+        counted = dispatch.launches()
+        # ---- end of the counted run
+        check(counted == {name: len(batches)}, "%s sweep launched %s for "
+              "%d steps" % (compute, counted, len(batches)))
+        check(dispatch.last_dispatch("train_loop")["path"] == "graph",
+              "%s: the sweep did not run as a graph" % compute)
+        held(bundle, losses, "graph sweep")
+        counts[name] = counted[name]
+        chunked_bundle, _, chunked = fresh(SWEEP_CHUNK)
+        held(chunked_bundle, chunked.fetch(chunked.run(batches, 0)),
+             "chunked sweep (%d steps a chunk)" % SWEEP_CHUNK)
+        del chunked_bundle, chunked
+        # ms/step: further epochs on the counted run's model, in turns
+        step = make_train_step(bundle, opt)
+        times = {"graph": [], "eager": []}
+        for turn, kind in enumerate(SWEEP_TURNS):
+            epoch = turn + 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if kind == "graph":
+                got = sweep.fetch(sweep.run(batches, epoch))
+            else:
+                got = [float(step(b, tables, step_generators(
+                    0, epoch * SEED_STRIDE + i, "cuda")))
+                    for i, b in enumerate(batches)]
+            times[kind].append((time.perf_counter() - t) * 1e3
+                               / len(batches))
+            check(all(np.isfinite(got)), "%s %s losses %s"
+                  % (compute, kind, got))
+        check(len(sweep.capture_s) == 1, "%s: %d captures for one batch "
+              "shape" % (compute, len(sweep.capture_s)))
+        out[compute] = dict(
+            graph_ms_per_step=times["graph"], eager_ms_per_step=times["eager"],
+            first_epoch_ms=first_ms, capture_ms=sweep.capture_s[0] * 1e3)
+        log("  (a) %s: %d steps as graph replays bitwise phase 7's losses "
+            "and parameters, and chunks of %d too; %d launches of %s; "
+            "ms/step graph %s, eager %s (turns %s); the first epoch %.1f ms "
+            "with its warm-up and a capture of %.1f ms"
+            % (compute, len(batches), SWEEP_CHUNK, counted[name], name,
+               ["%.3f" % x for x in times["graph"]],
+               ["%.3f" % x for x in times["eager"]], ",".join(SWEEP_TURNS),
+               first_ms, sweep.capture_s[0] * 1e3))
+        del bundle, opt, sweep, step
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def eval_graph_checks(torch, eval_ref):
+    """Phase 19 (b): phase 9's split and configuration, the sweep as a
+    CUDA graph against eager steps: carries bitwise in every tier and
+    equal to phase 9's, the launch counts equal (the counted runs: the
+    off tier's graph sweep, 169 launches of the 3-table pool), the wall
+    time per batch as slopes over 84 and 168 batches, graph and eager in
+    turns, and the capture's host time."""
+    import numpy as np
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
+    from lirec_tpu_torch.utils import graphs
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    data = eval_ref["split"]
+    n_half = EVAL_FULL // 2
+    halves = {n: {k: v[: n * EVAL_B] for k, v in data.items()}
+              for n in (n_half, EVAL_FULL)}
+    tables, out, counts = None, {}, {}
+    for compute in ("bfloat16", "float32"):
+        dtype = torch.bfloat16 if compute == "bfloat16" else torch.float32
+        cfg = config_lib.preset("int_rel_ch").with_optim(
+            batch_size=EVAL_B).with_runtime(compute_dtype=compute)
+        bundle = create_model(cfg, 101, n_rels=15, seed=0, device="cuda")
+        if tables is None:
+            tables = make_tables(bundle.spec, N_CLIPS, N_TRACKS, seed=0)
+        three = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+
+        def sweep(tier, graph, split=data, ds=None):
+            return packed.sweep_carry(
+                ds or split_stand_in(), bundle, bundle.model, cfg,
+                mode="test", data=split, tables=tables, localize_ctx=tier,
+                graph=graph)
+
+        captures = []
+        for tier in (False, "tables", "triple"):
+            launched = {}
+            carries = {}
+            for graph in (True, False):
+                torch.cuda.synchronize()
+                # ---- a counted run: one sweep of the split
+                dispatch.reset_launches()
+                carries[graph] = sweep(tier, graph)
+                torch.cuda.synchronize()
+                launched[graph] = dispatch.launches()
+                # ---- end of the counted run
+                check(dispatch.last_dispatch("eval_sweep")["path"]
+                      == ("graph" if graph else "eager"),
+                      "%s %s: the sweep's loop" % (compute, tier))
+                if graph:
+                    captures.append(graphs.CAPTURE_SECONDS[-1] * 1e3)
+            for key, v in carries[False].items():
+                check(np.array_equal(carries[True][key], v),
+                      "%s %s: graph carry %s differs from the eager sweep's"
+                      % (compute, tier, key))
+                check(np.array_equal(eval_ref["carries"][compute][key], v),
+                      "%s %s: carry %s differs from phase 9's"
+                      % (compute, tier, key))
+            check(launched[True] == launched[False], "%s %s launches: graph "
+                  "%s, eager %s" % (compute, tier, launched[True],
+                                    launched[False]))
+            if not tier:
+                check(launched[True] == {three: EVAL_FULL + 1},
+                      "%s off-tier graph sweep launched %s"
+                      % (compute, launched[True]))
+                counts[three] = launched[True][three]
+        # wall per batch: slopes over 84 and 168 batches, off tier
+        stand_ins = {(g, n): split_stand_in() for g in (True, False)
+                     for n in halves}
+        for key in stand_ins:
+            sweep(False, key[0], halves[key[1]], stand_ins[key])  # warm-up
+        secs = {key: [] for key in stand_ins}
+        for r in range(EVAL_ROUNDS):
+            for graph in ((True, False) if r % 2 == 0 else (False, True)):
+                for n in (n_half, EVAL_FULL):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    sweep(False, graph, halves[n], stand_ins[(graph, n)])
+                    secs[(graph, n)].append(time.perf_counter() - t)
+        slopes = {}
+        for graph in (True, False):
+            t1 = statistics.median(secs[(graph, n_half)])
+            t2 = statistics.median(secs[(graph, EVAL_FULL)])
+            slopes["graph" if graph else "eager"] = \
+                (t2 - t1) / (EVAL_FULL - n_half) * 1e3
+        out[compute] = dict(ms_per_batch=slopes, capture_ms=captures,
+                            clips_per_s={k: EVAL_B / v * 1e3
+                                         for k, v in slopes.items()})
+        log("  (b) %s: graph carries bitwise the eager sweep's and phase "
+            "9's in every tier, launches equal (%d of %s off-tier); "
+            "ms/batch graph %.4f, eager %.4f (slopes over %d and %d "
+            "batches, medians of %d rounds); captures %s ms"
+            % (compute, counts[three], three, slopes["graph"],
+               slopes["eager"], n_half, EVAL_FULL, EVAL_ROUNDS,
+               ["%.1f" % c for c in captures]))
+        del bundle
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def train_cli_sweep_checks(torch, root):
+    """Phase 19 (c): the training CLI on the published-widths fixture, one
+    epoch with and without --per-batch-train: epoch_sweep_used True and
+    False, the train_loop decisions "graph" and "per_batch", the same
+    losses."""
+    from lirec_tpu_torch.cli import train as train_cli
+    from lirec_tpu_torch.ops import dispatch
+
+    got = {}
+    for extra, used, path in (([], True, "graph"),
+                              (["--per-batch-train"], False, "per_batch")):
+        before = dispatch.decisions("train_loop").get(path, 0)
+        store = os.path.join(root, "phase19_store%d" % len(extra))
+        t = time.perf_counter()
+        out = train_cli.main(["--data-root", root, "--device", "cuda",
+                              "--quiet", "--epochs", "1", "--store-root",
+                              store] + dim_args(PUBLISHED_DIMS) + extra)
+        secs = time.perf_counter() - t
+        train = out["train"]
+        check(train["epoch_sweep_used"] is used, "training CLI %s: "
+              "epoch_sweep_used %r" % (extra, train["epoch_sweep_used"]))
+        check(dispatch.decisions("train_loop").get(path, 0) > before,
+              "training CLI %s did not take the %s path" % (extra, path))
+        got[path] = dict(losses=train["losses"], s=secs)
+    check(got["graph"]["losses"] == got["per_batch"]["losses"],
+          "training CLI losses: sweep %s, per batch %s"
+          % (got["graph"]["losses"], got["per_batch"]["losses"]))
+    log("  (c) cli.train.main, 1 epoch: epoch_sweep_used True (graph, %.1f "
+        "s) and False with --per-batch-train (%.1f s), the same loss %r"
+        % (got["graph"]["s"], got["per_batch"]["s"],
+           got["graph"]["losses"][0]))
+    return got
+
+
+def int_rels_graph_checks(torch, root):
+    """Phase 19 (d): phase 18's int_rels eval from its artifact and
+    checkpoint. The CLI at its batch of 64 (counted: kernel 8 once per
+    split, each split one partial batch, so its tail step) and at a batch
+    of INT_RELS_GRAPH_B (counted: kernel 8 once per batch, the full ones
+    as graph replays); then the test split's sweep at that batch as a
+    graph and eagerly: the rels_table and every counter bit for bit, the
+    launches equal."""
+    import numpy as np
+
+    from lirec_tpu_torch.cli import common, int_rels
+    from lirec_tpu_torch.data.artifact import load_ingest
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch, scatter_accum
+
+    art = os.path.join(root, "phase18", "ingest_int_rels.npz")
+    ckpt = os.path.join(root, "phase18", "int_rels.pth.tar")
+    name = scatter_accum.KERNEL_NAMES[torch.float32]
+    fixture = ["--data-root", root, "--compute-dtype", "float32"] + \
+        dim_args(PUBLISHED_DIMS)
+    args = fixture + ["--resume-path", ckpt, "--quiet", "--ingest-cache",
+                      art, "--device", "cuda"]
+    cfg = common.config_from_args("int_rels", common.build_parser(
+        "int_rels").parse_args(fixture))
+    splits = load_ingest(art, cfg)
+    out = {}
+    for B in (64, INT_RELS_GRAPH_B):
+        before = dispatch.decisions("eval_sweep").get("graph", 0)
+        # ---- a counted run: the eval CLI, val and test
+        dispatch.reset_launches()
+        metrics = int_rels.main(args + ["--batch-size", str(B)])
+        torch.cuda.synchronize()
+        launched = dispatch.launches()
+        # ---- end of the counted run
+        full = batches = 0
+        for split in ("val", "test"):
+            n_full, tail = divmod(len(splits[split]), B)
+            full += n_full
+            batches += n_full + (tail > 1)
+        check(launched.get(name, 0) == batches, "int_rels CLI at B = %d: "
+              "%d launches of %s for %d batches" % (
+                  B, launched.get(name, 0), name, batches))
+        check(dispatch.decisions("eval_sweep").get("graph", 0) > before,
+              "int_rels CLI at B = %d did not take the graph" % B)
+        out["B%d" % B] = dict(launches=launched.get(name, 0),
+                              full_batches=full, metrics=metrics)
+    check(out["B%d" % INT_RELS_GRAPH_B]["full_batches"] > 1,
+          "no replay at B = %d" % INT_RELS_GRAPH_B)
+    ds = splits["test"]
+    bundle = create_model(cfg, ds.n_classes,
+                          n_rels=max(len(ds.rels_list) - 1, 0),
+                          device="cuda")
+    bundle.model.load_state_dict(torch.load(ckpt,
+                                            map_location="cpu")["state_dict"])
+    carries, launches = {}, {}
+    for graph in (True, False):
+        dispatch.reset_launches()
+        carries[graph] = packed.sweep_carry(
+            ds, bundle, bundle.model, cfg, mode="test",
+            batch_size=INT_RELS_GRAPH_B, graph=graph)
+        torch.cuda.synchronize()
+        launches[graph] = dispatch.launches()
+    for key, v in carries[False].items():
+        check(np.array_equal(carries[True][key], v), "int_rels test "
+              "split: graph carry %s differs from the eager sweep's" % key)
+    check(launches[True] == launches[False], "int_rels launches: graph %s, "
+          "eager %s" % (launches[True], launches[False]))
+    log("  (d) cli.int_rels.main from its artifact: %d launches of %s at B "
+        "= 64 (tails only), %d at B = %d (%d full batches as graph "
+        "replays after their warm-ups); the test split's rels_table [%d, "
+        "%d] and counters bitwise the eager sweep's, launches equal (%s)"
+        % (out["B64"]["launches"], name,
+           out["B%d" % INT_RELS_GRAPH_B]["launches"], INT_RELS_GRAPH_B,
+           out["B%d" % INT_RELS_GRAPH_B]["full_batches"],
+           *carries[True]["rels_table"].shape, launches[True]))
+    return out
+
+
+def sweeps_phase(torch, local, train_finals, eval_ref, root):
+    """Phase 19. Returns ({kernel name: launches of the counted runs of
+    (a) and (b)}, the numbers logged)."""
+    train_counts, train = train_sweep_checks(torch, local, train_finals)
+    eval_counts, evals = eval_graph_checks(torch, eval_ref)
+    cli = train_cli_sweep_checks(torch, root)
+    rels = int_rels_graph_checks(torch, root)
+    return dict(train_counts, **eval_counts), dict(
+        train=train, eval=evals, cli=cli, int_rels={
+            k: {kk: vv for kk, vv in v.items() if kk != "metrics"}
+            for k, v in rels.items()})
+
 
 def main():
     import torch
@@ -3227,6 +3587,12 @@ def main():
             "graphs-demo (counted runs)")
         ingest_counts, ingest_pool, int_rels_counts, k8, clis = \
             remaining_clis_phase(torch, root, DEV, PUBLISHED_DIMS)
+
+        log("== 19. the one-dispatch sweeps as CUDA graphs: the epoch "
+            "sweep, the eval sweep, --per-batch-train, the int_rels eval "
+            "(counted runs)")
+        graph_counts, sweeps = sweeps_phase(torch, local, train_finals,
+                                            eval_ref, root)
 
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
@@ -3363,6 +3729,28 @@ def main():
                         replaces="%s:282" % SCATTER_TPU_SRC,
                         launches=int_rels_counts[name], path="int_rels",
                         **k8))
+    # phase 19: kernels 1-2 and 6 launched from the sweeps' graph replays,
+    # at the shapes of their main entries (whose numbers they repeat), and
+    # kernel 8 from the int_rels eval's at a batch of INT_RELS_GRAPH_B (its
+    # numbers: the @int_rels entry's, at B = 64)
+    for name, entry_of in (
+            (KERNEL_NAMES[("fused_ctx_pool", torch.float32)], "eval"),
+            (KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)], "eval"),
+            (scatter_accum.KERNEL_NAMES[torch.float32], "train"),
+            (scatter_accum.KERNEL_NAMES[torch.bfloat16], "train")):
+        main_entry = next(k for k in kernels if k["name"] == name
+                          and k.get("path") == entry_of)
+        check(graph_counts.get(name, 0) > 0,
+              "%s was not launched by phase 19's graphs" % name)
+        kernels.append(dict(main_entry, name=name + "@graph", path="graph",
+                            launches=graph_counts[name]))
+    name = scatter_accum.KERNEL_NAMES[torch.float32]
+    k8_graph = sweeps["int_rels"]["B%d" % INT_RELS_GRAPH_B]
+    kernels.append(dict(next(k for k in kernels
+                             if k["name"] == name + "@int_rels"),
+                        name=name + "@int_rels_graph", path="int_rels_graph",
+                        launches=k8_graph["launches"]))
+    log("sweeps: " + json.dumps(sweeps))
     log("modalities: " + json.dumps(mod))
     log("eval_clips_per_s: " + json.dumps(
         {"%s_%s" % (c, t if t else "off"): v

@@ -91,7 +91,9 @@ def save_train_state_any(path: str, model, optimizer, epoch: int,
     JAX package's ``save_train_state`` file, ``{'params', 'opt_state'
     (opt_state_to_jax), 'epoch'}``."""
     if backend == "torch":
-        save_train_state(path, model.state_dict(), optimizer.state_dict(),
+        from lirec_tpu_torch.train.optim import file_state
+
+        save_train_state(path, model.state_dict(), file_state(optimizer),
                          epoch)
     elif backend == "msgpack":
         from lirec_tpu_torch.checkpoint.convert import (

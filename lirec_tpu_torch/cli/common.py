@@ -10,7 +10,8 @@ evaluates a checkpoint (a reference ``.pth.tar`` or a msgpack ``.ckpt``
 of the JAX package) on the val and test splits
 (the packed sweep, evaluation/packed.py, or with ``--host-eval`` the
 per-batch host loop, evaluation/runner.py) or, with ``--train`` /
-``--resume-train``, trains (train/loop.py: cadence evaluation, best-n
+``--resume-train``, trains (train/loop.py: the epoch sweep, or one step
+per batch with ``--per-batch-train``; cadence evaluation, best-n
 checkpoints, ``latest.pth.tar`` and the final ``<epochs-1>.pth.tar`` under
 ``--store-root``), all on ``--device`` (default: the card).
 ``--resume-train`` reads the weights, the Adam state and the epoch from
@@ -148,8 +149,9 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
                         "(data/localize.py). auto = on when profitable at "
                         "the split's cardinality")
     p.add_argument("--per-batch-train", action="store_true",
-                   help="accepted for the JAX package's command lines: "
-                        "the port always trains one step per batch")
+                   help="one eager step per batch, each loss read after "
+                        "its step, instead of the epoch sweep (train/"
+                        "sweep.py: a CUDA graph of the step on a card)")
     for flag in ("--fast-prng", "--strict-prng"):
         p.add_argument(flag, action="store_true",
                        help="accepted for the JAX package's command lines: "
@@ -439,7 +441,7 @@ def _train(cfg, args, bundle, train_ds, val_ds, test_ds, resume_from,
     """--train / --resume-train / --auto-resume: the epoch loop from epoch
     0, or from the epoch after the train state `resume_from`'s."""
     from lirec_tpu_torch.train.loop import train
-    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.train.optim import load_state, make_optimizer
 
     optimizer = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
                                cfg.optim.weight_decay)
@@ -449,7 +451,7 @@ def _train(cfg, args, bundle, train_ds, val_ds, test_ds, resume_from,
             resume_from, bundle.model, optimizer)
         bundle.model.load_state_dict(state_dict)
         if opt_state:
-            optimizer.load_state_dict(opt_state)
+            load_state(optimizer, opt_state)
         start_epoch = epoch + 1
         if verbose:
             print("resumed training state from %s (epoch %d)"
@@ -465,7 +467,9 @@ def _train(cfg, args, bundle, train_ds, val_ds, test_ds, resume_from,
         eval_localize=TRISTATE[args.eval_localize], mesh=mesh,
         checkpoint_backend=args.checkpoint_backend,
         assembly_workers=args.assembly_workers,
+        epoch_sweep=False if args.per_batch_train else None,
     )
     return {"losses": out["losses"], "start_epoch": start_epoch,
             "final_path": out["final_path"],
+            "epoch_sweep_used": out["epoch_sweep_used"],
             "localized_tables": out["localized_tables"]}

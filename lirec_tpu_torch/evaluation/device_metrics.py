@@ -34,7 +34,8 @@ def grounding_predictions(
     """
     B, T, _ = pr_probs_cl.shape
     valid = mask[:, :, None] > 0
-    neg_inf = torch.tensor(float("-inf"), device=pr_probs_cl.device)
+    # made on the card (a host tensor's copy is refused inside a capture)
+    neg_inf = torch.full((), float("-inf"), device=pr_probs_cl.device)
     s_cl = torch.sigmoid(torch.where(valid, pr_probs_cl.float(), neg_inf))
     gt_col = gt_classes.reshape(-1, 1).long()
 

@@ -2,16 +2,23 @@
 lirec_tpu/evaluation/packed.py).
 
 The split is materialized once (``dataset.materialize()``) and staged on
-the device as ``[n_full, B, ...]`` tensors; a Python loop steps over the
-full batches (the JAX package's one-dispatch ``fori_loop``), and every
-metric counter (the grounding argmax counts of
-``update_probs_max_tracks[_rels]``, ref evaluation.py:114-271, the
-top-k/soft counters of ``update_probs``, ref :68-107, and the per-hash
-score sums of ``RelationshipsAcc``, ref :367-417) accumulates in a carry
-of device tensors. One fetch at the end returns everything; the host
-finishes the divisions and the per-hash argsort. The ragged tail is a
-second step at its natural size, or is dropped when it is one sample (the
-reference skips size-1 batches, ref test.py:38-39).
+the device as ``[n_full, B, ...]`` tensors, and a step runs per full batch
+(the JAX package's one-dispatch ``fori_loop``): on a card one replay of a
+CUDA graph of the step (utils/graphs.StepGraph), captured once per sweep,
+that is per key of shapes, dtype and localisation tier, after the first
+batch's eager step as its warm-up; it reads batch i of the staged stack
+through a device-side index it advances. On the CPU, or with
+``graph=False`` (the tests, ``chip_smoke.py`` and the tools compare the
+two), a Python loop of eager steps. Every metric counter (the grounding
+argmax counts of ``update_probs_max_tracks[_rels]``, ref
+evaluation.py:114-271, the top-k/soft counters of ``update_probs``, ref
+:68-107, and the per-hash score sums of ``RelationshipsAcc``, ref
+:367-417) accumulates in a carry of device tensors, updated in place. One fetch at the end returns
+everything; the host finishes the divisions and the per-hash argsort. The
+ragged tail is one eager step at its natural size, or is dropped when it
+is one sample (the reference skips size-1 batches, ref test.py:38-39).
+``dispatch.decisions("eval_sweep")`` counts which loop ran ("graph" or
+"eager").
 
 Eval ctx localisation (``localize_ctx``): ``"triple"`` gathers each
 batch's unique [clip | tr1 | tr2] index triples into one local table and
@@ -24,8 +31,9 @@ saves: PERF.md). Every tier gives bitwise the same carry.
 Over a data mesh of several processes (parallel/dist.py), each process
 sweeps its own contiguous block of full batches (the last one also takes
 the ragged tail), so the reference's batch boundaries stay where they
-were, and ``allreduce_carry`` combines the carries: every process ends
-with the global carry and the same metrics.
+were, with no collective inside the loop (the graph serves there too),
+and ``allreduce_carry`` combines the carries: every process ends with the
+global carry and the same metrics.
 
 Not ported: the TPU's VMEM cost model of the localisation gate, and the
 ``LIREC_TPU_EVAL_LOCALIZE`` switch.
@@ -41,6 +49,7 @@ import torch
 
 from lirec_tpu_torch.evaluation.metrics import MetricAccumulator, RelationshipsAcc
 from lirec_tpu_torch.evaluation.runner import summarize_metrics
+from lirec_tpu_torch.utils.graphs import StepGraph, capturing, take
 
 __all__ = [
     "evaluate_packed",
@@ -168,7 +177,10 @@ def device_sweep_builder(bundle, t, n_classes: int, n_rels: int,
     embedded, carry, batch)`` runs the model, the loss and the metric
     counting of one batch of device tensors and folds the counts into
     `carry` (in place, and returns it). use_kernel=False takes the plain
-    ctx pools, for comparisons. The JAX package's opt-in confusion matrix
+    ctx pools, for comparisons. ``step.loss_generator(device)`` is the
+    generator of ``tr_cat_distr``'s draws (None without it), which the step
+    seeds to 0 before every batch, outside a CUDA graph's capture; a
+    replay's caller seeds it. The JAX package's opt-in confusion matrix
     (``with_conf_mat``), which no metric reads, is not ported.
     """
     from lirec_tpu_torch.evaluation.device_metrics import (
@@ -206,17 +218,22 @@ def device_sweep_builder(bundle, t, n_classes: int, n_rels: int,
             carry["rels_seen"] = zero(n_hashes + 1)
         return carry
 
+    def loss_generator(device):
+        if not t.tr_cat_distr:
+            return None
+        if device not in loss_rng:
+            loss_rng[device] = torch.Generator(device=device)
+        return loss_rng[device]
+
     def step(model, tables, embedded, carry, batch):
         device = batch["labels"].device
         out = bundle.apply(
             model, {k: batch[k] for k in MODEL_KEYS if k in batch},
             tables=tables, embedded=embedded, use_kernel=use_kernel,
         )
-        rng = None
-        if t.tr_cat_distr:
-            if device not in loss_rng:
-                loss_rng[device] = torch.Generator(device=device)
-            rng = loss_rng[device].manual_seed(0)
+        rng = loss_generator(device)
+        if rng is not None and not capturing():
+            rng.manual_seed(0)
         loss = bundle.loss(out, batch, rng=rng)
         carry["loss_sum"] += loss.float()
         carry["n_batches"] += 1
@@ -269,28 +286,33 @@ def device_sweep_builder(bundle, t, n_classes: int, n_rels: int,
             # sequential scatter-add does
             n_rows = n_hashes + 1
             ids = torch.cat([torch.arange(n_rows, device=device), h])
-            carry["rels_table"] = scatter_accum1(
+            carry["rels_table"].copy_(scatter_accum1(
                 ids.to(torch.int32).contiguous(),
-                torch.cat([carry["rels_table"], upd]).contiguous(), n_rows)
+                torch.cat([carry["rels_table"], upd]).contiguous(), n_rows))
             carry["rels_gt"][h] = rels_label
             carry["rels_seen"].index_add_(0, h, valid.long())
         return carry
 
+    step.loss_generator = loss_generator
     return init_carry, step
 
 
+def _at(stack, i):
+    """stack[i] for an int, or for a one-element device index tensor."""
+    return take(stack, i) if isinstance(i, torch.Tensor) else stack[i]
+
+
 def inject_loc(batch: Dict, loc: Dict, i):
-    """Add batch i's ctx localization ids (no-op on an empty loc tree).
-    The triple tier carries per-batch unique index triples; its
-    per-sample ``ctx_tidx`` rides in the data tree, sliced with the
-    batch."""
+    """Add batch i's ctx localization ids (no-op on an empty loc tree); `i`
+    an int or a one-element device index tensor. The triple tier carries
+    per-batch unique index triples; its per-sample ``ctx_tidx`` rides in
+    the data tree, sliced with the batch."""
     if not loc:
         return batch
     if "triples" in loc:
-        return dict(batch, ctx_triples=loc["triples"][i])
-    return dict(
-        batch, ctx_uniq_clip=loc["clip"][i], ctx_uniq_track=loc["track"][i]
-    )
+        return dict(batch, ctx_triples=_at(loc["triples"], i))
+    return dict(batch, ctx_uniq_clip=_at(loc["clip"], i),
+                ctx_uniq_track=_at(loc["track"], i))
 
 
 def loc_apply_data(data: Dict, loc: Optional[Dict]) -> Dict:
@@ -413,12 +435,15 @@ def sweep_carry(
     use_kernel: bool = True,
     localize_ctx=None,
     mesh=None,
+    graph: Optional[bool] = None,
 ) -> Dict[str, np.ndarray]:
     """The sweep's carry of a whole split, on the host: the counters
     ``finish_from_carry`` turns into metrics. Over a data `mesh`
     (parallel/dist.DataMesh) of several processes, this process sweeps its
     block of full batches and the carries are combined
-    (``allreduce_carry``)."""
+    (``allreduce_carry``). `graph`: None (a CUDA graph of the step on a
+    card, eager steps on the CPU), True (raises off a card) or False
+    (eager steps, for comparisons); a failed capture raises."""
     t = cfg.tasks
     n_rels = dataset.n_rels
     n_classes = dataset.n_classes
@@ -470,10 +495,24 @@ def sweep_carry(
         }
         loc_dev = _loc_device_tree(loc, device)
         carry = init_carry(device)
-        for i in range(n_full):
-            batch = inject_loc({k: v[i] for k, v in data_dev.items()},
-                               loc_dev, i)
-            carry = step(model, tables, embedded, carry, batch)
+        if graph and device.type != "cuda":
+            raise ValueError("the eval sweep's CUDA graph needs the model "
+                             "on a card; it is on %s" % device)
+        use_graph = device.type == "cuda" if graph is None else bool(graph)
+        if use_graph:
+            reason = "cuda: one graph per sweep"
+        else:
+            reason = "cpu tensors" if device.type == "cpu" else "asked"
+        dispatch.record("eval_sweep", "graph" if use_graph else "eager",
+                        reason, {"n_full": n_full, "batch_size": B})
+        if use_graph and n_full:
+            _graph_sweep(step, model, tables, embedded, carry, data_dev,
+                         loc_dev, n_full, device)
+        else:
+            for i in range(n_full):
+                batch = inject_loc({k: v[i] for k, v in data_dev.items()},
+                                   loc_dev, i)
+                step(model, tables, embedded, carry, batch)
         if tail:
             tail_batch = {
                 k: torch.as_tensor(np.asarray(v)[n_full * B:]).to(device)
@@ -482,6 +521,29 @@ def sweep_carry(
             carry = step(model, tables, embedded, carry, tail_batch)
         carry = {k: v.cpu().numpy() for k, v in carry.items()}
     return allreduce_carry(carry) if mesh is not None else carry
+
+
+def _graph_sweep(step, model, tables, embedded, carry, data_dev, loc_dev,
+                 n_full: int, device) -> None:
+    """The full batches as a CUDA graph of `step`: batch 0 eagerly (the
+    warm-up), then n_full - 1 replays, each reading the next batch."""
+    index = torch.zeros(1, dtype=torch.int64, device=device)
+    gen = step.loss_generator(device)
+    generators = [gen] if gen is not None else []
+
+    def one():
+        batch = inject_loc({k: _at(v, index) for k, v in data_dev.items()},
+                           loc_dev, index)
+        step(model, tables, embedded, carry, batch)
+        index.add_(1)
+
+    for g in generators:
+        g.manual_seed(0)
+    captured = StepGraph(one, device, generators)
+    for _ in range(n_full - 1):
+        for g in generators:
+            g.manual_seed(0)
+        captured.replay()
 
 
 def evaluate_packed(
@@ -497,17 +559,18 @@ def evaluate_packed(
     use_kernel: bool = True,
     localize_ctx=None,
     mesh=None,
+    graph: Optional[bool] = None,
 ) -> Dict[str, float]:
     """Evaluation of a whole split on ``model``'s device; returns the same
     metric dict (and prints the same lines) as the JAX package's
     evaluate_packed. With a data `mesh` of several processes
     (parallel/dist.DataMesh), every process calls it; each sweeps its
     block of batches (``sweep_carry``) and all return the global
-    metrics."""
+    metrics. `graph`: as ``sweep_carry``'s."""
     carry = sweep_carry(dataset, bundle, model, cfg, mode=mode,
                         tables=tables, data=data, batch_size=batch_size,
                         use_kernel=use_kernel, localize_ctx=localize_ctx,
-                        mesh=mesh)
+                        mesh=mesh, graph=graph)
     n_hashes = len(getattr(dataset, "hashidx_rels", ()) or ())
     return finish_from_carry(carry, cfg.tasks, dataset.n_rels, n_hashes,
                              mode, verbose)

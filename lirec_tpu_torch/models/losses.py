@@ -32,6 +32,7 @@ import torch
 from lirec_tpu_torch.models.layers import draw_rows
 from lirec_tpu_torch.ops.select import select_along_axis
 from lirec_tpu_torch.parallel.dist import batch_shard, batch_total
+from lirec_tpu_torch.utils.graphs import capturing
 
 __all__ = [
     "max_margin_ce_loss",
@@ -83,12 +84,15 @@ def _exponential(shape, generator=None, device=None, dtype=None):
 
 def _sample(probs: torch.Tensor, rng: torch.Generator) -> torch.Tensor:
     """One category per row, with probability proportional to `probs`. In
-    a data-parallel step: torch.multinomial's own one-sample method
-    (argmax of probs / Exp(1) draws), with the draws made for the global
-    batch (layers.draw_rows)."""
+    a data-parallel step, and inside a CUDA graph's capture (where
+    torch.multinomial's check of `probs` reads the card from the host,
+    which a capture refuses): torch.multinomial's own one-sample method,
+    the argmax of probs / Exp(1) draws, the same draws from the same
+    generator, made for the global batch in a data-parallel step
+    (layers.draw_rows)."""
     if rng is None:
         raise ValueError("tr_cat_distr sampling needs a generator")
-    if batch_shard() is None:
+    if batch_shard() is None and not capturing():
         return torch.multinomial(probs, 1, generator=rng).squeeze(1)
     q = draw_rows(_exponential, probs.shape, rng, probs.device, probs.dtype)
     return (probs / q).argmax(dim=-1)

@@ -5,20 +5,28 @@ CUDA tensors, the plain PyTorch version for CPU tensors) and, where it
 launches its kernel, adds one to that kernel's launch count. A run can then
 show that its main path really went through the kernels instead of
 inferring it from timings (lirec_tpu/ops/dispatch.py gives the history).
+
+A CUDA graph's capture runs the wrappers without launching anything: its
+launches are recorded for the graph (``recording_launches``) and added to
+the counts at every replay (``count_replay``), so that a replayed step
+counts what the same eager step counts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 
 __all__ = ["record", "last_dispatch", "decisions", "route", "launch",
-           "count_launch", "launches", "reset_launches"]
+           "count_launch", "launches", "reset_launches",
+           "recording_launches", "count_replay"]
 
 _logger = logging.getLogger("lirec_tpu_torch.ops")
 _DISPATCH: dict = {}
 _LOGGED: set = set()
 _LAUNCHES: dict = {}
 _DECISIONS: dict = {}
+_RECORDING: list = []  # the launch counts of the captures under way
 
 
 def record(kernel: str, path: str, reason: str, shapes) -> None:
@@ -70,8 +78,29 @@ def launch(kernel: str, fn, device, args) -> None:
 
 def count_launch(kernel: str) -> None:
     """Called by a wrapper right after it launched `kernel`, and nowhere
-    else."""
-    _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
+    else. Under ``recording_launches`` the launch goes to the capture's
+    counts instead."""
+    counts = _RECORDING[-1] if _RECORDING else _LAUNCHES
+    counts[kernel] = counts.get(kernel, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within: the wrappers' launches are counted into the yielded dict
+    and not into the process's counts (a CUDA graph's capture, which
+    launches nothing)."""
+    counts: dict = {}
+    _RECORDING.append(counts)
+    try:
+        yield counts
+    finally:
+        _RECORDING.pop()
+
+
+def count_replay(counts: dict) -> None:
+    """A replay of a CUDA graph whose capture recorded `counts`."""
+    for kernel, n in counts.items():
+        _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + n
 
 
 def launches(kernel: str = None):

@@ -14,8 +14,15 @@ gradient at the same parameters, and the losses with one process's
 steps; the parameters after Adam are reported, not held: Adam turns a
 near-zero gradient element into a step of about lr whatever its last
 digits, so a few elements of 18.4M part by more than rounding, and the
-trajectories by that much after the first step. The rank's launch counts
-come back with its result (dist.RankResult).
+trajectories by that much after the first step. Adam is not capturable
+here (nor in the caller's one-process steps): the gradients are held at
+the trajectory's points, and capturable Adam's f32 bias corrections lead
+the trajectory to a point where the loss sits on a near-tie of one of its
+maxima, so that the ranks' halves and one process's whole batch round
+apart and take different subgradients there (1.4e-4 of scale in the
+ints branch's gate, the losses equal to nine digits; measured on the
+card). The rank's launch counts come back with its result
+(dist.RankResult).
 """
 
 from __future__ import annotations
@@ -78,7 +85,7 @@ def rank_run(job: dict) -> dict:
     bundle = create_model(cfg, job["n_classes"], n_rels=job["n_rels"],
                           seed=job["seed"], device=device)
     optimizer = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
-                               cfg.optim.weight_decay)
+                               cfg.optim.weight_decay, capturable=False)
     step = make_dp_train_step(bundle, optimizer, mesh, job["train_b"],
                               deterministic=True)
     dev_tables = {k: torch.from_numpy(v).to(device)

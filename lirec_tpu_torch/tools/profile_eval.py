@@ -5,7 +5,9 @@
 The configuration of ``chip_smoke.py`` phase 9: int_rel_ch at its
 published widths, seeded weights, split-scale tables (12,288 clip / 24,576
 track rows), structured B = 64 batches, in bf16 and f32 compute, without
-ctx localisation and in the triple tier. For each: the sweep over
+ctx localisation and in the triple tier, each as the CUDA graph of the
+step (the sweep's default on a card) and as eager steps (``graph=False``).
+For each: the sweep over
 N1 = 40 and N2 = 80 full batches, timed on the host clock (3 runs each,
 unprofiled), then once each under ``torch.profiler``. Every per-batch
 number is a slope over the two batch counts, so the set-up of a call
@@ -31,10 +33,10 @@ from lirec_tpu_torch.tools.profile_train import _kernel_spans, _union_us
 
 N_CLIPS, N_TRACKS, BATCH = 12288, 24576, 64
 N1, N2, RUNS = 40, 80, 3
-POOL_KERNELS = ("fused_ctx_pool_kernel<", "triple_pool_kernel<")
+POOL_KERNELS = ("fused_ctx_pool_kernel<", "gather_lanes_kernel<")
 
 
-def profile(compute: str, tier, data, tables) -> dict:
+def profile(compute: str, tier, data, tables, graph: bool) -> dict:
     import types
 
     import torch
@@ -57,7 +59,7 @@ def profile(compute: str, tier, data, tables) -> dict:
     def sweep(n):
         evaluate_packed(datasets[n], bundle, bundle.model, cfg, mode="test",
                         verbose=False, data=splits[n], tables=tables,
-                        localize_ctx=tier)
+                        localize_ctx=tier, graph=graph)
 
     secs = {n: [] for n in (N1, N2)}
     for n in (N1, N2):
@@ -118,13 +120,16 @@ def main() -> int:
     tables = make_tables(spec, N_CLIPS, N_TRACKS, seed=0)
     for compute in ("bfloat16", "float32"):
         for tier in (False, "triple"):
-            r = profile(compute, tier, data, tables)
-            label = "%s localize=%s" % (compute, tier or "off")
-            print("%s: %.4f ms/batch (%.0f clips/s), device busy %.4f "
-                  "ms/batch, idle share %.3f, ctx pool kernel %.1f us/batch"
-                  % (label, r["batch_ms"], r["clips_per_s"], r["busy_ms"],
-                     r["idle_share"], r["pool_us"]))
-            print(r["table"], flush=True)
+            for graph in (True, False):
+                r = profile(compute, tier, data, tables, graph)
+                label = "%s localize=%s %s" % (compute, tier or "off",
+                                               "graph" if graph else "eager")
+                print("%s: %.4f ms/batch (%.0f clips/s), device busy %.4f "
+                      "ms/batch, idle share %.3f, ctx pool kernel %.1f "
+                      "us/batch" % (label, r["batch_ms"], r["clips_per_s"],
+                                    r["busy_ms"], r["idle_share"],
+                                    r["pool_us"]))
+                print(r["table"], flush=True)
     return 0
 
 

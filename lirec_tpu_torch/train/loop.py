@@ -1,21 +1,36 @@
 """Training loop (ref `mlp/train.py:21-107`; counterpart of
-lirec_tpu/train/loop.py), eager, one step per batch.
+lirec_tpu/train/loop.py): the one-dispatch epoch sweep by default, or one
+step per batch.
 
 Per epoch: the shuffled batches of data/pipeline.EpochIterator (size-1
 batches skipped, ref :55-56; ``assembly_workers`` > 0 assembles them in
 an AssemblyPool of worker processes, bitwise the same batches), localized
-together to batch-local tables (data/localize.Localizer), a ragged last
-batch padded to the full batch size with ``loss_weight`` 0 (one batch
-shape per epoch; padded rows drop out of every loss mean), then staged on
-the device ahead of their steps (data/pipeline.prefetch_to_device: pinned
-memory and a side copy stream on a card) and one forward + loss +
-backward + Adam step each. ``dense=True`` trains on dense batches (the
+together to batch-local tables (data/localize.Localizer). Then, by
+default (``epoch_sweep=None``: on unless ``dense``), the epoch sweep
+(train/sweep.EpochSweep): the batches padded and stacked as the JAX
+package stacks them, staged on the device in chunks of at most
+``sweep_max_steps`` steps, each step one replay of a CUDA graph of the
+whole step on a card (eager steps on the CPU and under a data mesh); the
+next epoch's batches are assembled while the card runs this one, and the
+losses are read once per epoch. With ``epoch_sweep=False``
+(``--per-batch-train``) or ``dense=True``, the per-batch path: a ragged
+last batch padded to the full batch size with ``loss_weight`` 0 (one
+batch shape per epoch; padded rows drop out of every loss mean), the
+batches staged on the device ahead of their steps
+(data/pipeline.prefetch_to_device: pinned memory and a side copy stream
+on a card), one eager forward + loss + backward + Adam step each, and its
+loss read after each step. ``dense=True`` trains on dense batches (the
 reference layout, the JAX package's parity oracle): no tables, no
 Localizer, batches streamed rather than collected per epoch, and the
 cadence runs the host loop over dense batches. Step i of epoch e draws
 its dropout masks and its loss sampling from two ``torch.Generator``s
-seeded from (seed, e * 100003 + i), as the JAX package folds its key. The ``tr_sum_max`` curriculum flips at epoch 20
-(ref :49-51).
+seeded from (seed, e * 100003 + i), as the JAX package folds its key, on
+both paths, so they take the same trajectory, bit for bit where every
+batch is full. When one is ragged the sweep gives every batch a
+``loss_weight`` of ones, and a weighted mean (a sum over the weight sum)
+equals the plain mean only where the plain mean is a sum divided by the
+count: on the CPU, and on a card at power-of-two batch sizes. The
+``tr_sum_max`` curriculum flips at epoch 20 (ref :49-51).
 
 Every ``test_fr`` epochs, with a ``val_dataset``, the cadence evaluation
 (ref :75-91) runs the packed sweep (evaluation/packed.evaluate_packed;
@@ -43,7 +58,7 @@ As in the JAX package, the epoch iterator starts at epoch 0 whatever
 ``start_epoch`` is: a resumed run replays the shuffle order of epoch 0
 onwards while its step generators follow the true epoch (ROADMAP.md queue
 3). Not ported, and raised rather than skipped: a mesh with a ``model``
-axis. The one-dispatch epoch sweep of the JAX package is not ported.
+axis.
 """
 
 from __future__ import annotations
@@ -65,23 +80,31 @@ from lirec_tpu_torch.data.pipeline import (
 )
 from lirec_tpu_torch.evaluation.packed import evaluate_packed
 from lirec_tpu_torch.evaluation.runner import MESH_HOST_EVAL, evaluate
+from lirec_tpu_torch.ops import dispatch
 from lirec_tpu_torch.parallel import dist
-from lirec_tpu_torch.train.optim import make_optimizer
+from lirec_tpu_torch.train.optim import file_state, make_optimizer
+from lirec_tpu_torch.train.sweep import SEED_STRIDE, EpochSweep
 from lirec_tpu_torch.utils.meters import Averaging, MetricsLogger
 
-__all__ = ["train", "make_train_step", "train_loss", "step_generators"]
+__all__ = ["train", "make_train_step", "train_loss", "step_generators",
+           "step_seeds"]
 
 MODEL_KEYS = ("features", "feat_idx", "rels_mask", "uniq_clip",
               "uniq_track")
 
 
+def step_seeds(seed: int, offset: int):
+    """(dropout seed, loss seed) of one step: two independent streams from
+    the seed sequence (seed, offset)."""
+    return tuple(int(s) for s in np.random.SeedSequence(
+        [seed, offset]).generate_state(2, np.uint64))
+
+
 def step_generators(seed: int, offset: int, device):
-    """(dropout generator, loss generator) on `device` for one step: two
-    independent streams from the seed sequence (seed, offset)."""
-    s_drop, s_loss = np.random.SeedSequence([seed, offset]).generate_state(
-        2, np.uint64)
-    return tuple(torch.Generator(device=device).manual_seed(int(s))
-                 for s in (s_drop, s_loss))
+    """(dropout generator, loss generator) on `device` for one step, seeded
+    with ``step_seeds``."""
+    return tuple(torch.Generator(device=device).manual_seed(s)
+                 for s in step_seeds(seed, offset))
 
 
 def check_indices(batch: Dict, n_clips: int, n_tracks: int) -> None:
@@ -137,7 +160,8 @@ def train_loss(bundle, batch, tables, generators, tr_sum_max_flag=True,
                        tr_sum_max_flag=tr_sum_max_flag)
 
 
-def make_train_step(bundle, optimizer, deterministic: bool = False):
+def make_train_step(bundle, optimizer, deterministic: bool = False,
+                    static_grads: bool = False):
     """step(batch, tables, generators, tr_sum_max_flag=True) -> loss: one
     forward (dropout on unless deterministic) + loss + backward +
     optimizer step of ``bundle.model`` on a host batch (checked, then
@@ -145,6 +169,8 @@ def make_train_step(bundle, optimizer, deterministic: bool = False):
     data/pipeline.prefetch_to_device staged there. `tables`: the feature
     tables as tensors on that device (None for dense batches);
     `generators`: (dropout, loss) from ``step_generators``.
+    static_grads=True zeroes the gradients in place instead of dropping
+    them, so that they stay the same buffers (a CUDA graph's step).
     parallel/step.make_dp_train_step is its data-parallel form."""
     device = next(bundle.model.parameters()).device
 
@@ -152,7 +178,7 @@ def make_train_step(bundle, optimizer, deterministic: bool = False):
         if not staged(batch, device):
             check_batch(batch, tables)
             batch = _to_device(batch, device)
-        optimizer.zero_grad(set_to_none=True)
+        optimizer.zero_grad(set_to_none=not static_grads)
         loss = train_loss(bundle, batch, tables, generators,
                           tr_sum_max_flag, deterministic)
         loss.backward()
@@ -209,10 +235,12 @@ def train(
     eval_localize=None,
     checkpoint_backend: str = "torch",
     assembly_workers: int = 0,
+    epoch_sweep: Optional[bool] = None,
+    sweep_max_steps: int = 512,
 ) -> Dict:
     """Run the epoch loop on ``bundle.model``'s device; returns {'model',
     'optimizer', 'saver', 'losses' (mean per epoch), 'final_path',
-    'localized_tables'}.
+    'epoch_sweep_used', 'localized_tables'}.
 
     `tables` default to the dataset's (``train_dataset.tables``); they are
     moved to the device once. `optimizer` defaults to ``make_optimizer``
@@ -222,7 +250,10 @@ def train(
     or a (data, model) shape over this process group. `checkpoint_backend`:
     'torch' (.pth.tar) or 'msgpack' (the JAX package's .ckpt files).
     `assembly_workers`: the epoch iterator's worker processes (0: in this
-    process); `dense`: train on dense batches, without tables."""
+    process); `dense`: train on dense batches, without tables.
+    `epoch_sweep`: the epoch sweep (None: unless `dense`; False: one step
+    per batch, --per-batch-train), in chunks of at most `sweep_max_steps`
+    steps."""
     o, t = cfg.optim, cfg.tasks
     if mesh is not None:
         mesh = dist.make_mesh(mesh)
@@ -247,7 +278,13 @@ def train(
                               n_clips=tables["text"].shape[0],
                               n_tracks=tables["track"].shape[0],
                               force=localize_tables)
-    if mesh is None:
+    if epoch_sweep is None:
+        epoch_sweep = not dense
+    use_sweep = bool(epoch_sweep) and not dense
+    if use_sweep:
+        sweep = EpochSweep(bundle, optimizer, tables, o.seed, o.batch_size,
+                           mesh=mesh, sweep_max_steps=sweep_max_steps)
+    elif mesh is None:
         step = make_train_step(bundle, optimizer)
     else:
         from lirec_tpu_torch.parallel.step import make_dp_train_step
@@ -280,7 +317,7 @@ def train(
 
     def train_state():
         return {"state_dict": model.state_dict(),
-                "optimizer": optimizer.state_dict()}
+                "optimizer": file_state(optimizer)}
 
     def write(fn, *args):
         """fn(*args) on process 0 only, the others waiting at barriers
@@ -303,7 +340,50 @@ def train(
             sizes.append(n)
             yield batch
 
+    def collect():
+        batches = _collect_batches(iterator)
+        return localizer.maybe_localize(batches) if localizer else batches
+
+    def sweep_epoch(epoch, batches, loss_meter):
+        """The epoch's losses: its sweep dispatched, the next epoch's
+        batches assembled while the card runs it (returned), then the
+        losses read."""
+        for batch in batches:
+            check_batch(batch, tables)
+        dispatched = sweep.run(batches, epoch, tr_sum_max_flag)
+        pending = collect() if epoch + 1 < o.epochs else None
+        epoch_losses = sweep.fetch(dispatched)
+        for loss, batch in zip(epoch_losses, batches):
+            loss_meter.update(loss, len(batch["labels"]))
+        return epoch_losses, pending
+
+    def batch_epoch(epoch, batches, batch_time, data_time, loss_meter, end):
+        """The epoch's losses, one step per batch, each read after its
+        step."""
+        sizes = collections.deque()
+        epoch_losses = []
+        for i, batch in enumerate(prefetch_to_device(
+                host_batches(batches, sizes), device)):
+            data_time.update(time.time() - end)
+            n = sizes.popleft()
+            loss = step(batch, tables, step_generators(
+                o.seed, epoch * SEED_STRIDE + i, device),
+                tr_sum_max_flag=tr_sum_max_flag)
+            loss = float(loss)
+            epoch_losses.append(loss)
+            loss_meter.update(loss, n)
+            batch_time.update(time.time() - end)
+            end = time.time()
+            if verbose and i and i % 10 == 0:
+                print("Epoch: [%d][%d/%d]\tTime %.3f (%.3f)\tData %.3f "
+                      "(%.3f)\tLoss %.4f (%.4f)"
+                      % (epoch, i, len(iterator), batch_time.val,
+                         batch_time.avg, data_time.val, data_time.avg,
+                         loss_meter.val, loss_meter.avg))
+        return epoch_losses
+
     losses = []
+    pending = None  # the next epoch's batches, assembled during a sweep
     try:
         for epoch in range(start_epoch, o.epochs):
             if t.tr_sum_max and epoch >= 20:
@@ -311,35 +391,27 @@ def train(
             batch_time, data_time, loss_meter = (Averaging(), Averaging(),
                                                  Averaging())
             start = end = time.time()
-            if localizer is not None:
-                # the Localizer sizes its tables over the whole epoch
-                batches = localizer.maybe_localize(
-                    _collect_batches(iterator))
-            else:
-                # streamed: a dense epoch does not fit in host memory
-                batches = (b for b in iterator
-                           if (b["labels"].shape[0] if b["labels"].ndim
-                               else 1) > 1)
-            sizes = collections.deque()
-            epoch_losses = []
-            for i, batch in enumerate(prefetch_to_device(
-                    host_batches(batches, sizes), device)):
+            if use_sweep:
+                batches = pending if pending is not None else collect()
                 data_time.update(time.time() - end)
-                n = sizes.popleft()
-                loss = step(batch, tables, step_generators(
-                    o.seed, epoch * 100003 + i, device),
-                    tr_sum_max_flag=tr_sum_max_flag)
-                loss = float(loss)
-                epoch_losses.append(loss)
-                loss_meter.update(loss, n)
-                batch_time.update(time.time() - end)
-                end = time.time()
-                if verbose and i and i % 10 == 0:
-                    print("Epoch: [%d][%d/%d]\tTime %.3f (%.3f)\tData %.3f "
-                          "(%.3f)\tLoss %.4f (%.4f)"
-                          % (epoch, i, len(iterator), batch_time.val,
-                             batch_time.avg, data_time.val, data_time.avg,
-                             loss_meter.val, loss_meter.avg))
+                epoch_losses, pending = sweep_epoch(epoch, batches,
+                                                    loss_meter)
+                if batches:
+                    batch_time.update((time.time() - end) / len(batches))
+            else:
+                if localizer is not None:
+                    # the Localizer sizes its tables over the whole epoch
+                    batches = collect()
+                else:
+                    # streamed: a dense epoch does not fit in host memory
+                    batches = (b for b in iterator
+                               if (b["labels"].shape[0] if b["labels"].ndim
+                                   else 1) > 1)
+                dispatch.record("train_loop", "per_batch",
+                                "dense batches" if dense
+                                else "epoch_sweep off", {})
+                epoch_losses = batch_epoch(epoch, batches, batch_time,
+                                           data_time, loss_meter, end)
             losses.append(float(np.mean(epoch_losses)) if epoch_losses
                           else 0.0)
             if verbose:
@@ -388,5 +460,6 @@ def train(
         "saver": saver,
         "losses": losses,
         "final_path": final_path,
+        "epoch_sweep_used": use_sweep,
         "localized_tables": bool(localizer and localizer.applied),
     }

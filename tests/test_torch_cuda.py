@@ -1,5 +1,6 @@
 """The CUDA kernels (ctx pools, masked gather-sum, scatter-accumulate)
-against their plain PyTorch versions, and one train step, on the card.
+against their plain PyTorch versions, one train step, and the one-dispatch
+sweeps' CUDA graphs against their eager steps, on the card.
 
 Marked ``cuda``: these skip without a CUDA device. The file imports no jax,
 so it runs on a machine without it:
@@ -494,13 +495,15 @@ def test_one_train_step_on_the_card(cuda, compute):
         assert not torch.equal(p.detach(), before[n]), n
 
 
-def _small_int_rel_ch(compute, device):
+def _small_int_rel_ch(compute, device, **tasks):
     from lirec_tpu_torch import config as config_lib
     from lirec_tpu_torch.models.factory import create_model
 
     cfg = config_lib.preset("int_rel_ch").with_dims(
         text_dim=32, visual_dim=64, joint_dim=256).with_runtime(
         compute_dtype=compute)
+    if tasks:
+        cfg = cfg.with_tasks(**tasks)
     return cfg, create_model(cfg, 9, n_rels=6, seed=0, device=device)
 
 
@@ -749,3 +752,216 @@ def test_packed_gather_sum_edges_bitwise(cuda, case):
     torch.cuda.synchronize()
     unpacked = probes.unpack_bf16(packed).float()
     assert torch.equal(got, _loop_sum(unpacked, idx, mask))
+
+
+# ------------------------------------------ the one-dispatch sweeps' graphs
+
+
+def _param_copy(pb):
+    return {n: p.detach().clone() for n, p in pb.model.named_parameters()}
+
+
+def _launch_delta(before):
+    now = dispatch.launches()
+    return {k: n - before.get(k, 0) for k, n in now.items()
+            if n != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("tr_cat_distr", [False, True])
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_graph_train_steps_are_bitwise_the_eager_steps(cuda, compute,
+                                                       tr_cat_distr):
+    """Three steps through the epoch sweep's CUDA graph (the first its
+    warm-up, then two replays) against make_train_step's eager steps with
+    the same generators, capturable Adam on both: the losses and
+    parameters bit for bit, the same launch counts (one scatter a step),
+    "graph" recorded, Adam's step count 3 on the card. With tr_cat_distr
+    on, the graph draws its samples with torch.multinomial's own method."""
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.train.sweep import EpochSweep
+    from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
+
+    runs = {}
+    for graph in (False, True):
+        _, pb = _small_int_rel_ch(compute, cuda, tr_cat_distr=tr_cat_distr)
+        batches = [make_batch(pb.spec, 4, 64, 96, seed=s) for s in range(3)]
+        tables = {k: torch.from_numpy(v).to(cuda)
+                  for k, v in make_tables(pb.spec, 64, 96).items()}
+        opt = make_optimizer(pb.model.parameters(), 1e-3)
+        assert opt.param_groups[0]["capturable"]
+        torch.cuda.synchronize()
+        before = dispatch.launches()
+        if graph:
+            sweep = EpochSweep(pb, opt, tables, 0, 4, graph=True)
+            losses = sweep.fetch(sweep.run(batches, 0))
+            assert dispatch.last_dispatch("train_loop")["path"] == "graph"
+            assert len(sweep.capture_s) == 1
+        else:
+            step = make_train_step(pb, opt)
+            losses = [float(step(b, tables, step_generators(0, i, cuda)))
+                      for i, b in enumerate(batches)]
+        torch.cuda.synchronize()
+        runs[graph] = (losses, _param_copy(pb), _launch_delta(before))
+        for st in opt.state.values():
+            assert st["step"].is_cuda and float(st["step"]) == 3.0
+    (l_e, p_e, n_e), (l_g, p_g, n_g) = runs[False], runs[True]
+    assert l_g == l_e
+    for n, p in p_e.items():
+        assert torch.equal(p_g[n], p), n
+    name = sa.KERNEL_NAMES[torch.bfloat16 if compute == "bfloat16"
+                           else torch.float32]
+    assert n_g == n_e == {name: 3}
+
+
+def _eval_split(spec, full=6, tail=3, B=4):
+    import numpy as np
+
+    from lirec_tpu_torch.utils.fake_batch import make_batch
+
+    parts = [make_batch(spec, B, 64, 96, seed=s) for s in range(full)]
+    parts.append(make_batch(spec, tail, 64, 96, seed=full))
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+@pytest.mark.parametrize("tier", [False, "tables", "triple"])
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_graph_eval_sweep_is_bitwise_the_eager_sweep(cuda, compute, tier):
+    """sweep_carry over 6 full batches of 4 and a tail of 3, as a CUDA
+    graph (batch 0 its warm-up, 5 replays, the tail eager) and as eager
+    steps, in each ctx localisation tier: every carry entry bit for bit,
+    the same launch counts (7 of the 3-table pool; the triple tier 6 of
+    the triple pool and the tail's one), "graph" recorded."""
+    import types
+
+    import numpy as np
+
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    cfg, pb = _small_int_rel_ch(compute, cuda)
+    data = _eval_split(pb.spec)
+    tables = make_tables(pb.spec, 64, 96)
+    carries, counts = {}, {}
+    for graph in (False, True):
+        torch.cuda.synchronize()
+        before = dispatch.launches()
+        carries[graph] = packed.sweep_carry(
+            types.SimpleNamespace(n_classes=9, n_rels=7, hashidx_rels=None),
+            pb, pb.model, cfg, mode="test", data=data, tables=tables,
+            batch_size=4, localize_ctx=tier, graph=graph)
+        torch.cuda.synchronize()
+        counts[graph] = _launch_delta(before)
+        assert dispatch.last_dispatch("eval_sweep")["path"] == (
+            "graph" if graph else "eager")
+    assert carries[True].keys() == carries[False].keys()
+    for k, v in carries[False].items():
+        assert np.array_equal(carries[True][k], v), k
+    assert int(carries[True]["n_batches"]) == 7
+    dtype = torch.bfloat16 if compute == "bfloat16" else torch.float32
+    three = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+    tri = KERNEL_NAMES[("fused_ctx_pool_triple", dtype)]
+    want = {tri: 6, three: 1} if tier == "triple" else {three: 7}
+    assert counts[True] == counts[False] == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_fork_and_join_under_capture(cuda, dtype):
+    """scatter_accum3 captured in a CUDA graph, with a row of 414 updates
+    (the plan kernel, the hot tiles on the side stream, forked from and
+    joined to the capture stream by the launch's events, beside the short
+    items): each replay, on new updates copied into the static inputs,
+    gives the eager launch's output on those updates bit for bit and adds
+    one launch to the count."""
+    from lirec_tpu_torch.utils.graphs import StepGraph
+
+    idx, gs = _updates(cuda, dtype, dup_rows=1)
+    name = sa.KERNEL_NAMES[dtype]
+    out = {}
+
+    def step():
+        out["accs"] = sa.scatter_accum3(idx, *gs, 50, 70)
+
+    before = dispatch.launches(name)
+    graph = StepGraph(step, cuda)  # the warm-up launches once
+    assert graph.launches == {name: 1}
+    assert dispatch.launches(name) == before + 1
+    for seed in (2, 3):
+        _, fresh = _updates(cuda, dtype, dup_rows=1, seed=seed)
+        for g, f in zip(gs, fresh):
+            g.copy_(f)
+        graph.replay()
+        want = sa.scatter_accum3(idx, *fresh, 50, 70)
+        torch.cuda.synchronize()
+        for got, w in zip(out["accs"], want):
+            assert torch.equal(got, w)
+    assert dispatch.launches(name) == before + 5
+
+
+def test_checkpoints_after_graph_steps_read_back(cuda, tmp_path):
+    """After three steps of the epoch sweep's graph (capturable Adam, its
+    step counts on the card), the .pth.tar holds the non-capturable form
+    (capturable off, step counts on the host, 3), which load_state puts
+    back into a card optimizer (capturable, counts on the card) and a CPU
+    one; the msgpack .ckpt holds the JAX package's count 3 and its
+    moments, which load_train_state_any reads back into a card optimizer
+    bitwise."""
+    from lirec_tpu_torch.checkpoint import saver
+    from lirec_tpu_torch.cli.common import load_train_state_any
+    from lirec_tpu_torch.train.optim import load_state, make_optimizer
+    from lirec_tpu_torch.train.sweep import EpochSweep
+    from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
+
+    _, pb = _small_int_rel_ch("float32", cuda)
+    tables = {k: torch.from_numpy(v).to(cuda)
+              for k, v in make_tables(pb.spec, 64, 96).items()}
+    opt = make_optimizer(pb.model.parameters(), 1e-3)
+    sweep = EpochSweep(pb, opt, tables, 0, 4, graph=True)
+    sweep.fetch(sweep.run([make_batch(pb.spec, 4, 64, 96, seed=s)
+                           for s in range(3)], 0))
+    pth, ckpt = str(tmp_path / "s.pth.tar"), str(tmp_path / "s.ckpt")
+    saver.save_train_state_any(pth, pb.model, opt, 0, "torch")
+    saver.save_train_state_any(ckpt, pb.model, opt, 0, "msgpack")
+    _, file_opt, _ = saver.load_train_state(pth)
+    assert all(not g["capturable"] for g in file_opt["param_groups"])
+    for st in file_opt["state"].values():
+        assert st["step"].device.type == "cpu" and float(st["step"]) == 3.0
+    for device in (cuda, torch.device("cpu")):
+        _, other = _small_int_rel_ch("float32", device)
+        other_opt = make_optimizer(other.model.parameters(), 1e-3)
+        load_state(other_opt, file_opt)
+        assert other_opt.param_groups[0]["capturable"] == (
+            device.type == "cuda")
+        for p, st in other_opt.state.items():
+            assert st["step"].device == p.device
+            assert float(st["step"]) == 3.0
+    _, other = _small_int_rel_ch("float32", cuda)
+    other_opt = make_optimizer(other.model.parameters(), 1e-3)
+    state_dict, adam, _ = load_train_state_any(ckpt, other.model, other_opt)
+    other.model.load_state_dict(state_dict)
+    load_state(other_opt, adam)
+    names = dict(pb.model.named_parameters())
+    for n, p in other.model.named_parameters():
+        assert torch.equal(p, names[n]), n
+        st, want = other_opt.state[p], opt.state[names[n]]
+        assert float(st["step"]) == 3.0 and st["step"].is_cuda
+        assert torch.equal(st["exp_avg"], want["exp_avg"]), n
+        assert torch.equal(st["exp_avg_sq"], want["exp_avg_sq"]), n
+
+
+def test_a_failed_capture_raises(cuda):
+    """A step that reads the card from the host cannot be captured: the
+    capture raises, and nothing is counted for it. (Last in the file: a
+    refused capture may leave its stream's allocations with the dead
+    graph's pool.)"""
+    from lirec_tpu_torch.utils.graphs import StepGraph
+
+    x = torch.ones(4, device=cuda)
+
+    def step():
+        x.add_(float(x.sum()))
+
+    before = dispatch.launches()
+    with pytest.raises(RuntimeError):
+        StepGraph(step, cuda)
+    assert dispatch.launches() == before

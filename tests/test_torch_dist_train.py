@@ -158,6 +158,39 @@ def test_two_rank_training_matches_single_process_and_jax(runs, preset):
             _assert_close_scaled(p0[k], v, 1e-5, "%s %s" % (ref, k))
 
 
+def test_two_rank_sweep_is_the_per_batch_mesh_path(pinned_root, tmp_path):
+    """train(mesh=(2, 1)) with the epoch sweep (eager DDP steps inside the
+    sweep's structure, recorded as "eager" for "data mesh") and with the
+    per-batch path, int_rel_ch, dropout 0.3, 2 epochs at batch 8 (a padded
+    last batch): bitwise the same losses and parameters on each rank, and
+    on both ranks. The sweep weights every batch (one is ragged) where the
+    per-batch path weights the padded one only; under a mesh both means
+    divide a sum by the global count (bitwise, as on one process)."""
+    cfg, ds = _jax_setup(pinned_root, "int_rel_ch")
+    jb = jax_create_model(cfg, ds.n_classes,
+                          n_rels=max(len(ds.rels_list) - 1, 0))
+    state_path = str(tmp_path / "state.pt")
+    torch.save(params_from_jax(jax.tree.map(np.asarray, jb.params)),
+               state_path)
+    job = dict(preset="int_rel_ch", batch_size=B, state_path=state_path,
+               epochs=EPOCHS, dropout=0.3)
+    ranks = [r.value for r in dist.spawn(
+        worker.sweep_rank, 2, args=(pinned_root, job),
+        timeout=CLUSTER_TIMEOUT, workdir=str(tmp_path))]
+    for out in ranks:
+        (l_s, p_s, used_s, dec_s), (l_b, p_b, used_b, dec_b) = (
+            out[True], out[False])
+        assert used_s and not used_b
+        assert dec_s == ("eager", "data mesh")
+        assert dec_b == ("per_batch", "epoch_sweep off")
+        assert len(l_s) == EPOCHS and np.all(np.isfinite(l_s))
+        assert l_s == l_b
+        for k, v in p_b.items():
+            np.testing.assert_array_equal(p_s[k], v, err_msg=k)
+    for k, v in ranks[0][True][1].items():
+        np.testing.assert_array_equal(ranks[1][True][1][k], v, err_msg=k)
+
+
 def test_world_of_one_step_is_the_plain_step_bit_for_bit(tmp_path):
     """make_dp_train_step over a gloo group of one (DDP, its all-reduce
     and its mean over one rank) gives make_train_step's losses and

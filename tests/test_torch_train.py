@@ -519,8 +519,9 @@ def test_epoch_iterator_is_bitwise_batch_iterator(synth_root, monkeypatch,
 
 
 def test_train_matches_jax_trajectory(pinned_synth_root):
-    """Both train() loops on the synthetic fixture, f32, dropout 0,
-    tr_cat_distr off, 2 epochs (the JAX one per batch, epoch_sweep=False):
+    """Both per-batch train() loops (epoch_sweep=False; the sweeps are
+    tests/test_torch_epoch_sweep.py's) on the synthetic fixture, f32,
+    dropout 0, tr_cat_distr off, 2 epochs:
     batch 7 (22 samples: the size-1 leftover is skipped) and batch 8 (the
     port pads the last batch of 6 with loss_weight 0; JAX runs it
     unpadded). Per-epoch losses and final params within rtol 1e-5 of
@@ -536,7 +537,7 @@ def test_train_matches_jax_trajectory(pinned_synth_root):
                           device="cpu")
         pb.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray,
                                                               jb.params)))
-        got = train(port_cfg, pb, port_ds, verbose=False)
+        got = train(port_cfg, pb, port_ds, verbose=False, epoch_sweep=False)
         np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
         assert got["localized_tables"] == want["localized_tables"]
         final = params_from_jax(jax.tree.map(np.asarray, want["params"]))

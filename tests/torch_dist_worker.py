@@ -82,6 +82,30 @@ def train_rank(root, jobs):
     return out
 
 
+def sweep_rank(root, job):
+    """job {preset, batch_size, state_path, epochs, dropout}: train() over a
+    data mesh of the whole group from the given weights, with the epoch
+    sweep and with the per-batch path; per path (losses, the final
+    state_dict as numpy, epoch_sweep_used, the last train_loop decision's
+    (path, reason))."""
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.train.loop import train
+
+    out = {}
+    for sweep in (True, False):
+        cfg, ds = port_setup(root, job["preset"], "train", job["batch_size"],
+                             epochs=job["epochs"], save_model=False, lr=1e-3,
+                             dropout=job["dropout"])
+        bundle = _bundle(cfg, ds, job["state_path"])
+        got = train(cfg, bundle, ds, verbose=False, mesh=(dist.world(), 1),
+                    epoch_sweep=sweep)
+        last = dispatch.last_dispatch("train_loop")
+        out[sweep] = (got["losses"], {k: v.numpy() for k, v in
+                                      bundle.model.state_dict().items()},
+                      got["epoch_sweep_used"], (last["path"], last["reason"]))
+    return out
+
+
 def fail_on_rank(which):
     """Raise on rank `which`; the other ranks wait at a barrier."""
     if dist.rank() == which:
