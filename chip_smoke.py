@@ -111,7 +111,12 @@
    each batch agree with one process within rtol 1e-5: each step's loss
    and gradient (against its scale) with one process's at the parameters
    the step started from, and the losses with one process's own 3 steps
-   (the parameters' difference after Adam is printed);
+   (the parameters' difference after Adam is printed), Adam capturable on
+   both sides. The gradients are held without the rows of the batch
+   where a relu, argmax or amax of the forward sits on a tie and the
+   ranks' halves and the whole batch took different branches; those
+   decisions are printed with their distance from the tie, which must be
+   within 1e-5 of their input's scale, and none may belong to no row;
    each rank's launches of kernels 1-2 and 6 come back with its result
    and must be non-zero. A failed group, rank or time limit fails the
    run; nothing falls back to one process or to the CPU.
@@ -175,7 +180,10 @@
    tail's eager step, kernel 8 twice) and at B = 8 (full batches as
    replays; kernel 8 once per batch), then the test split's sweep at B =
    8 as a graph and eagerly: ``rels_table`` and counters bitwise, launches
-   equal.
+   equal, the table bitwise the CPU's in-order sum of the eager sweep's
+   recorded update rows, and kernel 8 held and timed on its first call's
+   tensors. In (b) a key's first graph sweep captures; the timed sweeps
+   replay the graph that their key's warm-up sweep captured.
 
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
@@ -206,7 +214,7 @@ world of one's and each rank's), ``name@ingest`` kernels 1-2 at phase
 ``@int_rels`` entry kernel 8 at phase 18(c)'s sweep; ``name@graph``
 entries give phase 19's launches from graph replays (kernels 1-2 and 6,
 with their main entries' numbers), and ``@int_rels_graph`` kernel 8's at
-phase 19(d)'s B = 8 (with the ``@int_rels`` entry's numbers).
+phase 19(d)'s B = 8 (held and timed on that sweep's first scatter call).
 
 Every synthetic fixture is written in a child process under a fixed
 string-hash seed (``write_fixture``), so that two runs train on the same
@@ -257,6 +265,7 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 HOLD_CYCLES = 1 << 21  # about 1 ms of spinning at the H100's clock
 DIST_TIMEOUT = 300  # seconds for phase 16(b)'s two ranks, start to join
 DIST_STEPS = 3  # phase 16(b)'s deterministic data-parallel steps
+TIE_RTOL = 1e-5  # phase 16(b): a decision this near its tie may differ
 FIXTURE_HASH_SEED = "7"  # the string-hash seed of every synthetic fixture
 # phase 17(d)'s runs of phase 7's steps, host batches against prefetched
 # ones in alternating pairs
@@ -2300,8 +2309,11 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
     between them, its all-reduced counters equal to phase 9's and its float
     sums within rtol 2e-6, and DIST_STEPS deterministic f32 steps whose
     losses and gradients are within rtol 1e-5 of one process's at the
-    same parameters, and whose losses are within rtol 1e-5 of one
-    process's own steps (the parameters after Adam are reported). Returns ({kernel name:
+    same parameters (the gradients without the rows where a decision of
+    the forward sits on a tie and the two sides took different branches:
+    those are counted and shown), and whose losses are within rtol 1e-5
+    of one process's own steps (the parameters after Adam are reported).
+    Both sides take the product's Adam, capturable. Returns ({kernel name:
     launches in (a)'s counted runs}, [each rank's launch counts])."""
     import numpy as np
 
@@ -2312,6 +2324,7 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.ops import dispatch
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
+    from lirec_tpu_torch.data.pipeline import local_batch
     from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES as SCATTER
     from lirec_tpu_torch.parallel import dist
     from lirec_tpu_torch.parallel.step import make_dp_train_step
@@ -2424,9 +2437,8 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
         wall = time.perf_counter() - t0
     fcfg = cfg.with_runtime(compute_dtype="float32")
     bundle = create_model(fcfg, 101, n_rels=15, seed=0, device="cuda")
-    # not capturable, as the ranks' Adam (tools/dist_check.py says why)
     opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
-                         cfg.optim.weight_decay, capturable=False)
+                         cfg.optim.weight_decay)
     step = make_train_step(bundle, opt, deterministic=True)
     want_losses = [float(step(batch, dev_tables,
                               step_generators(0, i, "cuda")))
@@ -2439,28 +2451,77 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
           % [r.value["params_sum"] for r in ranks])
     # each step: its all-reduced gradient against the one-process
     # gradient at the same parameters (the ones that step started from),
-    # within rtol 1e-5 of each tensor's scale, and its loss
-    grad_worst = 0.0
+    # within rtol 1e-5 of each tensor's scale, and its loss. The rows of
+    # the batch where one of the forward's decisions (a relu, an argmax,
+    # an amax) differs between the whole batch's forward and the ranks'
+    # halves' are taken out of both gradients and counted; every such
+    # decision must sit within TIE_RTOL of its tie, and none may be one
+    # that no row owns (tools/dist_check.py)
+    grad_raw = grad_worst = 0.0
     for i, batch in enumerate(local[:DIST_STEPS]):
         with torch.no_grad():
             for n, p in bundle.model.named_parameters():
                 p.copy_(lead["before"][i][n])
         bundle.model.zero_grad(set_to_none=True)
-        loss = train_loss(bundle, _to_device(batch, "cuda"), dev_tables,
-                          step_generators(0, i, "cuda"), deterministic=True)
+        whole = _to_device(batch, "cuda")
+        gens = lambda: step_generators(0, i, "cuda")  # noqa: E731
+        with dist_check.DecisionRecorder() as rec:
+            loss = train_loss(bundle, whole, dev_tables, gens(),
+                              deterministic=True)
         loss.backward()
         loss = float(loss.detach())
         check(abs(loss - lead["losses"][i]) <= 1e-5 * abs(loss),
               "step %d: loss %s, one process at the same parameters %s"
               % (i, lead["losses"][i], loss))
-        for n, p in bundle.model.named_parameters():
-            g = p.grad.detach().cpu()
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in bundle.model.named_parameters()}
+        halves, blocks = [], []
+        for r in range(2):
+            half = _to_device(local_batch(batch, dist.DataMesh(2, r)),
+                              "cuda")
+            with torch.no_grad(), dist_check.DecisionRecorder() as hrec:
+                train_loss(bundle, half, dev_tables, gens(),
+                           deterministic=True)
+            halves.append(half)
+            blocks.append(hrec.calls)
+        n = len(batch["labels"])
+        tied = dist_check.tied_rows(rec.calls, blocks, n)
+        del rec, blocks
+        check(tied["shared"] == 0, "step %d: %d differing decisions belong "
+              "to no row of the batch: %s" % (i, tied["shared"],
+                                              tied["ties"]))
+        check(tied["worst_gap"] <= TIE_RTOL, "step %d: a decision of the "
+              "ranks' forward and one process's differs %.3e of its "
+              "input's scale from a tie: %s" % (i, tied["worst_gap"],
+                                                tied["ties"]))
+        held = {k: lead["grads"][i][k] - g for k, g in grads.items()}
+        for row in tied["rows"]:
+            r, local_row = divmod(row, n // 2)
+            mine = dist_check.row_gradient(bundle, whole, dev_tables,
+                                           gens(), row)
+            theirs = dist_check.row_gradient(bundle, halves[r], dev_tables,
+                                             gens(), local_row, count=n)
+            for k in held:
+                held[k] += mine[k] - theirs[k]
+        step_raw = step_held = 0.0
+        for k, g in grads.items():
             scale = float(g.abs().max()) or 1.0
-            err = float((lead["grads"][i][n] - g).abs().max()) / scale
-            grad_worst = max(grad_worst, err)
+            step_raw = max(step_raw, float(
+                (lead["grads"][i][k] - g).abs().max()) / scale)
+            err = float(held[k].abs().max()) / scale
+            step_held = max(step_held, err)
             check(err <= 1e-5, "step %d: gradient %s differs from one "
-                  "process's at the same parameters by %.3e of its scale"
-                  % (i, n, err))
+                  "process's at the same parameters by %.3e of its scale, "
+                  "without the %d rows of differing decisions %s"
+                  % (i, k, err, len(tied["rows"]), tied["rows"]))
+        grad_raw, grad_worst = max(grad_raw, step_raw), max(grad_worst,
+                                                            step_held)
+        log("  (b) step %d: %d decisions of the whole batch's forward differ "
+            "from the halves' (worst %.3e of its input's scale from its "
+            "tie; %s), in rows %s; the gradient %.3e of scale from the "
+            "ranks', %.3e without those rows" % (
+                i, tied["differing"], tied["worst_gap"], tied["ties"],
+                tied["rows"], step_raw, step_held))
     # the parameters after Adam: reported (see tools/dist_check.py)
     param_worst, param_beyond, n_elems = 0.0, 0, 0
     for n, p in want_params.items():
@@ -2506,11 +2567,12 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
                 float(eval_ref["carries"]["float32"]["loss_sum"]),
                 DIST_STEPS, out["losses"], want_losses, launched))
     log("  (b) each step's gradient against one process's at the same "
-        "parameters: worst |diff| / scale %.3e (bound 1e-5); the "
-        "parameters after %d Adam steps against one process's: worst "
-        "|diff| / scale %.3e, %d of %d elements beyond rtol 1e-5 "
-        "(reported, not held)"
-        % (grad_worst, DIST_STEPS, param_worst, param_beyond, n_elems))
+        "parameters: worst |diff| / scale %.3e over all rows, %.3e without "
+        "the rows of differing decisions (bound 1e-5); the parameters "
+        "after %d Adam steps against one process's: worst |diff| / scale "
+        "%.3e, %d of %d elements beyond rtol 1e-5 (reported, not held)"
+        % (grad_raw, grad_worst, DIST_STEPS, param_worst, param_beyond,
+           n_elems))
     log("  (b) two ranks: %.1f s from spawn to join" % wall)
     del bundle, opt, step
     torch.cuda.empty_cache()
@@ -3183,7 +3245,7 @@ def train_sweep_checks(torch, batches, finals):
                                  cfg.optim.weight_decay)
             return bundle, opt, EpochSweep(bundle, opt, tables, 0, TRAIN_B,
                                            sweep_max_steps=max_steps,
-                                           graph=True)
+                                           require_graph=True)
 
         def held(bundle, losses, label):
             check(losses == want_losses, "%s %s losses %s, phase 7's %s"
@@ -3289,7 +3351,7 @@ def eval_graph_checks(torch, eval_ref):
                 mode="test", data=split, tables=tables, localize_ctx=tier,
                 graph=graph)
 
-        captures = []
+        captures, whole = [], {}
         for tier in (False, "tables", "triple"):
             launched = {}
             carries = {}
@@ -3297,8 +3359,12 @@ def eval_graph_checks(torch, eval_ref):
                 torch.cuda.synchronize()
                 # ---- a counted run: one sweep of the split
                 dispatch.reset_launches()
+                t = time.perf_counter()
                 carries[graph] = sweep(tier, graph)
                 torch.cuda.synchronize()
+                if not tier:
+                    whole["first graph" if graph else "eager"] = \
+                        time.perf_counter() - t
                 launched[graph] = dispatch.launches()
                 # ---- end of the counted run
                 check(dispatch.last_dispatch("eval_sweep")["path"]
@@ -3340,16 +3406,31 @@ def eval_graph_checks(torch, eval_ref):
             t2 = statistics.median(secs[(graph, EVAL_FULL)])
             slopes["graph" if graph else "eager"] = \
                 (t2 - t1) / (EVAL_FULL - n_half) * 1e3
+        # the whole split again (a cadence eval's second sweep): the graph
+        # its first sweep captured
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sweep(False, True)
+        torch.cuda.synchronize()
+        whole["later graph"] = time.perf_counter() - t
+        check(dispatch.last_dispatch("eval_sweep")["reason"]
+              == "cuda: the graph of this key",
+              "%s: the split's second graph sweep captured again" % compute)
         out[compute] = dict(ms_per_batch=slopes, capture_ms=captures,
+                            whole_split_s=whole,
                             clips_per_s={k: EVAL_B / v * 1e3
                                          for k, v in slopes.items()})
         log("  (b) %s: graph carries bitwise the eager sweep's and phase "
             "9's in every tier, launches equal (%d of %s off-tier); "
             "ms/batch graph %.4f, eager %.4f (slopes over %d and %d "
-            "batches, medians of %d rounds); captures %s ms"
+            "batches, medians of %d rounds; the graphs their warm-ups "
+            "captured); captures %s ms; the whole split (%d batches and "
+            "the tail): first graph sweep %.4f s (its capture included), a "
+            "later one %.4f s, eager %.4f s"
             % (compute, counts[three], three, slopes["graph"],
                slopes["eager"], n_half, EVAL_FULL, EVAL_ROUNDS,
-               ["%.1f" % c for c in captures]))
+               ["%.1f" % c for c in captures], EVAL_FULL,
+               whole["first graph"], whole["later graph"], whole["eager"]))
         del bundle
         torch.cuda.empty_cache()
     return counts, out
@@ -3417,23 +3498,30 @@ def int_rels_graph_checks(torch, root):
     splits = load_ingest(art, cfg)
     out = {}
     for B in (64, INT_RELS_GRAPH_B):
-        before = dispatch.decisions("eval_sweep").get("graph", 0)
+        before = dispatch.decisions("eval_sweep")
         # ---- a counted run: the eval CLI, val and test
         dispatch.reset_launches()
         metrics = int_rels.main(args + ["--batch-size", str(B)])
         torch.cuda.synchronize()
         launched = dispatch.launches()
         # ---- end of the counted run
-        full = batches = 0
+        full = batches = graphed = 0
         for split in ("val", "test"):
             n_full, tail = divmod(len(splits[split]), B)
             full += n_full
             batches += n_full + (tail > 1)
+            graphed += n_full > 0
         check(launched.get(name, 0) == batches, "int_rels CLI at B = %d: "
               "%d launches of %s for %d batches" % (
                   B, launched.get(name, 0), name, batches))
-        check(dispatch.decisions("eval_sweep").get("graph", 0) > before,
-              "int_rels CLI at B = %d did not take the graph" % B)
+        # a split with a full batch sweeps as a graph; one without, as
+        # its tail's eager step ("no full batch")
+        took = {path: n - before.get(path, 0) for path, n in
+                dispatch.decisions("eval_sweep").items()}
+        check(took.get("graph", 0) == graphed
+              and took.get("eager", 0) == 2 - graphed,
+              "int_rels CLI at B = %d: sweeps %s, %d splits with a full "
+              "batch" % (B, took, graphed))
         out["B%d" % B] = dict(launches=launched.get(name, 0),
                               full_batches=full, metrics=metrics)
     check(out["B%d" % INT_RELS_GRAPH_B]["full_batches"] > 1,
@@ -3444,12 +3532,24 @@ def int_rels_graph_checks(torch, root):
                           device="cuda")
     bundle.model.load_state_dict(torch.load(ckpt,
                                             map_location="cpu")["state_dict"])
-    carries, launches = {}, {}
+    # the graph sweep, then the eager one with every scatter call recorded
+    # (its ids and rows: the running table, then the batch's updates)
+    carries, launches, calls = {}, {}, []
+    real = scatter_accum.scatter_accum1  # the sweep's step imports it
+
+    def recording(ids, rows, n_rows):
+        calls.append((ids.clone(), rows.clone(), n_rows))
+        return real(ids, rows, n_rows)
+
     for graph in (True, False):
         dispatch.reset_launches()
-        carries[graph] = packed.sweep_carry(
-            ds, bundle, bundle.model, cfg, mode="test",
-            batch_size=INT_RELS_GRAPH_B, graph=graph)
+        scatter_accum.scatter_accum1 = real if graph else recording
+        try:
+            carries[graph] = packed.sweep_carry(
+                ds, bundle, bundle.model, cfg, mode="test",
+                batch_size=INT_RELS_GRAPH_B, graph=graph)
+        finally:
+            scatter_accum.scatter_accum1 = real
         torch.cuda.synchronize()
         launches[graph] = dispatch.launches()
     for key, v in carries[False].items():
@@ -3457,28 +3557,51 @@ def int_rels_graph_checks(torch, root):
               "split: graph carry %s differs from the eager sweep's" % key)
     check(launches[True] == launches[False], "int_rels launches: graph %s, "
           "eager %s" % (launches[True], launches[False]))
+    check(len(calls) == launches[False].get(name, 0), "%d scatter calls "
+          "recorded, %s launched" % (len(calls), launches[False]))
+    table = None
+    for ids, rows, n_rows in calls:
+        rows = rows.cpu()
+        if table is not None:
+            rows = torch.cat([table, rows[n_rows:]])
+        table = scatter_accum.scatter_accum1_reference(ids.cpu(), rows,
+                                                       n_rows)
+    check(np.array_equal(table.numpy(), carries[True]["rels_table"]),
+          "the B = %d graph sweep's rels_table is not the in-order sum of "
+          "its updates" % INT_RELS_GRAPH_B)
+    # kernel 8 held and timed on the first call's own tensors
+    ids, rows, n_rows = calls[0]
+    idx = ids[:, None].expand(-1, 3).contiguous()
+    entry = scatter_case(torch, "kernel 8 at the B = %d int_rels sweep"
+                         % INT_RELS_GRAPH_B, idx, [rows], [n_rows],
+                         single=True)
+    entry["shapes"] = dict(updates=list(rows.shape), rows=n_rows)
+    out["kernel"] = entry
     log("  (d) cli.int_rels.main from its artifact: %d launches of %s at B "
         "= 64 (tails only), %d at B = %d (%d full batches as graph "
         "replays after their warm-ups); the test split's rels_table [%d, "
-        "%d] and counters bitwise the eager sweep's, launches equal (%s)"
+        "%d] and counters bitwise the eager sweep's, launches equal (%s), "
+        "and the table bitwise the CPU's in-order sum of the %d recorded "
+        "calls' update rows"
         % (out["B64"]["launches"], name,
            out["B%d" % INT_RELS_GRAPH_B]["launches"], INT_RELS_GRAPH_B,
            out["B%d" % INT_RELS_GRAPH_B]["full_batches"],
-           *carries[True]["rels_table"].shape, launches[True]))
+           *carries[True]["rels_table"].shape, launches[True], len(calls)))
     return out
 
 
 def sweeps_phase(torch, local, train_finals, eval_ref, root):
     """Phase 19. Returns ({kernel name: launches of the counted runs of
-    (a) and (b)}, the numbers logged)."""
+    (a) and (b)}, the numbers logged, kernel 8's entry at (d)'s inputs)."""
     train_counts, train = train_sweep_checks(torch, local, train_finals)
     eval_counts, evals = eval_graph_checks(torch, eval_ref)
     cli = train_cli_sweep_checks(torch, root)
     rels = int_rels_graph_checks(torch, root)
+    k8 = rels.pop("kernel")
     return dict(train_counts, **eval_counts), dict(
         train=train, eval=evals, cli=cli, int_rels={
             k: {kk: vv for kk, vv in v.items() if kk != "metrics"}
-            for k, v in rels.items()})
+            for k, v in rels.items()}), k8
 
 
 def main():
@@ -3591,8 +3714,8 @@ def main():
         log("== 19. the one-dispatch sweeps as CUDA graphs: the epoch "
             "sweep, the eval sweep, --per-batch-train, the int_rels eval "
             "(counted runs)")
-        graph_counts, sweeps = sweeps_phase(torch, local, train_finals,
-                                            eval_ref, root)
+        graph_counts, sweeps, k8_graph = sweeps_phase(
+            torch, local, train_finals, eval_ref, root)
 
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
@@ -3731,8 +3854,8 @@ def main():
                         **k8))
     # phase 19: kernels 1-2 and 6 launched from the sweeps' graph replays,
     # at the shapes of their main entries (whose numbers they repeat), and
-    # kernel 8 from the int_rels eval's at a batch of INT_RELS_GRAPH_B (its
-    # numbers: the @int_rels entry's, at B = 64)
+    # kernel 8 from the int_rels eval's at a batch of INT_RELS_GRAPH_B,
+    # held and timed on that sweep's first scatter call
     for name, entry_of in (
             (KERNEL_NAMES[("fused_ctx_pool", torch.float32)], "eval"),
             (KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)], "eval"),
@@ -3745,11 +3868,12 @@ def main():
         kernels.append(dict(main_entry, name=name + "@graph", path="graph",
                             launches=graph_counts[name]))
     name = scatter_accum.KERNEL_NAMES[torch.float32]
-    k8_graph = sweeps["int_rels"]["B%d" % INT_RELS_GRAPH_B]
-    kernels.append(dict(next(k for k in kernels
-                             if k["name"] == name + "@int_rels"),
-                        name=name + "@int_rels_graph", path="int_rels_graph",
-                        launches=k8_graph["launches"]))
+    kernels.append(dict(name=name + "@int_rels_graph", route="cuda",
+                        source=SCATTER_CU,
+                        replaces="%s:282" % SCATTER_TPU_SRC,
+                        launches=sweeps["int_rels"][
+                            "B%d" % INT_RELS_GRAPH_B]["launches"],
+                        path="int_rels_graph", **k8_graph))
     log("sweeps: " + json.dumps(sweeps))
     log("modalities: " + json.dumps(mod))
     log("eval_clips_per_s: " + json.dumps(

@@ -4,10 +4,12 @@ lirec_tpu/evaluation/packed.py).
 The split is materialized once (``dataset.materialize()``) and staged on
 the device as ``[n_full, B, ...]`` tensors, and a step runs per full batch
 (the JAX package's one-dispatch ``fori_loop``): on a card one replay of a
-CUDA graph of the step (utils/graphs.StepGraph), captured once per sweep,
-that is per key of shapes, dtype and localisation tier, after the first
-batch's eager step as its warm-up; it reads batch i of the staged stack
-through a device-side index it advances. On the CPU, or with
+CUDA graph of the step (utils/graphs.StepGraph), captured once per model
+and key of shapes, dtype and localisation tier (the first sweep of a key
+runs batch 0 eagerly as the warm-up, then captures; a later one copies
+its batches, tables and embeddings into the graph's static tensors and
+replays it n_full times); it reads batch i of the staged stack through a
+device-side index it advances. On the CPU, or with
 ``graph=False`` (the tests, ``chip_smoke.py`` and the tools compare the
 two), a Python loop of eager steps. Every metric counter (the grounding
 argmax counts of ``update_probs_max_tracks[_rels]``, ref
@@ -42,6 +44,8 @@ Not ported: the TPU's VMEM cost model of the localisation gate, and the
 from __future__ import annotations
 
 import hashlib
+import itertools
+import weakref
 from typing import Dict, Optional
 
 import numpy as np
@@ -487,28 +491,42 @@ def sweep_carry(
         loc = _maybe_localize_eval_ctx(dataset, data, embedded, B, n_full,
                                        t, use_kernel, localize_ctx)
         data = loc_apply_data(data, loc)
-        # staged once: [n_full, B, ...] on the device, indexed per batch
-        data_dev = {
-            k: torch.as_tensor(np.asarray(v)[: n_full * B]).reshape(
-                (n_full, B) + np.shape(v)[1:]).to(device)
-            for k, v in data.items()
-        }
+        # staged once: [n_full, B, ...], indexed per batch
+        stack = {k: np.asarray(v)[: n_full * B].reshape(
+            (n_full, B) + np.shape(v)[1:]) for k, v in data.items()}
         loc_dev = _loc_device_tree(loc, device)
-        carry = init_carry(device)
         if graph and device.type != "cuda":
             raise ValueError("the eval sweep's CUDA graph needs the model "
                              "on a card; it is on %s" % device)
-        use_graph = device.type == "cuda" if graph is None else bool(graph)
+        use_graph = bool(n_full) and (device.type == "cuda" if graph is None
+                                      else bool(graph))
         if use_graph:
-            reason = "cuda: one graph per sweep"
+            key = (bundle.apply, bundle.loss, t, n_classes, n_rels,
+                   n_hashes, use_kernel, _layout(stack), _layout(loc_dev),
+                   _layout(tables), _layout(embedded),
+                   tuple(p.data_ptr() for p in itertools.chain(
+                       model.parameters(), model.buffers())))
+            captured = _GRAPHS.setdefault(model, {}).get(key)
+            reason = "cuda: the graph of this key" if captured \
+                else "cuda: a new graph"
         else:
-            reason = "cpu tensors" if device.type == "cpu" else "asked"
+            reason = ("cpu tensors" if device.type == "cpu" else
+                      "no full batch" if not n_full else "asked")
         dispatch.record("eval_sweep", "graph" if use_graph else "eager",
                         reason, {"n_full": n_full, "batch_size": B})
-        if use_graph and n_full:
-            _graph_sweep(step, model, tables, embedded, carry, data_dev,
-                         loc_dev, n_full, device)
+        if use_graph:
+            if captured is None:
+                captured = _GRAPHS[model][key] = _EvalGraph(
+                    step, init_carry, model, tables, embedded, stack,
+                    loc_dev, device)
+            else:
+                captured.sweep(tables, embedded, stack, loc_dev)
+            carry = captured.carry
+            tables, embedded = captured.tables, captured.embedded
         else:
+            data_dev = {k: torch.as_tensor(v).to(device)
+                        for k, v in stack.items()}
+            carry = init_carry(device)
             for i in range(n_full):
                 batch = inject_loc({k: v[i] for k, v in data_dev.items()},
                                    loc_dev, i)
@@ -523,27 +541,86 @@ def sweep_carry(
     return allreduce_carry(carry) if mesh is not None else carry
 
 
-def _graph_sweep(step, model, tables, embedded, carry, data_dev, loc_dev,
-                 n_full: int, device) -> None:
-    """The full batches as a CUDA graph of `step`: batch 0 eagerly (the
-    warm-up), then n_full - 1 replays, each reading the next batch."""
-    index = torch.zeros(1, dtype=torch.int64, device=device)
-    gen = step.loss_generator(device)
-    generators = [gen] if gen is not None else []
+# model -> {key: _EvalGraph}: a model's graphs go with it
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
-    def one():
-        batch = inject_loc({k: _at(v, index) for k, v in data_dev.items()},
-                           loc_dev, index)
-        step(model, tables, embedded, carry, batch)
-        index.add_(1)
 
-    for g in generators:
-        g.manual_seed(0)
-    captured = StepGraph(one, device, generators)
-    for _ in range(n_full - 1):
-        for g in generators:
+def _layout(tree):
+    """The shapes and dtypes of a tree of tensors or arrays (dicts, tuples
+    and named tuples), as a key."""
+    if isinstance(tree, dict):
+        return tuple((k, _layout(tree[k])) for k in sorted(tree))
+    if isinstance(tree, tuple):
+        return (type(tree).__name__,) + tuple(_layout(v) for v in tree)
+    return (tuple(tree.shape), str(tree.dtype))
+
+
+def _copy_into(static, tree):
+    """Copy a tree of tensors or arrays into the same-shaped tree of
+    device tensors `static`."""
+    if isinstance(static, dict):
+        for k in static:
+            _copy_into(static[k], tree[k])
+    elif isinstance(static, tuple):
+        for s_, v in zip(static, tree):
+            _copy_into(s_, v)
+    else:
+        static.copy_(torch.as_tensor(tree))
+
+
+class _EvalGraph:
+    """The eval step of one key of shapes, dtype and localisation tier as a
+    CUDA graph, with the static tensors it reads and writes: the staged
+    ``[n_full, B, ...]`` stack, the loc tree, the tables and their
+    embeddings, the carry and the step index. Made by a sweep (batch 0
+    eagerly as the warm-up, the capture, n_full - 1 replays); each later
+    sweep of the key copies its inputs into the static tensors, zeroes the
+    carry and replays n_full times. The model's parameters are read where
+    they are (the key holds their addresses), so a trained or reloaded
+    model sweeps with its current weights."""
+
+    def __init__(self, step, init_carry, model, tables, embedded, stack,
+                 loc_dev, device):
+        self.tables, self.embedded = tables, embedded
+        self.stack = {k: torch.as_tensor(v).to(device)
+                      for k, v in stack.items()}
+        self.loc = loc_dev
+        self.carry = init_carry(device)
+        self.index = torch.zeros(1, dtype=torch.int64, device=device)
+        gen = step.loss_generator(device)
+        self.generators = [gen] if gen is not None else []
+        self.n_full = len(stack["labels"])
+
+        def one():
+            batch = inject_loc({k: _at(v, self.index)
+                                for k, v in self.stack.items()},
+                               self.loc, self.index)
+            step(model, self.tables, self.embedded, self.carry, batch)
+            self.index.add_(1)
+
+        self._seed()
+        self.graph = StepGraph(one, device, self.generators)
+        for _ in range(self.n_full - 1):
+            self._seed()
+            self.graph.replay()
+
+    def _seed(self):
+        for g in self.generators:
             g.manual_seed(0)
-        captured.replay()
+
+    def sweep(self, tables, embedded, stack, loc_dev) -> None:
+        """The full batches of `stack` (the shapes of the first sweep's)
+        into a zeroed carry."""
+        _copy_into(self.tables, tables)
+        _copy_into(self.embedded, embedded)
+        _copy_into(self.stack, stack)
+        _copy_into(self.loc, loc_dev)
+        for v in self.carry.values():
+            v.zero_()
+        self.index.zero_()
+        for _ in range(self.n_full):
+            self._seed()
+            self.graph.replay()
 
 
 def evaluate_packed(

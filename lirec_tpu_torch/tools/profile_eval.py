@@ -17,6 +17,11 @@ prints
 - ms/batch and clips/s of the unprofiled sweeps;
 - device busy ms/batch: the slope of the union of the kernel spans;
 - the idle share: 1 - busy / the unprofiled ms/batch;
+- the traced sweeps' own ms/batch (their host clock under the profiler)
+  and the idle share against it, and how long the N2 trace's kernel spans
+  overlap (their summed lengths less their union): under graph replays
+  the busy slope has read above the unprofiled wall slope, which these
+  tell apart (the profiler slowing the replays, or spans that overlap);
 - the ctx pool kernels' µs per batch (the 3-table or the triple kernel),
   and the profiler's table of the largest device items of the N2 sweep.
 
@@ -34,6 +39,14 @@ from lirec_tpu_torch.tools.profile_train import _kernel_spans, _union_us
 N_CLIPS, N_TRACKS, BATCH = 12288, 24576, 64
 N1, N2, RUNS = 40, 80, 3
 POOL_KERNELS = ("fused_ctx_pool_kernel<", "gather_lanes_kernel<")
+
+
+def _overlap_us(spans) -> float:
+    """The summed lengths of the kernel spans less their union: > 0 where
+    the trace puts two kernels on the card at once."""
+    spans = list(spans)
+    return sum(e - s for _, s, e in spans) - _union_us(
+        (s, e) for _, s, e in spans)
 
 
 def profile(compute: str, tier, data, tables, graph: bool) -> dict:
@@ -69,13 +82,15 @@ def profile(compute: str, tier, data, tables, graph: bool) -> dict:
             t = time.perf_counter()
             sweep(n)
             secs[n].append(time.perf_counter() - t)
-    spans = {}
+    spans, traced = {}, {}
     for n in (N1, N2):
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
             sweep(n)
             torch.cuda.synchronize()
+            traced[n] = time.perf_counter() - t
         spans[n] = list(_kernel_spans(prof))
         if not spans[n]:
             raise RuntimeError("the profiler recorded no kernel on the card")
@@ -88,9 +103,12 @@ def profile(compute: str, tier, data, tables, graph: bool) -> dict:
         (s, e) for _, s, e in spans[n])) / 1e3
     pool_us = slope(lambda n: sum(e - s for name, s, e in spans[n]
                                   if any(k in name for k in POOL_KERNELS)))
+    traced_ms = slope(lambda n: traced[n]) * 1e3
     return {
         "batch_ms": batch_ms, "clips_per_s": BATCH / batch_ms * 1e3,
         "busy_ms": busy_ms, "idle_share": 1 - busy_ms / batch_ms,
+        "traced_ms": traced_ms, "traced_idle_share": 1 - busy_ms / traced_ms,
+        "span_overlap_us": _overlap_us(spans[N2]),
         "pool_us": pool_us,
         "table": prof.key_averages().table(sort_by="self_device_time_total",
                                            row_limit=20,
@@ -125,10 +143,14 @@ def main() -> int:
                 label = "%s localize=%s %s" % (compute, tier or "off",
                                                "graph" if graph else "eager")
                 print("%s: %.4f ms/batch (%.0f clips/s), device busy %.4f "
-                      "ms/batch, idle share %.3f, ctx pool kernel %.1f "
-                      "us/batch" % (label, r["batch_ms"], r["clips_per_s"],
-                                    r["busy_ms"], r["idle_share"],
-                                    r["pool_us"]))
+                      "ms/batch, idle share %.3f; traced %.4f ms/batch, "
+                      "idle share of the traced sweep %.3f, kernel spans "
+                      "overlapping %.1f us in the N2 trace; ctx pool "
+                      "kernel %.1f us/batch" % (
+                          label, r["batch_ms"], r["clips_per_s"],
+                          r["busy_ms"], r["idle_share"], r["traced_ms"],
+                          r["traced_idle_share"], r["span_overlap_us"],
+                          r["pool_us"]))
                 print(r["table"], flush=True)
     return 0
 

@@ -19,7 +19,7 @@ non-capturable form (``file_state``: the step count on the host,
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -31,15 +31,13 @@ def _on_card(params) -> bool:
 
 
 def make_optimizer(params, lr: float, weight_decay: float = 0.0,
-                   b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                   capturable: Optional[bool] = None) -> torch.optim.Adam:
-    """torch's Adam; `capturable` None: on where the parameters are on a
-    card."""
+                   b1: float = 0.9, b2: float = 0.999,
+                   eps: float = 1e-8) -> torch.optim.Adam:
+    """torch's Adam, capturable where the parameters are on a card."""
     params = list(params)
-    if capturable is None:
-        capturable = _on_card(params)
     return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps,
-                            weight_decay=weight_decay, capturable=capturable)
+                            weight_decay=weight_decay,
+                            capturable=_on_card(params))
 
 
 def file_state(optimizer: torch.optim.Optimizer) -> Dict:

@@ -95,31 +95,29 @@ class EpochSweep:
     `tables`: ``run(batches, epoch, flag)`` steps an epoch's host batches
     and returns its losses on the device, ``fetch`` reads them.
 
-    `graph`: None (a CUDA graph on a card without a mesh, eager steps
-    otherwise), True (raises where a graph cannot serve) or False (eager
-    steps; for comparisons). `mesh`: a parallel/dist.DataMesh, under which
+    Each step is a CUDA graph's replay on a card without a mesh, an eager
+    step otherwise; require_graph=True raises where a graph cannot serve
+    (for checks that must not run eager steps). `mesh`: a parallel/dist.DataMesh, under which
     every rank passes the same global batches and steps its own rows.
     ``capture_s``: the capture seconds of each graph made, in order."""
 
     def __init__(self, bundle, optimizer, tables: Optional[Dict], seed: int,
                  batch_size: int, mesh=None, sweep_max_steps: int = 512,
-                 graph: Optional[bool] = None):
+                 require_graph: bool = False):
         from lirec_tpu_torch.train.loop import make_train_step
 
         self.device = next(bundle.model.parameters()).device
         on_card = self.device.type == "cuda"
-        if graph is None:
-            graph = on_card and mesh is None
-        if graph and not on_card:
+        if require_graph and not on_card:
             raise ValueError("the epoch sweep's CUDA graph needs the model "
                              "on a card; it is on %s" % self.device)
-        if graph and mesh is not None:
+        if require_graph and mesh is not None:
             raise ValueError("the data-parallel step is not captured as a "
                              "CUDA graph (ROADMAP.md queue 1 item 3)")
-        self.graph = graph
+        graph = self.graph = on_card and mesh is None
         self.reason = ("cuda: one graph per batch shape" if graph
                        else "data mesh" if mesh is not None
-                       else "cpu tensors" if not on_card else "asked")
+                       else "cpu tensors")
         if mesh is None:
             self.step = make_train_step(bundle, optimizer,
                                         static_grads=graph)

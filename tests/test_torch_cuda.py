@@ -793,7 +793,7 @@ def test_graph_train_steps_are_bitwise_the_eager_steps(cuda, compute,
         torch.cuda.synchronize()
         before = dispatch.launches()
         if graph:
-            sweep = EpochSweep(pb, opt, tables, 0, 4, graph=True)
+            sweep = EpochSweep(pb, opt, tables, 0, 4, require_graph=True)
             losses = sweep.fetch(sweep.run(batches, 0))
             assert dispatch.last_dispatch("train_loop")["path"] == "graph"
             assert len(sweep.capture_s) == 1
@@ -865,6 +865,60 @@ def test_graph_eval_sweep_is_bitwise_the_eager_sweep(cuda, compute, tier):
     assert counts[True] == counts[False] == want
 
 
+@pytest.mark.parametrize("tier", [False, "tables", "triple"])
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_graph_eval_sweep_reuses_its_graph(cuda, compute, tier):
+    """A second sweep of the same key (the model's weights changed in
+    place; without localisation the split's rows also in another order,
+    which keeps the key) replays the graph the first one captured: no
+    capture, reason "cuda: the graph of this key", and every carry entry
+    bit for bit the eager sweep's on the new weights and rows, with the
+    same launch counts. A split of another size captures a graph of its
+    own."""
+    import types
+
+    import numpy as np
+
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    cfg, pb = _small_int_rel_ch(compute, cuda)
+    tables = make_tables(pb.spec, 64, 96)
+    stand_in = types.SimpleNamespace(n_classes=9, n_rels=7,
+                                     hashidx_rels=None)
+
+    def sweep(data, graph):
+        torch.cuda.synchronize()
+        before = dispatch.launches()
+        carry = packed.sweep_carry(
+            stand_in, pb, pb.model, cfg, mode="test", data=data,
+            tables=tables, batch_size=4, localize_ctx=tier, graph=graph)
+        torch.cuda.synchronize()
+        return carry, _launch_delta(before)
+
+    sweep(_eval_split(pb.spec), True)
+    assert dispatch.last_dispatch("eval_sweep")["reason"] == \
+        "cuda: a new graph"
+    with torch.no_grad():
+        for p in pb.model.parameters():
+            p.mul_(1.03125)
+    data = _eval_split(pb.spec)
+    if not tier:
+        data = {k: v[::-1].copy() for k, v in data.items()}
+    got, got_counts = sweep(data, True)
+    assert dispatch.last_dispatch("eval_sweep")["reason"] == \
+        "cuda: the graph of this key"
+    assert len(packed._GRAPHS[pb.model]) == 1
+    want, want_counts = sweep(data, False)
+    for k, v in want.items():
+        assert np.array_equal(got[k], v), k
+    assert got_counts == want_counts
+    sweep(_eval_split(pb.spec, full=5), True)
+    assert dispatch.last_dispatch("eval_sweep")["reason"] == \
+        "cuda: a new graph"
+    assert len(packed._GRAPHS[pb.model]) == 2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_fork_and_join_under_capture(cuda, dtype):
     """scatter_accum3 captured in a CUDA graph, with a row of 414 updates
@@ -916,7 +970,7 @@ def test_checkpoints_after_graph_steps_read_back(cuda, tmp_path):
     tables = {k: torch.from_numpy(v).to(cuda)
               for k, v in make_tables(pb.spec, 64, 96).items()}
     opt = make_optimizer(pb.model.parameters(), 1e-3)
-    sweep = EpochSweep(pb, opt, tables, 0, 4, graph=True)
+    sweep = EpochSweep(pb, opt, tables, 0, 4, require_graph=True)
     sweep.fetch(sweep.run([make_batch(pb.spec, 4, 64, 96, seed=s)
                            for s in range(3)], 0))
     pth, ckpt = str(tmp_path / "s.pth.tar"), str(tmp_path / "s.ckpt")

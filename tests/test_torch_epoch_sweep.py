@@ -246,7 +246,7 @@ def test_graphs_are_refused_off_the_card(pinned_root):
                       n_rels=max(len(ds.rels_list) - 1, 0), device="cpu")
     opt = make_optimizer(pb.model.parameters(), 1e-3)
     with pytest.raises(ValueError, match="needs the model on a card"):
-        EpochSweep(pb, opt, None, 0, 8, graph=True)
+        EpochSweep(pb, opt, None, 0, 8, require_graph=True)
     before = dispatch.decisions("eval_sweep")
     packed.sweep_carry(ds, pb, pb.model, cfg, mode="train")
     assert dispatch.decisions("eval_sweep").get("eager", 0) == \

@@ -105,3 +105,16 @@ def test_step_timer_aggregates_spans():
     assert s["a"]["count"] == 3 and s["b"]["count"] == 1
     assert s["a"]["total_s"] >= 0.006
     assert s["a"]["mean_ms"] == pytest.approx(1000 * s["a"]["total_s"] / 3)
+
+
+def test_kernel_span_union_and_overlap():
+    """tools/profile_eval's busy time is the union of the kernel spans, and
+    their overlap is what the summed lengths exceed it by."""
+    from lirec_tpu_torch.tools.profile_eval import _overlap_us
+    from lirec_tpu_torch.tools.profile_train import _union_us
+
+    spans = [("a", 0.0, 10.0), ("b", 5.0, 12.0), ("c", 20.0, 21.0),
+             ("d", 6.0, 7.0)]
+    assert _union_us((s, e) for _, s, e in spans) == 13.0
+    assert _overlap_us(spans) == 19.0 - 13.0
+    assert _overlap_us([("a", 0.0, 1.0), ("b", 1.0, 2.0)]) == 0.0
