@@ -184,6 +184,29 @@
    recorded update rows, and kernel 8 held and timed on its first call's
    tensors. In (b) a key's first graph sweep captures; the timed sweeps
    replay the graph that their key's warm-up sweep captured.
+20. The model and context mesh axes (parallel/mesh.py), ranks sharing the
+   one card over gloo: (a) a 1x2 mesh of two ranks, int_rel_ch at
+   published widths, bf16 and f32 (``tools/dist_check.rank_run`` with a
+   2-D mesh): the cadence sweep of phase 9's split on each rank's full
+   replica filled from the shards (``gather_state``), its counters equal
+   to phase 9's; phase 7's 10 batches with dropout, each step's loss and
+   gathered gradient against one process's forward and backward on the
+   replica at the same parameters (the rows of decisions that sit on a
+   tie and went the other way taken out of both sides and counted), the
+   parameters the plan replicates bitwise across the two ranks, each
+   rank's ms/step beside phase 7's; kernel 6 at the shard widths (clip
+   512, tracks 256) bitwise the CPU's in-order sum, timed beside
+   ``index_add_`` with its bound; (b) the same as a 2x2 mesh of four
+   ranks, deterministic steps (``MESH_STEPS_2X2``); (c) the
+   context-parallel eval forward over two ranks (R = 18 as 9 + 9, kernel
+   5 pooling each rank's block: its first product launches), its logits
+   against one process's on phase 9's first batch within the parity
+   contract, and kernel 5 held against its plain version and the
+   r-ordered loop on each rank's block of each table, timed on rank 0's
+   clip block; (d) a world of one over NCCL through parallel/mesh
+   (``make_mesh((1, 1))``, ``shard_model`` and ``gather_state`` the
+   identity): phase 9's f32 sweep and phase 7's f32 steps bitwise. Gloo
+   ranks sharing one card check correctness, not tensor-parallel scaling.
 
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
@@ -209,7 +232,9 @@ the path that launches it: the 3-table pool on the eval sweep's batch
 Localizer's tables (launches: phase 7's steps); the serve path's random
 rows, the giant tables and the split-scale scatter are entries of their
 own (``name@case``); ``name@dist`` entries give phase 16's launches (the
-world of one's and each rank's), ``name@ingest`` kernels 1-2 at phase
+world of one's and each rank's), ``name@model_axis`` phase 20's (the
+ranks' sweeps and steps; the scatter at the shard widths), and
+``gather_masked_sum_f32@context`` kernel 5's from phase 20(c), ``name@ingest`` kernels 1-2 at phase
 18(b)'s first pool call (its ``shapes``), and the scatter's
 ``@int_rels`` entry kernel 8 at phase 18(c)'s sweep; ``name@graph``
 entries give phase 19's launches from graph replays (kernels 1-2 and 6,
@@ -265,7 +290,19 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 HOLD_CYCLES = 1 << 21  # about 1 ms of spinning at the H100's clock
 DIST_TIMEOUT = 300  # seconds for phase 16(b)'s two ranks, start to join
 DIST_STEPS = 3  # phase 16(b)'s deterministic data-parallel steps
+MESH_STEPS_2X2 = 3  # phase 20(b)'s deterministic steps on the 2x2 mesh
+# phase 20: the parity contract of a loss against one process's, and of a
+# gradient (relative to the tensor's largest element); under bf16 compute
+# every weight's gradient is rounded to bf16 (the cast of the weight in
+# models/layers.linear), so a sum taken in another order can move an
+# element by one bf16 step: up to 2^-7 of the tensor's largest element
+MESH_TOL = {"float32": 1e-5, "bfloat16": 4.1e-3}
+MESH_GRAD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# how near its tie a differing decision may sit (of its input's scale):
+# in bf16 the GEMMs' inputs are rounded to bf16, so a sum taken in
+# another order can move an input by one bf16 rounding (2^-8 of itself)
 TIE_RTOL = 1e-5  # phase 16(b): a decision this near its tie may differ
+MESH_TIE = {"float32": TIE_RTOL, "bfloat16": 2.0 ** -8}
 FIXTURE_HASH_SEED = "7"  # the string-hash seed of every synthetic fixture
 # phase 17(d)'s runs of phase 7's steps, host batches against prefetched
 # ones in alternating pairs
@@ -2579,6 +2616,355 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
     return counts, rank_launches
 
 
+# ------------------------------------------ phase 20: the model and context axes
+
+
+def mesh_rank_checks(torch, label, ranks, shape, eval_ref, step_ms,
+                     train_finals):
+    """Phase 20(a)/(b): hold each rank's result of tools/dist_check.rank_run
+    on a `shape` mesh. Returns {"launches": {kernel: sum over the ranks
+    of the sweeps' and steps' launches}, "ms": {compute: median ms/step
+    of rank 0}}."""
+    import numpy as np
+
+    from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
+    from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES as SCATTER
+
+    D, M = shape
+    check(sorted(r.value["place"] for r in ranks)
+          == [(d, m) for d in range(D) for m in range(M)],
+          "%s: places %s" % (label, [r.value["place"] for r in ranks]))
+    launches, ms = {}, {}
+    for r in ranks:
+        out = r.value
+        for part in ("sweep", "steps"):
+            for k, v in out["launches"][part].items():
+                launches[k] = launches.get(k, 0) + v
+        for compute, carry in out["carries"].items():
+            want = eval_ref["carries"][compute]
+            same = all(np.array_equal(carry[k], v) for k, v in want.items())
+            for key, v in want.items():
+                if v.dtype.kind == "f":
+                    check(np.allclose(carry[key], v, rtol=2e-6, atol=0),
+                          "%s rank %s %s: %s %s against phase 9's %s" % (
+                              label, out["place"], compute, key, carry[key],
+                              v))
+                else:
+                    check(np.array_equal(carry[key], v), "%s rank %s %s: "
+                          "counter %s %s against phase 9's %s" % (
+                              label, out["place"], compute, key, carry[key],
+                              v))
+            if out["place"] == (0, 0):
+                log("  %s %s: the cadence sweep on the gathered replica, "
+                    "%.3f s for its block: counters equal phase 9's (%s)"
+                    % (label, compute, out["sweep_s"][compute],
+                       "the carry bitwise" if same else
+                       "float sums within rtol 2e-6"))
+        for compute, steps in out["steps"].items():
+            tol, grad_tol = MESH_TOL[compute], MESH_GRAD_TOL[compute]
+            for i, st in enumerate(steps):
+                where = "%s rank %s %s step %d" % (label, out["place"],
+                                                   compute, i)
+                check(abs(st["loss"] - st["loss_one"])
+                      <= tol * abs(st["loss_one"]),
+                      "%s: loss %r, one process at the same parameters %r"
+                      % (where, st["loss"], st["loss_one"]))
+                check(st["shared"] == 0, "%s: %d differing decisions no "
+                      "row owns: %s" % (where, st["shared"], st["ties"]))
+                check(st["worst_gap"] <= MESH_TIE[compute], "%s: a "
+                      "differing decision %.3e of its input's scale from "
+                      "its tie (bound %.1e): %s" % (
+                          where, st["worst_gap"], MESH_TIE[compute],
+                          st["ties"]))
+                check(st["held"] <= grad_tol, "%s: the gathered gradient "
+                      "%s differs from one process's by %.3e of its scale "
+                      "without the %d rows of differing decisions %s "
+                      "(bound %.1e; %.3e with them)" % (
+                          where, st["worst"], st["held"], len(st["rows"]),
+                          st["rows"], grad_tol, st["raw"]))
+            if out["place"] == (0, 0):
+                ms[compute] = statistics.median(s["ms"] for s in steps[1:])
+                for i, st in enumerate(steps):
+                    log("  %s %s step %d: loss %.7f (one process %.7f); "
+                        "gradient %.3e of scale from one process's, %.3e "
+                        "(%s) without the %d rows of %d differing "
+                        "decisions (worst %.3e from its tie; %s); %.2f ms"
+                        % (label, compute, i, st["loss"], st["loss_one"],
+                           st["raw"], st["held"], st["worst"],
+                           len(st["rows"]), st["differing"],
+                           st["worst_gap"], st["ties"][:2], st["ms"]))
+                if compute in train_finals and D == 1:
+                    log("  %s %s: the losses %s, phase 7's one-process "
+                        "trajectory %s" % (
+                            label, compute,
+                            [round(s["loss"], 6) for s in steps],
+                            [round(x, 6) for x in
+                             train_finals[compute][0][:len(steps)]]))
+                log("  %s %s: rank (0, 0) median %.2f ms/step (the step "
+                    "alone, synchronized) against phase 7's %.2f ms" % (
+                        label, compute, ms[compute], step_ms[compute]))
+    for d in range(D):
+        row = [r.value for r in ranks if r.value["place"][0] == d]
+        for compute, hashes in row[0]["replicated"].items():
+            check(hashes, "%s: no replicated parameter" % label)
+            for peer in row[1:]:
+                check(peer["replicated"][compute] == hashes,
+                      "%s row %d %s: the replicated parameters differ "
+                      "between the model peers" % (label, d, compute))
+    check(len(row[0]["replicated"]["float32"])
+          < len(train_finals["float32"][1]),
+          "%s: every parameter is whole on the ranks" % label)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in (SCATTER[dtype], KERNEL_NAMES[("fused_ctx_pool",
+                                                    dtype)]):
+            check(launches.get(name, 0) > 0, "%s: the ranks launched no %s "
+                  "(%s)" % (label, name, launches))
+    log("  %s: replicated parameters bitwise across the model peers (%d "
+        "tensors); launches in the ranks' sweeps and steps %s"
+        % (label, len(row[0]["replicated"]["float32"]), launches))
+    return {"launches": launches, "ms": ms}
+
+
+def context_checks(torch, eval_ref, work):
+    """Phase 20(c). Returns (the entry of gather_masked_sum_f32@context,
+    the ranks' launches)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.models.tabular import embed_all
+    from lirec_tpu_torch.ops.gather_pool import (
+        KERNEL_NAMES, gather_masked_sum, gather_masked_sum_reference,
+    )
+    from lirec_tpu_torch.parallel import dist
+    from lirec_tpu_torch.tools import dist_check
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    split = eval_ref["split"]
+    batch = {k: np.ascontiguousarray(split[k][:EVAL_B])
+             for k in ("feat_idx", "rels_mask")}
+    job = {"batch": os.path.join(work, "context_batch.pt"), "device": "cuda",
+           "preset": "int_rel_ch", "n_classes": 101, "n_rels": 15,
+           "seed": 0, "n_clips": N_CLIPS, "n_tracks": N_TRACKS}
+    torch.save(batch, job["batch"])
+    t0 = time.perf_counter()
+    ranks = dist.spawn(dist_check.context_run, 2, devices="cuda",
+                       backend="gloo", timeout=DIST_TIMEOUT, args=(job,),
+                       workdir=work)
+    wall = time.perf_counter() - t0
+    name = KERNEL_NAMES[("gather_masked_sum", torch.float32)]
+    tol = {"float32": dict(rtol=1e-5, atol=1e-6),
+           "bfloat16": dict(rtol=4.1e-3, atol=4.1e-3)}
+    cfg = config_lib.preset("int_rel_ch")
+    fi = batch["feat_idx"]
+    B, T, R = fi.shape[0], fi.shape[1], fi.shape[2] - 1
+    idx = torch.from_numpy(fi[:, :, 1:, :].reshape(B * T, R, 3).copy()).to(
+        "cuda", torch.int32)
+    mask = torch.from_numpy(batch["rels_mask"].reshape(B * T, R).astype(
+        np.float32)).cuda()
+    errs, entry = [], None
+    for compute in ("bfloat16", "float32"):
+        bundle = create_model(cfg.with_runtime(compute_dtype=compute), 101,
+                              n_rels=15, seed=0, device="cuda")
+        tables = {k: torch.from_numpy(v).cuda() for k, v in make_tables(
+            bundle.spec, N_CLIPS, N_TRACKS, seed=0).items()}
+        with torch.no_grad():
+            emb = embed_all(bundle.model, bundle.spec, tables)
+            want = bundle.apply(bundle.model, batch, embedded=emb)
+        for r, result in enumerate(ranks):
+            for key in ("inters", "rels"):
+                got = result.value[compute][key]
+                ref = want[key].cpu()
+                check(tuple(got.shape) == tuple(ref.shape)
+                      and bool(torch.isfinite(got).all()),
+                      "context rank %d %s %s: %s" % (r, compute, key,
+                                                     tuple(got.shape)))
+                err = float((got - ref).abs().max())
+                check(torch.allclose(got, ref, **tol[compute]),
+                      "context rank %d %s %s: max|diff| %.3e against one "
+                      "process beyond %s" % (r, compute, key, err,
+                                             tol[compute]))
+                if r == 0:
+                    log("  (c) %s %s: the two ranks' logits against one "
+                        "process's max|diff| %.3e (%s)" % (
+                            compute, key, err, tol[compute]))
+        # kernel 5 on each rank's block of each table, as the forward
+        # calls it (a bf16 table read as f32)
+        for c in range(2):
+            lo, hi = R * c // 2, R * (c + 1) // 2
+            m_blk = mask[:, lo:hi].contiguous()
+            for k, table in enumerate(emb["ctx"]):
+                table = table.float().contiguous()
+                ids = idx[:, lo:hi, k].contiguous()
+                got = gather_masked_sum(table, ids, m_blk)
+                torch.cuda.synchronize()
+                check(torch.equal(got, masked_sum_loop(torch, table, ids,
+                                                       m_blk)),
+                      "context block %d table %d %s: kernel 5 is not the "
+                      "r-ordered loop" % (c, k, compute))
+                ref = gather_masked_sum_reference(table, ids, m_blk)
+                err = float((got - ref).abs().max())
+                scale = float(ref.abs().max())
+                check(err <= 1e-5 * scale, "context block %d table %d %s: "
+                      "kernel 5 %.3e from its plain version" % (
+                          c, k, compute, err))
+                errs.append(err)
+                if c == 0 and k == 0 and compute == "float32":
+                    ms = median_ms(torch, lambda: gather_masked_sum(
+                        table, ids, m_blk))
+                    plain = median_ms(torch, lambda: (
+                        gather_masked_sum_reference(table, ids, m_blk)))
+                    lib = median_ms(torch, lambda: F.embedding_bag(
+                        ids, table, per_sample_weights=m_blk, mode="sum"))
+                    M_, R_ = ids.shape
+                    moved = (gathered_bytes(table, ids) + nbytes(ids, m_blk)
+                             + M_ * table.shape[1] * 4)
+                    b = bound(moved, 2 * M_ * R_ * table.shape[1])
+                    entry = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                 shapes=dict(idx=[M_, R_],
+                                             table=list(table.shape)), **b)
+                    log("  (c) kernel 5 on rank 0's clip block [%d, %d] of "
+                        "a %s table: %.4f ms, plain %.4f ms, embedding_bag "
+                        "%.4f ms; bound %.4f ms (%s)" % (
+                            M_, R_, list(table.shape), ms, plain, lib,
+                            b["bound_ms"], b["bound_by"]))
+        del bundle, emb, tables
+    launched = [dict(r.launches) for r in ranks]
+    for r, got in enumerate(launched):
+        # three tables per forward, bf16 and f32 (a bf16 table read as f32)
+        check(got.get(name, 0) == 6, "context rank %d: launches %s"
+              % (r, got))
+    log("  (c) kernel 5 bitwise the r-ordered loop on every block, worst "
+        "%.3e from its plain version; launches per rank %s; %.1f s from "
+        "spawn to join" % (max(errs), [g.get(name, 0) for g in launched],
+                           wall))
+    entry["max_abs_err"] = max(errs)
+    return entry, sum(g.get(name, 0) for g in launched)
+
+
+def world_of_one_mesh(torch, local, train_finals, eval_ref, work):
+    """Phase 20(d): a process group of one over NCCL through parallel/mesh:
+    phase 9's f32 sweep and phase 7's f32 steps bitwise."""
+    import numpy as np
+
+    import torch.distributed
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.parallel import dist
+    from lirec_tpu_torch.parallel.mesh import (
+        Mesh2D, gather_state, make_mesh, shard_model,
+    )
+    from lirec_tpu_torch.parallel.step import make_dp_train_step
+    from lirec_tpu_torch.train.loop import step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    dist.initialize_distributed("file://" + os.path.join(work, "nccl20"), 1,
+                                0, "cuda")
+    try:
+        check(torch.distributed.get_backend() == "nccl", "backend")
+        mesh = make_mesh((1, 1))
+        check(isinstance(mesh, Mesh2D) and mesh.model == 1 and mesh.lead,
+              "mesh %s" % (mesh,))
+        cfg = config_lib.preset("int_rel_ch").with_runtime(
+            compute_dtype="float32")
+        bundle = create_model(cfg, 101, n_rels=15, seed=0, device="cuda")
+        host_tables = make_tables(bundle.spec, N_CLIPS, N_TRACKS, seed=0)
+        dev_tables = {k: torch.from_numpy(v).cuda()
+                      for k, v in host_tables.items()}
+        opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
+                             cfg.optim.weight_decay)
+        before = {k: v.clone() for k, v in bundle.model.state_dict().items()}
+        shard_model(bundle.model, mesh, bundle.spec, opt)
+        state, _ = gather_state(bundle.model, mesh)
+        check(all(torch.equal(state[k], v) for k, v in before.items()),
+              "a model axis of 1 changed the model")
+        carry = packed.sweep_carry(
+            split_stand_in(), bundle, bundle.model,
+            cfg.with_optim(batch_size=EVAL_B), mode="test",
+            data=eval_ref["split"], tables=host_tables, localize_ctx=False,
+            mesh=mesh)
+        for key, v in eval_ref["carries"]["float32"].items():
+            check(np.array_equal(carry[key], v), "(d) sweep %s differs "
+                  "from phase 9's" % key)
+        step = make_dp_train_step(bundle, opt, mesh, TRAIN_B)
+        losses = [float(step(batch, dev_tables,
+                             step_generators(0, i, "cuda")))
+                  for i, batch in enumerate(local)]
+        want_losses, want_params = train_finals["float32"]
+        check(losses == want_losses, "(d) losses %s, phase 7's %s"
+              % (losses, want_losses))
+        for n, p in bundle.model.named_parameters():
+            check(torch.equal(p.detach().cpu(), want_params[n]),
+                  "(d) parameter %s differs from phase 7's" % n)
+        log("  (d) NCCL world of one through parallel/mesh: %s; the f32 "
+            "sweep carry bitwise phase 9's, %d f32 steps bitwise phase "
+            "7's" % (mesh, len(local)))
+        del bundle, opt, step
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def model_axis_phase(torch, spec, local, caps, train_finals, step_ms,
+                     eval_ref):
+    """Phase 20. Returns {"tp_scatter": {tag: scatter_case entry},
+    "launches": {kernel: launches of (a) and (b)}, "context": kernel 5's
+    entry, "context_launches": its launches in (c), "ms": {mesh: {compute:
+    ms/step}}}."""
+    from lirec_tpu_torch.parallel import dist
+    from lirec_tpu_torch.tools import dist_check
+
+    out = {"launches": {}, "ms": {}, "tp_scatter": {}}
+    # kernel 6 at the shard widths of M = 2, on phase 7's first batch
+    idx_loc = ctx_idx(torch, local[0])
+    g = torch.Generator(device="cuda").manual_seed(20)
+    widths = (spec.joint_dim, spec.joint_dim // 2, spec.joint_dim // 2)
+    base = [torch.randn(*idx_loc.shape[:2], d, device="cuda", generator=g)
+            for d in widths]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        out["tp_scatter"][tag] = scatter_case(
+            torch, "3 tables at caps, M = 2 shard widths %s %s"
+            % (list(widths), tag), idx_loc, [t.to(dtype) for t in base],
+            (caps[0], caps[1], caps[1]), single=False)
+    del base
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        job = {"split": os.path.join(work, "split.pt"),
+               "batches": os.path.join(work, "batches.pt"),
+               "device": "cuda", "preset": "int_rel_ch", "n_classes": 101,
+               "n_rels": 15, "seed": 0, "n_clips": N_CLIPS,
+               "n_tracks": N_TRACKS, "eval_b": EVAL_B, "train_b": TRAIN_B}
+        torch.save(eval_ref["split"], job["split"])
+        torch.save(local, job["batches"])
+        for label, shape, extra in (
+                ("(a) 1x2", (1, 2), dict(steps=len(local), dropout=True)),
+                ("(b) 2x2", (2, 2), dict(steps=MESH_STEPS_2X2,
+                                         dropout=False))):
+            t0 = time.perf_counter()
+            ranks = dist.spawn(dist_check.rank_run, shape[0] * shape[1],
+                               devices="cuda", backend="gloo",
+                               timeout=DIST_TIMEOUT,
+                               args=(dict(job, mesh=shape, **extra),),
+                               workdir=work)
+            wall = time.perf_counter() - t0
+            got = mesh_rank_checks(torch, label, ranks, shape, eval_ref,
+                                   step_ms, train_finals)
+            for k, v in got["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            out["ms"]["%dx%d" % shape] = got["ms"]
+            log("  %s: %d ranks, %.1f s from spawn to join" % (
+                label, len(ranks), wall))
+        out["context"], out["context_launches"] = context_checks(
+            torch, eval_ref, work)
+        world_of_one_mesh(torch, local, train_finals, eval_ref, work)
+    return out
+
+
 # ------------------------------------------------------ the rest of training
 
 
@@ -3717,6 +4103,12 @@ def main():
         graph_counts, sweeps, k8_graph = sweeps_phase(
             torch, local, train_finals, eval_ref, root)
 
+    log("== 20. the model and context mesh axes: 1x2 and 2x2 meshes and a "
+        "context group of gloo ranks on the card, a world of one over NCCL "
+        "(counted runs)")
+    mesh_axes = model_axis_phase(torch, spec, local, caps, train_finals,
+                                 step_ms, eval_ref)
+
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
 
@@ -3874,6 +4266,33 @@ def main():
                         launches=sweeps["int_rels"][
                             "B%d" % INT_RELS_GRAPH_B]["launches"],
                         path="int_rels_graph", **k8_graph))
+    # phase 20: kernels 1-2 in the ranks' cadence sweeps (the main eval
+    # entries' shapes and numbers), kernel 6 at the M = 2 shard widths in
+    # their steps, kernel 5 in the context-parallel pool
+    for name in (KERNEL_NAMES[("fused_ctx_pool", torch.float32)],
+                 KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)]):
+        main_entry = next(k for k in kernels if k["name"] == name
+                          and k.get("path") == "eval")
+        kernels.append(dict(main_entry, name=name + "@model_axis",
+                            path="model_axis",
+                            launches=mesh_axes["launches"][name]))
+    for dtype, tag in ((torch.float32, "float32"),
+                       (torch.bfloat16, "bfloat16")):
+        name = scatter_accum.KERNEL_NAMES[dtype]
+        kernels.append(dict(name=name + "@model_axis", route="cuda",
+                            source=SCATTER_CU,
+                            replaces="%s:91" % SCATTER_TPU_SRC,
+                            launches=mesh_axes["launches"][name],
+                            path="model_axis",
+                            **mesh_axes["tp_scatter"][tag]))
+    name = KERNEL_NAMES[("gather_masked_sum", torch.float32)]
+    check(mesh_axes["context_launches"] > 0,
+          "%s was not launched by the context-parallel pool" % name)
+    kernels.append(dict(name=name + "@context", route="cuda",
+                        source=TRIPLE_CU, replaces="%s:106" % TPU_SRC,
+                        launches=mesh_axes["context_launches"],
+                        path="context", **mesh_axes["context"]))
+    log("mesh_ms_per_step: " + json.dumps(mesh_axes["ms"]))
     log("sweeps: " + json.dumps(sweeps))
     log("modalities: " + json.dumps(mod))
     log("eval_clips_per_s: " + json.dumps(

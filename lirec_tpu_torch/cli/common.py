@@ -22,14 +22,16 @@ package's, or the port's own under ``--checkpoint-backend msgpack``,
 which writes the JAX package's msgpack files). The JAX package's Orbax
 directories are neither read nor written.
 
-Data parallelism (parallel/dist.py), with the JAX package's flags: ``--mesh
-Dx1`` in a single process spawns D local ranks (``cuda``: D visible cards;
-``--device cpu``: D gloo processes); ``--num-processes N --coordinator
-HOST:PORT --process-id R`` joins process R of an N-process group (one per
-card, across nodes), with a data mesh of N unless ``--mesh`` says the
-same. Every rank trains or evaluates its rows of every batch and the sweep
-is sharded over the ranks; only rank 0 prints and writes. A ``model`` axis
-(``--mesh DxM``, M > 1) is refused by name.
+The process mesh (parallel/mesh.py), with the JAX package's flags:
+``--mesh DxM`` in a single process spawns D * M local ranks (``cuda``: one
+per visible card; ``--device cpu``: gloo processes); ``--num-processes N
+--coordinator HOST:PORT --process-id R`` joins process R of an N-process
+group (one per card, across nodes), with a data mesh of N unless
+``--mesh`` lays the N out otherwise. Every rank trains or evaluates its
+rows of every batch (by its data index) and the sweep is split over the
+data axis; under a model axis (M > 1) training is tensor-parallel over
+the M ranks of a row (a model axis that does not divide the sharded
+widths is refused, naming them); only rank 0 prints and writes.
 
 ``--assembly-workers N`` assembles the train batches in N worker processes
 where no assembly plan applies (the same batches; inside each rank under
@@ -46,8 +48,8 @@ under ``--mesh`` / ``--num-processes`` (the other ranks use the datasets
 they built).
 
 Every flag of the JAX package's CLIs parses; a feature the port does not
-have (a ``model`` mesh axis, Orbax checkpoints) refuses to run by name
-instead of failing in argparse.
+have (Orbax checkpoints) refuses to run by name instead of failing in
+argparse.
 """
 
 from __future__ import annotations
@@ -62,9 +64,11 @@ from lirec_tpu_torch.data.dataset import InteractionDataset
 from lirec_tpu_torch.evaluation.packed import evaluate_packed
 from lirec_tpu_torch.evaluation.runner import MESH_HOST_EVAL, evaluate
 from lirec_tpu_torch.models.factory import create_model
+from lirec_tpu_torch.models.spec import ModelSpec
 from lirec_tpu_torch.parallel.dist import (
-    MODEL_AXIS_ITEM, in_rank, initialize_distributed, make_mesh, spawn,
+    in_rank, initialize_distributed, make_mesh, spawn,
 )
+from lirec_tpu_torch.parallel.mesh import check_model_axis
 
 TRAIN_SPLIT = {
     "modalities": "val",
@@ -252,10 +256,11 @@ def _refuse_unported(args) -> None:
                          "not write " + ORBAX)
 
 
-def mesh_shape(args):
+def mesh_shape(args, preset_name: str):
     """(data, model) of --mesh / --num-processes, or None for one
-    process, with the JAX package's checks and messages; a model axis is
-    refused by name."""
+    process, with the JAX package's checks and messages; a model axis
+    that does not divide the preset's sharded widths is refused, naming
+    them."""
     if args.num_processes > 1 and (args.process_id < 0
                                    or not args.coordinator):
         raise SystemExit("--num-processes needs --coordinator HOST:PORT "
@@ -271,23 +276,28 @@ def mesh_shape(args):
     if len(shape) != 2:
         raise SystemExit("--mesh expects DATAxMODEL, e.g. 4x2")
     data, model = shape
-    if model != 1:
+    n = data * model
+    if n < 1:
+        raise SystemExit("--mesh %s: each axis needs at least 1" % args.mesh)
+    if model > 1:
+        # the widths a model axis splits (no n_classes or n_rels needed)
+        spec = ModelSpec.from_config(config_from_args(preset_name, args), 1)
+        try:
+            check_model_axis(spec, model)
+        except ValueError as err:
+            raise SystemExit("--mesh %s: %s" % (args.mesh, err))
+    if args.num_processes > 1 and n != args.num_processes:
         raise SystemExit(
-            "--mesh %s: a 'model' axis is not ported to lirec_tpu_torch "
-            "(ROADMAP.md queue 1 %s); use --mesh %dx1"
-            % (args.mesh, MODEL_AXIS_ITEM, data))
-    if args.num_processes > 1 and data != args.num_processes:
-        raise SystemExit(
-            "--mesh %dx1 needs %d processes, one per card; "
-            "--num-processes is %d" % (data, data, args.num_processes))
+            "--mesh %dx%d needs %d processes, one per card; "
+            "--num-processes is %d" % (data, model, n, args.num_processes))
     if args.num_processes <= 1 and not in_rank():
         import torch
 
         visible = (torch.cuda.device_count()
-                   if torch.device(args.device).type == "cuda" else data)
-        if data > visible:
+                   if torch.device(args.device).type == "cuda" else n)
+        if n > visible:
             raise SystemExit("--mesh %dx%d needs %d devices; %d visible"
-                             % (data, model, data, visible))
+                             % (data, model, n, visible))
     return shape
 
 
@@ -338,8 +348,8 @@ def run_entry(preset_name: str, argv=None) -> dict:
     parser = build_parser(preset_name)
     args = parser.parse_args(argv)
     _refuse_unported(args)
-    shape = mesh_shape(args)
-    if shape is None or shape[0] == 1:
+    shape = mesh_shape(args, preset_name)
+    if shape is None or shape[0] * shape[1] == 1:
         return _run(preset_name, args, None)
     if args.num_processes > 1:
         import torch.distributed
@@ -357,7 +367,7 @@ def run_entry(preset_name: str, argv=None) -> dict:
     import torch
 
     # each rank runs this entry again, inside the group (in_rank)
-    ranks = spawn(run_entry, shape[0],
+    ranks = spawn(run_entry, shape[0] * shape[1],
                   devices=torch.device(args.device).type,
                   args=(preset_name, argv), timeout=SPAWN_TIMEOUT)
     return ranks[0].value
@@ -368,7 +378,7 @@ def _traced(args, mesh, name: str, fn, /, *fn_args, **kwargs):
     ``--profile``/<name>[.rank<r>].json when --profile is set."""
     from lirec_tpu_torch.utils.profiling import trace
 
-    rank = None if mesh is None else mesh.rank
+    rank = None if mesh is None else mesh.process
     with trace(args.profile, device=args.device, name=name, rank=rank):
         return fn(*fn_args, **kwargs)
 
@@ -392,7 +402,7 @@ def _datasets(cfg, preset_name: str, args, mesh, verbose: bool):
             print("loaded ingest artifact: %s" % path)
         return splits["train"], splits["val"], splits["test"]
     datasets = build_datasets(cfg, preset_name, workers=args.cache_workers)
-    if path and (mesh is None or mesh.rank == 0):
+    if path and (mesh is None or mesh.lead):
         save_ingest(path, cfg, dict(zip(("train", "val", "test"),
                                         datasets)))
         if verbose:
@@ -401,11 +411,13 @@ def _datasets(cfg, preset_name: str, args, mesh, verbose: bool):
 
 
 def _run(preset_name: str, args, mesh) -> dict:
-    """Evaluate or train in this process; with a data `mesh`, as one of
-    its ranks (every rank runs this; rank 0 prints)."""
+    """Evaluate or train in this process; with a `mesh`, as one of its
+    ranks (every rank runs this; rank 0 prints). The evaluation of a
+    checkpoint runs the whole model on every rank, the samples split over
+    the data axis."""
     cfg = config_from_args(preset_name, args)
     resume_from = "" if cfg.resume else _train_state_path(cfg, args)
-    verbose = not args.quiet and (mesh is None or mesh.rank == 0)
+    verbose = not args.quiet and (mesh is None or mesh.lead)
     train_ds, val_ds, test_ds = _datasets(cfg, preset_name, args, mesh,
                                           verbose)
     n_rels = max(len(train_ds.rels_list) - 1, 0)

@@ -351,10 +351,11 @@ class EpochIterator(BatchIterator):
 
 
 def local_batch(batch: Dict, mesh) -> Dict:
-    """This rank's rows of a global host batch over the data axis `mesh`
-    (parallel/dist.DataMesh): its contiguous block of every per-sample
-    array (parallel/dist.process_local_slice); the batch-level ``uniq_*``
-    ids stay whole, as the JAX package replicates them."""
+    """This rank's rows of a global host batch over the data axis of
+    `mesh` (parallel/mesh.Mesh2D, by its data index): its contiguous block
+    of every per-sample array (parallel/mesh.process_local_slice); the
+    batch-level ``uniq_*`` ids stay whole, as the JAX package replicates
+    them."""
     from lirec_tpu_torch.parallel.dist import process_local_slice
 
     rows = process_local_slice(mesh, len(batch["labels"]))

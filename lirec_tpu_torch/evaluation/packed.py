@@ -35,7 +35,10 @@ sweeps its own contiguous block of full batches (the last one also takes
 the ragged tail), so the reference's batch boundaries stay where they
 were, with no collective inside the loop (the graph serves there too),
 and ``allreduce_carry`` combines the carries: every process ends with the
-global carry and the same metrics.
+global carry and the same metrics. Under a model axis the samples are
+split over the data axis only: the model peers of a row sweep the same
+block (as in the JAX package), and the carries are combined over the
+data group, so that no sample counts M times.
 
 Not ported: the TPU's VMEM cost model of the localisation gate, and the
 ``LIREC_TPU_EVAL_LOCALIZE`` switch.
@@ -69,9 +72,12 @@ MODEL_KEYS = ("feat_idx", "rels_mask", "ctx_uniq_clip", "ctx_uniq_track",
               "ctx_tidx", "ctx_triples")
 
 
-def allreduce_carry(carry: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+def allreduce_carry(carry: Dict[str, np.ndarray],
+                    mesh=None) -> Dict[str, np.ndarray]:
     """Combine the processes' host carries into the global one (each
-    process swept its own block of batches); every process gets it.
+    process swept its own block of batches); every process gets it. With
+    a `mesh` (parallel/mesh.Mesh2D), over its data group only (the model
+    peers of a row swept the same block); else over the whole group.
 
     Counters, loss sums and the RelationshipsAcc score table are summed.
     ``rels_seen`` is the port's count of valid rows per hash, so its sum is
@@ -82,7 +88,8 @@ def allreduce_carry(carry: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     process."""
     from lirec_tpu_torch.parallel.dist import all_gather_object
 
-    ranks = all_gather_object(carry)
+    ranks = all_gather_object(carry, None if mesh is None
+                              else mesh.data_group)
     if len(ranks) == 1:
         return carry
     out = {}
@@ -442,10 +449,10 @@ def sweep_carry(
     graph: Optional[bool] = None,
 ) -> Dict[str, np.ndarray]:
     """The sweep's carry of a whole split, on the host: the counters
-    ``finish_from_carry`` turns into metrics. Over a data `mesh`
-    (parallel/dist.DataMesh) of several processes, this process sweeps its
-    block of full batches and the carries are combined
-    (``allreduce_carry``). `graph`: None (a CUDA graph of the step on a
+    ``finish_from_carry`` turns into metrics. Over a `mesh`
+    (parallel/mesh.Mesh2D) with a data axis of several processes, this
+    process sweeps its block of full batches (by its data index) and the
+    carries are combined over the data group (``allreduce_carry``). `graph`: None (a CUDA graph of the step on a
     card, eager steps on the CPU), True (raises off a card) or False
     (eager steps, for comparisons); a failed capture raises."""
     t = cfg.tasks
@@ -538,7 +545,7 @@ def sweep_carry(
             }
             carry = step(model, tables, embedded, carry, tail_batch)
         carry = {k: v.cpu().numpy() for k, v in carry.items()}
-    return allreduce_carry(carry) if mesh is not None else carry
+    return allreduce_carry(carry, mesh) if mesh is not None else carry
 
 
 # model -> {key: _EvalGraph}: a model's graphs go with it
@@ -640,8 +647,8 @@ def evaluate_packed(
 ) -> Dict[str, float]:
     """Evaluation of a whole split on ``model``'s device; returns the same
     metric dict (and prints the same lines) as the JAX package's
-    evaluate_packed. With a data `mesh` of several processes
-    (parallel/dist.DataMesh), every process calls it; each sweeps its
+    evaluate_packed. With a `mesh` of several processes
+    (parallel/mesh.Mesh2D), every process calls it; each sweeps its
     block of batches (``sweep_carry``) and all return the global
     metrics. `graph`: as ``sweep_carry``'s."""
     carry = sweep_carry(dataset, bundle, model, cfg, mode=mode,

@@ -21,6 +21,7 @@ from lirec_tpu_torch.models.layers import (
     init_linear,
     linear,
 )
+from lirec_tpu_torch.parallel.mesh import shard_of
 
 __all__ = ["FeatSlices", "slices_from_dense", "GatingUnit",
            "init_modality_mlps", "modality_embed", "init_gate", "gate_apply"]
@@ -78,8 +79,10 @@ def modality_embed(model: nn.Module, prefix: str, s: FeatSlices, spec,
 
     def two_layer(name1, name2, x):
         h = linear(model.get_submodule(name1 % prefix), x, cdt)
-        h = torch.relu(dropout(h, p, rng, deterministic))
-        return linear(model.get_submodule(name2 % prefix), h, cdt)
+        layer = model.get_submodule(name2 % prefix)
+        h = torch.relu(dropout(h, p, rng, deterministic,
+                               cols=shard_of(layer)))
+        return linear(layer, h, cdt)
 
     return torch.cat([
         two_layer("txt_%s", "txt2_%s", s.text),
@@ -111,9 +114,12 @@ def gate_apply(model: nn.Module, ints_repr: torch.Tensor,
                rng: Optional[DropoutRng] = None,
                deterministic: bool = True) -> torch.Tensor:
     """cat(ctx, ints) -> linear -> relu -> dropout (ref
-    mlp/model.py:349-354; the dropout is the identity at eval)."""
+    mlp/model.py:349-354; the dropout is the identity at eval). Under a
+    model axis the gate is column-parallel on the replicated fused input,
+    so the output holds this process's columns (and out_ints after it is
+    row-parallel)."""
     fused = torch.cat([ctx_repr, ints_repr], dim=-1)
-    out = torch.relu(
-        linear(model.gates_ints.fc_out, fused, compute_dtype(spec))
-    )
-    return dropout(out, spec.dropout, rng, deterministic)
+    layer = model.gates_ints.fc_out
+    out = torch.relu(linear(layer, fused, compute_dtype(spec)))
+    return dropout(out, spec.dropout, rng, deterministic,
+                   cols=shard_of(layer))

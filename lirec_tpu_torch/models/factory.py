@@ -41,6 +41,7 @@ def apply_model(
     deterministic: bool = True,
     rng: Optional[torch.Generator] = None,
     use_tabular: Optional[bool] = None,
+    context_group=None,
 ) -> Dict:
     """Forward of a packed batch (``feat_idx`` index triples resolved
     against ``tables``, or at eval against their ``embedded`` form from
@@ -60,6 +61,13 @@ def apply_model(
     pool (eval) or the plain scatter in the backward (training), for
     comparisons. The Modalities model (``spec.mod_check``) reads slot 0
     of ``feat_idx`` only and launches no kernel.
+
+    `context_group` (a process group; the JAX package's ``context_axis``):
+    the eval forward's context pool runs over the group, each process
+    pooling a contiguous block of the R ctx slots with the masked-sum
+    kernel (models/tabular._ctx_branch_context); every process passes the
+    same batch and gets the whole output. The triple tier stays off under
+    it, as in the JAX package.
     """
     if "feat_idx" not in batch:
         return _apply_dense(model, spec, batch, deterministic, rng)
@@ -87,7 +95,8 @@ def apply_model(
                                         deterministic=deterministic, rng=rng)
     if use_tabular:
         ctx_triple = None
-        if embedded is not None and spec.ctx and "ctx_triples" in batch:
+        if (embedded is not None and spec.ctx and "ctx_triples" in batch
+                and context_group is None):
             # triple tier: this batch's unique fused [clip | tr1 | tr2]
             # rows in one local table, one row gather per context entry;
             # feat_idx stays global (slot 0, the ints row, is untouched)
@@ -112,7 +121,7 @@ def apply_model(
         )
         return forward(model, spec, tables, feat_idx, rels_mask,
                        embedded=embedded, use_kernel=use_kernel,
-                       ctx_triple=ctx_triple)
+                       ctx_triple=ctx_triple, context_group=context_group)
     forward = (
         hybrid.midfusion_maxtracks_hybrid if spec.tr_maximize
         else hybrid.midfusion_hybrid

@@ -18,6 +18,15 @@ no kernel there either).
 Dropout calls keep the JAX package's order and shapes (txt, vis, tr1, tr2
 per branch, then the branch output, then the gate), so a forward draws the
 same number of masks in the same order.
+
+Under a model axis (parallel/mesh.shard_model) the first layers are
+column-parallel, so each process's h1 tables hold its columns: ``clip``
+is ``[txt shard | vis shard]``, ``2 * joint / M`` wide, ``tr1`` and ``tr2``
+``joint / M``; the gathers and their backward (the scatter kernel) run on
+those widths. The second layers are row-parallel: their partial products
+are summed over the model group before the bias (scaled by the pool's
+bias scale in the ctx branch) is added. The dropout masks on the sharded
+h1 rows are drawn at the full width (layers.draw_cols).
 """
 
 from __future__ import annotations
@@ -32,7 +41,9 @@ from lirec_tpu_torch.models.layers import (
     compute_dtype,
     dropout,
     linear,
+    row_reduce,
 )
+from lirec_tpu_torch.parallel.mesh import shard_of
 from lirec_tpu_torch.ops.scatter_accum import gather_h1
 
 __all__ = [
@@ -49,9 +60,9 @@ class H1Tables(NamedTuple):
     vis are indexed by the same clip id, so they are stored concatenated
     (one gather, one backward scatter). Stored bf16 under bf16 compute."""
 
-    clip: torch.Tensor  # [n_clips, 2*joint] = [txt | vis]
-    tr1: torch.Tensor  # [n_tracks, joint]
-    tr2: torch.Tensor  # [n_tracks, joint]
+    clip: torch.Tensor  # [n_clips, 2*joint] = [txt | vis] (/ M: shards)
+    tr1: torch.Tensor  # [n_tracks, joint] (/ M)
+    tr2: torch.Tensor  # [n_tracks, joint] (/ M)
 
 
 def project_tables(model, prefix: str, tables: Dict, spec) -> H1Tables:
@@ -77,16 +88,18 @@ def _embed_from_h1(model, prefix: str, h1: H1Tables, idx: torch.Tensor,
     second layers, concatenated [txt | vis | tr1 | tr2]."""
     p = spec.dropout
     cdt = compute_dtype(spec)
-    joint = spec.joint_dim
+    half = h1.clip.shape[-1] // 2
 
     def second(name, h):
-        h = torch.relu(dropout(h, p, rng, deterministic))
-        return linear(model.get_submodule(name % prefix), h, cdt)
+        layer = model.get_submodule(name % prefix)
+        h = torch.relu(dropout(h, p, rng, deterministic,
+                               cols=shard_of(layer)))
+        return linear(layer, h, cdt)
 
     idx = idx.long()
     clip = h1.clip[idx[..., 0]]
-    txt = second("txt2_%s", clip[..., :joint])
-    vis = second("vis2_%s", clip[..., joint:])
+    txt = second("txt2_%s", clip[..., :half])
+    vis = second("vis2_%s", clip[..., half:])
     tr1 = second("tracks12_%s", h1.tr1[idx[..., 1]])
     tr2 = second("tracks22_%s", h1.tr2[idx[..., 2]])
     return torch.cat([txt, vis, tr1, tr2], dim=-1)
@@ -104,10 +117,13 @@ def _pooled_ctx_from_h1(model, prefix: str, h1: H1Tables, idx: torch.Tensor,
     second layer's bias is scaled by msum / divider (1 for a non-empty
     context, 0 for an empty guarded one, NaN for an empty unguarded one).
     use_kernel=False takes the plain scatter in the gathers' backward.
+    Under a model axis the pools run on this process's columns and the
+    second layers' products are summed over the model group before the
+    scaled bias is added.
     """
     p = spec.dropout
     cdt = compute_dtype(spec)
-    joint = spec.joint_dim
+    half = h1.clip.shape[-1] // 2
 
     m = mask.float()                                   # [N, R]
     msum = m.sum(dim=1, keepdim=True)                  # [N, 1]
@@ -115,24 +131,23 @@ def _pooled_ctx_from_h1(model, prefix: str, h1: H1Tables, idx: torch.Tensor,
                if guard_zero_divide else msum)
     bias_scale = msum / divider                        # [N, 1]
 
-    def pooled(h):
-        h = torch.relu(dropout(h, p, rng, deterministic))
-        return torch.einsum("nrj,nr->nj", h.float(), m) / divider
-
-    def second(name, ph):
+    def second(name, h):
         layer = model.get_submodule(name % prefix)
+        h = torch.relu(dropout(h, p, rng, deterministic,
+                               cols=shard_of(layer)))
+        ph = torch.einsum("nrj,nr->nj", h.float(), m) / divider
         w = layer.weight
         if cdt is not None:
             ph = ph.to(cdt).float()
             w = w.to(cdt).float()
-        return ph @ w.t() + layer.bias * bias_scale
+        return row_reduce(layer, ph @ w.t()) + layer.bias * bias_scale
 
     clip, g_tr1, g_tr2 = gather_h1(h1.clip, h1.tr1, h1.tr2, idx,
                                    use_kernel=use_kernel)
-    txt = second("txt2_%s", pooled(clip[..., :joint]))
-    vis = second("vis2_%s", pooled(clip[..., joint:]))
-    tr1 = second("tracks12_%s", pooled(g_tr1))
-    tr2 = second("tracks22_%s", pooled(g_tr2))
+    txt = second("txt2_%s", clip[..., :half])
+    vis = second("vis2_%s", clip[..., half:])
+    tr1 = second("tracks12_%s", g_tr1)
+    tr2 = second("tracks22_%s", g_tr2)
     return torch.cat([txt, vis, tr1, tr2], dim=-1)
 
 
@@ -254,8 +269,10 @@ def modalities_hybrid(
 
     def branch(n1, n2, table, which):
         h = linear(model.get_submodule(n1), table, cdt)[idx[..., which]]
-        h = torch.relu(dropout(h, p, drop, deterministic))
-        return linear(model.get_submodule(n2), h, cdt)
+        layer = model.get_submodule(n2)
+        h = torch.relu(dropout(h, p, drop, deterministic,
+                               cols=shard_of(layer)))
+        return linear(layer, h, cdt)
 
     parts = []
     if spec.modality in ("m", "t"):

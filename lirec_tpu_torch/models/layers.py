@@ -8,6 +8,12 @@ and bias, drawn from an explicit ``torch.Generator``.
 Dropout masks come from one explicit ``torch.Generator`` per forward, drawn
 in the forward's fixed call order. They cannot match JAX's key stream: the
 two are held to the same distribution only.
+
+Under a model axis (parallel/mesh.shard_model) a layer carries its
+``Shard``: ``linear`` then runs it column- or row-parallel, and a dropout
+mask on the activation between the two is drawn at the full width and
+cut to this process's columns (``draw_cols``), so that a tensor-parallel
+step draws the one-process step's masks bit for bit.
 """
 
 from __future__ import annotations
@@ -18,7 +24,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["DropoutRng", "compute_dtype", "dropout", "init_linear", "linear"]
+from lirec_tpu_torch.parallel.mesh import (
+    COLUMN, copy_to_model, reduce_from_model, shard_of,
+)
+
+__all__ = ["DropoutRng", "compute_dtype", "dropout", "init_linear", "linear",
+           "row_reduce", "draw_rows", "draw_cols"]
 
 
 def compute_dtype(spec) -> Optional[torch.dtype]:
@@ -50,12 +61,32 @@ def linear(layer: nn.Linear, x: torch.Tensor,
     and multiplied in f32 instead: bf16 x bf16 products are exact in f32,
     so only the order of the f32 sums differs. (A fast bf16 GEMM with f32
     output is later work.)
+
+    A column-parallel layer (its ``tp_shard``) multiplies its slice after
+    ``copy_to_model``; a row-parallel one multiplies its slice, sums the
+    partial products over the model group, and only then adds the bias
+    (once, not once per process).
     """
     w = layer.weight
     if compute_dtype is not None:
         x = x.to(compute_dtype).float()
         w = w.to(compute_dtype).float()
-    return nn.functional.linear(x, w, layer.bias)
+    shard = shard_of(layer)
+    if shard is None:
+        return nn.functional.linear(x, w, layer.bias)
+    if shard.kind == COLUMN:
+        return nn.functional.linear(copy_to_model(x, shard.group), w,
+                                    layer.bias)
+    return reduce_from_model(x @ w.t(), shard.group) + layer.bias
+
+
+def row_reduce(layer: nn.Module, partial: torch.Tensor) -> torch.Tensor:
+    """A product with `layer`'s weight summed over the model group where
+    the layer is row-parallel; `partial` itself otherwise."""
+    shard = shard_of(layer)
+    if shard is None or shard.kind == COLUMN:
+        return partial
+    return reduce_from_model(partial, shard.group)
 
 
 def draw_rows(draw, shape, generator, device, dtype=None):
@@ -77,6 +108,20 @@ def draw_rows(draw, shape, generator, device, dtype=None):
     return full[shard.rank * n:(shard.rank + 1) * n]
 
 
+def draw_cols(draw, shape, generator, device, cols):
+    """``draw_rows`` of an activation that holds columns `cols.index` of
+    `cols.size` equal blocks of the full width (a parallel/mesh.Shard):
+    the draw is made at the full width, the same on every process of the
+    model group, and this process's columns are kept; with `cols` None,
+    ``draw_rows`` itself."""
+    if cols is None:
+        return draw_rows(draw, shape, generator, device)
+    w = shape[-1]
+    full = draw_rows(draw, tuple(shape[:-1]) + (w * cols.size,), generator,
+                     device)
+    return full[..., cols.index * w:(cols.index + 1) * w]
+
+
 class DropoutRng:
     """The dropout stream of one forward: a ``torch.Generator`` on the
     activations' device (None: no randomness, e.g. at eval), drawn from in
@@ -88,19 +133,22 @@ class DropoutRng:
 
 
 def dropout(x: torch.Tensor, rate: float, rng: DropoutRng,
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool, cols=None) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate and
     scale it by 1 / (1 - rate); the identity when deterministic or
     rate == 0. (The JAX package drew 16-bit words on the TPU to cut its RNG
     cost; one f32 uniform per element is drawn here.) Inside a
     data-parallel step the masks are drawn for the global batch and this
-    rank keeps its rows (draw_rows)."""
+    rank keeps its rows (draw_rows); on an activation sharded over the
+    model axis (`cols`: the Shard of the layer around it, None where it
+    is whole) at the full width, keeping this process's columns
+    (draw_cols)."""
     if deterministic or rate == 0.0:
         return x
     if rng.generator is None:
         raise ValueError("dropout needs a generator unless deterministic")
     rng.calls += 1
     keep = 1.0 - rate
-    u = draw_rows(torch.rand, x.shape, rng.generator, x.device)
+    u = draw_cols(torch.rand, x.shape, rng.generator, x.device, cols)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))

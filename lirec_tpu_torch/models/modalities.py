@@ -20,6 +20,7 @@ from lirec_tpu_torch.models.blocks import FeatSlices
 from lirec_tpu_torch.models.layers import (
     DropoutRng, compute_dtype, dropout, init_linear, linear,
 )
+from lirec_tpu_torch.parallel.mesh import shard_of
 
 __all__ = ["Modalities", "init_modalities", "modalities_forward"]
 
@@ -78,8 +79,10 @@ def modalities_forward(model: nn.Module, spec, s: FeatSlices,
 
     def two_layer(n1, n2, x):
         h = linear(model.get_submodule(n1), x, cdt)
-        h = torch.relu(dropout(h, p, drop, deterministic))
-        return linear(model.get_submodule(n2), h, cdt)
+        layer = model.get_submodule(n2)
+        h = torch.relu(dropout(h, p, drop, deterministic,
+                               cols=shard_of(layer)))
+        return linear(layer, h, cdt)
 
     txt = vis = None
     if spec.modality in ("m", "t"):

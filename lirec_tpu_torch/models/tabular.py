@@ -10,6 +10,13 @@ Table dtype: the ctx tables are stored bfloat16 when the spec computes in
 bfloat16 and float32 otherwise, on every device. The pool accumulates in
 float32 either way. (The JAX package decided this from TPU VMEM budgets and
 stored bf16 as packed int32 words; neither applies to a GPU.)
+
+The context axis (``context_group``, the JAX package's ``context_axis``):
+each process of the group pools a contiguous block of the R context slots
+with the masked-sum kernel (ops/gather_pool.gather_masked_sum, once per
+table, no epilogue), the block sums and mask counts are all-reduced over
+the group, and then come the division (guarded as the 3-table kernel
+guards it) and the tanh; every process ends with the whole pooled row.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from lirec_tpu_torch.ops.gather_pool import (
     fused_ctx_pool_reference,
     fused_ctx_pool_triple,
     fused_ctx_pool_triple_reference,
+    gather_masked_sum,
+    gather_masked_sum_reference,
 )
 
 __all__ = [
@@ -130,6 +139,40 @@ def _ctx_branch(emb: EmbeddedTables, idx: torch.Tensor, mask: torch.Tensor,
     return pool(emb, idx, mask, guard_zero)
 
 
+def _ctx_branch_context(emb: EmbeddedTables, idx: torch.Tensor,
+                        mask: torch.Tensor, guard_zero: bool,
+                        use_kernel: bool, group) -> torch.Tensor:
+    """_ctx_branch with the R context slots split over the processes of
+    `group`: this one's contiguous block pooled by the masked-sum kernel
+    (use_kernel=False: its plain version), the block sums and mask counts
+    all-reduced, then the guarded division and the tanh. A bfloat16 table
+    is read as float32 (exact), so that the block sums, like the 3-table
+    kernel's, stay float32 until the division."""
+    import torch.distributed as td
+
+    size, me = td.get_world_size(group), td.get_rank(group)
+    R = idx.shape[1]
+    lo, hi = R * me // size, R * (me + 1) // size
+    idx = idx[:, lo:hi].to(torch.int32)
+    mask = mask[:, lo:hi].to(torch.float32).contiguous()
+    pool = gather_masked_sum if use_kernel else gather_masked_sum_reference
+    parts = []
+    for k, table in enumerate(emb):
+        table = table.float().contiguous()
+        if hi > lo:
+            parts.append(pool(table, idx[..., k].contiguous(), mask))
+        else:
+            parts.append(table.new_zeros((idx.shape[0], table.shape[1])))
+    parts.append(mask.sum(dim=1, keepdim=True))
+    total = torch.cat(parts, dim=-1)
+    td.all_reduce(total, group=group)
+    divider = total[:, -1:]
+    if guard_zero:
+        divider = torch.where(divider == 0, torch.ones_like(divider),
+                              divider)
+    return torch.tanh(total[:, :-1] * (1.0 / divider))
+
+
 def _ctx_branch_triple(fused: torch.Tensor, tidx: torch.Tensor,
                        mask: torch.Tensor, guard_zero: bool,
                        use_kernel: bool) -> torch.Tensor:
@@ -162,13 +205,15 @@ def midfusion_maxtracks_tabular(
     embedded: Optional[Dict[str, EmbeddedTables]] = None,
     use_kernel: bool = True,
     ctx_triple=None,
+    context_group=None,
 ) -> Dict[str, Optional[torch.Tensor]]:
     """MidFusionMultiClipMaxTracks eval forward over tables.
 
     feat_idx: [B, T, 1+R, 3]; rels_mask: [B, T, R] ->
     {"inters": [B, T, n_classes], "rels": [B, T, n_rels]}. ctx_triple
     (optional): (fused local table, tidx [B, T, R]), the triple tier
-    (_ctx_branch_triple) in place of the 3-table ctx pool.
+    (_ctx_branch_triple) in place of the 3-table ctx pool;
+    context_group: the context axis (_ctx_branch_context).
     """
     cdt = compute_dtype(spec)
     B, T = feat_idx.shape[0], feat_idx.shape[1]
@@ -186,10 +231,10 @@ def midfusion_maxtracks_tabular(
                 fused, tidx.reshape(B * T, -1), flat_mask, True, use_kernel)
         else:
             emb_c = _embedded(model, spec, tables, embedded, "ctx")
-            output_ctx = _ctx_branch(
-                emb_c, feat_idx[:, :, 1:, :].reshape(B * T, -1, 3),
-                flat_mask, True, use_kernel,
-            )
+            args = (emb_c, feat_idx[:, :, 1:, :].reshape(B * T, -1, 3),
+                    flat_mask, True, use_kernel)
+            output_ctx = (_ctx_branch(*args) if context_group is None
+                          else _ctx_branch_context(*args, context_group))
     if spec.gates:
         output_ints = gate_apply(model, output_ints, output_ctx, spec)
     rels_out = (
@@ -212,13 +257,15 @@ def midfusion_tabular(
     embedded: Optional[Dict[str, EmbeddedTables]] = None,
     use_kernel: bool = True,
     ctx_triple=None,
+    context_group=None,
 ) -> Dict[str, Optional[torch.Tensor]]:
     """MidFusionMultiClip eval forward over tables.
 
     feat_idx: [B, 1+R, 3]; rels_mask: [B, R, 1] or [B, R]. A sample without
     any context gives NaN relationship logits, as in the reference (no
     zero-divider guard on this model). ctx_triple (optional): (fused local
-    table, tidx [B, R]), see _ctx_branch_triple.
+    table, tidx [B, R]), see _ctx_branch_triple; context_group: the
+    context axis (_ctx_branch_context).
     """
     cdt = compute_dtype(spec)
     B = feat_idx.shape[0]
@@ -234,8 +281,9 @@ def midfusion_tabular(
                                             False, use_kernel)
         else:
             emb_c = _embedded(model, spec, tables, embedded, "ctx")
-            output_ctx = _ctx_branch(emb_c, feat_idx[:, 1:, :], mask, False,
-                                     use_kernel)
+            args = (emb_c, feat_idx[:, 1:, :], mask, False, use_kernel)
+            output_ctx = (_ctx_branch(*args) if context_group is None
+                          else _ctx_branch_context(*args, context_group))
     if spec.gates:
         output_ints = gate_apply(model, output_ints, output_ctx, spec)
     rels_out = linear(model.out_ctx, output_ctx, cdt) if spec.ctx else None

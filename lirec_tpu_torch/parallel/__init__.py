@@ -1,4 +1,6 @@
-"""Data-parallel training and evaluation over torch.distributed
-(counterpart of lirec_tpu/parallel/, its data axis): parallel/dist.py
-(process groups, the data mesh, spawn) and parallel/step.py (the
-DistributedDataParallel train step)."""
+"""Training and evaluation over torch.distributed (counterpart of
+lirec_tpu/parallel/): parallel/mesh.py (the (data, model) process mesh,
+the tensor-parallel plan, shard_model / gather_state and the two
+tensor-parallel collectives), parallel/dist.py (process groups, spawn,
+the data axis's row blocks) and parallel/step.py (the mesh train step:
+DistributedDataParallel over the data axis)."""

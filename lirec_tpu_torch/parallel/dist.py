@@ -1,34 +1,32 @@
-"""Data-parallel processes over ``torch.distributed`` (counterpart of
-lirec_tpu/parallel/mesh.py, its ``data`` axis).
+"""Processes over ``torch.distributed`` (counterpart of the process-group
+half of lirec_tpu/parallel/mesh.py).
 
 The JAX package lays a ``('data', 'model')`` mesh over the devices of one
 program and lets XLA insert the collectives. The port runs one process per
-card instead: every process holds the whole model (replicated, as the JAX
-package replicates it over ``data``), computes its own contiguous block of
-rows of every global batch, and ``DistributedDataParallel`` sums the
-gradients (parallel/step.py). The ``model`` axis (tensor parallelism) and
-the ``context`` axis are not ported: ``make_mesh`` refuses them by name.
+card instead (parallel/mesh.py lays them out as the mesh): each computes
+its own contiguous block of rows of every global batch, and
+``DistributedDataParallel`` sums the gradients over the data axis
+(parallel/step.py); under a model axis each also holds its slice of the
+tensor-parallel layers.
 
 * ``initialize_distributed``: joins a process group (NCCL for ``cuda``,
   gloo for ``cpu``) at ``tcp://<coordinator>`` or at an ``init_method`` URL
   such as ``file://<path>`` (a FileStore, for tests); each rank takes the
   card ``cuda:<rank % device_count>``.
 * ``world`` / ``rank``: 1 and 0 where no group is initialised.
-* ``make_mesh`` / ``DataMesh``: the data axis over the group's processes.
-* ``process_local_slice``: the rows of a global batch this process owns.
+* ``make_mesh`` / ``DataMesh`` / ``process_local_slice``: parallel/mesh.py's
+  ``make_mesh``, ``Mesh2D`` and ``process_local_slice``, here too.
 * ``barrier``, ``all_gather_object``.
 * ``sharded_batch`` / ``batch_shard`` / ``batch_total``: inside a
   data-parallel step, the forward draws its dropout masks and loss samples
   at the global batch's shape and keeps its own rows, and the loss's means
   divide by counts summed over the group (models/layers.py,
-  models/losses.py).
+  models/losses.py); the counts are summed over the data axis only.
 * ``spawn``: ``world`` local ranks in processes of the ``spawn`` start
   method, joined under a time limit; a rank that fails or hangs fails the
   call with its traceback.
 
-``host_copy`` has no counterpart: under DDP every process holds all of the
-replicated parameters, so a checkpoint or a best-n snapshot reads them
-where they are.
+``host_copy``'s counterpart is parallel/mesh.gather_state.
 """
 
 from __future__ import annotations
@@ -44,28 +42,24 @@ import time
 import traceback
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
+from lirec_tpu_torch.parallel.mesh import (
+    Mesh2D, make_mesh, process_local_slice,
+)
+
 __all__ = [
     "DataMesh", "RankResult", "initialize_distributed", "world", "rank",
     "in_rank", "make_mesh", "process_local_slice", "barrier",
     "all_gather_object", "sharded_batch", "batch_shard", "batch_total",
-    "spawn", "MODEL_AXIS_ITEM",
+    "spawn",
 ]
 
-# the ROADMAP.md queue 1 item that ports the other mesh axes
-MODEL_AXIS_ITEM = "'the model and context mesh axes'"
+# the one mesh type, by the name of its data axis (DataMesh(D, d): M = 1)
+DataMesh = Mesh2D
 DEFAULT_TIMEOUT = 600  # seconds, for a collective and for spawn's join
 
 _SHARD: contextvars.ContextVar = contextvars.ContextVar("batch_shard",
                                                         default=None)
 _IN_RANK = False  # set in a process that spawn() started, while it runs fn
-
-
-class DataMesh(NamedTuple):
-    """The data axis: `size` processes, one per card; this one is
-    `rank`."""
-
-    size: int
-    rank: int
 
 
 class RankResult(NamedTuple):
@@ -121,37 +115,6 @@ def initialize_distributed(coordinator: str, num_processes: int,
         timeout=datetime.timedelta(seconds=timeout))
 
 
-def make_mesh(shape) -> DataMesh:
-    """(data, model) -> the data axis over this process group. A model
-    axis above 1 is refused by name; the data axis must be the group's
-    size (one process per card)."""
-    if isinstance(shape, DataMesh):
-        return shape
-    data, model = shape
-    if model != 1:
-        raise NotImplementedError(
-            "a %dx%d mesh has a 'model' axis (tensor parallelism), which "
-            "is not ported to lirec_tpu_torch (ROADMAP.md queue 1 %s); "
-            "use --mesh %dx1" % (data, model, MODEL_AXIS_ITEM, data))
-    if data != world():
-        raise ValueError("a data axis of %d needs %d processes, one per "
-                         "card; this process group has %d"
-                         % (data, data, world()))
-    return DataMesh(data, rank())
-
-
-def process_local_slice(mesh: DataMesh, global_len: int) -> slice:
-    """The rows of a length-`global_len` batch axis this process owns:
-    one contiguous block per rank, in rank order (mesh.process_local_slice
-    of the JAX package's process-major layout). The length must divide by
-    the data axis, as the JAX package's sharding requires."""
-    if global_len % mesh.size:
-        raise ValueError("a batch of %d rows does not divide by the data "
-                         "axis of %d" % (global_len, mesh.size))
-    n = global_len // mesh.size
-    return slice(mesh.rank * n, (mesh.rank + 1) * n)
-
-
 def barrier(tag: str = "") -> None:
     """Wait for every process of the group (no-op alone). `tag` names the
     program point in a timeout's message."""
@@ -169,19 +132,19 @@ def barrier(tag: str = "") -> None:
         raise RuntimeError("barrier %r: %s" % (tag, err)) from err
 
 
-def all_gather_object(obj) -> List:
-    """[obj of rank 0, obj of rank 1, ...] (pickled through the group);
-    [obj] alone."""
+def all_gather_object(obj, group=None) -> List:
+    """[obj of rank 0, obj of rank 1, ...] of `group` (default: the whole
+    process group; pickled through it); [obj] alone."""
     td = _group()
-    if td is None or td.get_world_size() == 1:
+    if td is None or td.get_world_size(group) == 1:
         return [obj]
-    out = [None] * td.get_world_size()
-    td.all_gather_object(out, obj)
+    out = [None] * td.get_world_size(group)
+    td.all_gather_object(out, obj, group=group)
     return out
 
 
 @contextlib.contextmanager
-def sharded_batch(mesh: Optional[DataMesh]):
+def sharded_batch(mesh: Optional[Mesh2D]):
     """Within: the forward and the loss see `mesh.rank`'s block of rows of
     a global batch of `mesh.size` blocks (see batch_shard). A mesh of one
     sets nothing, so a world of one runs the single-process code."""
@@ -195,20 +158,21 @@ def sharded_batch(mesh: Optional[DataMesh]):
         _SHARD.reset(token)
 
 
-def batch_shard() -> Optional[DataMesh]:
+def batch_shard() -> Optional[Mesh2D]:
     """The active row block (sharded_batch), or None."""
     return _SHARD.get()
 
 
 def batch_total(count):
-    """A per-rank count summed over the group, without gradient, where a
-    row block is active; else `count` itself."""
-    if _SHARD.get() is None:
+    """A per-rank count summed over the data axis, without gradient, where
+    a row block is active; else `count` itself."""
+    mesh = _SHARD.get()
+    if mesh is None:
         return count
     import torch.distributed as td
 
     total = count.detach().clone()
-    td.all_reduce(total)
+    td.all_reduce(total, group=mesh.data_group)
     return total
 
 

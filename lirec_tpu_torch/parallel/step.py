@@ -1,5 +1,4 @@
-"""The data-parallel train step (counterpart of lirec_tpu/parallel/step.py,
-its data axis).
+"""The mesh train step (counterpart of lirec_tpu/parallel/step.py).
 
 Every process of the group holds the same global batch. The step pads a
 ragged one to the full batch size (train/loop._pad_batch, loss_weight 0 on
@@ -17,6 +16,16 @@ samples are drawn at the global batch's shape from the step's generators
 the order of the gradient sum. In a world of one no collective runs in the
 loss and the step is the single-process step bit for bit (DDP's mean over
 one rank divides by 1).
+
+Under a model axis (parallel/mesh.py, M > 1) the model holds this
+process's slices of the tensor-parallel layers (shard_model) and its
+forward and backward exchange activations over the model group
+(models/layers.linear); DDP then runs over the data group alone
+(``process_group``), the loss is scaled by the data axis D, not by the
+world's D * M, and the counts the loss divides by are summed over the
+data group. The parameters replicated across a model group stay bitwise
+equal without any collective over it: its processes put the same inputs
+through the same kernels and get the same all-reduced activations.
 
 Every preset's loss reaches every parameter (int_rel_ch, int_ch, int_rels
 and modalities, each run through two ranks: tests/test_torch_dist_train.py),
@@ -53,10 +62,12 @@ class _TrainForward(torch.nn.Module):
                           tr_sum_max_flag, deterministic)
 
 
-def make_dp_train_step(bundle, optimizer, mesh: dist.DataMesh,
+def make_dp_train_step(bundle, optimizer, mesh: dist.Mesh2D,
                        batch_size: int, deterministic: bool = False):
     """step(batch, tables, generators, tr_sum_max_flag=True) -> the global
-    batch's loss: train/loop.make_train_step over the data axis `mesh`.
+    batch's loss: train/loop.make_train_step over the mesh `mesh` (a
+    model axis above 1 needs ``bundle.model`` sharded by
+    parallel/mesh.shard_model).
     `batch` is the global host batch (every rank passes the same one; a
     ragged one is padded here to `batch_size`, which must divide by the
     data axis), or this rank's rows of the padded global batch as
@@ -76,7 +87,8 @@ def make_dp_train_step(bundle, optimizer, mesh: dist.DataMesh,
     device = next(model.parameters()).device
     ddp = torch.nn.parallel.DistributedDataParallel(
         _TrainForward(bundle),
-        device_ids=[device.index] if device.type == "cuda" else None)
+        device_ids=[device.index] if device.type == "cuda" else None,
+        process_group=mesh.data_group)
 
     def step(batch, tables, generators, tr_sum_max_flag=True):
         if not staged(batch, device):

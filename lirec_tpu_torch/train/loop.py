@@ -46,24 +46,29 @@ epochs, and ``<epochs-1>.pth.tar`` at the end, each a ``torch.save`` of
 "msgpack"`` the JAX package's files instead (``latest.ckpt``,
 ``<epochs-1>.ckpt``, best-n ``v%.4f_ep%d.ckpt`` params files).
 
-With a data ``mesh`` (parallel/dist.py: one process per card, every
-process runs train() on the same datasets), every process builds the same
-shuffled global batches and steps its own rows of each
-(parallel/step.make_dp_train_step; the batch size must divide by the data
-axis); the cadence runs the sharded sweep, whose all-reduced metrics give
-every process the same best-n decisions; only process 0 prints, logs and
-writes checkpoints, between barriers.
+With a ``mesh`` (parallel/mesh.py: a D x M grid of processes, one per
+card, every process running train() on the same datasets), every process
+builds the same shuffled global batches and steps its own rows of each,
+by its data index (parallel/step.make_dp_train_step; the batch size must
+divide by D). Under a model axis (M > 1) the model and the optimizer's
+moments are cut to this process's slices first (parallel/mesh.shard_model;
+the eval and the checkpoints then read a full replica that
+parallel/mesh.gather_state fills in place, so that the eval sweep's kept
+CUDA graph stays valid, and the returned model and optimizer are that
+replica's). The cadence runs the sweep split over the data axis, whose
+all-reduced metrics give every process the same best-n decisions; only
+process 0 prints, logs and writes checkpoints, between barriers.
 
 As in the JAX package, the epoch iterator starts at epoch 0 whatever
 ``start_epoch`` is: a resumed run replays the shuffle order of epoch 0
 onwards while its step generators follow the true epoch (ROADMAP.md queue
-3). Not ported, and raised rather than skipped: a mesh with a ``model``
-axis.
+3).
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import os.path as ops
 import time
 from typing import Dict, Optional
@@ -82,7 +87,10 @@ from lirec_tpu_torch.evaluation.packed import evaluate_packed
 from lirec_tpu_torch.evaluation.runner import MESH_HOST_EVAL, evaluate
 from lirec_tpu_torch.ops import dispatch
 from lirec_tpu_torch.parallel import dist
-from lirec_tpu_torch.train.optim import file_state, make_optimizer
+from lirec_tpu_torch.parallel.mesh import (
+    Mesh2D, check_model_axis, gather_state, shard_model,
+)
+from lirec_tpu_torch.train.optim import file_state, load_state, make_optimizer
 from lirec_tpu_torch.train.sweep import SEED_STRIDE, EpochSweep
 from lirec_tpu_torch.utils.meters import Averaging, MetricsLogger
 
@@ -246,8 +254,9 @@ def train(
     moved to the device once. `optimizer` defaults to ``make_optimizer``
     over the model's parameters (pass one to resume, with its state from a
     train checkpoint or checkpoint.opt_state_from_jax). `eval_localize` is
-    the cadence sweep's ``localize_ctx``. `mesh`: a parallel/dist.DataMesh
-    or a (data, model) shape over this process group. `checkpoint_backend`:
+    the cadence sweep's ``localize_ctx``. `mesh`: a parallel/mesh.Mesh2D
+    or a (data, model) shape over this process group (a model axis above
+    1 shards ``bundle.model`` and `optimizer` in place). `checkpoint_backend`:
     'torch' (.pth.tar) or 'msgpack' (the JAX package's .ckpt files).
     `assembly_workers`: the epoch iterator's worker processes (0: in this
     process); `dense`: train on dense batches, without tables.
@@ -256,22 +265,32 @@ def train(
     steps."""
     o, t = cfg.optim, cfg.tasks
     if mesh is not None:
-        mesh = dist.make_mesh(mesh)
         if host_eval:
             raise ValueError(MESH_HOST_EVAL)
-    lead = mesh is None or mesh.rank == 0  # the process that writes
+        if not isinstance(mesh, Mesh2D) and mesh[1] > 1:
+            check_model_axis(bundle.spec, mesh[1])
+        mesh = dist.make_mesh(mesh)
+    lead = mesh is None or mesh.lead  # the process that writes
     verbose = verbose and lead
     suffix = BACKENDS[checkpoint_backend]
     model = bundle.model
     device = next(model.parameters()).device
+    if optimizer is None:
+        optimizer = make_optimizer(model.parameters(), o.lr, o.weight_decay)
+    # the model the eval and the checkpoints read: the trained one, or
+    # under a model axis a full replica of it (made before the cut)
+    full_model, full_optimizer = model, optimizer
+    if mesh is not None and mesh.model > 1:
+        full_model = copy.deepcopy(model)
+        full_optimizer = make_optimizer(full_model.parameters(), o.lr,
+                                        o.weight_decay)
+        shard_model(model, mesh, bundle.spec, optimizer)
     if tables is None and not dense:
         tables = train_dataset.tables.as_dict()
     if tables is not None:
         tables = {k: torch.as_tensor(tables[k], dtype=torch.float32,
                                      device=device)
                   for k in ("text", "visual", "track")}
-    if optimizer is None:
-        optimizer = make_optimizer(model.parameters(), o.lr, o.weight_decay)
     localizer = None
     if localize_tables is not False and tables is not None and not dense:
         localizer = Localizer(bundle.spec,
@@ -300,24 +319,38 @@ def train(
                        backend=checkpoint_backend)
     eval_data: Dict[int, Dict] = {}
 
+    def gathered(with_optimizer=False):
+        """The full model (and optimizer): under a model axis the replica,
+        filled in place from every process's slices (all of them call
+        this)."""
+        if full_model is not model:
+            state, opt_state = gather_state(
+                model, mesh, optimizer if with_optimizer else None)
+            full_model.load_state_dict(state)
+            if opt_state is not None:
+                load_state(full_optimizer, opt_state)
+        return full_model, full_optimizer
+
     def cadence_eval(ds, mode, tables=None):
         # datasets without the packed interface, and dense runs, keep the
         # host loop
         if host_eval or dense or not hasattr(ds, "materialize"):
-            return evaluate(ds, bundle, model, cfg, mode=mode, tables=tables,
-                            verbose=verbose, mesh=mesh, dense=dense)
+            return evaluate(ds, bundle, full_model, cfg, mode=mode,
+                            tables=tables, verbose=verbose, mesh=mesh,
+                            dense=dense)
         # each split materialized once for the whole run (the train split's
         # eval-time context draws are frozen with it)
         data = eval_data.get(id(ds))
         if data is None:
             data = eval_data[id(ds)] = ds.materialize()
-        return evaluate_packed(ds, bundle, model, cfg, mode=mode,
+        return evaluate_packed(ds, bundle, full_model, cfg, mode=mode,
                                tables=tables, verbose=verbose, data=data,
                                localize_ctx=eval_localize, mesh=mesh)
 
     def train_state():
-        return {"state_dict": model.state_dict(),
-                "optimizer": file_state(optimizer)}
+        full, full_opt = gathered(with_optimizer=True)
+        return {"state_dict": full.state_dict(),
+                "optimizer": file_state(full_opt)}
 
     def write(fn, *args):
         """fn(*args) on process 0 only, the others waiting at barriers
@@ -424,6 +457,7 @@ def train(
             if epoch % o.test_fr == 0 and val_dataset is not None:
                 # each dataset evaluates with its own tables; only the
                 # train split reuses the training ones (ref :75-91)
+                gathered()
                 cadence_eval(train_dataset, "train", tables=tables)
                 check_val = {k: v for k, v in cadence_eval(
                     val_dataset, "val").items() if k != "loss"}
@@ -439,24 +473,26 @@ def train(
                 # a resumable state (the reference has no failure
                 # recovery, SURVEY.md 5.3); --auto-resume picks it up
                 write(save_train_state_any,
-                      ops.join(store, "latest" + suffix), model, optimizer,
-                      epoch, checkpoint_backend)
+                      ops.join(store, "latest" + suffix),
+                      *gathered(with_optimizer=True), epoch,
+                      checkpoint_backend)
     finally:
         iterator.close()  # stop the assembly workers
 
     final_path = ""
+    full, full_opt = gathered(with_optimizer=True)
     if o.save_model and store:
         final_path = ops.join(store, "%d%s" % (o.epochs - 1, suffix))
 
         def final():
-            save_train_state_any(final_path, model, optimizer, o.epochs - 1,
+            save_train_state_any(final_path, full, full_opt, o.epochs - 1,
                                  checkpoint_backend)
             saver.save()
 
         write(final)
     return {
-        "model": model,
-        "optimizer": optimizer,
+        "model": full,
+        "optimizer": full_opt,
         "saver": saver,
         "losses": losses,
         "final_path": final_path,

@@ -24,11 +24,11 @@ capturable (train/optim.py); the two step generators are registered with
 the graph and seeded before each replay. A new graph's warm-up is the
 chunk's first step, run eagerly.
 
-On the CPU, and under a data mesh (parallel/step.make_dp_train_step, whose
+On the CPU, and under a mesh (parallel/step.make_dp_train_step, whose
 DDP step is not captured: ROADMAP.md queue 1 item 3), the same structure
 runs eager steps. ``dispatch.decisions("train_loop")`` counts which ran,
-once per chunk: "graph", or "eager" (reason "cpu tensors" or "data
-mesh").
+once per chunk: "graph", or "eager" (reason "cpu tensors", "data mesh",
+or "model mesh" under a model axis above 1).
 """
 
 from __future__ import annotations
@@ -97,8 +97,10 @@ class EpochSweep:
 
     Each step is a CUDA graph's replay on a card without a mesh, an eager
     step otherwise; require_graph=True raises where a graph cannot serve
-    (for checks that must not run eager steps). `mesh`: a parallel/dist.DataMesh, under which
-    every rank passes the same global batches and steps its own rows.
+    (for checks that must not run eager steps). `mesh`: a
+    parallel/mesh.Mesh2D, under which every rank passes the same global
+    batches and steps its own rows (with its slices of the model, under
+    a model axis).
     ``capture_s``: the capture seconds of each graph made, in order."""
 
     def __init__(self, bundle, optimizer, tables: Optional[Dict], seed: int,
@@ -116,8 +118,9 @@ class EpochSweep:
                              "CUDA graph (ROADMAP.md queue 1 item 3)")
         graph = self.graph = on_card and mesh is None
         self.reason = ("cuda: one graph per batch shape" if graph
-                       else "data mesh" if mesh is not None
-                       else "cpu tensors")
+                       else "cpu tensors" if mesh is None
+                       else "model mesh" if mesh.model > 1
+                       else "data mesh")
         if mesh is None:
             self.step = make_train_step(bundle, optimizer,
                                         static_grads=graph)
@@ -161,7 +164,7 @@ class EpochSweep:
         mesh), pinned where they go to a card."""
         rows = slice(None)
         if self.mesh is not None:
-            from lirec_tpu_torch.parallel.dist import process_local_slice
+            from lirec_tpu_torch.parallel.mesh import process_local_slice
 
             rows = process_local_slice(self.mesh, self.batch_size)
         out = {}

@@ -5,6 +5,8 @@ whole batch's decisions with its halves', and the rows' shares of the
 gradient that the check takes out of both sides.
 """
 
+import types
+
 import pytest
 import torch
 
@@ -152,3 +154,74 @@ def test_whole_and_halves_forwards_make_comparable_decisions():
     got = dist_check.tied_rows(whole, blocks, B)
     assert got["shared"] == 0
     assert got["worst_gap"] <= 1e-5
+
+
+def test_block_tied_rows_compares_one_block_with_the_whole():
+    """block_tied_rows compares the decisions of one row block's forward
+    with the whole batch's rows of that block, in the batch's numbering;
+    the other blocks stand in from the whole forward and never differ."""
+    x = torch.randn(B, 5, generator=torch.Generator().manual_seed(1))
+    x[6] = torch.tensor([0.2, -0.5, 0.9, 0.1, 0.3])
+    y = x.clone()
+    y[6, 2] = -1e-3
+    whole = _record(_decide, x)
+    got = dist_check.block_tied_rows(whole, _record(_decide, y[4:]), B, 2, 1)
+    assert got["rows"] == [6] and got["shared"] == 0
+    assert got["differing"] == 3
+    same = dist_check.block_tied_rows(whole, _record(_decide, x[:4]), B, 2,
+                                      0)
+    assert same["rows"] == [] and same["differing"] == 0
+
+
+def test_model_axis_rank_run_holds_each_step_to_one_process(tmp_path):
+    """rank_run on a 1x2 mesh of two gloo ranks at small widths (the
+    means of chip_smoke.py phase 20(a), f32, dropout on): every step's
+    loss within rtol 1e-5 and its gathered gradient within 1e-5 of scale
+    of one process's at the same parameters (the replica's), the
+    parameters the plan replicates bitwise equal on the two ranks, and
+    the sweep of the replica filled from the shards bitwise one process's
+    sweep of the unsharded model."""
+    import numpy as np
+
+    from lirec_tpu_torch.data.localize import Localizer
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.parallel import dist
+    from lirec_tpu_torch.utils.fake_batch import make_structured_batch
+
+    cfg = config_lib.preset("int_rel_ch").with_dims(
+        text_dim=16, visual_dim=32, joint_dim=16).with_runtime(
+        compute_dtype="float32")
+    bundle = create_model(cfg, 101, n_rels=15, seed=0, device="cpu")
+    spec = bundle.spec
+    parts = [make_structured_batch(spec, B, 40, 60, seed=900 + i)
+             for i in range(3)]
+    split = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    raw = [make_structured_batch(spec, B, 40, 60, seed=400 + i)
+           for i in range(2)]
+    job = dict(split=str(tmp_path / "split.pt"),
+               batches=str(tmp_path / "batches.pt"), device="cpu",
+               preset="int_rel_ch", n_classes=101, n_rels=15, seed=0,
+               n_clips=40, n_tracks=60, eval_b=B, train_b=B, mesh=(1, 2),
+               steps=2, dropout=True, computes=("float32",),
+               dims=dict(text_dim=16, visual_dim=32, joint_dim=16))
+    torch.save(split, job["split"])
+    torch.save(Localizer(spec, 40, 60).maybe_localize(raw), job["batches"])
+    ranks = [r.value for r in dist.spawn(dist_check.rank_run, 2,
+                                         args=(job,), timeout=120,
+                                         workdir=str(tmp_path))]
+    assert sorted(r["place"] for r in ranks) == [(0, 0), (0, 1)]
+    assert ranks[0]["replicated"] == ranks[1]["replicated"]
+    assert ranks[0]["replicated"]["float32"]
+    stand_in = types.SimpleNamespace(n_classes=101, n_rels=16,
+                                     hashidx_rels=None)
+    want = packed.sweep_carry(
+        stand_in, bundle, bundle.model, cfg.with_optim(batch_size=B),
+        mode="test", data=split,
+        tables=make_tables(spec, 40, 60, seed=0), localize_ctx=False)
+    for r in ranks:
+        for k, v in want.items():
+            np.testing.assert_array_equal(r["carries"]["float32"][k], v,
+                                          err_msg=k)
+        for st in r["steps"]["float32"]:
+            assert st["loss"] == pytest.approx(st["loss_one"], rel=1e-5)
+            assert st["held"] <= 1e-5 and st["shared"] == 0

@@ -196,10 +196,21 @@ def test_a_hanging_rank_fails_the_call_at_its_time_limit(tmp_path):
 
 
 def test_mesh_refusals_and_slices():
-    """A model axis is refused by name, naming its ROADMAP item; a data
-    axis must be the group's size; a batch must divide by the data axis;
-    the host loop refuses a mesh of several processes."""
-    with pytest.raises(NotImplementedError, match=dist.MODEL_AXIS_ITEM):
+    """A model axis that does not divide the sharded widths is refused,
+    naming them; a mesh must hold the group's processes; a batch must
+    divide by the data axis; the host loop refuses a mesh of several
+    processes."""
+    from lirec_tpu_torch.models.spec import ModelSpec
+    from lirec_tpu_torch.parallel.mesh import check_model_axis
+
+    cfg = config_lib.preset("int_rel_ch", data_root="/tmp/x")
+    spec = ModelSpec.from_config(cfg, 11, 6)
+    check_model_axis(spec, 2)
+    with pytest.raises(ValueError, match="a model axis of 3 does not divide "
+                       "the sharded widths joint_dim 512, tracks12's input "
+                       "512, the gate's 3072"):
+        check_model_axis(spec, 3)
+    with pytest.raises(ValueError, match="a 2x2 mesh needs 4 processes"):
         dist.make_mesh((2, 2))
     with pytest.raises(ValueError, match="needs 2 processes"):
         dist.make_mesh((2, 1))

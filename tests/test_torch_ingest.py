@@ -20,7 +20,6 @@ import json
 import os
 import subprocess
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -295,23 +294,25 @@ def test_the_port_loads_a_jax_artifact_without_jax(jax_artifact, synth_root,
 
 def test_only_rank_0_writes_the_artifact(synth_root, tmp_path):
     """A rank other than 0 that finds no artifact uses the datasets it
-    built and writes nothing; rank 0 writes; an artifact that exists is
-    loaded by every rank."""
+    built and writes nothing (rank 1 of a 2x1 mesh, and the model peer
+    of rank 0 on a 1x2 mesh, whose data index is 0 too); rank 0 writes;
+    an artifact that exists is loaded by every rank."""
+    from lirec_tpu_torch.parallel.mesh import Mesh2D
+
     art = str(tmp_path / "ranks.npz")
     argv = ["--data-root", synth_root, "--resume-path", "x.pth.tar",
             "--ingest-cache", art] + DIM_ARGS
     args = common.build_parser("int_rel_ch").parse_args(argv)
     cfg = common.config_from_args("int_rel_ch", args)
-    built = common._datasets(cfg, "int_rel_ch", args,
-                             types.SimpleNamespace(rank=1), False)
-    assert not os.path.exists(art)
-    assert not any(isinstance(ds, PackedSplit) for ds in built)
-    common._datasets(cfg, "int_rel_ch", args, types.SimpleNamespace(rank=0),
-                     False)
+    for other in (Mesh2D(2, 1), Mesh2D(1, 0, 2, 1)):
+        built = common._datasets(cfg, "int_rel_ch", args, other, False)
+        assert not os.path.exists(art)
+        assert not any(isinstance(ds, PackedSplit) for ds in built)
+    common._datasets(cfg, "int_rel_ch", args, Mesh2D(2, 0), False)
     assert os.path.exists(art)
     for rank in (0, 1):
         loaded = common._datasets(cfg, "int_rel_ch", args,
-                                  types.SimpleNamespace(rank=rank), False)
+                                  Mesh2D(2, rank), False)
         assert all(isinstance(ds, PackedSplit) for ds in loaded)
         for ds, live in zip(loaded, built):
             np.testing.assert_array_equal(ds.materialize()["labels"],

@@ -590,18 +590,22 @@ def test_step_generators_are_two_seeded_streams():
 
 
 def test_train_raises_for_what_is_not_ported(synth_root, tmp_path):
-    """A mesh with a 'model' axis is refused by name, naming its ROADMAP
-    item; dense batches, cadence evaluation on a val_dataset and
-    checkpoint writing, refused before, now run (dense parity with the JAX
-    package: tests/test_torch_dense.py)."""
-    from lirec_tpu_torch.parallel.dist import MODEL_AXIS_ITEM
-
+    """A model axis that does not divide the sharded widths is refused,
+    naming them, before anything is cut (a model axis that does divide
+    them trains: tests/test_torch_model_axis.py), and --host-eval under a
+    mesh as the JAX package refuses it; dense batches, cadence
+    evaluation on a val_dataset and checkpoint writing, refused before,
+    now run (dense parity with the JAX package:
+    tests/test_torch_dense.py)."""
     cfg, ds = _synth_setup(synth_root, 7, port=True,
                            store_root=str(tmp_path))
     pb = create_model(cfg, ds.n_classes,
                       n_rels=max(len(ds.rels_list) - 1, 0), device="cpu")
-    with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
-        train(cfg, pb, ds, verbose=False, mesh=(1, 2))
+    with pytest.raises(ValueError, match="a model axis of 3 does not divide "
+                       "the sharded widths joint_dim 16"):
+        train(cfg, pb, ds, verbose=False, mesh=(1, 3))
+    with pytest.raises(ValueError, match="drop --host-eval"):
+        train(cfg, pb, ds, verbose=False, mesh=(1, 2), host_eval=True)
     dense = train(cfg.with_optim(epochs=1), pb, ds, verbose=False,
                   dense=True)
     assert np.isfinite(dense["losses"]).all()
