@@ -101,8 +101,15 @@
    phase): (a) a process group of one over NCCL in this process sweeps
    phase 9's split over a data mesh of one (its carry bitwise phase 9's,
    169 pool launches per dtype) and takes phase 7's 10 steps through the
-   DistributedDataParallel step (losses and parameters bitwise phase 7's,
-   one scatter launch per step), printing its ms/step beside phase 7's;
+   mesh step (parallel/step.py: losses and parameters bitwise phase 7's,
+   one scatter launch per step), printing its ms/step beside phase 7's,
+   then the same 10 steps through the epoch sweep over that NCCL mesh
+   (``EpochSweep(mesh=..., require_graph=True)``, counted: the step
+   captured as a CUDA graph, its all-reduce inside, "graph" recorded for
+   "cuda: nccl mesh"; losses bitwise the eager mesh steps', parameters
+   bitwise phase 7's, one scatter per replay), and epochs of graph
+   replays and of the eager mesh step in turns (``SWEEP_TURNS``), ms/step
+   each;
    (b) two ranks share the card over gloo (``parallel/dist.spawn`` of
    ``tools/dist_check.rank_run``, under a time limit; NCCL refuses two
    ranks on one device): each sweeps its block of the split in bf16 and
@@ -207,6 +214,12 @@
    (``make_mesh((1, 1))``, ``shard_model`` and ``gather_state`` the
    identity): phase 9's f32 sweep and phase 7's f32 steps bitwise. Gloo
    ranks sharing one card check correctness, not tensor-parallel scaling.
+21. The triple pool's matmul tier (``fused_ctx_pool_triple(...,
+   force="matmul")``: S @ the local table through ``torch.mm``, no kernel)
+   on phase 3's eval batch and local table, f32 and bf16: within 1e-5 of
+   scale of kernel 4 with and without the zero guard; the tier, the tier
+   with the local-table build, kernel 4 and kernel 4 with the build timed
+   (CUDA events, L2 flushed) and printed as ``matmul_tier``.
 
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
@@ -239,7 +252,9 @@ ranks' sweeps and steps; the scatter at the shard widths), and
 ``@int_rels`` entry kernel 8 at phase 18(c)'s sweep; ``name@graph``
 entries give phase 19's launches from graph replays (kernels 1-2 and 6,
 with their main entries' numbers), and ``@int_rels_graph`` kernel 8's at
-phase 19(d)'s B = 8 (held and timed on that sweep's first scatter call).
+phase 19(d)'s B = 8 (held and timed on that sweep's first scatter call);
+``@mesh_graph`` entries give the scatter's launches from phase 16(a)'s
+graph replays of the mesh step.
 
 Every synthetic fixture is written in a child process under a fixed
 string-hash seed (``write_fixture``), so that two runs train on the same
@@ -715,6 +730,62 @@ def triple_checks(torch, spec):
         del emb, idx, mask, fused, tidx, table
     torch.cuda.empty_cache()
     return results
+
+
+def matmul_tier_phase(torch, spec):
+    """Phase 21: the triple pool's matmul tier (fused_ctx_pool_triple's
+    force="matmul": the count matrix S [M, U] built in f32, S @ the local
+    table, the divide and tanh; torch.mm, no kernel) on phase 3's eval
+    batch and local table (B = 64, M = 1280, R = 18, U at the Localizer's
+    cap, rows 1536 wide), held against kernel 4 within 1e-5 of scale with
+    and without the zero guard; times (CUDA events, L2 flushed): the tier
+    (S built inside), the tier with the local-table build, kernel 4, and
+    kernel 4 with the build. Returns {dtype tag: numbers}."""
+    from lirec_tpu_torch.ops.gather_pool import fused_ctx_pool_triple
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+        emb, _, mask, fused, tri, tidx = local_table_inputs(
+            torch, dtype, spec, seed=7)
+        M, R = tidx.shape
+        U, width = fused.shape
+        err = 0.0
+        for guard in (True, False):
+            want = fused_ctx_pool_triple(fused, tidx, mask, guard)
+            got = fused_ctx_pool_triple(fused, tidx, mask, guard,
+                                        force="matmul")
+            torch.cuda.synchronize()
+            nan = want.isnan()
+            check(got.dtype == torch.float32 and got.shape == want.shape
+                  and torch.equal(got.isnan(), nan),
+                  "matmul tier %s guard=%s: output %s %s, NaN positions"
+                  % (tag, guard, got.dtype, tuple(got.shape)))
+            scale = float(want[~nan].abs().max())
+            e = float((got - want).abs()[~nan].max()) / scale
+            check(e <= 1e-5, "matmul tier %s guard=%s differs from kernel "
+                  "4 by %.3e of scale" % (tag, guard, e))
+            err = max(err, e)
+        times = dict(
+            tier_ms=median_ms(torch, lambda: fused_ctx_pool_triple(
+                fused, tidx, mask, True, force="matmul")),
+            tier_build_ms=median_ms(torch, lambda: fused_ctx_pool_triple(
+                fuse(torch, emb, tri), tidx, mask, True, force="matmul")),
+            kernel4_ms=median_ms(torch, lambda: fused_ctx_pool_triple(
+                fused, tidx, mask, True)),
+            kernel4_build_ms=median_ms(torch, lambda: fused_ctx_pool_triple(
+                fuse(torch, emb, tri), tidx, mask, True)))
+        log("  matmul tier %-4s M=%d R=%d U=%d width %d: %.3e of scale from "
+            "kernel 4; tier (S built inside) %.4f ms, with the local-table "
+            "build %.4f ms; kernel 4 %.4f ms, with the build %.4f ms; the "
+            "product's %.2f GFLOP" % (
+                tag, M, R, U, width, err, times["tier_ms"],
+                times["tier_build_ms"], times["kernel4_ms"],
+                times["kernel4_build_ms"], 2 * M * U * width / 1e9))
+        out[tag] = dict(max_rel_err=err, M=M, R=R, U=U, width=width, **times)
+        del emb, mask, fused, tri, tidx
+    torch.cuda.empty_cache()
+    return out
 
 
 def masked_sum_loop(torch, table, idx, mask):
@@ -2380,7 +2451,7 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
     cfg = config_lib.preset("int_rel_ch")
     split = eval_ref["split"]
     host_tables = dev_tables = None
-    counts = {}
+    counts, graph = {}, {"launches": {}}
     with tempfile.TemporaryDirectory() as work:
         dist.initialize_distributed("file://" + os.path.join(work, "nccl1"),
                                     1, 0, "cuda")
@@ -2447,13 +2518,17 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
                                                               stepped))
                 ms = statistics.median(times[1:])
                 log("  (a) NCCL world of one, %s: sweep carry bitwise phase "
-                    "9's (%d launches of %s); %d steps bitwise phase 7's "
-                    "(%d launches of %s): median %.2f ms/step against phase "
-                    "7's %.2f ms (DDP's overhead %+.2f ms)" % (
+                    "9's (%d launches of %s); %d eager mesh steps bitwise "
+                    "phase 7's (%d launches of %s): median %.2f ms/step "
+                    "against phase 7's %.2f ms (the mesh step's overhead "
+                    "%+.2f ms)" % (
                         compute, counts[pool], pool, len(local),
                         counts[scatter], scatter, ms, step_ms[compute],
                         ms - step_ms[compute]))
                 del bundle, opt, step
+                graph[compute] = mesh_graph_steps(
+                    torch, ccfg, mesh, local, dev_tables, losses,
+                    want_params, scatter, graph["launches"])
                 torch.cuda.empty_cache()
         finally:
             torch.distributed.destroy_process_group()
@@ -2613,7 +2688,80 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
     log("  (b) two ranks: %.1f s from spawn to join" % wall)
     del bundle, opt, step
     torch.cuda.empty_cache()
-    return counts, rank_launches
+    return counts, rank_launches, graph
+
+
+def mesh_graph_steps(torch, ccfg, mesh, batches, tables, eager_losses,
+                     want_params, scatter, launches):
+    """Phase 16(a)'s graph: phase 7's steps through the epoch sweep over
+    the world of one's NCCL mesh (the counted run: the step captured once,
+    then replayed), bitwise the eager mesh steps' losses and phase 7's
+    parameters, "graph" recorded for "cuda: nccl mesh", one scatter a
+    replay (added to `launches`); then epochs of graph replays and of the
+    same step run eagerly in turns on its model. Returns {ms/step lists,
+    capture ms}."""
+    import numpy as np
+
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.train.loop import step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.train.sweep import SEED_STRIDE, EpochSweep
+
+    compute = ccfg.runtime.compute_dtype
+    bundle = create_model(ccfg, 101, n_rels=15, seed=0, device="cuda")
+    opt = make_optimizer(bundle.model.parameters(), ccfg.optim.lr,
+                         ccfg.optim.weight_decay)
+    sweep = EpochSweep(bundle, opt, tables, 0, TRAIN_B, mesh=mesh,
+                       require_graph=True)
+    torch.cuda.synchronize()
+    # ---- counted run: phase 7's steps as graph replays over the mesh
+    dispatch.reset_launches()
+    losses = sweep.fetch(sweep.run(batches, 0))
+    torch.cuda.synchronize()
+    replayed = dispatch.launches()
+    # ---- end of the counted run
+    last = dispatch.last_dispatch("train_loop")
+    check((last["path"], last["reason"]) == ("graph", "cuda: nccl mesh"),
+          "%s: the mesh sweep recorded %s" % (compute, last))
+    check(losses == eager_losses, "%s: the mesh graph's losses %s, the "
+          "eager mesh steps' %s" % (compute, losses, eager_losses))
+    for n, p in bundle.model.named_parameters():
+        check(torch.equal(p.detach().cpu(), want_params[n]),
+              "%s: the mesh graph's parameter %s differs from phase 7's"
+              % (compute, n))
+    check(replayed == {scatter: len(batches)}, "%s: the mesh graph "
+          "launched %s for %d steps" % (compute, replayed, len(batches)))
+    launches[scatter] = replayed[scatter]
+    times = {"graph": [], "eager": []}
+    for turn, kind in enumerate(SWEEP_TURNS):
+        epoch = turn + 1
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kind == "graph":
+            got = sweep.fetch(sweep.run(batches, epoch))
+        else:
+            got = [float(sweep.step(b, tables, step_generators(
+                0, epoch * SEED_STRIDE + i, "cuda")))
+                for i, b in enumerate(batches)]
+        times[kind].append((time.perf_counter() - t) * 1e3 / len(batches))
+        check(all(np.isfinite(got)), "%s mesh %s losses %s"
+              % (compute, kind, got))
+    check(len(sweep.capture_s) == 1, "%s: %d mesh captures for one batch "
+          "shape" % (compute, len(sweep.capture_s)))
+    log("  (a) NCCL world of one, %s: %d steps as graph replays of the mesh "
+        "step (\"graph\", \"cuda: nccl mesh\"), bitwise the eager mesh "
+        "steps' losses and phase 7's parameters; %d launches of %s; "
+        "ms/step graph %s, eager %s (turns %s); capture %.1f ms" % (
+            compute, len(batches), replayed[scatter], scatter,
+            ["%.3f" % x for x in times["graph"]],
+            ["%.3f" % x for x in times["eager"]], ",".join(SWEEP_TURNS),
+            sweep.capture_s[0] * 1e3))
+    out = dict(graph_ms_per_step=times["graph"],
+               eager_ms_per_step=times["eager"],
+               capture_ms=sweep.capture_s[0] * 1e3)
+    del bundle, opt, sweep
+    return out
 
 
 # ------------------------------------------ phase 20: the model and context axes
@@ -4083,8 +4231,8 @@ def main():
 
         log("== 16. data parallelism: a world of one over NCCL, two ranks "
             "on the card over gloo (counted runs)")
-        dist_counts, rank_launches = dist_phase(torch, local, train_finals,
-                                                step_ms, eval_ref)
+        dist_counts, rank_launches, mesh_graph = dist_phase(
+            torch, local, train_finals, step_ms, eval_ref)
 
         log("== 17. the rest of training: dense forwards and steps, the "
             "prefetch, the assembly workers, --profile, the plan cache")
@@ -4108,6 +4256,9 @@ def main():
         "(counted runs)")
     mesh_axes = model_axis_phase(torch, spec, local, caps, train_finals,
                                  step_ms, eval_ref)
+
+    log("== 21. the triple pool's matmul tier against kernel 4")
+    matmul_tier = matmul_tier_phase(torch, spec)
 
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
@@ -4223,6 +4374,18 @@ def main():
                             launches=dist_counts[name] + sum(per_rank),
                             world_of_one_launches=dist_counts[name],
                             rank_launches=per_rank))
+    # phase 16(a): kernel 6 launched from the mesh step's graph replays
+    # over the NCCL world of one, at the train path's shapes (the main
+    # entries' numbers)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = scatter_accum.KERNEL_NAMES[dtype]
+        main_entry = next(k for k in kernels if k["name"] == name
+                          and k.get("path") == "train")
+        check(mesh_graph["launches"].get(name, 0) > 0,
+              "%s was not launched by the mesh step's graph" % name)
+        kernels.append(dict(main_entry, name=name + "@mesh_graph",
+                            path="mesh_graph",
+                            launches=mesh_graph["launches"][name]))
     # phase 18: kernels 1-2 through the eval CLI from an ingest artifact,
     # held and timed on that run's first pool call, and kernel 8 on the
     # int_rels sweep's own inputs
@@ -4292,6 +4455,9 @@ def main():
                         source=TRIPLE_CU, replaces="%s:106" % TPU_SRC,
                         launches=mesh_axes["context_launches"],
                         path="context", **mesh_axes["context"]))
+    log("matmul_tier: " + json.dumps(matmul_tier))
+    log("mesh_graph_ms_per_step: " + json.dumps(
+        {k: v for k, v in mesh_graph.items() if k != "launches"}))
     log("mesh_ms_per_step: " + json.dumps(mesh_axes["ms"]))
     log("sweeps: " + json.dumps(sweeps))
     log("modalities: " + json.dumps(mod))

@@ -10,6 +10,10 @@
     gather_masked_sum (no epilogue):
     out[m] = sum_r mask[m, r] * table[idx[m, r]]
 
+    matmul_pool (the triple pool's matmul tier, fused_ctx_pool_triple's
+    force="matmul"; no kernel, as in the JAX package):
+    out = tanh((S @ fused) / div),  S[m, u] = sum_r mask[m, r] [tidx[m, r] == u]
+
 Counterparts of ``lirec_tpu/ops/gather_pool.fused_ctx_pool``,
 ``fused_ctx_pool_triple`` and ``gather_masked_sum``. The three TPU tiers of
 the 3-table pool (VMEM-resident f32, packed-bf16, HBM-streaming) are one
@@ -57,7 +61,8 @@ from lirec_tpu_torch.ops import dispatch
 
 __all__ = [
     "fused_ctx_pool", "fused_ctx_pool_reference", "pool_plan", "rows_aligned",
-    "fused_ctx_pool_triple", "fused_ctx_pool_triple_reference", "gather_plan",
+    "fused_ctx_pool_triple", "fused_ctx_pool_triple_reference", "matmul_pool",
+    "gather_plan",
     "gather_masked_sum", "gather_masked_sum_reference", "KERNEL_NAMES",
 ]
 
@@ -247,6 +252,39 @@ def fused_ctx_pool_triple_reference(fused, tidx, mask, guard_zero: bool):
     return torch.tanh(pooled / divider)
 
 
+def matmul_pool(fused, tidx, mask, guard_zero: bool) -> torch.Tensor:
+    """The matmul tier of the triple pool (counterpart of the JAX
+    package's ``_matmul_pool``, plain jnp there, no kernel):
+    tanh((S @ fused) / div), where S [M, U] counts, per pooled row, the
+    mask's weight on each unique fused row (exact small integers in f32).
+    f32 tables multiply in f32 (TF32 must be off on a card: checked);
+    bf16 tables multiply S in bf16 (exact: counts up to R) by the bf16
+    table with an f32 result (``torch.mm(..., out_dtype=torch.float32)``
+    on a card, the f32 product of the same bf16 values on the CPU).
+    Against the gather pool only the order of the sum differs (u-order,
+    duplicate rows as one multiple)."""
+    mask = mask.float()
+    M = tidx.shape[0]
+    counts = torch.zeros((M, fused.shape[0]), dtype=torch.float32,
+                         device=fused.device)
+    counts.scatter_add_(1, tidx.long(), mask)
+    if fused.dtype == torch.float32:
+        if fused.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("matmul_pool multiplies f32 tables in f32; "
+                               "TF32 is on (torch.backends.cuda.matmul."
+                               "allow_tf32)")
+        pooled = counts @ fused
+    elif fused.is_cuda:
+        pooled = torch.mm(counts.to(fused.dtype), fused,
+                          out_dtype=torch.float32)
+    else:
+        pooled = counts @ fused.float()
+    divider = mask.sum(dim=-1, keepdim=True)
+    if guard_zero:
+        divider = torch.where(divider == 0, torch.ones_like(divider), divider)
+    return torch.tanh(pooled / divider)
+
+
 def gather_masked_sum_reference(table, idx, mask):
     """Plain PyTorch version: [N, D], [M, R], [M, R] -> [M, D] in the
     table's dtype, summed in float32."""
@@ -301,8 +339,8 @@ def _launch_single(op, table, idx, mask, out, extra):
 
 
 def fused_ctx_pool_triple(fused: torch.Tensor, tidx: torch.Tensor,
-                          mask: torch.Tensor, guard_zero: bool
-                          ) -> torch.Tensor:
+                          mask: torch.Tensor, guard_zero: bool,
+                          force: str = "auto") -> torch.Tensor:
     """tanh(masked mean of gathered fused rows): the triple tier.
 
     fused: float32 or bfloat16 [U, dc + 2 * dt], a batch's unique
@@ -311,11 +349,23 @@ def fused_ctx_pool_triple(fused: torch.Tensor, tidx: torch.Tensor,
     adds the same values in the same order as ``fused_ctx_pool`` on the
     corresponding global index triples, so the two agree bit for bit.
     Indices must lie in [0, U): the kernel does not check them.
+    force: "auto" (the kernel for CUDA tensors, the plain version for CPU
+    ones), "reference" (the plain version) or "matmul" (``matmul_pool``),
+    each recorded through ops/dispatch.
     """
     op = "fused_ctx_pool_triple"
     _check_single(op, fused, tidx, mask)
     shapes = dict(tidx=tuple(tidx.shape), fused=tuple(fused.shape),
                   table_dtype=str(fused.dtype))
+    if force in ("reference", "matmul"):
+        dispatch.record(KERNEL_NAMES[(op, fused.dtype)], force, "forced",
+                        shapes)
+        return (matmul_pool if force == "matmul"
+                else fused_ctx_pool_triple_reference)(fused, tidx, mask,
+                                                      guard_zero)
+    if force != "auto":
+        raise ValueError("%s: force must be 'auto', 'reference' or "
+                         "'matmul'; got %r" % (op, force))
     if not _route(op, fused, shapes):
         return fused_ctx_pool_triple_reference(fused, tidx, mask, guard_zero)
     out = torch.empty((tidx.shape[0], fused.shape[1]), dtype=torch.float32,

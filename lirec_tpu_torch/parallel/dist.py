@@ -4,10 +4,10 @@ half of lirec_tpu/parallel/mesh.py).
 The JAX package lays a ``('data', 'model')`` mesh over the devices of one
 program and lets XLA insert the collectives. The port runs one process per
 card instead (parallel/mesh.py lays them out as the mesh): each computes
-its own contiguous block of rows of every global batch, and
-``DistributedDataParallel`` sums the gradients over the data axis
-(parallel/step.py); under a model axis each also holds its slice of the
-tensor-parallel layers.
+its own contiguous block of rows of every global batch, and one
+all-reduce of its flat gradient buffers a step sums the gradients over
+the data axis (parallel/step.py); under a model axis each also holds its
+slice of the tensor-parallel layers.
 
 * ``initialize_distributed``: joins a process group (NCCL for ``cuda``,
   gloo for ``cpu``) at ``tcp://<coordinator>`` or at an ``init_method`` URL

@@ -10,9 +10,9 @@ default (``epoch_sweep=None``: on unless ``dense``), the epoch sweep
 (train/sweep.EpochSweep): the batches padded and stacked as the JAX
 package stacks them, staged on the device in chunks of at most
 ``sweep_max_steps`` steps, each step one replay of a CUDA graph of the
-whole step on a card (eager steps on the CPU and under a data mesh); the
-next epoch's batches are assembled while the card runs this one, and the
-losses are read once per epoch. With ``epoch_sweep=False``
+whole step on a card, under a mesh over an NCCL group too (eager steps
+on the CPU and over gloo); the next epoch's batches are assembled while
+the card runs this one, and the losses are read once per epoch. With ``epoch_sweep=False``
 (``--per-batch-train``) or ``dense=True``, the per-batch path: a ragged
 last batch padded to the full batch size with ``loss_weight`` 0 (one
 batch shape per epoch; padded rows drop out of every loss mean), the
@@ -49,8 +49,9 @@ epochs, and ``<epochs-1>.pth.tar`` at the end, each a ``torch.save`` of
 With a ``mesh`` (parallel/mesh.py: a D x M grid of processes, one per
 card, every process running train() on the same datasets), every process
 builds the same shuffled global batches and steps its own rows of each,
-by its data index (parallel/step.make_dp_train_step; the batch size must
-divide by D). Under a model axis (M > 1) the model and the optimizer's
+by its data index, and their gradients are summed over the data axis
+by one all-reduce a step (parallel/step.make_dp_train_step; the batch
+size must divide by D). Under a model axis (M > 1) the model and the optimizer's
 moments are cut to this process's slices first (parallel/mesh.shard_model;
 the eval and the checkpoints then read a full replica that
 parallel/mesh.gather_state fills in place, so that the eval sweep's kept

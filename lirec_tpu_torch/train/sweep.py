@@ -13,22 +13,26 @@ the chunk at c0 draws from ``step_generators(seed, epoch * 100003 + c0 +
 i)``, the seeds the per-batch path gives that step, so both paths take
 the same trajectory. The losses stay on the device until ``fetch``.
 
-On a card, without a data mesh, each step is one replay of a CUDA graph
-of the whole step (forward, loss, backward and Adam;
-utils/graphs.StepGraph), captured once per key of batch shapes and
-curriculum flag (the full shapes: the Localizer's caps grow across
-epochs). The graph reads batch i of a static ``[S, B, ...]`` stack through
-a device-side step index that it advances; each chunk is copied into that
-stack. The gradients are static buffers, zeroed inside the graph; Adam is
-capturable (train/optim.py); the two step generators are registered with
-the graph and seeded before each replay. A new graph's warm-up is the
-chunk's first step, run eagerly.
+On a card, each step is one replay of a CUDA graph of the whole step
+(forward, loss, backward and Adam; utils/graphs.StepGraph), captured once
+per key of batch shapes and curriculum flag (the full shapes: the
+Localizer's caps grow across epochs). The graph reads batch i of a static
+``[S, B, ...]`` stack through a device-side step index that it advances;
+each chunk is copied into that stack. The gradients are static buffers,
+zeroed inside the graph; Adam is capturable (train/optim.py); the two step
+generators are registered with the graph and seeded before each replay. A
+new graph's warm-up is the chunk's first step, run eagerly.
 
-On the CPU, and under a mesh (parallel/step.make_dp_train_step, whose
-DDP step is not captured: ROADMAP.md queue 1 item 3), the same structure
-runs eager steps. ``dispatch.decisions("train_loop")`` counts which ran,
-once per chunk: "graph", or "eager" (reason "cpu tensors", "data mesh",
-or "model mesh" under a model axis above 1).
+Under a mesh (parallel/step.make_dp_train_step) the step's collectives
+(the gradient all-reduce over the data group, the loss's counts, the
+model axis's activations) are plain NCCL calls on the current stream, and
+the same graph holds them where the process group is NCCL: the warm-up
+step makes every communicator the step uses before the capture begins.
+A gloo group runs on the host and cannot be captured: there, and on the
+CPU, the same structure runs eager steps. ``dispatch.decisions
+("train_loop")`` counts which ran, once per chunk: "graph" (reason "cuda:
+one graph per batch shape", or "cuda: nccl mesh"), or "eager" (reason
+"cpu tensors", "data mesh", or "model mesh" under a model axis above 1).
 """
 
 from __future__ import annotations
@@ -70,10 +74,10 @@ class _Captured:
     gradient buffers it writes (``grads``: kept alive, so that the graph
     stays whole if an eager step of the same model sets them to None)."""
 
-    def __init__(self, stacked: Dict, device):
-        steps = len(stacked["labels"])
-        self.stack = {k: torch.empty(v.shape, dtype=_dtype(v), device=device)
-                      for k, v in stacked.items()}
+    def __init__(self, host: Dict[str, torch.Tensor], device):
+        steps = len(host["labels"])
+        self.stack = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                      for k, v in host.items()}
         self.index = torch.zeros(1, dtype=torch.int64, device=device)
         self.losses = torch.zeros(steps, dtype=torch.float32, device=device)
         self.generators = (torch.Generator(device=device),
@@ -86,8 +90,13 @@ class _Captured:
         return len(self.losses)
 
 
-def _dtype(array: np.ndarray) -> torch.dtype:
-    return torch.from_numpy(array[:0]).dtype
+def _backend(mesh) -> Optional[str]:
+    """The backend of `mesh`'s data group ("nccl", "gloo"), or None where
+    no process group is initialised."""
+    from lirec_tpu_torch.parallel import dist
+
+    td = dist._group()
+    return None if td is None else td.get_backend(mesh.data_group)
 
 
 class EpochSweep:
@@ -95,12 +104,12 @@ class EpochSweep:
     `tables`: ``run(batches, epoch, flag)`` steps an epoch's host batches
     and returns its losses on the device, ``fetch`` reads them.
 
-    Each step is a CUDA graph's replay on a card without a mesh, an eager
-    step otherwise; require_graph=True raises where a graph cannot serve
-    (for checks that must not run eager steps). `mesh`: a
-    parallel/mesh.Mesh2D, under which every rank passes the same global
-    batches and steps its own rows (with its slices of the model, under
-    a model axis).
+    Each step is a CUDA graph's replay on a card (under a mesh, over an
+    NCCL group), an eager step otherwise; require_graph=True raises where
+    a graph cannot serve (for checks that must not run eager steps).
+    `mesh`: a parallel/mesh.Mesh2D, under which every rank passes the same
+    global batches and steps its own rows (with its slices of the model,
+    under a model axis).
     ``capture_s``: the capture seconds of each graph made, in order."""
 
     def __init__(self, bundle, optimizer, tables: Optional[Dict], seed: int,
@@ -110,14 +119,17 @@ class EpochSweep:
 
         self.device = next(bundle.model.parameters()).device
         on_card = self.device.type == "cuda"
+        backend = None if mesh is None else _backend(mesh)
+        if require_graph and backend == "gloo":
+            raise ValueError("the mesh step is captured as a CUDA graph over "
+                             "NCCL only; this process group's backend is "
+                             "gloo, which runs on the host")
         if require_graph and not on_card:
             raise ValueError("the epoch sweep's CUDA graph needs the model "
                              "on a card; it is on %s" % self.device)
-        if require_graph and mesh is not None:
-            raise ValueError("the data-parallel step is not captured as a "
-                             "CUDA graph (ROADMAP.md queue 1 item 3)")
-        graph = self.graph = on_card and mesh is None
-        self.reason = ("cuda: one graph per batch shape" if graph
+        graph = self.graph = on_card and backend != "gloo"
+        self.reason = ("cuda: %s mesh" % backend if graph and backend
+                       else "cuda: one graph per batch shape" if graph
                        else "cpu tensors" if mesh is None
                        else "model mesh" if mesh.model > 1
                        else "data mesh")
@@ -195,13 +207,14 @@ class EpochSweep:
         steps = len(stacked["labels"])
         key = (tuple(sorted((k, v.shape[1:], v.dtype.str)
                             for k, v in stacked.items())), flag)
+        host = self._host(stacked)  # this rank's rows under a mesh
         cap = self._captured.get(key)
         if cap is None or cap.capacity < steps:
             # the Localizer's caps only grow and the flag flips once: the
             # older graphs (and their memory) are not needed again
             self._captured.clear()
-            cap = self._captured[key] = _Captured(stacked, self.device)
-        for k, v in self._host(stacked).items():
+            cap = self._captured[key] = _Captured(host, self.device)
+        for k, v in host.items():
             cap.stack[k][:steps].copy_(v, non_blocking=True)
         cap.index.zero_()
 

@@ -1003,6 +1003,99 @@ def test_checkpoints_after_graph_steps_read_back(cuda, tmp_path):
         assert torch.equal(st["exp_avg_sq"], want["exp_avg_sq"]), n
 
 
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_nccl_mesh_graph_steps_are_bitwise_the_eager_steps(cuda, compute,
+                                                            tmp_path):
+    """A process group of one over NCCL in this process: three steps of
+    the mesh step (parallel/step.make_dp_train_step) through the epoch
+    sweep's CUDA graph (recorded "graph" for "cuda: nccl mesh"), through
+    its eager form and through make_train_step: the losses and parameters
+    bit for bit, one scatter a step on each side."""
+    import torch.distributed as td
+
+    from lirec_tpu_torch.parallel import dist
+    from lirec_tpu_torch.parallel.step import make_dp_train_step
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.train.sweep import EpochSweep
+    from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
+
+    dist.initialize_distributed("file://" + str(tmp_path / "store"), 1, 0,
+                                "cuda")
+    try:
+        mesh = dist.make_mesh((1, 1))
+        runs = {}
+        for side in ("plain", "mesh", "graph"):
+            _, pb = _small_int_rel_ch(compute, cuda)
+            batches = [make_batch(pb.spec, 4, 64, 96, seed=s)
+                       for s in range(3)]
+            tables = {k: torch.from_numpy(v).to(cuda)
+                      for k, v in make_tables(pb.spec, 64, 96).items()}
+            opt = make_optimizer(pb.model.parameters(), 1e-3)
+            torch.cuda.synchronize()
+            before = dispatch.launches()
+            if side == "graph":
+                sweep = EpochSweep(pb, opt, tables, 0, 4, mesh=mesh,
+                                   require_graph=True)
+                losses = sweep.fetch(sweep.run(batches, 0))
+                last = dispatch.last_dispatch("train_loop")
+                assert (last["path"], last["reason"]) == (
+                    "graph", "cuda: nccl mesh")
+                assert len(sweep.capture_s) == 1
+            else:
+                step = (make_train_step(pb, opt) if side == "plain"
+                        else make_dp_train_step(pb, opt, mesh, 4))
+                losses = [float(step(b, tables, step_generators(0, i, cuda)))
+                          for i, b in enumerate(batches)]
+            torch.cuda.synchronize()
+            runs[side] = (losses, _param_copy(pb), _launch_delta(before))
+    finally:
+        td.destroy_process_group()
+    name = sa.KERNEL_NAMES[torch.bfloat16 if compute == "bfloat16"
+                           else torch.float32]
+    losses, params, launched = runs["plain"]
+    assert launched == {name: 3}
+    for side in ("mesh", "graph"):
+        assert runs[side][0] == losses, side
+        assert runs[side][2] == launched, side
+        for n, p in params.items():
+            assert torch.equal(runs[side][1][n], p), (side, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_tier_matches_kernel_4(cuda, dtype):
+    """fused_ctx_pool_triple(force="matmul") against kernel 4 on the same
+    local table (repeated rows, an empty row): within 1e-5 of scale; the
+    kernel launches and the tier does not. With TF32 on, the f32 tier
+    refuses to run."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    M, R, U, width = 96, 18, 40, 1536
+    fused = torch.randn(U, width, device=cuda, generator=g).to(dtype)
+    tidx = torch.randint(0, U, (M, R), device=cuda, generator=g).to(
+        torch.int32)
+    mask = (torch.rand(M, R, device=cuda, generator=g) < 0.5).float()
+    mask[0] = 0.0
+    name = KERNEL_NAMES[("fused_ctx_pool_triple", dtype)]
+    before = dispatch.launches(name)
+    want = fused_ctx_pool_triple(fused, tidx, mask, True)
+    got = fused_ctx_pool_triple(fused, tidx, mask, True, force="matmul")
+    torch.cuda.synchronize()
+    assert dispatch.launches(name) == before + 1
+    assert dispatch.last_dispatch(name)["path"] == "matmul"
+    assert got.dtype == torch.float32
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    if dtype == torch.float32:
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with pytest.raises(RuntimeError, match="TF32"):
+                fused_ctx_pool_triple(fused, tidx, mask, True,
+                                      force="matmul")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def test_a_failed_capture_raises(cuda):
     """A step that reads the card from the host cannot be captured: the
     capture raises, and nothing is counted for it. (Last in the file: a
