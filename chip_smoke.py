@@ -220,6 +220,21 @@
    scale of kernel 4 with and without the zero guard; the tier, the tier
    with the local-table build, kernel 4 and kernel 4 with the build timed
    (CUDA events, L2 flushed) and printed as ``matmul_tier``.
+22. The JAX package's Orbax checkpoints (checkpoint/orbax_backend.py,
+   its zstd decoder g++-built from native/zstd.cpp): (a) the training CLI
+   at published widths on phase 12's fixture under
+   ``--checkpoint-backend orbax --checkpoint-every 1`` writes latest.ckpt
+   and 0.ckpt as Orbax directories and the best-n files as msgpack; (b)
+   ``--auto-resume`` from that latest.ckpt trains one more epoch, starting
+   from the parameters and Adam state written, bitwise; (c) the
+   int_rel_ch eval CLI on the final directory, bf16 and f32 (counted:
+   kernels 1-2, ``name@orbax``, held and timed on its first pool call),
+   equal to its run on a msgpack .ckpt of the same weights; (d) a
+   published-width int_rel_ch train state after 3 of phase 7's steps
+   (kernel 6) written and read back through the msgpack and Orbax
+   backends, bitwise, printing the seconds, the MB on disk, the decoder's
+   MB/s on the largest chunk and on a committed level-1 frame, beside the
+   card's name and power limit; printed as ``orbax``.
 
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
@@ -254,7 +269,8 @@ entries give phase 19's launches from graph replays (kernels 1-2 and 6,
 with their main entries' numbers), and ``@int_rels_graph`` kernel 8's at
 phase 19(d)'s B = 8 (held and timed on that sweep's first scatter call);
 ``@mesh_graph`` entries give the scatter's launches from phase 16(a)'s
-graph replays of the mesh step.
+graph replays of the mesh step, and ``@orbax`` kernels 1-2's from phase
+22(c)'s eval CLI on an Orbax directory.
 
 Every synthetic fixture is written in a child process under a fixed
 string-hash seed (``write_fixture``), so that two runs train on the same
@@ -4138,6 +4154,304 @@ def sweeps_phase(torch, local, train_finals, eval_ref, root):
             for k, v in rels.items()}), k8
 
 
+# ------------------------------------------- phase 22: Orbax checkpoints
+
+
+ORBAX_STEPS = 3  # phase 7's batches behind (d)'s train state
+# a zstd frame of level-1 compressed blocks (Huffman literals, 4 streams),
+# as tensorstore writes an Orbax chunk in zarr: 40,960 f32 values
+# of np.random.default_rng(0).standard_normal, the card host having no
+# zstd compressor
+LEVEL1_FRAME = "lirec_tpu_torch/native/normal_f32_level1.zst"
+
+
+def host_state(model, optimizer):
+    """(parameters, {name: Adam state}) copied to the host."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    adam = {names[id(p)]: {k: v.detach().cpu().clone()
+                           for k, v in st.items()}
+            for p, st in optimizer.state.items()}
+    return params, adam
+
+
+def same_state(torch, got, want, label):
+    """Parameters and Adam moments bitwise, the step counts equal."""
+    (gp, ga), (wp, wa) = got, want
+    check(set(gp) == set(wp) and set(ga) == set(wa),
+          "%s: other parameters or Adam states" % label)
+    for k, v in wp.items():
+        check(torch.equal(gp[k], v), "%s: parameter %s differs" % (label, k))
+    for n, st in wa.items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            check(torch.equal(ga[n][k], st[k]), "%s: %s of %s differs"
+                  % (label, k, n))
+        check(float(ga[n]["step"]) == float(st["step"]),
+              "%s: step of %s %s, written %s" % (label, n, ga[n]["step"],
+                                                 st["step"]))
+
+
+def decode_rate(frame, size, reps=9):
+    """The zstd decoder's MB/s (decoded bytes) on one frame: the median of
+    `reps` decodes into one buffer."""
+    import numpy as np
+
+    from lirec_tpu_torch.native import bindings
+
+    out = np.empty(size, np.uint8)
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        n = bindings.zstd_decompress(frame, out=out).size
+        times.append(time.perf_counter() - t)
+        check(n == size, "the frame decoded to %d bytes, not %d" % (n, size))
+    return size / statistics.median(times) / 1e6
+
+
+def disk_mb(path):
+    if os.path.isfile(path):
+        return os.path.getsize(path) / 1e6
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 1e6
+
+
+def orbax_phase(torch, local):
+    """Phase 22: the JAX package's Orbax checkpoints on the card host.
+    (a) the training CLI at published widths under --checkpoint-backend
+    orbax --checkpoint-every 1 (latest.ckpt and 0.ckpt Orbax directories,
+    best-n msgpack files); (b) --auto-resume from that latest.ckpt for one
+    more epoch, starting from the parameters and Adam state written,
+    bitwise; (c) the int_rel_ch eval CLI on the final Orbax directory, bf16
+    and f32 (counted: kernels 1-2), equal to its run on a msgpack .ckpt
+    of the same weights, kernels 1-2 held and timed on its first pool
+    call; (d) a published-width int_rel_ch train state after ORBAX_STEPS
+    of phase 7's steps written and read back through both backends,
+    bitwise, with the seconds, MB on disk and the decoder's MB/s. Returns
+    (launches of (c), kernels 1-2's entries, the numbers logged)."""
+    import math
+
+    import numpy as np
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.checkpoint import load_jax_checkpoint, ocdbt
+    from lirec_tpu_torch.checkpoint.saver import (
+        save_params, save_train_state_any,
+    )
+    from lirec_tpu_torch.cli import int_rel_ch
+    from lirec_tpu_torch.cli import train as train_cli
+    from lirec_tpu_torch.models import tabular
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.models.tabular import EmbeddedTables
+    from lirec_tpu_torch.native import bindings
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.gather_pool import fused_ctx_pool
+    from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES
+    from lirec_tpu_torch.train import loop
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    out = {"card": card_line()}
+    with tempfile.TemporaryDirectory() as root:
+        write_fixture(root, **PUBLISHED_FIXTURE)
+        store = os.path.join(root, "store")
+        dims = ["--data-root", root, "--device", "cuda", "--quiet"] + \
+            dim_args(PUBLISHED_DIMS)
+        base = dims + ["--store-root", store, "--checkpoint-backend",
+                       "orbax"]
+
+        # (a) one epoch, a train state every epoch; the state written as
+        # latest.ckpt kept on the host
+        written = {}
+        real_save = loop.save_train_state_any
+
+        def saving(path, model, optimizer, epoch, backend):
+            if os.path.basename(path) == "latest.ckpt":
+                written["state"] = host_state(model, optimizer)
+            return real_save(path, model, optimizer, epoch, backend)
+
+        loop.save_train_state_any = saving
+        try:
+            first = train_cli.main(base + ["--epochs", "1",
+                                           "--checkpoint-every", "1"])
+        finally:
+            loop.save_train_state_any = real_save
+        check(math.isfinite(first["train"]["losses"][0]),
+              "(a) losses %s" % first["train"]["losses"])
+        for name in ("latest.ckpt", "0.ckpt"):
+            path = os.path.join(store, name)
+            check(os.path.isfile(os.path.join(path, "_METADATA")),
+                  "(a) %s is not an Orbax directory" % name)
+        best = [os.path.join(d, f) for d, _, files in os.walk(store)
+                for f in files if f.startswith("v") and f.endswith(".ckpt")]
+        check(best and all(os.path.isfile(f) for f in best),
+              "(a) no best-n msgpack files: %s" % best)
+        out["a_latest_MB"] = disk_mb(os.path.join(store, "latest.ckpt"))
+        log("  (a) cli.train.main --checkpoint-backend orbax, 1 epoch: loss "
+            "%s; latest.ckpt and 0.ckpt Orbax directories (%.1f MB each), "
+            "%d best-n msgpack files" % (first["train"]["losses"],
+                                         out["a_latest_MB"], len(best)))
+
+        # (b) --auto-resume from that latest.ckpt
+        seen = {}
+        real_train = loop.train
+
+        def starting(cfg, bundle, *args, optimizer=None, **kw):
+            seen["state"] = host_state(bundle.model, optimizer)
+            return real_train(cfg, bundle, *args, optimizer=optimizer, **kw)
+
+        loop.train = starting
+        try:
+            resumed = train_cli.main(base + ["--epochs", "2",
+                                             "--auto-resume"])
+        finally:
+            loop.train = real_train
+        check(resumed["train"]["start_epoch"] == 1
+              and len(resumed["train"]["losses"]) == 1
+              and math.isfinite(resumed["train"]["losses"][0]),
+              "(b) resumed run %s" % resumed["train"])
+        same_state(torch, seen["state"], written["state"], "(b) resumed")
+        log("  (b) --auto-resume from the Orbax latest.ckpt: epoch 1, loss "
+            "%s; the %d parameters and their Adam state bitwise those "
+            "written" % (resumed["train"]["losses"],
+                         len(written["state"][0])))
+
+        # (c) the eval CLI on the final Orbax directory (counted), and on a
+        # msgpack .ckpt of the same weights
+        final = os.path.join(store, "1.ckpt")
+        first_call = {}
+        real_pool = tabular.fused_ctx_pool
+
+        def recording(emb, idx, mask, guard):
+            first_call.setdefault(emb.clip.dtype, (
+                EmbeddedTables(*(t.clone() for t in emb)), idx.clone(),
+                mask.clone(), guard))
+            return real_pool(emb, idx, mask, guard)
+
+        metrics = {}
+        dispatch.reset_launches()
+        tabular.fused_ctx_pool = recording
+        try:
+            for compute in ("bfloat16", "float32"):
+                metrics[compute] = int_rel_ch.main(dims + [
+                    "--resume-path", final, "--compute-dtype", compute])
+        finally:
+            tabular.fused_ctx_pool = real_pool
+        torch.cuda.synchronize()
+        launched = dispatch.launches()
+        msgpack_file = os.path.join(root, "same_weights.ckpt")
+        state, _, _ = load_jax_checkpoint(final)
+        save_params(msgpack_file, state)
+        for compute, got in metrics.items():
+            want = int_rel_ch.main(dims + ["--resume-path", msgpack_file,
+                                           "--compute-dtype", compute])
+            check(got == want, "(c) %s: the eval CLI's metrics from the "
+                  "Orbax directory %s, from msgpack %s" % (compute, got,
+                                                          want))
+            log("  (c) cli.int_rel_ch.main %s on the Orbax 1.ckpt: val %s, "
+                "test %s, equal to the msgpack .ckpt's" % (
+                    compute, got["val"], got["test"]))
+        pool = {}
+        for dtype, tag, atol in ((torch.float32, "f32", 2e-6),
+                                 (torch.bfloat16, "bf16", 1e-5)):
+            check(dtype in first_call, "(c) the eval CLI on the Orbax "
+                  "directory made no %s pool call" % tag)
+            emb, idx, mask, guard = first_call[dtype]
+            ms = median_ms(torch, lambda: fused_ctx_pool(emb, idx, mask,
+                                                         guard))
+            div = (guarded_div(torch, mask) if guard
+                   else mask.sum(-1, keepdim=True))
+            pool[tag] = eval_pool_entry(torch, tag + "@orbax", emb, idx,
+                                        mask, mask.to(dtype), div, ms, atol,
+                                        guard)
+            pool[tag]["shapes"] = dict(
+                M=idx.shape[0], R=idx.shape[1], guard=guard,
+                clip=list(emb.clip.shape), tracks=list(emb.tr1.shape))
+            log("  (c) the %s pool's inputs: %s" % (tag, pool[tag]["shapes"]))
+    del first_call
+
+    # (d) a published-width train state through both backends
+    cfg = config_lib.preset("int_rel_ch").with_runtime(
+        compute_dtype="bfloat16")
+    bundle = create_model(cfg, 101, n_rels=15, seed=0, device="cuda")
+    tables = {k: torch.from_numpy(v).cuda() for k, v in make_tables(
+        bundle.spec, N_CLIPS, N_TRACKS, seed=0).items()}
+    opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
+                         cfg.optim.weight_decay)
+    step = make_train_step(bundle, opt)
+    dispatch.reset_launches()
+    for i, batch in enumerate(local[:ORBAX_STEPS]):
+        step(batch, tables, step_generators(0, i, "cuda"))
+    torch.cuda.synchronize()
+    steps = dispatch.launches()
+    name = KERNEL_NAMES[torch.bfloat16]
+    check(steps.get(name, 0) == ORBAX_STEPS, "(d) %d launches of %s for %d "
+          "steps" % (steps.get(name, 0), name, ORBAX_STEPS))
+    want = host_state(bundle.model, opt)
+    moved = sum(bool(st["exp_avg"].abs().sum()) for st in want[1].values())
+    check(moved > 0, "(d) every Adam moment is zero after %d steps"
+          % ORBAX_STEPS)
+    state_mb = sum(v.numel() * 4 for v in want[0].values()) / 1e6
+    log("  (d) %d steps (%d launches of %s): %d of %d parameters' Adam "
+        "moments non-zero" % (ORBAX_STEPS, steps.get(name, 0), name, moved,
+                              len(want[1])))
+    with tempfile.TemporaryDirectory() as work:
+        for backend in ("msgpack", "orbax"):
+            path = os.path.join(work, "%s.ckpt" % backend)
+            t = time.perf_counter()
+            save_train_state_any(path, bundle.model, opt, ORBAX_STEPS,
+                                 backend)
+            write_s = time.perf_counter() - t
+            t = time.perf_counter()
+            params, adam, epoch = load_jax_checkpoint(path, bundle.model,
+                                                      opt)
+            read_s = time.perf_counter() - t
+            check(epoch == ORBAX_STEPS, "(d) %s: epoch %d" % (backend,
+                                                            epoch))
+            names = {i: n for i, (n, _) in enumerate(
+                bundle.model.named_parameters())}
+            same_state(torch, (params, {names[i]: st for i, st in
+                                        adam["state"].items()}),
+                       want, "(d) %s round trip" % backend)
+            out["d_" + backend] = dict(write_s=write_s, read_s=read_s,
+                                       MB=disk_mb(path))
+            log("  (d) %s: train state of %.1f MB of parameters (and Adam's "
+                "two moments): write %.3f s, read %.3f s, %.1f MB on disk; "
+                "bitwise" % (backend, state_mb, write_s, read_s,
+                             out["d_" + backend]["MB"]))
+            if backend == "orbax":
+                reader = ocdbt.Reader(path)
+                chunks = [k for k in reader.keys()
+                          if not k.endswith(b".zarray")]
+                frames = {k: reader.read(k) for k in chunks}
+                largest = max(frames, key=lambda k: len(frames[k]))
+                size = bindings.zstd_content_size(frames[largest])
+                out["d_decode_MB_per_s_largest"] = decode_rate(
+                    frames[largest], size)
+                out["d_largest_chunk"] = largest.decode()
+                log("  (d) the decoder on the largest chunk (%s, %.1f MB, "
+                    "raw blocks as the port writes them): %.0f MB/s" % (
+                        largest.decode(), size / 1e6,
+                        out["d_decode_MB_per_s_largest"]))
+    with open(os.path.join(ROOT, LEVEL1_FRAME), "rb") as f:
+        frame = f.read()
+    values = np.random.default_rng(0).standard_normal(40960).astype(
+        np.float32)
+    check(bindings.zstd_decompress(frame, values.nbytes).tobytes()
+          == values.tobytes(), "(d) the level-1 frame decodes to other "
+          "values")
+    out["d_decode_MB_per_s_level1"] = decode_rate(frame, values.nbytes,
+                                                  reps=51)
+    log("  (d) the decoder on a level-1 frame of normal f32 (%s, %d -> %d "
+        "bytes): %.0f MB/s; card %s" % (
+            LEVEL1_FRAME, len(frame), values.nbytes,
+            out["d_decode_MB_per_s_level1"], out["card"]))
+    del bundle, opt, step, tables
+    torch.cuda.empty_cache()
+    return launched, pool, out
+
+
 def main():
     import torch
 
@@ -4259,6 +4573,11 @@ def main():
 
     log("== 21. the triple pool's matmul tier against kernel 4")
     matmul_tier = matmul_tier_phase(torch, spec)
+
+    log("== 22. the JAX package's Orbax checkpoints: the training CLI "
+        "writes and resumes them, the eval CLI from one, a published-width "
+        "train state through both backends (counted runs)")
+    orbax_counts, orbax_pool, orbax = orbax_phase(torch, local)
 
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
@@ -4455,6 +4774,19 @@ def main():
                         source=TRIPLE_CU, replaces="%s:106" % TPU_SRC,
                         launches=mesh_axes["context_launches"],
                         path="context", **mesh_axes["context"]))
+    # phase 22: kernels 1-2 through the eval CLI on an Orbax directory,
+    # held and timed on that run's first pool call
+    for dtype, tag, line in ((torch.float32, "f32", 178),
+                             (torch.bfloat16, "bf16", 218)):
+        name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+        check(orbax_counts.get(name, 0) > 0,
+              "%s was not launched by the eval CLI on an Orbax directory"
+              % name)
+        kernels.append(dict(name=name + "@orbax", route="cuda", source=CU,
+                            replaces="%s:%d" % (TPU_SRC, line),
+                            launches=orbax_counts[name], path="orbax",
+                            **orbax_pool[tag]))
+    log("orbax: " + json.dumps(orbax))
     log("matmul_tier: " + json.dumps(matmul_tier))
     log("mesh_graph_ms_per_step: " + json.dumps(
         {k: v for k, v in mesh_graph.items() if k != "launches"}))

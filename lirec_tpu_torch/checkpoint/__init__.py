@@ -1,5 +1,6 @@
 """Checkpoint import for the port (reference .pth.tar files, lirec_tpu
-params and Adam state, and the JAX package's msgpack checkpoint files)."""
+params and Adam state, and the JAX package's checkpoints: msgpack files
+and Orbax directories, checkpoint/orbax_backend.py)."""
 
 from lirec_tpu_torch.checkpoint.convert import (  # noqa: F401
     clean_state_dict,

@@ -22,9 +22,12 @@
 * ``load_jax_checkpoint``: a msgpack file of the JAX package's
   checkpoint/saver.py (``save_params``: ``{'params', 'extra'}``, the best-n
   and converted ``.ckpt`` files; ``save_train_state``: ``{'params',
-  'opt_state', 'epoch'}``, ``latest.ckpt`` and ``<epochs-1>.ckpt``) ->
-  the ``state_dict``, the Adam state and the epoch, decoded by
-  checkpoint/msgpack.py (neither flax nor msgpack is imported).
+  'opt_state', 'epoch'}``, ``latest.ckpt`` and ``<epochs-1>.ckpt``), or
+  an Orbax checkpoint directory of the same tree
+  (``--checkpoint-backend orbax``) -> the ``state_dict``, the Adam state
+  and the epoch, decoded by checkpoint/msgpack.py or
+  checkpoint/orbax_backend.py (neither flax, msgpack nor orbax is
+  imported).
 
 All feed ``model.load_state_dict``; the module names already are the
 reference's.
@@ -32,6 +35,7 @@ reference's.
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Dict, Optional, Tuple
 
@@ -45,17 +49,22 @@ __all__ = ["params_from_jax", "opt_state_from_jax", "params_to_jax",
 _SKIPPED_BUFFERS = ("num_batches_tracked", "running_mean", "running_var")
 
 
+def _f32(leaf) -> np.ndarray:
+    """A leaf as f32 numpy (a torch tensor too: Orbax's bf16 leaves)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(leaf, np.float32)
+
+
 def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     """lirec_tpu params pytree -> port state_dict (bitwise: f32 values are
-    copied, the kernel transposed)."""
+    copied, the kernel transposed; bf16 leaves widen exactly to f32)."""
     state: Dict[str, torch.Tensor] = {}
     for name, leaf in params.items():
         base = "gates_ints.fc_out" if name == "gates_ints" else name
-        kernel = np.asarray(leaf["kernel"], np.float32)
+        kernel = _f32(leaf["kernel"])
         state[base + ".weight"] = torch.from_numpy(kernel.T.copy())
-        state[base + ".bias"] = torch.from_numpy(
-            np.array(leaf["bias"], np.float32)
-        )
+        state[base + ".bias"] = torch.from_numpy(_f32(leaf["bias"]).copy())
     return state
 
 
@@ -209,20 +218,28 @@ def load_torch_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
 
 def load_jax_checkpoint(path: str, model: Optional[torch.nn.Module] = None,
                         optimizer: Optional[torch.optim.Optimizer] = None):
-    """A msgpack checkpoint of the JAX package -> (state_dict, Adam
-    state_dict or None, epoch).
+    """A msgpack checkpoint of the JAX package, or an Orbax checkpoint
+    directory -> (state_dict, Adam state_dict or None, epoch).
 
     Both payloads of lirec_tpu/checkpoint/saver.py are read: a
     ``save_params`` file (``{'params', 'extra'}``; its epoch is
     ``extra['epoch']``, 0 where it has none) and a ``save_train_state``
-    file (``{'params', 'opt_state', 'epoch'}``). The Adam state is
-    ``opt_state_from_jax`` of the file's optax state for `optimizer` over
-    `model`'s parameters, where the file has one and both are given; else
-    None."""
+    file (``{'params', 'opt_state', 'epoch'}``), and the Orbax directory
+    ``orbax_backend.save`` writes (``{'params', 'opt_state', 'epoch'}``;
+    its optax state is read only where `optimizer` is given). The Adam
+    state is ``opt_state_from_jax`` of the file's optax state for
+    `optimizer` over `model`'s parameters, where the file has one and both
+    are given; else None."""
+    from lirec_tpu_torch.checkpoint import orbax_backend
     from lirec_tpu_torch.checkpoint.msgpack import msgpack_restore
 
-    with open(path, "rb") as f:
-        tree = msgpack_restore(f.read())
+    if os.path.isdir(path):
+        params, opt_state, epoch = orbax_backend.restore(
+            path, opt_state=optimizer is not None)
+        tree = {"params": params, "opt_state": opt_state, "epoch": epoch}
+    else:
+        with open(path, "rb") as f:
+            tree = msgpack_restore(f.read())
     if not isinstance(tree, dict) or "params" not in tree:
         raise ValueError("%s is not a checkpoint of the JAX package: no "
                          "'params' entry" % path)

@@ -19,9 +19,12 @@ files are the JAX package's instead: the best-n files
 ``flax.serialization.to_bytes`` encodes them (the same bytes as the JAX
 package's file of the same state), so the JAX package's
 ``load_params`` / ``load_train_state`` read them and the port reads them
-back with ``load_jax_checkpoint``. The JAX package's Orbax backend is not
-written: its files are zstd-compressed, and neither this package nor
-Python's standard library has zstd.
+back with ``load_jax_checkpoint``. With ``backend="orbax"``
+``save_train_state_any`` writes the same tree as an Orbax checkpoint
+directory (checkpoint/orbax_backend.py), which the JAX package's
+``orbax_backend.restore`` reads, and the best-n files stay msgpack
+``save_params`` files, as the JAX package's ``BestNSaver`` writes them
+under either backend.
 
 The port's parameters change in place under ``optimizer.step()``, so
 ``update`` keeps a detached CPU copy of what it is given (the JAX package
@@ -43,7 +46,7 @@ __all__ = ["BestNSaver", "save_train_state", "load_train_state",
            "save_params", "save_train_state_any", "BACKENDS"]
 
 # backend -> the suffix of its files
-BACKENDS = {"torch": ".pth.tar", "msgpack": ".ckpt"}
+BACKENDS = {"torch": ".pth.tar", "msgpack": ".ckpt", "orbax": ".ckpt"}
 
 
 def _cpu_copy(tree):
@@ -89,22 +92,27 @@ def save_train_state_any(path: str, model, optimizer, epoch: int,
     """A resumable train state of `model` and its Adam `optimizer`:
     'torch' writes the ``.pth.tar`` of ``save_train_state``; 'msgpack' the
     JAX package's ``save_train_state`` file, ``{'params', 'opt_state'
-    (opt_state_to_jax), 'epoch'}``."""
+    (opt_state_to_jax), 'epoch'}``; 'orbax' the same tree as the JAX
+    package's Orbax directory."""
     if backend == "torch":
         from lirec_tpu_torch.train.optim import file_state
 
         save_train_state(path, model.state_dict(), file_state(optimizer),
                          epoch)
-    elif backend == "msgpack":
+    elif backend in ("msgpack", "orbax"):
+        from lirec_tpu_torch.checkpoint import orbax_backend
         from lirec_tpu_torch.checkpoint.convert import (
             opt_state_to_jax, params_to_jax,
         )
         from lirec_tpu_torch.checkpoint.msgpack import to_bytes
 
-        _write(path, to_bytes({
-            "params": params_to_jax(model.state_dict()),
-            "opt_state": opt_state_to_jax(model, optimizer),
-            "epoch": int(epoch)}))
+        params = params_to_jax(model.state_dict())
+        opt_state = opt_state_to_jax(model, optimizer)
+        if backend == "orbax":
+            orbax_backend.save(path, params, opt_state, int(epoch))
+        else:
+            _write(path, to_bytes({"params": params, "opt_state": opt_state,
+                                   "epoch": int(epoch)}))
     else:
         raise ValueError("unknown checkpoint backend %r" % backend)
 
@@ -191,7 +199,7 @@ class BestNSaver:
                     self.saved[key][epoch] = full
                     save_dict = self.models[key][epoch]
                     kept_epoch = save_dict.get("epoch", epoch)
-                    if self.backend == "msgpack":
+                    if self.backend in ("msgpack", "orbax"):
                         save_params(full, save_dict["state_dict"],
                                     extra={"epoch": kept_epoch})
                         continue

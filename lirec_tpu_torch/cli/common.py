@@ -6,8 +6,9 @@ the reference's split choices (`modalities`/`int_rels` build their nominal
 train dataset from the **val** split, `int_ch`/`int_rel_ch` from the
 **test** split; ref resume/modalties.py:21, int_rels.py:25, int_ch.py:22,
 int_rel_ch.py:23), and then either
-evaluates a checkpoint (a reference ``.pth.tar`` or a msgpack ``.ckpt``
-of the JAX package) on the val and test splits
+evaluates a checkpoint (a reference ``.pth.tar``, or a msgpack ``.ckpt``
+file or an Orbax ``.ckpt`` directory of the JAX package) on the val and
+test splits
 (the packed sweep, evaluation/packed.py, or with ``--host-eval`` the
 per-batch host loop, evaluation/runner.py) or, with ``--train`` /
 ``--resume-train``, trains (train/loop.py: the epoch sweep, or one step
@@ -16,11 +17,12 @@ checkpoints, ``latest.pth.tar`` and the final ``<epochs-1>.pth.tar`` under
 ``--store-root``), all on ``--device`` (default: the card).
 ``--resume-train`` reads the weights, the Adam state and the epoch from
 ``--resume-path`` (a ``.pth.tar`` train state, or the JAX package's
-msgpack ``.ckpt``) and starts at epoch + 1; ``--auto-resume`` does the same
-from ``<store-root>/latest.pth.tar``, else from ``latest.ckpt`` (the JAX
-package's, or the port's own under ``--checkpoint-backend msgpack``,
-which writes the JAX package's msgpack files). The JAX package's Orbax
-directories are neither read nor written.
+msgpack ``.ckpt`` or Orbax directory) and starts at epoch + 1;
+``--auto-resume`` does the same from ``<store-root>/latest.pth.tar``, else
+from ``latest.ckpt`` (the JAX package's, or the port's own under
+``--checkpoint-backend msgpack`` or ``orbax``, which write the JAX
+package's msgpack files or Orbax directories: checkpoint/orbax_backend.py,
+without orbax).
 
 The process mesh (parallel/mesh.py), with the JAX package's flags:
 ``--mesh DxM`` in a single process spawns D * M local ranks (``cuda``: one
@@ -47,9 +49,7 @@ else the datasets are built and the artifact written, by rank 0 alone
 under ``--mesh`` / ``--num-processes`` (the other ranks use the datasets
 they built).
 
-Every flag of the JAX package's CLIs parses; a feature the port does not
-have (Orbax checkpoints) refuses to run by name instead of failing in
-argparse.
+Every flag of the JAX package's CLIs parses and runs.
 """
 
 from __future__ import annotations
@@ -77,9 +77,6 @@ TRAIN_SPLIT = {
     "int_rel_ch": "test",
 }
 
-ORBAX = ("the JAX package's Orbax checkpoints (ROADMAP.md, not ported: "
-         "their manifest and array nodes are zstd-compressed, and neither "
-         "Python's standard library nor this package has zstd)")
 TRISTATE = {"auto": None, "on": True, "off": False}
 # seconds a --mesh run's local ranks may take, start to end; None: no
 # deadline (a hung collective still fails after dist.DEFAULT_TIMEOUT)
@@ -96,7 +93,8 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
         p.add_argument("--tr-correct", action="store_true",
                        help="GT-track supervision (vs weak)")
     p.add_argument("--resume-path", default=None,
-                   help=".pth.tar or the JAX package's .ckpt; default: the "
+                   help=".pth.tar, or the JAX package's .ckpt (a msgpack "
+                        "file or an Orbax directory); default: the "
                         "released checkpoint path for this preset under "
                         "<data-root>/models_release")
     p.add_argument("--train", action="store_true",
@@ -111,12 +109,12 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
                    help="append JSONL training telemetry to this path")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="save a resumable latest.pth.tar (latest.ckpt "
-                        "under msgpack) every N epochs")
+                        "under msgpack and orbax) every N epochs")
     p.add_argument("--checkpoint-backend", default="torch",
                    choices=["torch", "msgpack", "orbax"],
-                   help="train-state format: torch (.pth.tar) or the JAX "
-                        "package's msgpack (.ckpt); its orbax is not "
-                        "ported (refused)")
+                   help="train-state format: torch (.pth.tar), or the JAX "
+                        "package's msgpack (.ckpt files) or orbax (.ckpt "
+                        "directories)")
     p.add_argument("--cache-workers", type=int, default=0,
                    help="thread pool size for feature precompute IO")
     p.add_argument("--assembly-workers", type=int, default=0,
@@ -236,26 +234,6 @@ def build_datasets(cfg, preset_name: str, workers: int = 0):
     return train_ds, val_ds, test_ds
 
 
-def _refuse_orbax(path: str, context: str) -> None:
-    if os.path.isdir(path):
-        raise SystemExit(
-            "%s: %s is an Orbax checkpoint directory of the JAX package; "
-            "lirec_tpu_torch does not read %s" % (context, path, ORBAX))
-
-
-def load_checkpoint(path: str):
-    """A reference .pth.tar or a msgpack .ckpt of the JAX package -> the
-    port's state_dict. Orbax directories are refused."""
-    _refuse_orbax(path, "--resume-path")
-    return load_checkpoint_state(path)
-
-
-def _refuse_unported(args) -> None:
-    if args.checkpoint_backend == "orbax":
-        raise SystemExit("--checkpoint-backend orbax: lirec_tpu_torch does "
-                         "not write " + ORBAX)
-
-
 def mesh_shape(args, preset_name: str):
     """(data, model) of --mesh / --num-processes, or None for one
     process, with the JAX package's checks and messages; a model axis
@@ -305,26 +283,24 @@ def _train_state_path(cfg, args) -> str:
     """The train state a training run resumes from: --resume-path under
     --resume-train, else under --auto-resume <store-root>/latest.pth.tar
     if it exists, else the JAX package's latest.ckpt if it exists; "" for
-    a run from epoch 0. An Orbax latest.ckpt is refused, not passed
-    over."""
+    a run from epoch 0. latest.ckpt may be a msgpack file or an Orbax
+    directory."""
     if cfg.resume_train and cfg.resume_path:
-        _refuse_orbax(cfg.resume_path, "--resume-path")
         return cfg.resume_path
     if not args.auto_resume:
         return ""
     for name in ("latest.pth.tar", "latest.ckpt"):
         latest = os.path.join(cfg.paths.store_root, name)
         if os.path.exists(latest):
-            _refuse_orbax(latest, "--auto-resume (no latest.pth.tar, and "
-                          "no start over at epoch 0 beside it)")
             return latest
     return ""
 
 
 def load_train_state_any(path: str, model, optimizer):
     """(state_dict, Adam state_dict or None, epoch) of a train state: the
-    port's .pth.tar, or the JAX package's msgpack .ckpt with its optax
-    state mapped to `optimizer` over `model`'s parameters."""
+    port's .pth.tar, or the JAX package's msgpack .ckpt file or Orbax
+    directory with its optax state mapped to `optimizer` over `model`'s
+    parameters."""
     from lirec_tpu_torch.checkpoint import load_jax_checkpoint
     from lirec_tpu_torch.checkpoint.saver import load_train_state
 
@@ -347,7 +323,6 @@ def run_entry(preset_name: str, argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser(preset_name)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
     shape = mesh_shape(args, preset_name)
     if shape is None or shape[0] * shape[1] == 1:
         return _run(preset_name, args, None)
@@ -427,7 +402,7 @@ def _run(preset_name: str, args, mesh) -> dict:
         return {"train": _train(cfg, args, bundle, train_ds, val_ds,
                                 test_ds, resume_from, verbose, mesh)}
     if cfg.resume_path:
-        bundle.model.load_state_dict(load_checkpoint(cfg.resume_path))
+        bundle.model.load_state_dict(load_checkpoint_state(cfg.resume_path))
         if verbose:
             print("loaded checkpoint: %s" % cfg.resume_path)
     results = {}

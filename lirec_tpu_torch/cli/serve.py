@@ -220,20 +220,15 @@ CHECKPOINT_SUFFIXES = (".pth.tar", ".pth", ".tar")
 
 
 def load_checkpoint_state(path: str) -> Dict[str, torch.Tensor]:
-    """A checkpoint file -> the port's state_dict: a reference (or the
-    port's own) ``.pth.tar``, or a msgpack file of the JAX package
-    (``.ckpt``, read by checkpoint/msgpack.py without flax). The JAX
-    package's Orbax directories need orbax.checkpoint, which imports jax,
-    and are refused."""
+    """A checkpoint -> the port's state_dict: a reference (or the port's
+    own) ``.pth.tar``, or the JAX package's ``.ckpt``: a msgpack file
+    (checkpoint/msgpack.py, without flax) or an Orbax directory
+    (checkpoint/orbax_backend.py, without orbax; its params only)."""
     from lirec_tpu_torch.checkpoint import (
         load_jax_checkpoint, load_torch_checkpoint,
     )
 
-    if os.path.isdir(path):
-        raise ValueError(
-            "%r is an Orbax checkpoint directory of the JAX package; "
-            "lirec_tpu_torch reads .pth.tar and msgpack .ckpt files" % path)
-    if path.endswith(CHECKPOINT_SUFFIXES):
+    if not os.path.isdir(path) and path.endswith(CHECKPOINT_SUFFIXES):
         state, _ = load_torch_checkpoint(path)
         return state
     state, _, _ = load_jax_checkpoint(path)

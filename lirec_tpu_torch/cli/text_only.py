@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import argparse
 
-from lirec_tpu_torch.cli.common import load_checkpoint
+from lirec_tpu_torch.cli.serve import load_checkpoint_state
 from lirec_tpu_torch.data.text_dataset import TextOnlyDataset, preset_text_only
 from lirec_tpu_torch.evaluation.runner import evaluate
 from lirec_tpu_torch.models.factory import create_model
@@ -77,7 +77,8 @@ def main(argv=None):
         results["train"] = {"losses": out["losses"]}
     else:
         if args.resume_path:
-            bundle.model.load_state_dict(load_checkpoint(args.resume_path))
+            bundle.model.load_state_dict(load_checkpoint_state(
+                args.resume_path))
         results["val"] = evaluate(
             val_ds, bundle, bundle.model, cfg, mode="val", verbose=verbose
         )

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -196,3 +196,118 @@ def rng_selftest(
         choice_pop, choice_k, ch,
     )
     return raw[:n_raw], ints[:n_int], ch[:choice_k]
+
+
+# ------------------------------------------------ zstd, CRC-32C and XXH64
+
+# the modes zstd_counts() reports, in the order of zstd.cpp's counters
+ZSTD_COUNTS = (
+    "block_raw", "block_rle", "block_compressed",
+    "literals_raw", "literals_rle", "literals_compressed",
+    "literals_treeless", "literals_1_stream", "literals_4_streams",
+    "huffman_weights_fse", "huffman_weights_direct",
+    "sequences_predefined", "sequences_rle", "sequences_fse",
+    "sequences_repeat", "repeat_offsets", "skippable_frames", "frames",
+    "checksums", "sequences_none",
+)
+
+_zstd_lib = None
+
+
+def _load_zstd():
+    """The zstd library, built at first use. There is no fallback: an
+    Orbax checkpoint cannot be read or written without it."""
+    global _zstd_lib
+    if _zstd_lib is None:
+        from lirec_tpu_torch.native.build import build_zstd
+
+        lib = ctypes.CDLL(build_zstd())
+        i64, vp, cp = ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p
+        lib.zstd_decompress.argtypes = [vp, i64, vp, i64, cp, i64]
+        lib.zstd_decompress.restype = i64
+        lib.zstd_content_size.argtypes = [vp, i64, cp, i64]
+        lib.zstd_content_size.restype = i64
+        lib.zstd_raw_bound.argtypes = [i64]
+        lib.zstd_raw_bound.restype = i64
+        lib.zstd_write_raw.argtypes = [vp, i64, vp]
+        lib.zstd_write_raw.restype = i64
+        lib.crc32c.argtypes = [vp, i64, ctypes.c_uint32]
+        lib.crc32c.restype = ctypes.c_uint32
+        lib.xxh64.argtypes = [vp, i64, ctypes.c_uint64]
+        lib.xxh64.restype = ctypes.c_uint64
+        lib.zstd_counts.argtypes = [vp]
+        lib.zstd_reset_counts.argtypes = []
+        _zstd_lib = lib
+    return _zstd_lib
+
+
+def _bytes_view(data) -> np.ndarray:
+    """A uint8 view of bytes / bytearray / memoryview / numpy data (no
+    copy where the data is contiguous)."""
+    if isinstance(data, np.ndarray):
+        return np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+    return np.frombuffer(data, np.uint8)
+
+
+def zstd_content_size(frame) -> Optional[int]:
+    """The content size the frames' headers state, or None where one does
+    not state it."""
+    src = _bytes_view(frame)
+    err = ctypes.create_string_buffer(256)
+    n = _load_zstd().zstd_content_size(src.ctypes.data, src.size, err, 256)
+    if n == -1:
+        raise ValueError(err.value.decode())
+    return None if n == -2 else int(n)
+
+
+def zstd_decompress(frame, size: Optional[int] = None,
+                    out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Decode the zstd frames in `frame` into `out` (a uint8 array, or a
+    new one of `size` bytes, or of the size the headers state) and return
+    the bytes written as a uint8 array. A malformed frame, or content that
+    does not fit, raises ValueError with its byte offset."""
+    src = _bytes_view(frame)
+    if out is None:
+        if size is None:
+            size = zstd_content_size(src)
+            if size is None:
+                raise ValueError("zstd: the frame does not state its content "
+                                 "size; pass size")
+        out = np.empty(size, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    n = _load_zstd().zstd_decompress(src.ctypes.data, src.size,
+                                     out.ctypes.data, out.size, err, 256)
+    if n < 0:
+        raise ValueError(err.value.decode())
+    return out[:n]
+
+
+def zstd_frame(data) -> bytes:
+    """A zstd frame of raw blocks (no compression) holding `data`."""
+    src = _bytes_view(data)
+    lib = _load_zstd()
+    dst = np.empty(lib.zstd_raw_bound(src.size), np.uint8)
+    n = lib.zstd_write_raw(src.ctypes.data, src.size, dst.ctypes.data)
+    return dst[:n].tobytes()
+
+
+def crc32c(data, crc: int = 0) -> int:
+    src = _bytes_view(data)
+    return int(_load_zstd().crc32c(src.ctypes.data, src.size, crc))
+
+
+def xxh64(data, seed: int = 0) -> int:
+    src = _bytes_view(data)
+    return int(_load_zstd().xxh64(src.ctypes.data, src.size, seed))
+
+
+def zstd_counts() -> Dict[str, int]:
+    """How often the decoder met each mode (ZSTD_COUNTS) since the last
+    zstd_reset_counts()."""
+    counts = np.zeros(len(ZSTD_COUNTS), np.int64)
+    _load_zstd().zstd_counts(counts.ctypes.data)
+    return dict(zip(ZSTD_COUNTS, counts.tolist()))
+
+
+def zstd_reset_counts() -> None:
+    _load_zstd().zstd_reset_counts()

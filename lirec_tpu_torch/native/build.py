@@ -13,6 +13,8 @@ SRC = ops.join(ops.dirname(__file__), "ingest.cpp")
 LIB = ops.join(_OUT, "libingest.so")
 ASM_SRC = ops.join(ops.dirname(__file__), "assembly.cpp")
 ASM_LIB = ops.join(_OUT, "libassembly.so")
+ZSTD_SRC = ops.join(ops.dirname(__file__), "zstd.cpp")
+ZSTD_LIB = ops.join(_OUT, "libzstd_port.so")
 
 
 def _build_one(src: str, lib: str, force: bool) -> str:
@@ -43,7 +45,12 @@ def build_assembly(force: bool = False) -> str:
     return _build_one(ASM_SRC, ASM_LIB, force)
 
 
+def build_zstd(force: bool = False) -> str:
+    return _build_one(ZSTD_SRC, ZSTD_LIB, force)
+
+
 if __name__ == "__main__":
     force = "--force" in sys.argv
     print("built", build(force=force))
     print("built", build_assembly(force=force))
+    print("built", build_zstd(force=force))

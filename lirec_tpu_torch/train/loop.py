@@ -44,7 +44,10 @@ with ``save_model_often``), ``latest.pth.tar`` every ``checkpoint_every``
 epochs, and ``<epochs-1>.pth.tar`` at the end, each a ``torch.save`` of
 ``{'epoch', 'state_dict', 'optimizer'}``; with ``checkpoint_backend=
 "msgpack"`` the JAX package's files instead (``latest.ckpt``,
-``<epochs-1>.ckpt``, best-n ``v%.4f_ep%d.ckpt`` params files).
+``<epochs-1>.ckpt``, best-n ``v%.4f_ep%d.ckpt`` params files), and with
+``"orbax"`` ``latest.ckpt`` and ``<epochs-1>.ckpt`` as the JAX package's
+Orbax directories (the best-n files msgpack, as the JAX package writes
+them).
 
 With a ``mesh`` (parallel/mesh.py: a D x M grid of processes, one per
 card, every process running train() on the same datasets), every process
@@ -258,7 +261,8 @@ def train(
     the cadence sweep's ``localize_ctx``. `mesh`: a parallel/mesh.Mesh2D
     or a (data, model) shape over this process group (a model axis above
     1 shards ``bundle.model`` and `optimizer` in place). `checkpoint_backend`:
-    'torch' (.pth.tar) or 'msgpack' (the JAX package's .ckpt files).
+    'torch' (.pth.tar), 'msgpack' (the JAX package's .ckpt files) or
+    'orbax' (its Orbax .ckpt directories).
     `assembly_workers`: the epoch iterator's worker processes (0: in this
     process); `dense`: train on dense batches, without tables.
     `epoch_sweep`: the epoch sweep (None: unless `dense`; False: one step

@@ -6,12 +6,12 @@ tests/test_torch_dist_cli.py), --profile and --assembly-workers are
 accepted (what they do: tests/test_torch_profiling.py,
 tests/test_torch_assembly_pool.py and the training CLI case below), so is
 --ingest-cache (what it does: tests/test_torch_ingest.py), and
---auto-resume refuses a
-store root whose only train state is the JAX package's Orbax latest.ckpt
-instead of starting over beside it (its msgpack latest.ckpt resumes:
-tests/test_torch_jax_checkpoints.py).
+--auto-resume resumes a store root whose only train state is the JAX
+training CLI's Orbax latest.ckpt, with its weights and Adam state (its
+msgpack latest.ckpt: tests/test_torch_jax_checkpoints.py).
 """
 
+import copy
 import os
 
 import numpy as np
@@ -20,6 +20,7 @@ import torch
 
 from lirec_tpu_torch.cli import common
 from lirec_tpu_torch.cli import train as train_cli
+from tests.jax_cache_guard import isolated_xla_cache  # noqa: F401
 
 DIM_ARGS = ["--text-dim", "16", "--visual-dim", "32", "--text-layers", "4",
             "--joint-dim", "16", "--compute-dtype", "float32"]
@@ -62,34 +63,84 @@ def test_jax_flags_parse(preset, flag, value, item):
 
 @pytest.mark.parametrize("flag,value,item", JAX_FLAGS)
 def test_jax_flags_accepted_or_refused_by_name(tmp_path, flag, value, item):
-    """The PRNG flags pass the refusal (the port has one dropout stream),
-    and so do --profile, --assembly-workers, --coordinator and --process-id
-    without --num-processes, and --ingest-cache. The JAX defaults ("", "",
-    -1) given explicitly are not refused."""
+    """The PRNG flags pass the entry's checks before any data is read
+    (the port has one dropout stream), and so do --profile,
+    --assembly-workers, --coordinator and --process-id without
+    --num-processes, and --ingest-cache: one process, no mesh. The JAX
+    defaults ("", "", -1) given explicitly are not refused. (No flag is
+    refused any more: the last refusal, Orbax checkpoints, went when the
+    port came to read and write them.)"""
     assert item is None
     base = ["--data-root", str(tmp_path / "no_data"), "--train"]
     parser = common.build_parser("int_rel_ch")
-    common._refuse_unported(parser.parse_args(base + _argv(flag, value)))
+    assert common.mesh_shape(parser.parse_args(base + _argv(flag, value)),
+                             "int_rel_ch") is None
     defaults = base + ["--profile", "", "--coordinator", "",
                        "--process-id", "-1"]
-    common._refuse_unported(parser.parse_args(defaults))
+    assert common.mesh_shape(parser.parse_args(defaults),
+                             "int_rel_ch") is None
 
 
 @pytest.mark.parametrize("as_dir", [True])
-def test_auto_resume_refuses_a_jax_latest_ckpt(tmp_path, as_dir):
-    """A store root with the JAX package's latest.ckpt as an Orbax
-    directory and no latest.pth.tar: --auto-resume exits naming the file
-    and why Orbax is not read (its zstd compression), before any data is
-    read."""
+def test_auto_resume_refuses_a_jax_latest_ckpt(synth_root, tmp_path,
+                                               monkeypatch, as_dir):
+    """A store root whose only train state is the latest.ckpt the JAX
+    training CLI wrote under --checkpoint-backend orbax (a directory, epoch
+    0): --auto-resume in the port starts at epoch 1 with the JAX run's
+    weights and Adam state (as orbax itself restores them, mapped by
+    params_from_jax / opt_state_from_jax), bit for bit, and trains on.
+    (The name is from when the port refused the directory.)"""
+    import shutil
+
+    import jax
+    import orbax.checkpoint as ocp
+
+    from lirec_tpu.cli import train as jax_train_cli
+    from lirec_tpu_torch.checkpoint import (
+        opt_state_from_jax, params_from_jax,
+    )
+    from lirec_tpu_torch.train import loop
+
     store = tmp_path / "store"
-    store.mkdir()
+    argv = ["modalities", "--data-root", synth_root, "--store-root",
+            str(store), "--batch-size", "8", "--lr", "1e-3", "--quiet"]
+    jax_train_cli.main(argv + ["--epochs", "1", "--checkpoint-every", "1",
+                               "--checkpoint-backend", "orbax"] + DIM_ARGS)
     latest = store / "latest.ckpt"
-    latest.mkdir()
-    argv = ["--data-root", str(tmp_path / "no_data"), "--store-root",
-            str(store), "--auto-resume", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="latest.ckpt") as err:
-        train_cli.main(argv)
-    assert "Orbax" in str(err.value) and "zstd" in str(err.value)
+    assert latest.is_dir() == as_dir
+    for name in os.listdir(store):  # latest.ckpt alone is left
+        if name != "latest.ckpt":
+            path = store / name
+            shutil.rmtree(path) if path.is_dir() else path.unlink()
+    tree = jax.tree.map(np.asarray,
+                        ocp.PyTreeCheckpointer().restore(str(latest)))
+    assert tree["epoch"] == 0
+    seen = {}
+    orig = loop.train
+
+    def spy(cfg, bundle, *args, optimizer=None, **kw):
+        seen["state"] = {k: v.clone()
+                         for k, v in bundle.model.state_dict().items()}
+        seen["adam"] = copy.deepcopy(optimizer.state_dict())
+        seen["model"], seen["optimizer"] = bundle.model, optimizer
+        return orig(cfg, bundle, *args, optimizer=optimizer, **kw)
+
+    monkeypatch.setattr(loop, "train", spy)
+    out = train_cli.main(argv + ["--device", "cpu", "--epochs", "2",
+                                 "--auto-resume"] + DIM_ARGS)
+    assert out["train"]["start_epoch"] == 1
+    assert len(out["train"]["losses"]) == 1
+    assert np.isfinite(out["train"]["losses"][0])
+    want = params_from_jax(tree["params"])
+    assert set(seen["state"]) == set(want)
+    for k, v in want.items():
+        assert torch.equal(seen["state"][k], v), k
+    want_adam = opt_state_from_jax(tree["opt_state"], seen["model"],
+                                   seen["optimizer"])
+    assert float(want_adam["state"][0]["step"]) > 0
+    for i, w in want_adam["state"].items():
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(seen["adam"]["state"][i][k], w[k]), (i, k)
 
 
 def test_auto_resume_takes_latest_pth_tar(synth_root, tmp_path):

@@ -85,8 +85,20 @@ def test_clean_state_dict_rejects_unknown_entries():
 
 
 def test_serve_reads_only_pth_checkpoints(tmp_path):
-    """Serving reads .pth.tar files and the JAX package's msgpack .ckpt
-    files (tests/test_torch_jax_checkpoints.py); an Orbax checkpoint
-    directory is refused, naming the formats it reads."""
-    with pytest.raises(ValueError, match=".pth.tar"):
+    """Serving reads .pth.tar files, the JAX package's msgpack .ckpt files
+    (tests/test_torch_jax_checkpoints.py) and its Orbax checkpoint
+    directories: a JAX orbax_backend.save of params gives their weights bit
+    for bit. A directory without Orbax's _METADATA is refused, saying so.
+    (The name is from when Orbax directories were refused.)"""
+    from lirec_tpu.checkpoint import orbax_backend as jax_orbax
+
+    with pytest.raises(ValueError, match="not an Orbax checkpoint"):
         load_checkpoint_state(str(tmp_path))
+    params = jax_create_model(_cfg(), 9, n_rels=6).params
+    path = str(tmp_path / "3.ckpt")
+    jax_orbax.save(path, params, epoch=3)
+    got = load_checkpoint_state(path)
+    want = params_from_jax(jax.tree.map(np.asarray, params))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k

@@ -117,6 +117,46 @@ def test_mesh_2x1_on_the_cpu_trains_as_one_process(single, pinned_root,
         store, "2.ckpt" if backend == "msgpack" else "2.pth.tar")
 
 
+def test_mesh_2x1_orbax_backend_rank_0_writes(single, pinned_root,
+                                               tmp_path, cluster_limit):
+    """--mesh 2x1 --checkpoint-backend orbax --device cpu: rank 0 alone
+    writes latest.ckpt and 2.ckpt as Orbax directories (one data file each,
+    no temporary of another writer left) beside the best-n msgpack files of
+    the single-process msgpack run, with its losses and best-n metrics;
+    the final directory holds its weights and Adam step."""
+    from lirec_tpu_torch.checkpoint import load_jax_checkpoint
+
+    store = str(tmp_path / "store")
+    got = train_cli.main(_train_args(pinned_root, store, "orbax")
+                         + ["--device", "cpu", "--quiet", "--mesh", "2x1"])
+    want, want_store = single["msgpack"]
+    np.testing.assert_allclose(got["train"]["losses"], want["losses"],
+                               rtol=1e-5)
+    assert sorted(os.listdir(store)) == sorted(os.listdir(want_store))
+    dirs = ("latest.ckpt", "2.ckpt")
+    for name in dirs:
+        path = os.path.join(store, name)
+        assert os.path.isdir(path) and len(os.listdir(
+            os.path.join(path, "d"))) == 1
+    assert [f for f in _files(store) if not f.startswith(dirs)] == [
+        f for f in _files(want_store) if not f.startswith(dirs)]
+    with open(os.path.join(store, "index.json")) as f:
+        got_index = json.load(f)
+    with open(os.path.join(want_store, "index.json")) as f:
+        want_index = json.load(f)
+    for key, epochs in want_index.items():
+        for epoch, v in epochs.items():
+            np.testing.assert_allclose(got_index[key][epoch], v, rtol=1e-6,
+                                       atol=1e-9, err_msg=key)
+    state, _, epoch = load_jax_checkpoint(os.path.join(store, "2.ckpt"))
+    want_state, _, _ = load_jax_checkpoint(os.path.join(want_store,
+                                                        "2.ckpt"))
+    assert epoch == 2 and set(state) == set(want_state)
+    for k, v in want_state.items():
+        np.testing.assert_allclose(state[k].numpy(), v.numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
 @pytest.mark.parametrize("mesh", ["1x2", "2x2"])
 def test_mesh_with_a_model_axis_trains_as_one_process(single, pinned_root,
                                                       tmp_path, mesh,

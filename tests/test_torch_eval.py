@@ -358,8 +358,9 @@ def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
     --coordinator refuse with the JAX package's messages (--mesh 2x1 runs:
     tests/test_torch_dist_cli.py); --assembly-workers, which only the
     training batches use, and --ingest-cache (written, then loaded) leave
-    the metrics as they are; --checkpoint-backend orbax and an Orbax
-    checkpoint directory refuse to run."""
+    the metrics as they are, and so does --checkpoint-backend orbax (a
+    train-state format); the same weights in an Orbax checkpoint
+    directory the JAX package wrote give the same metrics."""
     from lirec_tpu_torch.cli import common, int_rel_ch
 
     ckpt = tmp_path / "weights.pth.tar"
@@ -386,22 +387,26 @@ def test_int_rel_ch_cli_on_the_cpu(synth_root, tmp_path):
                                        atol=1e-7, err_msg=key)
     for extra, match in ((["--mesh", "2x1", "--host-eval"],
                           "drop --host-eval"),
-                         (["--num-processes", "2"], "needs --coordinator"),
-                         (["--checkpoint-backend", "orbax"], "orbax")):
+                         (["--num-processes", "2"], "needs --coordinator")):
         with pytest.raises(SystemExit, match=match):
             int_rel_ch.main(args + extra)
     assert int_rel_ch.main(args + ["--assembly-workers", "2"]) == out
+    assert int_rel_ch.main(args + ["--checkpoint-backend", "orbax"]) == out
     # an ingest artifact, written by the first run and loaded by the second
     art = str(tmp_path / "ingest.npz")
     for _ in range(2):
         assert int_rel_ch.main(args + ["--ingest-cache", art]) == out
     assert os.path.exists(art)
-    bad = list(args)
-    orbax = tmp_path / "2.ckpt"
-    orbax.mkdir()  # the JAX package's Orbax checkpoints are directories
-    bad[bad.index(str(ckpt))] = str(orbax)
-    with pytest.raises(SystemExit, match="Orbax"):
-        int_rel_ch.main(bad)
+    from lirec_tpu.checkpoint import orbax_backend as jax_orbax
+    from lirec_tpu_torch.checkpoint import params_to_jax
+
+    orbax = tmp_path / "2.ckpt"  # the JAX package's Orbax directory
+    jax_orbax.save(str(orbax), jax.tree.map(
+        jax.numpy.asarray, params_to_jax(model.state_dict())), epoch=2)
+    assert orbax.is_dir()
+    from_orbax = list(args)
+    from_orbax[from_orbax.index(str(ckpt))] = str(orbax)
+    assert int_rel_ch.main(from_orbax) == out
 
 
 # ------------------------------------------- rels-only eval and details

@@ -1,8 +1,10 @@
-"""lirec_tpu_torch never imports jax, flax, optax or msgpack, nor anything
-of the JAX package lirec_tpu or of the repo-root tools/ directory (the TPU
-probes), not even transitively or at run time (its target
-machine has no jax; the port carries its own copy of the host tier and its
-own msgpack decoder and encoder); neither do the rank processes that
+"""lirec_tpu_torch never imports jax, flax, optax or msgpack, nor orbax,
+tensorstore, zstandard or ml_dtypes, nor anything of the JAX package
+lirec_tpu or of the repo-root tools/ directory (the TPU probes), not even
+transitively or at run time (its target machine has none of them; the
+port carries its own copy of the host tier, its own msgpack decoder and
+encoder, and its own Orbax reader and writer with a zstd decoder built
+from native/zstd.cpp); neither do the rank processes that
 parallel/dist.spawn starts, nor the rank functions of the two-rank tests
 (tests/torch_dist_worker.py); and
 chip_smoke.py refuses to run without a CUDA card or without the repository
@@ -33,7 +35,7 @@ import chip_smoke  # noqa: F401
 import tests.torch_dist_worker  # noqa: F401
 bad = sorted(m for m in sys.modules if m.split(".")[0]
              in ("jax", "jaxlib", "flax", "optax", "msgpack", "lirec_tpu",
-                 "tools"))
+                 "tools", "orbax", "tensorstore", "zstandard", "ml_dtypes"))
 print(len(names), "modules")
 print("BAD", bad)
 """
@@ -45,7 +47,8 @@ import importlib.abc, sys
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "msgpack", "lirec_tpu", "tools"):
+                                  "msgpack", "lirec_tpu", "tools", "orbax",
+                                  "tensorstore", "zstandard", "ml_dtypes"):
             raise ImportError("blocked: " + name)
         return None
 
@@ -120,6 +123,23 @@ probe_hbm_dma.measure("cpu", n_clips=64, n_tracks=96, m=8)
 probe_bf16_pack.measure("cpu", {"probe": probe_bf16_pack.SHAPES["probe"]})
 print("TRAIN_CLI", out["train"]["losses"])
 
+# the Orbax checkpoints: written by the training CLI, resumed, evaluated
+orbax_store = os.path.join(root, "orbax_store")
+orbax_args = ["--data-root", root, "--store-root", orbax_store,
+              "--batch-size", "8", "--device", "cpu", "--quiet",
+              "--sanity-check", "--checkpoint-every", "1",
+              "--checkpoint-backend", "orbax"] + dims
+train_cli.main(orbax_args + ["--epochs", "1"])
+assert os.path.isdir(os.path.join(orbax_store, "latest.ckpt"))
+resumed = train_cli.main(orbax_args + ["--epochs", "2", "--auto-resume"])
+assert resumed["train"]["start_epoch"] == 1, resumed["train"]
+metrics = int_rel_ch.main(["--data-root", root, "--resume-path",
+                           os.path.join(orbax_store, "1.ckpt"),
+                           "--batch-size", "8", "--device", "cpu",
+                           "--quiet", "--sanity-check"] + dims)
+assert all(math.isfinite(v) for m in metrics.values() for v in m.values())
+print("ORBAX", sorted(metrics))
+
 # the text-only CLI: one epoch, then the eval of the JAX package's .ckpt
 from lirec_tpu_torch.checkpoint import load_jax_checkpoint
 from lirec_tpu_torch.cli import text_only
@@ -191,7 +211,9 @@ def test_train_runs_with_jax_blocked(tmp_path):
     cadence evaluation and checkpoints, the two probes on the CPU (the
     run-time paths: assembly plan, Localizer, native libraries, eval
     localisation, the sweep, the saver), and the text-only CLI's training
-    and its eval of a .ckpt that the JAX package wrote."""
+    and its eval of a .ckpt that the JAX package wrote, and the training
+    CLI under --checkpoint-backend orbax, its --auto-resume from the Orbax
+    latest.ckpt and the eval CLI on its final Orbax directory."""
     from lirec_tpu_torch.data import synthetic
 
     text_root = str(tmp_path / "text")
@@ -206,6 +228,7 @@ def test_train_runs_with_jax_blocked(tmp_path):
     assert "LOSSES [" in proc.stdout, proc.stdout
     assert "ENGINE" in proc.stdout and "CLI ['test', 'val']" in proc.stdout
     assert "TRAIN_CLI [" in proc.stdout, proc.stdout
+    assert "ORBAX ['test', 'val']" in proc.stdout, proc.stdout
     assert "TEXT_ONLY ['test', 'val']" in proc.stdout, proc.stdout
     assert "RANKS [[], []]" in proc.stdout, proc.stdout
     assert "POOL 1 ([], '')" in proc.stdout, proc.stdout
@@ -222,8 +245,9 @@ def _imported_modules(path):
 
 
 def test_port_source_names_no_jax_package_import():
-    """No `import lirec_tpu...` / `from lirec_tpu... import` (nor of jax
-    or the repo-root tools/) anywhere in the port (parallel/ included), in
+    """No `import lirec_tpu...` / `from lirec_tpu... import` (nor of jax,
+    orbax, tensorstore, zstandard, ml_dtypes or the repo-root tools/)
+    anywhere in the port (parallel/ included), in
     chip_smoke.py or in the two-rank tests' rank functions, at any depth
     of the code."""
     paths = [os.path.join(ROOT, "chip_smoke.py"),
@@ -234,7 +258,8 @@ def test_port_source_names_no_jax_package_import():
     bad = [(os.path.relpath(p, ROOT), m) for p in paths
            for m in _imported_modules(p)
            if m.split(".")[0] in ("lirec_tpu", "jax", "jaxlib", "flax",
-                                  "optax", "msgpack", "tools")]
+                                  "optax", "msgpack", "tools", "orbax",
+                                  "tensorstore", "zstandard", "ml_dtypes")]
     assert bad == []
 
 

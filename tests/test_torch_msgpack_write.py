@@ -39,6 +39,7 @@ from lirec_tpu_torch.models.factory import create_model
 from lirec_tpu_torch.train.loop import make_train_step, step_generators
 from lirec_tpu_torch.train.optim import make_optimizer
 from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
+from tests.jax_cache_guard import isolated_xla_cache  # noqa: F401
 
 DIM_ARGS = ["--text-dim", "16", "--visual-dim", "32", "--text-layers", "4",
             "--joint-dim", "16", "--compute-dtype", "float32"]
@@ -374,10 +375,46 @@ def test_training_cli_writes_msgpack_and_auto_resumes_from_it(synth_root,
         assert msgpack_restore(f.read())["epoch"] == 1
 
 
-def test_orbax_backend_stays_refused_by_name(tmp_path):
-    """--checkpoint-backend orbax is refused before any data is read, and
-    the message names the zstd reason."""
-    with pytest.raises(SystemExit, match="zstd") as err:
-        train_cli.main(["--data-root", str(tmp_path / "none"),
-                        "--checkpoint-backend", "orbax", "--device", "cpu"])
-    assert "Orbax" in str(err.value)
+def test_orbax_backend_stays_refused_by_name(synth_root, tmp_path):
+    """--checkpoint-backend orbax: the port's training CLI writes
+    latest.ckpt and the final 0.ckpt as Orbax directories and the best-n
+    files as msgpack save_params files (as the JAX package does); the JAX
+    package's eval CLI reads the final directory and gives the metrics the
+    port's eval CLI gives on it (rtol 2e-6), and the JAX
+    load_train_state_any reads its epoch and Adam step. (The name is from
+    when the backend was refused.)"""
+    from lirec_tpu.checkpoint import load_train_state_any
+    from lirec_tpu.cli import common as jax_common
+    from lirec_tpu_torch.cli import common as port_common
+
+    store = tmp_path / "store"
+    dims = ["--data-root", synth_root, "--batch-size", "8", "--quiet",
+            "--sanity-check"] + DIM_ARGS
+    first = train_cli.main(["modalities", "--store-root", str(store),
+                            "--device", "cpu", "--lr", "1e-3", "--epochs",
+                            "1", "--checkpoint-backend", "orbax",
+                            "--checkpoint-every", "1"] + dims)
+    final = store / "0.ckpt"
+    assert first["train"]["final_path"] == str(final)
+    assert final.is_dir() and (store / "latest.ckpt").is_dir()
+    best = [store / "total" / f for f in os.listdir(store / "total")]
+    assert best and all(f.suffix == ".ckpt" and f.is_file() for f in best)
+    with open(best[0], "rb") as f:
+        assert set(msgpack_restore(f.read())) == {"params", "extra"}
+    args = dims + ["--resume-path", str(final)]
+    want = jax_common.run_entry("modalities", args)
+    got = port_common.run_entry("modalities", args + ["--device", "cpu"])
+    for split in ("val", "test"):
+        assert set(got[split]) == set(want[split])
+        for key, v in want[split].items():
+            np.testing.assert_allclose(got[split][key], v, rtol=2e-6,
+                                       atol=1e-7, err_msg=key)
+    cfg = jax_common.config_from_args("modalities", jax_common.build_parser(
+        "modalities").parse_args(args))
+    train_ds, _, _ = jax_common.build_datasets(cfg, "modalities")
+    jb = jax_create_model(cfg, train_ds.n_classes)
+    tx = jax_make_optimizer(cfg.optim.lr, cfg.optim.weight_decay)
+    _, opt_state, epoch = load_train_state_any(str(final), jb.params,
+                                               tx.init(jb.params))
+    assert epoch == 0
+    assert [int(s.count) for s in opt_state if hasattr(s, "mu")][0] > 0
