@@ -235,6 +235,30 @@
    backends, bitwise, printing the seconds, the MB on disk, the decoder's
    MB/s on the largest chunk and on a committed level-1 frame, beside the
    card's name and power limit; printed as ``orbax``.
+23. The grounding configurations at published widths (counted runs):
+   (a) GT int_rel_ch (``tr_correct=True``) on phase 7's 10 localized
+   batches, bf16 and f32: the first step's gradients with kernel 6
+   against the plain scatter, the epoch sweep's CUDA graph (kernel 6 once
+   a step) bitwise the per-batch path, ms/step graph and eager in turns,
+   and the GT model's cadence sweep of phase 9's split (kernels 1-2,
+   ``name@gt``); (b) int_ch, weak and GT: /predict at B = 1, 7 and 64
+   from engines built by the serve CLI's ``build_engine_from_args`` on
+   seeded checkpoints (best tracks equal to the plain dense forward's),
+   phase 9's split in int_ch's layout through the eval sweep as a graph
+   and eagerly in turns (every counter equal), phase 7's batches in
+   int_ch's layout through the epoch sweep's graph bitwise the per-batch
+   path, bf16 and f32, with no kernel launched anywhere; (c) the int_ch
+   eval CLI without and with ``--tr-correct`` on seeded msgpack
+   checkpoints, its metrics equal to the in-process sweep's, and the
+   training CLI for int_ch and int_rel_ch under ``--tr-correct``: 2
+   epochs, one cadence eval, a train state, one resumed epoch; (d)
+   kernels 1-2, 4 and 5 at M = 64 and R = 2,048, 2,049 and 4,096 (past
+   the 2,048-entry chunk) against their plain versions, kernel 4 bitwise
+   kernel 1 and kernel 5 bitwise the r-ordered loop, each timed beside
+   ``embedding_bag`` and its bound (``long_context``), and phase 14's
+   stand-in with two more pairs of 2,100 and 4,096 clips: the rels-only
+   eval runs its 4,096 bucket on kernels 1-2 (``name@ctx4096``), its
+   metrics equal to the plain pool's. Printed as ``grounding``.
 
 Phase 3 also holds the triple-tier pool (kernel 4) against its plain
 version and bit for bit against the 3-table kernel on a structured
@@ -269,8 +293,11 @@ entries give phase 19's launches from graph replays (kernels 1-2 and 6,
 with their main entries' numbers), and ``@int_rels_graph`` kernel 8's at
 phase 19(d)'s B = 8 (held and timed on that sweep's first scatter call);
 ``@mesh_graph`` entries give the scatter's launches from phase 16(a)'s
-graph replays of the mesh step, and ``@orbax`` kernels 1-2's from phase
-22(c)'s eval CLI on an Orbax directory.
+graph replays of the mesh step, ``@orbax`` kernels 1-2's from phase
+22(c)'s eval CLI on an Orbax directory, ``@gt`` kernels 1-2's and 6's
+from phase 23(a)'s GT int_rel_ch runs, and ``@ctx4096`` the pools at
+M = 64, R = 4,096 (kernels 1-2: the launches of the 4,096 bucket of
+phase 23(d)'s rels-only eval; kernels 4-5: none).
 
 Every synthetic fixture is written in a child process under a fixed
 string-hash seed (``write_fixture``), so that two runs train on the same
@@ -2161,9 +2188,11 @@ class RelsStandIn:
     ``evaluate_rels_only`` reads a dataset in ``test_rels_multi_clip``
     mode: for every bucket (2 .. 64 clips), B + RELS_TAIL items with L in
     (bucket / 2, bucket] clips of random rows, so that each bucket
-    flushes once full and once with fewer rows; shuffled."""
+    flushes once full and once with fewer rows, and one more item for
+    each clip count in `extra` (phase 23(d)'s pairs past 2,048 clips);
+    shuffled."""
 
-    def __init__(self, spec, tables, seed=14):
+    def __init__(self, spec, tables, seed=14, extra=()):
         import numpy as np
 
         rng = np.random.default_rng(seed)
@@ -2171,17 +2200,22 @@ class RelsStandIn:
         self.test_rels_multi_clip = False
         self.tables = types.SimpleNamespace(as_dict=lambda: tables)
         self.items = []
+
+        def item(L):
+            fi = np.stack([rng.integers(0, N_CLIPS, L + 1),
+                           rng.integers(0, N_TRACKS, L + 1),
+                           rng.integers(0, N_TRACKS, L + 1)],
+                          axis=-1).astype(np.int32)
+            mask = (rng.random((L, 1)) < 0.9).astype(np.int32)
+            mask[0] = 1
+            return {"feat_idx": fi, "rels_mask": mask,
+                    "rels_label": int(rng.integers(0, 15))}
+
         for p in RELS_BUCKETS:
             for L in rng.integers(max(1, p // 2 + 1), p + 1,
                                   EVAL_B + RELS_TAIL):
-                fi = np.stack([rng.integers(0, N_CLIPS, L + 1),
-                               rng.integers(0, N_TRACKS, L + 1),
-                               rng.integers(0, N_TRACKS, L + 1)],
-                              axis=-1).astype(np.int32)
-                mask = (rng.random((L, 1)) < 0.9).astype(np.int32)
-                mask[0] = 1
-                self.items.append({"feat_idx": fi, "rels_mask": mask,
-                                   "rels_label": int(rng.integers(0, 15))})
+                self.items.append(item(L))
+        self.items += [item(L) for L in extra]
         rng.shuffle(self.items)
 
     def __len__(self):
@@ -4452,6 +4486,717 @@ def orbax_phase(torch, local):
     return launched, pool, out
 
 
+# ------------------------------------- phase 23: the grounding configurations
+
+
+# (a)-(b): epochs of the graph sweep and of the per-batch eager steps in turns
+GROUNDING_TURNS = ("eager", "graph", "graph", "eager")
+LONG_CONTEXT = (2048, 2049, 4096)  # (d): R around and past the chunk
+LONG_PAIRS = (2100, 4096)  # (d): the rels-only stand-in's two long pairs
+# (b): how far apart the plain forward's two best track scores must be for
+# the served best track to equal its own (bf16 compute: the served and the
+# plain forward round their GEMMs' inputs at other points, 2e-3 of a logit)
+TRACK_TIE = 4e-3
+
+
+def int_ch_layout(batch):
+    """A structured batch in int_rel_ch's layout cut to int_ch's: no
+    context (feat_idx [B, T, 1, 3]) and no relationship mask."""
+    import numpy as np
+
+    out = {k: v for k, v in batch.items() if k != "rels_mask"}
+    out["feat_idx"] = np.ascontiguousarray(batch["feat_idx"][:, :, :1])
+    return out
+
+
+def params_equal(torch, a, b):
+    return all(torch.equal(p.detach(), q.detach()) for p, q in
+               zip(a.model.parameters(), b.model.parameters()))
+
+
+def sweep_and_steps(torch, label, fresh, batches, tables, expect):
+    """The epoch sweep's CUDA graph (the counted run, from a fresh seeded
+    model) against the per-batch path (from another): losses finite and
+    equal, parameters bitwise; then epochs of each in GROUNDING_TURNS on
+    the graph's model. `expect`: the launches the graph's epoch must
+    count. Returns (the graph's model, {"graph_ms_per_step", "eager_ms_per
+    _step", "capture_ms", "losses"})."""
+    import math
+
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.sweep import SEED_STRIDE, EpochSweep
+
+    bundle, opt = fresh()
+    sweep = EpochSweep(bundle, opt, tables, 0, TRAIN_B, require_graph=True)
+    torch.cuda.synchronize()
+    # ---- a counted run: one epoch of the sweep's graph
+    dispatch.reset_launches()
+    losses = sweep.fetch(sweep.run(batches, 0))
+    counted = dispatch.launches()
+    # ---- end of the counted run
+    check(counted == expect, "%s: the graph's epoch launched %s, want %s"
+          % (label, counted, expect))
+    check(dispatch.last_dispatch("train_loop")["path"] == "graph",
+          "%s: the sweep did not run as a graph" % label)
+    check(all(math.isfinite(x) for x in losses), "%s: losses %s"
+          % (label, losses))
+    eager_bundle, eager_opt = fresh()
+    step = make_train_step(eager_bundle, eager_opt)
+    eager = [float(step(b, tables, step_generators(0, i, "cuda")))
+             for i, b in enumerate(batches)]
+    check(eager == losses, "%s: per-batch losses %s, graph %s"
+          % (label, eager, losses))
+    check(params_equal(torch, bundle, eager_bundle),
+          "%s: the graph's parameters differ from the per-batch path's"
+          % label)
+    del eager_bundle, eager_opt
+    step = make_train_step(bundle, opt)
+    times = {"graph": [], "eager": []}
+    for turn, kind in enumerate(GROUNDING_TURNS):
+        epoch = turn + 1
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kind == "graph":
+            got = sweep.fetch(sweep.run(batches, epoch))
+        else:
+            got = [float(step(b, tables, step_generators(
+                0, epoch * SEED_STRIDE + i, "cuda")))
+                for i, b in enumerate(batches)]
+        times[kind].append((time.perf_counter() - t) * 1e3 / len(batches))
+        check(all(math.isfinite(x) for x in got), "%s %s losses %s"
+              % (label, kind, got))
+    return bundle, dict(graph_ms_per_step=times["graph"],
+                        eager_ms_per_step=times["eager"],
+                        capture_ms=sweep.capture_s[0] * 1e3, losses=losses)
+
+
+def gt_int_rel_ch_checks(torch, local, eval_ref, card):
+    """Phase 23 (a): GT int_rel_ch (tr_correct=True) at published widths
+    on phase 7's 10 localized batches, bf16 and f32: the first step's
+    gradients with kernel 6 against the plain scatter, the epoch sweep's
+    graph (counted: kernel 6 once a step) bitwise the per-batch path,
+    ms/step in turns, and the GT model's cadence eval, phase 9's split
+    through the eval sweep's graph (counted: kernels 1-2). Returns
+    ({kernel name: launches}, {compute: numbers})."""
+    import math
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch, scatter_accum
+    from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    cfg = config_lib.preset("int_rel_ch", tr_correct=True)
+    check(cfg.tasks.tr_correct, "the GT preset is not tr_correct")
+    counts, out = {}, {}
+    np_tables = tables = None
+    for compute in ("bfloat16", "float32"):
+        dtype = torch.bfloat16 if compute == "bfloat16" else torch.float32
+        ccfg = cfg.with_runtime(compute_dtype=compute)
+        scatter = scatter_accum.KERNEL_NAMES[dtype]
+        pool = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+
+        def fresh():
+            bundle = create_model(ccfg, 101, n_rels=15, seed=0,
+                                  device="cuda")
+            return bundle, make_optimizer(bundle.model.parameters(),
+                                          ccfg.optim.lr,
+                                          ccfg.optim.weight_decay)
+
+        bundle, _ = fresh()
+        if tables is None:
+            np_tables = make_tables(bundle.spec, N_CLIPS, N_TRACKS, seed=0)
+            tables = {k: torch.from_numpy(v).cuda()
+                      for k, v in np_tables.items()}
+        with_kernel = step_grads(torch, bundle, local[0], tables, True)
+        plain = step_grads(torch, bundle, local[0], tables, False)
+        torch.cuda.synchronize()
+        rel = 4.1e-3 if compute == "bfloat16" else 1e-5  # as phase 7
+        worst = 0.0
+        for n, g in with_kernel.items():
+            scale = float(plain[n].abs().max())
+            err = float((g - plain[n]).abs().max())
+            check(bool(torch.isfinite(g).all()) and err <= rel * scale,
+                  "GT int_rel_ch %s: grad %s differs from the plain "
+                  "scatter's by %.3e (scale %.3e)" % (compute, n, err, scale))
+            worst = max(worst, err / scale if scale else err)
+        del bundle, with_kernel, plain
+
+        bundle, numbers = sweep_and_steps(
+            torch, "GT int_rel_ch %s" % compute, fresh, local, tables,
+            {scatter: len(local)})
+        counts[scatter] = len(local)
+        ecfg = ccfg.with_optim(batch_size=EVAL_B)
+        torch.cuda.synchronize()
+        # ---- a counted run: the GT model's cadence sweep of the split
+        dispatch.reset_launches()
+        t = time.perf_counter()
+        carry = packed.sweep_carry(split_stand_in(), bundle, bundle.model,
+                                   ecfg, mode="test", data=eval_ref["split"],
+                                   tables=np_tables)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        launched = dispatch.launches()
+        # ---- end of the counted run
+        check(launched == {pool: EVAL_FULL + 1}, "GT int_rel_ch %s cadence "
+              "sweep launched %s" % (compute, launched))
+        check(dispatch.last_dispatch("eval_sweep")["path"] == "graph",
+              "GT int_rel_ch %s: the cadence sweep was not a graph"
+              % compute)
+        check(math.isfinite(float(carry["loss_sum"]))
+              and int(carry["total_cl"]) == len(eval_ref["split"]["labels"]),
+              "GT int_rel_ch %s carry %s" % (compute, carry))
+        counts[pool] = launched[pool]
+        numbers.update(grad_worst=worst, eval_s=eval_s)
+        out[compute] = numbers
+        log("  (a) GT int_rel_ch %s: step grads with kernel 6 vs the plain "
+            "scatter: worst |diff| / scale %.3e (bound %.1e); %d steps as "
+            "graph replays (%d launches of %s) bitwise the per-batch path, "
+            "losses %.4f .. %.4f; ms/step graph %s, eager %s (turns %s); "
+            "capture %.1f ms; the cadence sweep of %d samples %.3f s (%d "
+            "launches of %s) (%s)" % (
+                compute, worst, rel, len(local), counts[scatter], scatter,
+                numbers["losses"][0], numbers["losses"][-1],
+                ["%.3f" % x for x in numbers["graph_ms_per_step"]],
+                ["%.3f" % x for x in numbers["eager_ms_per_step"]],
+                ",".join(GROUNDING_TURNS), numbers["capture_ms"],
+                len(eval_ref["split"]["labels"]), eval_s, counts[pool], pool,
+                card))
+        del bundle
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def check_int_ch_predictions(preds, B, label):
+    import math
+
+    check(len(preds) == B, "%s: %d predictions for %d samples"
+          % (label, len(preds), B))
+    for p in preds:
+        check(len(p["track_scores"]) == 20 and 0 <= p["best_track"] < 20,
+              "%s: the track hypotheses" % label)
+        check("relationships" not in p, "%s: relationships" % label)
+        check(len(p["interactions"]) == TOPK, "%s: top-k" % label)
+        for it in p["interactions"] + [{"label": 0, "score": s}
+                                       for s in p["track_scores"]]:
+            check(0 <= it["label"] < 101 and math.isfinite(it["score"])
+                  and 0 <= it["score"] <= 1, "%s: %r" % (label, it))
+
+
+def int_ch_serving(torch, root, card):
+    """Phase 23 (b), serving: weak and GT int_ch engines built by the
+    serve CLI's own ``build_engine_from_args`` on seeded checkpoints of
+    the published-width fixture (bf16, the preset's compute), /predict at
+    B = 1, 7 and 64 over HTTP; every prediction checked, and its best
+    track equal to the plain forward's (the dense forward over the raw
+    tables, ``features`` [B, T, D]) wherever that forward's two best
+    track scores are TRACK_TIE apart. No kernel launches. Returns
+    {variant_B: median ms}."""
+    import numpy as np
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.cli.serve import build_engine_from_args, make_parser
+    from lirec_tpu_torch.data.dataset import InteractionDataset
+    from lirec_tpu_torch.evaluation.metrics import _sigmoid
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.utils.fake_batch import make_batch
+
+    cfg = config_lib.preset("int_ch", data_root=root).with_dims(
+        text_dim=768, visual_dim=2048, text_layers=12, joint_dim=512)
+    ds = InteractionDataset(cfg, mode="test")  # what the builder sizes by
+    ds.cache()
+    raw = {k: torch.from_numpy(np.asarray(v, np.float32)).cuda()
+           for k, v in ds.tables.as_dict().items()
+           if k in ("text", "visual", "track")}
+    latency, ties = {}, 0
+    for variant, seed in (("weak", 0), ("gt", 1)):
+        ckpt = os.path.join(root, "%s_int_ch_sum_max.pth.tar" % variant)
+        torch.save({"state_dict": create_model(
+            cfg, ds.n_classes, n_rels=0, seed=seed,
+            device="cpu").model.state_dict()}, ckpt)
+        engine = build_engine_from_args(make_parser().parse_args([
+            "--data-root", root, "--preset", "int_ch", "--resume-path",
+            ckpt, "--device", "cuda", "--topk", str(TOPK)]
+            + dim_args(PUBLISHED_DIMS)))
+        spec = engine.bundle.spec
+        check((spec.ctx, spec.tr_maximize, spec.joint_dim, engine.n_ctx)
+              == (False, True, 512, 1), "int_ch engine %s" % (spec,))
+        with counted_none(torch, "int_ch /predict"):
+            with serving(engine) as base:
+                for B in B_SIZES:
+                    batch = int_ch_layout(make_batch(
+                        spec, B, engine.n_clip_rows, engine.n_track_rows,
+                        seed=2300 + B))
+                    payload = {"samples": [{"feat_idx": f.tolist()}
+                                           for f in batch["feat_idx"]]}
+                    times = []
+                    for _ in range(1 + {1: 10, 64: 5}.get(B, 3)):
+                        t = time.perf_counter()
+                        status, res = http(base + "/predict", payload)
+                        times.append((time.perf_counter() - t) * 1e3)
+                        check(status == 200, "int_ch %s B=%d: %s %s"
+                              % (variant, B, status, res))
+                        check_int_ch_predictions(
+                            res["predictions"], B,
+                            "int_ch %s B=%d" % (variant, B))
+                    fi = torch.from_numpy(batch["feat_idx"]).cuda()
+                    with torch.inference_mode():
+                        logits = engine.bundle.apply(engine.bundle.model, {
+                            "features": dense_of(torch, raw, fi)[:, :, 0]
+                        })["inters"]
+                    s = _sigmoid(logits.float().cpu().numpy().astype(
+                        np.float64)).max(axis=-1)  # [B, T]
+                    for b, p in enumerate(res["predictions"]):
+                        top = np.sort(s[b])[::-1]
+                        if top[0] - top[1] > TRACK_TIE:
+                            check(p["best_track"] == int(s[b].argmax()),
+                                  "int_ch %s B=%d sample %d: best track %d, "
+                                  "the plain forward's %d" % (
+                                      variant, B, b, p["best_track"],
+                                      int(s[b].argmax())))
+                        else:
+                            ties += 1
+                    key = "%s_B%d" % (variant, B)
+                    latency[key] = statistics.median(times[1:])
+                    log("  (b) int_ch %s /predict B=%-2d median %.2f ms over "
+                        "%d requests, %.0f clips/s (%s)" % (
+                            variant, B, latency[key], len(times) - 1,
+                            B / latency[key] * 1e3, card))
+        del engine
+    log("  (b) every best track equal to the plain dense forward's (%d "
+        "samples within %.0e of a tie left out)" % (ties, TRACK_TIE))
+    torch.cuda.empty_cache()
+    return latency
+
+
+def int_ch_checks(torch, raw, eval_ref, root, card):
+    """Phase 23 (b): int_ch, weak and GT (tr_correct), at published widths:
+    serving (``int_ch_serving``); phase 9's split in int_ch's layout
+    through the eval sweep as a graph and eagerly in GROUNDING_TURNS, every
+    counter equal; phase 7's 10 batches in int_ch's layout through the
+    epoch sweep's graph bitwise the per-batch path, bf16 and f32. No
+    kernel launches anywhere. Returns the numbers."""
+    import math
+
+    import numpy as np
+
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.data.localize import Localizer
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    out = {"latency_ms": int_ch_serving(torch, root, card),
+           "eval": {}, "train": {}}
+    data = int_ch_layout(eval_ref["split"])
+    n = len(data["labels"])
+    np_tables = tables = None
+    for variant, tr_correct in (("weak", False), ("gt", True)):
+        cfg = config_lib.preset("int_ch", tr_correct=tr_correct)
+        for compute in ("bfloat16", "float32"):
+            ccfg = cfg.with_runtime(compute_dtype=compute)
+            label = "int_ch %s %s" % (variant, compute)
+
+            def fresh():
+                bundle = create_model(ccfg, 101, n_rels=0, seed=0,
+                                      device="cuda")
+                return bundle, make_optimizer(bundle.model.parameters(),
+                                              ccfg.optim.lr,
+                                              ccfg.optim.weight_decay)
+
+            bundle, _ = fresh()
+            spec = bundle.spec
+            if tables is None:
+                check((spec.text_dim, spec.visual_dim, spec.track_dim,
+                       spec.joint_dim, spec.ctx, spec.gates)
+                      == (768, 2048, 2048, 512, False, False),
+                      "int_ch published widths: %s" % (spec,))
+                np_tables = make_tables(spec, N_CLIPS, N_TRACKS, seed=0)
+                tables = {k: torch.from_numpy(v).cuda()
+                          for k, v in np_tables.items()}
+                localizer = Localizer(spec, N_CLIPS, N_TRACKS)
+                batches = localizer.maybe_localize(
+                    [int_ch_layout(b) for b in raw])
+            ecfg = ccfg.with_optim(batch_size=EVAL_B)
+            carries, secs = {}, {"graph": [], "eager": []}
+            with counted_none(torch, label + " eval sweep"):
+                for kind in GROUNDING_TURNS:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    carry = packed.sweep_carry(
+                        split_stand_in(), bundle, bundle.model, ecfg,
+                        mode="test", data=data, tables=np_tables,
+                        graph=kind == "graph")
+                    torch.cuda.synchronize()
+                    secs[kind].append(time.perf_counter() - t)
+                    check(dispatch.last_dispatch("eval_sweep")["path"]
+                          == kind, "%s: the sweep's loop" % label)
+                    if kind in carries:
+                        continue
+                    carries[kind] = carry
+            for key, v in carries["eager"].items():
+                check(np.array_equal(carries["graph"][key], v),
+                      "%s: graph carry %s %s, eager %s"
+                      % (label, key, carries["graph"][key], v))
+            check(int(carries["graph"]["total_cl"]) == n
+                  and math.isfinite(float(carries["graph"]["loss_sum"])),
+                  "%s carry %s" % (label, carries["graph"]))
+            rate = {k: n / statistics.median(v) for k, v in secs.items()}
+            out["eval"]["%s_%s" % (variant, compute)] = dict(
+                split_s={k: v for k, v in secs.items()}, clips_per_s=rate)
+            del bundle
+            with counted_none(torch, label + " training"):
+                _, numbers = sweep_and_steps(torch, label, fresh, batches,
+                                             tables, {})
+            out["train"]["%s_%s" % (variant, compute)] = numbers
+            log("  (b) %s: the split's %d samples, graph carries equal to "
+                "the eager sweep's (top1 %d, trks_top1 %d of %d); whole "
+                "split graph %s s, eager %s s (%.0f / %.0f clips/s); %d "
+                "steps (Localizer %s) as graph replays bitwise the "
+                "per-batch path, losses %.4f .. %.4f; ms/step graph %s, "
+                "eager %s; no kernel launched (%s)" % (
+                    label, n, int(carries["graph"]["top1"]),
+                    int(carries["graph"]["trks_top1"]), n,
+                    ["%.4f" % x for x in secs["graph"]],
+                    ["%.4f" % x for x in secs["eager"]], rate["graph"],
+                    rate["eager"], len(batches),
+                    "applied" if localizer.applied else "not applied: no "
+                    "ctx tables", numbers["losses"][0],
+                    numbers["losses"][-1],
+                    ["%.3f" % x for x in numbers["graph_ms_per_step"]],
+                    ["%.3f" % x for x in numbers["eager_ms_per_step"]],
+                    card))
+            torch.cuda.empty_cache()
+    return out
+
+
+def grounding_clis(torch, root):
+    """Phase 23 (c), on the published-width fixture: the int_ch eval CLI
+    without and with --tr-correct on seeded msgpack checkpoints (weak,
+    GT), each split's metrics equal to the in-process eval sweep's on the
+    same weights (no kernel launches); the training CLI for int_ch and for
+    int_rel_ch under --tr-correct: 2 epochs (one cadence eval, at epoch
+    0), a train state written, then one more epoch resumed from it
+    (int_rel_ch's counted: kernels 1-2 and 6 must launch, int_ch's
+    nothing). Returns the numbers."""
+    import math
+
+    from lirec_tpu_torch.checkpoint.saver import load_train_state, save_params
+    from lirec_tpu_torch.cli import common
+    from lirec_tpu_torch.cli import int_ch as int_ch_cli
+    from lirec_tpu_torch.cli import train as train_cli
+    from lirec_tpu_torch.cli.serve import load_checkpoint_state
+    from lirec_tpu_torch.evaluation import packed
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch, scatter_accum
+    from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
+
+    dims = (["--data-root", root, "--device", DEV, "--quiet"]
+            + dim_args(PUBLISHED_DIMS))
+    out = {}
+    for variant, flag, seed in (("weak", [], 0), ("gt", ["--tr-correct"], 1)):
+        cfg = common.config_from_args("int_ch", common.build_parser(
+            "int_ch").parse_args(dims + flag))
+        check(cfg.tasks.tr_correct == bool(flag), "--tr-correct")
+        splits = dict(zip(("train", "val", "test"),
+                          common.build_datasets(cfg, "int_ch")))
+        ckpt = os.path.join(root, "%s_int_ch.ckpt" % variant)
+        save_params(ckpt, create_model(
+            cfg, splits["train"].n_classes, n_rels=0, seed=seed,
+            device="cpu").model.state_dict())
+        with counted_none(torch, "the int_ch eval CLI"):
+            t = time.perf_counter()
+            got = int_ch_cli.main(dims + flag + ["--resume-path", ckpt])
+            secs = time.perf_counter() - t
+            bundle = create_model(cfg, splits["train"].n_classes, n_rels=0,
+                                  seed=seed + 7, device=DEV)
+            bundle.model.load_state_dict(load_checkpoint_state(ckpt))
+            want = {split: packed.evaluate_packed(
+                splits[split], bundle, bundle.model, cfg, mode=split,
+                verbose=False) for split in ("val", "test")}
+        same_metrics(got, want, "int_ch eval CLI %s" % variant,
+                     "the in-process sweep")
+        out["eval_cli_" + variant] = dict(metrics=got, s=secs)
+        log("  (c) cli.int_ch.main %s (%s checkpoint): val %s, test %s "
+            "(%.1f s), equal to the in-process sweep's" % (
+                " ".join(flag) or "(weak)", variant, got["val"],
+                got["test"], secs))
+        del bundle
+
+    for preset in ("int_ch", "int_rel_ch"):
+        store = os.path.join(root, "gt_%s_store" % preset)
+        base = [preset] + dims + ["--tr-correct", "--store-root", store]
+        dispatch.reset_launches()
+        t = time.perf_counter()
+        trained = train_cli.main(base + ["--epochs", "2",
+                                         "--checkpoint-every", "2"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launched = dispatch.launches()
+        losses = trained["train"]["losses"]
+        check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+              "%s --tr-correct training CLI losses %s" % (preset, losses))
+        for name in ("index.json", "latest.pth.tar", "1.pth.tar"):
+            check(os.path.exists(os.path.join(store, name)),
+                  "%s --tr-correct training CLI wrote no %s" % (preset,
+                                                                 name))
+        with open(os.path.join(store, "index.json")) as f:
+            index = json.load(f)
+        check(index and all(list(v) == ["0"] for v in index.values()),
+              "%s: one cadence eval (epoch 0) wanted: %s" % (preset, index))
+        _, _, epoch = load_train_state(os.path.join(store, "latest.pth.tar"))
+        check(epoch == 1, "%s latest.pth.tar holds epoch %d" % (preset,
+                                                                epoch))
+        if preset == "int_ch":
+            check(not any(launched.values()), "the int_ch training CLI "
+                  "launched kernels: %s" % launched)
+        else:
+            scatter = scatter_accum.KERNEL_NAMES[torch.bfloat16]
+            pool = KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)]
+            check(launched.get(scatter, 0) > 0 and launched.get(pool, 0) > 0,
+                  "GT int_rel_ch training CLI launches %s: the scatter "
+                  "(steps) and the pool (cadence) must both run" % launched)
+        resumed = train_cli.main(base + [
+            "--epochs", "3", "--resume-train", "--resume-path",
+            os.path.join(store, "latest.pth.tar")])
+        r_losses = resumed["train"]["losses"]
+        check(resumed["train"]["start_epoch"] == 2 and len(r_losses) == 1
+              and math.isfinite(r_losses[0]),
+              "%s --tr-correct resumed %s" % (preset, resumed["train"]))
+        out["train_cli_" + preset] = dict(losses=losses, s=secs,
+                                          resumed_losses=r_losses)
+        log("  (c) cli.train.main %s --tr-correct: 2 epochs, losses %s in "
+            "%.1f s, launches %s, index.json %s; resumed from latest.pth.tar"
+            " for epoch 2: loss %s" % (preset, losses, secs, launched,
+                                       index, r_losses))
+    return out
+
+
+def long_context_checks(torch, card):
+    """Phase 23 (d), kernels past the 2,048-entry chunk: kernels 1-2, 4
+    and 5 at M = 64 and R = 2,048, 2,049 and 4,096 on split-scale tables
+    (1024 / 256 wide), clip counts in (R / 2, R] padded with weight 0 and
+    one all-pad row; each against its plain version (the pools 2e-6 f32,
+    1e-5 bf16; kernel 5 bitwise the r-ordered loop), kernel 4 (on the
+    rows' unique triples) bitwise kernel 1; each timed (L2 flushed) beside
+    its plain version, ``embedding_bag`` and the bound. Returns {entry
+    tag: {R: numbers}}."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from lirec_tpu_torch.models.tabular import EmbeddedTables
+    from lirec_tpu_torch.ops.gather_pool import (
+        fused_ctx_pool, fused_ctx_pool_reference, fused_ctx_pool_triple,
+        fused_ctx_pool_triple_reference, gather_masked_sum,
+        gather_masked_sum_reference,
+    )
+
+    atol = {torch.float32: 2e-6, torch.bfloat16: 1e-5}
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+        g = torch.Generator(device=DEV).manual_seed(23)
+        emb = EmbeddedTables(*(
+            torch.randn(n, d, device=DEV, generator=g).to(dtype)
+            for n, d in ((N_CLIPS, 1024), (N_TRACKS, 256), (N_TRACKS, 256))))
+        for R in LONG_CONTEXT:
+            idx = torch.stack(
+                [torch.randint(0, n, (EVAL_B, R), device=DEV, generator=g)
+                 for n in (N_CLIPS, N_TRACKS, N_TRACKS)], dim=-1
+            ).to(torch.int32)
+            lengths = np.random.default_rng(R).integers(R // 2 + 1, R + 1,
+                                                        EVAL_B)
+            mask = (torch.arange(R, device=DEV)[None, :]
+                    < torch.from_numpy(lengths).to(DEV)[:, None]).float()
+            mask[-1] = 0.0  # a row past a last flush: all pad
+            idx[mask == 0] = 0
+            idx = idx.contiguous()
+            tri, tidx = torch.unique(idx.reshape(-1, 3), dim=0,
+                                     return_inverse=True)
+            fused = fuse(torch, emb, tri.long()).contiguous()
+            tidx = tidx.reshape(EVAL_B, R).to(torch.int32).contiguous()
+            one = idx[..., 0].contiguous()
+            errs = {"pool": [], "triple": []}
+            for guard in (True, False):
+                got = fused_ctx_pool(emb, idx, mask, guard)
+                tri_out = fused_ctx_pool_triple(fused, tidx, mask, guard)
+                torch.cuda.synchronize()
+                check(torch.equal(got.isnan(), tri_out.isnan())
+                      and torch.equal(torch.nan_to_num(got),
+                                      torch.nan_to_num(tri_out)),
+                      "R=%d %s guard=%s: kernel 4 not bitwise kernel 1"
+                      % (R, tag, guard))
+                check(bool(got[-1].isnan().all()) != guard
+                      and not bool(got[:-1].isnan().any()),
+                      "R=%d %s guard=%s: empty rows" % (R, tag, guard))
+                for key, want in (
+                        ("pool", fused_ctx_pool_reference(emb, idx, mask,
+                                                          guard)),
+                        ("triple", fused_ctx_pool_triple_reference(
+                            fused, tidx, mask, guard))):
+                    nan = want.isnan()
+                    check(torch.equal(nan, got.isnan()),
+                          "R=%d %s %s: NaN rows" % (R, tag, key))
+                    errs[key].append(float((got - want).abs()[~nan].max()))
+            for key, e in errs.items():
+                check(max(e) <= atol[dtype], "R=%d %s %s: %.3e from the "
+                      "plain version" % (R, tag, key, max(e)))
+            got = gather_masked_sum(emb.clip, one, mask)
+            torch.cuda.synchronize()
+            check(torch.equal(got, masked_sum_loop(torch, emb.clip, one,
+                                                   mask)),
+                  "R=%d %s: kernel 5 not bitwise the r-ordered loop"
+                  % (R, tag))
+            want = gather_masked_sum_reference(emb.clip, one, mask).float()
+            err5 = float((got.float() - want).abs().max())
+            scale = float(want.abs().max())
+            tol = 1e-5 * scale if dtype == torch.float32 else 2 ** -8 * scale
+            check(err5 <= tol, "R=%d %s kernel 5: %.3e from the plain "
+                  "version (bound %.1e)" % (R, tag, err5, tol))
+
+            w = mask.to(dtype)
+            div = guarded_div(torch, mask)
+            cols = index_cols(idx)
+            width = emb_width(emb)
+            pool_bytes = (sum(gathered_bytes(t, idx[..., k])
+                              for k, t in enumerate(emb))
+                          + nbytes(idx, mask) + EVAL_B * width * 4)
+            ops = 2 * EVAL_B * R * width
+            entries = {
+                "pool": (errs["pool"], lambda: fused_ctx_pool(
+                    emb, idx, mask, True), lambda: fused_ctx_pool_reference(
+                    emb, idx, mask, True), lambda: bag_pool(
+                    torch, emb, cols, w, div), bound(pool_bytes, ops)),
+                "triple": (errs["triple"], lambda: fused_ctx_pool_triple(
+                    fused, tidx, mask, True),
+                    lambda: fused_ctx_pool_triple_reference(
+                        fused, tidx, mask, True),
+                    lambda: torch.tanh(F.embedding_bag(
+                        tidx, fused, per_sample_weights=w,
+                        mode="sum").float() / div),
+                    bound(nbytes(fused, tidx, mask) + EVAL_B * width * 4,
+                          ops)),
+                "gms": ([err5], lambda: gather_masked_sum(
+                    emb.clip, one, mask), lambda: gather_masked_sum_reference(
+                    emb.clip, one, mask), lambda: F.embedding_bag(
+                    one, emb.clip, per_sample_weights=w, mode="sum"),
+                    bound(gathered_bytes(emb.clip, one) + nbytes(one, mask)
+                          + EVAL_B * 1024 * emb.clip.element_size(),
+                          2 * EVAL_B * R * 1024)),
+            }
+            for key, (e, kernel, plain, library, b) in entries.items():
+                ms = median_ms(torch, kernel)
+                plain_ms = median_ms(torch, plain)
+                lib_ms = median_ms(torch, library)
+                results.setdefault("%s_%s" % (key, tag), {})[R] = dict(
+                    max_abs_err=max(e), ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, **b)
+                log("  (d) %-6s %-4s M=%d R=%-4d: max|diff| vs plain %.3e; "
+                    "kernel %.4f ms, plain %.4f ms, embedding_bag %.4f ms; "
+                    "bound %.4f ms (%s) (%s)" % (
+                        key, tag, EVAL_B, R, max(e), ms, plain_ms, lib_ms,
+                        b["bound_ms"], b["bound_by"], card))
+            del idx, mask, tri, tidx, fused, one, w, div, cols, entries
+            torch.cuda.empty_cache()
+        del emb
+    return results
+
+
+def long_rels_only(torch, card):
+    """Phase 23 (d), the rels-only eval past 2,048 clips: phase 14's
+    stand-in with two more pairs, of LONG_PAIRS clips (both in the 4,096
+    bucket), bf16 and f32, one launch per flush (counted), its 4,096
+    bucket's launches apart, and metrics equal to the plain pool's.
+    Returns {kernel name: launches of the 4,096 bucket}."""
+    from lirec_tpu_torch import config as config_lib
+    from lirec_tpu_torch.evaluation.runner import evaluate_rels_only
+    from lirec_tpu_torch.models.factory import create_model
+    from lirec_tpu_torch.ops import dispatch, gather_pool
+    from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
+    from lirec_tpu_torch.utils.fake_batch import make_tables
+
+    counts = {}
+    stand_in = tables = None
+    launch = gather_pool._launch
+    for compute in ("bfloat16", "float32"):
+        dtype = torch.bfloat16 if compute == "bfloat16" else torch.float32
+        name = KERNEL_NAMES[("fused_ctx_pool", dtype)]
+        cfg = config_lib.preset("int_rels").with_runtime(
+            compute_dtype=compute)
+        bundle = create_model(cfg, 101, n_rels=15, seed=0, device=DEV)
+        if stand_in is None:
+            tables = make_tables(bundle.spec, N_CLIPS, N_TRACKS, seed=0)
+            stand_in = RelsStandIn(bundle.spec, tables, extra=LONG_PAIRS)
+            lengths = [it["feat_idx"].shape[0] - 1 for it in stand_in.items]
+            flushes, pads = rels_flushes(lengths, EVAL_B)
+            check(pads[-1] == 4096 and pads.count(4096) == 1,
+                  "long pairs' buckets %s" % pads)
+        per_r = {}
+
+        def by_r(op, table, n_ptrs, args):
+            per_r[args[7]] = per_r.get(args[7], 0) + 1
+            launch(op, table, n_ptrs, args)
+
+        gather_pool._launch = by_r
+        try:
+            # ---- the counted run: the rels-only eval of the stand-in
+            dispatch.reset_launches()
+            t = time.perf_counter()
+            got = evaluate_rels_only(stand_in, bundle, bundle.model, cfg,
+                                     verbose=False, batch_size=EVAL_B)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            launched = dispatch.launches()
+            # ---- end of the counted run
+        finally:
+            gather_pool._launch = launch
+        plain = evaluate_rels_only(stand_in, bundle, bundle.model, cfg,
+                                   verbose=False, batch_size=EVAL_B,
+                                   use_kernel=False)
+        check(launched == {name: flushes} and sum(per_r.values()) == flushes,
+              "long rels-only %s launched %s (%s by R), want %d of %s"
+              % (compute, launched, per_r, flushes, name))
+        check(per_r.get(4096, 0) == 1, "the 4,096 bucket's launches: %s"
+              % per_r)
+        check(got == plain, "long rels-only %s: kernel %s != plain %s"
+              % (compute, got, plain))
+        counts[name] = per_r[4096]
+        log("  (d) rels-only stand-in with pairs of %s clips (%d pairs, "
+            "buckets %s), %s: %s, equal to the plain pool's; %d launches of "
+            "%s (by R: %s); %.3f s (%s)" % (
+                list(LONG_PAIRS), len(stand_in), pads, compute, got,
+                launched[name], name, dict(sorted(per_r.items())), secs,
+                card))
+        del bundle
+        torch.cuda.empty_cache()
+    return counts
+
+
+def grounding_phase(torch, raw, local, eval_ref):
+    """Phase 23. Returns ({"gt": {kernel name: launches}, "ctx4096":
+    {kernel name: launches}}, {"long_context": (d)'s numbers}, the
+    numbers logged)."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    gt_counts, gt = gt_int_rel_ch_checks(torch, local, eval_ref, card)
+    with tempfile.TemporaryDirectory() as root:
+        write_fixture(root, **PUBLISHED_FIXTURE)
+        int_ch = int_ch_checks(torch, raw, eval_ref, root, card)
+        clis = grounding_clis(torch, root)
+    long_ctx = long_context_checks(torch, card)
+    ctx_counts = long_rels_only(torch, card)
+    secs = time.perf_counter() - t_phase
+    log("  phase 23 took %.1f s" % secs)
+    return ({"gt": gt_counts, "ctx4096": ctx_counts},
+            long_ctx, {"gt_int_rel_ch": gt, "int_ch": int_ch, "clis": clis,
+                       "seconds": secs})
+
+
 def main():
     import torch
 
@@ -4578,6 +5323,12 @@ def main():
         "writes and resumes them, the eval CLI from one, a published-width "
         "train state through both backends (counted runs)")
     orbax_counts, orbax_pool, orbax = orbax_phase(torch, local)
+
+    log("== 23. the grounding configurations: GT int_rel_ch, int_ch weak and "
+        "GT (serve, eval sweep, steps, CLIs; no kernel), kernels 1-2, 4 "
+        "and 5 past 2,048 context clips (counted runs)")
+    grounding_counts, long_ctx, grounding = grounding_phase(
+        torch, raw, local, eval_ref)
 
     from lirec_tpu_torch.ops import scatter_accum
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
@@ -4786,6 +5537,44 @@ def main():
                             replaces="%s:%d" % (TPU_SRC, line),
                             launches=orbax_counts[name], path="orbax",
                             **orbax_pool[tag]))
+    # phase 23: kernels 1-2 in the GT int_rel_ch model's cadence sweep and
+    # kernel 6 in its steps (the main entries' shapes and numbers); kernels
+    # 1-2 at the rels-only stand-in's 4,096 bucket, held and timed at
+    # M = 64, R = 4,096 (launches: that bucket's flush), and kernels 4-5 at
+    # the same shape (no product path launches them there)
+    for name, entry_of in (
+            (KERNEL_NAMES[("fused_ctx_pool", torch.float32)], "eval"),
+            (KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)], "eval"),
+            (scatter_accum.KERNEL_NAMES[torch.float32], "train"),
+            (scatter_accum.KERNEL_NAMES[torch.bfloat16], "train")):
+        main_entry = next(k for k in kernels if k["name"] == name
+                          and k.get("path") == entry_of)
+        check(grounding_counts["gt"].get(name, 0) > 0,
+              "%s was not launched by the GT int_rel_ch runs" % name)
+        kernels.append(dict(main_entry, name=name + "@gt", path="gt",
+                            launches=grounding_counts["gt"][name]))
+    for op, src, line in (("fused_ctx_pool", CU, None),
+                          ("fused_ctx_pool_triple", TRIPLE_CU, 719),
+                          ("gather_masked_sum", TRIPLE_CU, 106)):
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            name = KERNEL_NAMES[(op, dtype)]
+            key = {"fused_ctx_pool": "pool", "fused_ctx_pool_triple":
+                   "triple", "gather_masked_sum": "gms"}[op] + "_" + tag
+            if op == "fused_ctx_pool":
+                launches = grounding_counts["ctx4096"].get(name, 0)
+                check(launches > 0, "%s was not launched by the 4,096 "
+                      "bucket" % name)
+                line = 178 if dtype == torch.float32 else 218
+            else:
+                launches = 0
+            kernels.append(dict(
+                name=name + "@ctx4096", route="cuda", source=src,
+                replaces="%s:%d" % (TPU_SRC, line), launches=launches,
+                path="rels_only" if launches else "none",
+                shapes={"M": EVAL_B, "R": 4096},
+                **long_ctx[key][4096]))
+    log("long_context: " + json.dumps(long_ctx))
+    log("grounding: " + json.dumps(grounding))
     log("orbax: " + json.dumps(orbax))
     log("matmul_tier: " + json.dumps(matmul_tier))
     log("mesh_graph_ms_per_step: " + json.dumps(

@@ -163,8 +163,10 @@ def build_parser(preset_name: str) -> argparse.ArgumentParser:
                    help="torch device of the weights, tables and sweep")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--mesh", default="",
-                   help="DATAxMODEL, e.g. 4x1: data parallelism over DATA "
-                        "processes, one per card (MODEL > 1 is not ported)")
+                   help="DATAxMODEL process mesh, e.g. 4x2: DATA x MODEL "
+                        "processes, one per card; shards training (dp "
+                        "over the batch, tp over joint_dim across a "
+                        "row's MODEL processes) and the packed eval sweep")
     p.add_argument("--num-processes", type=int, default=0,
                    help="processes of a multi-node group (one per card)")
     p.add_argument("--coordinator", default="",

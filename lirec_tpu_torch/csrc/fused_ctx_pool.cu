@@ -50,6 +50,15 @@
 //   and weights staged in shared memory once.
 // * No serial thread and no second barrier: each thread sums the divider
 //   itself from the staged weights, in r order.
+// * Any R: the context is staged in chunks of at most `chunk` entries
+//   (ops/gather_pool.CONTEXT_CHUNK, 2,048: 32 KB of one row's indices and
+//   weights), so shared memory stays within 48 KB however long a row's
+//   context is. At R <= chunk there is one chunk and the kernel is the
+//   one-pass kernel above. Past it, each item parks its partial sums in
+//   its own f32 cells of `out` between chunks and one thread per pooled
+//   row keeps the divider's running sum in shared memory; every chain
+//   still runs in r order from 0.f, so the result is bitwise the one-pass
+//   kernel's (and the triple kernel's) on the same rows.
 // * A table whose rows do not all start on 16-byte boundaries (a view off
 //   an aligned base, or a row width in bytes not a multiple of 16) is read
 //   by the same code with one column per lane and scalar loads; the
@@ -104,143 +113,198 @@ struct Raw<float> {
   static constexpr int n = 4;
 };
 
-// One lane of 16 bytes: columns c .. c + n - 1 of `table` (row stride ld)
+// One lane of 16 bytes: columns c .. c + n - 1 of `table` (row stride ld).
+// Adds the k staged entries of a chunk to the lane's n chains in acc, in r
+// order.
 template <typename T>
-__device__ __forceinline__ void pool_vec(const T* __restrict__ table,
-                                         int ld, int c,
-                                         const int32_t* ix, int which,
-                                         const float* w, int R, float inv,
-                                         float* o) {
+__device__ __forceinline__ void chain_vec(const T* __restrict__ table,
+                                          int ld, int c, const int32_t* ix,
+                                          int which, const float* w, int k,
+                                          float* acc) {
   using V = typename Raw<T>::type;
   constexpr int n = Raw<T>::n;
-  float acc[n];
-#pragma unroll
-  for (int e = 0; e < n; ++e) acc[e] = 0.f;
-  for (int r0 = 0; r0 < R; r0 += kChunk) {
-    const int k = R - r0 < kChunk ? R - r0 : kChunk;
+  for (int r0 = 0; r0 < k; r0 += kChunk) {
+    const int a = k - r0 < kChunk ? k - r0 : kChunk;
     V x[kChunk];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j)
-      if (j < k)
+      if (j < a)
         x[j] = load16(table + static_cast<int64_t>(ix[3 * (r0 + j) + which]) *
                                   ld + c);
 #pragma unroll
     for (int j = 0; j < kChunk; ++j)
-      if (j < k) {
+      if (j < a) {
         const float wr = w[r0 + j];
 #pragma unroll
         for (int e = 0; e < n; ++e)
           acc[e] = __fadd_rn(acc[e], __fmul_rn(wr, elem(x[j], e)));
       }
   }
-  float res[n];
-#pragma unroll
-  for (int e = 0; e < n; ++e) res[e] = tanhf(__fmul_rn(acc[e], inv));
-  if ((reinterpret_cast<uintptr_t>(o) & 15) == 0) {
-#pragma unroll
-    for (int e = 0; e < n; e += 4)
-      *reinterpret_cast<float4*>(o + e) =
-          make_float4(res[e], res[e + 1], res[e + 2], res[e + 3]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < n; ++e) o[e] = res[e];
-  }
 }
 
 // One column c with scalar loads: tables whose rows are not 16-B aligned
 template <typename T>
-__device__ __forceinline__ void pool_col(const T* __restrict__ table, int ld,
-                                         int c, const int32_t* ix, int which,
-                                         const float* w, int R, float inv,
-                                         float* o) {
-  float acc = 0.f;
-  for (int r0 = 0; r0 < R; r0 += kChunk) {
-    const int k = R - r0 < kChunk ? R - r0 : kChunk;
+__device__ __forceinline__ void chain_col(const T* __restrict__ table,
+                                          int ld, int c, const int32_t* ix,
+                                          int which, const float* w, int k,
+                                          float* acc) {
+  float a0 = *acc;
+  for (int r0 = 0; r0 < k; r0 += kChunk) {
+    const int a = k - r0 < kChunk ? k - r0 : kChunk;
     float x[kChunk];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j)
-      if (j < k)
+      if (j < a)
         x[j] = to_f32(table[static_cast<int64_t>(ix[3 * (r0 + j) + which]) *
                                 ld + c]);
 #pragma unroll
     for (int j = 0; j < kChunk; ++j)
-      if (j < k) acc = __fadd_rn(acc, __fmul_rn(w[r0 + j], x[j]));
+      if (j < a) a0 = __fadd_rn(a0, __fmul_rn(w[r0 + j], x[j]));
   }
-  *o = tanhf(__fmul_rn(acc, inv));
+  *acc = a0;
 }
 
+// cnt f32 values between registers and o (16-byte accesses where o is on a
+// 16-byte boundary)
+template <int n>
+__device__ __forceinline__ void put(float* o, const float* v, int cnt) {
+  if (cnt == n && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+#pragma unroll
+    for (int e = 0; e < n; e += 4)
+      *reinterpret_cast<float4*>(o + e) =
+          make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+  } else {
+    for (int e = 0; e < cnt; ++e) o[e] = v[e];
+  }
+}
+template <int n>
+__device__ __forceinline__ void get(const float* o, float* v, int cnt) {
+  if (cnt == n && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+#pragma unroll
+    for (int e = 0; e < n; e += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(o + e);
+      v[e] = q.x; v[e + 1] = q.y; v[e + 2] = q.z; v[e + 3] = q.w;
+    }
+  } else {
+    for (int e = 0; e < cnt; ++e) v[e] = o[e];
+  }
+}
+
+// A block takes rows_per_block pooled rows and walks their context in
+// chunks of at most `chunk` entries: it stages a chunk's index triples and
+// weights in shared memory, and every item (one lane of one pooled row)
+// adds the chunk's terms to its chains. Between chunks an item's partial
+// sums are parked in its own cells of `out` (f32: a store and a reload
+// are exact), and the divider's partial sum of each row in s_div, kept by
+// one thread per row; the last chunk adds its own weights to it, so every
+// sum runs in r order from 0.f as in one pass. At R <= chunk there is one
+// chunk: nothing is parked, and each item sums its row's whole divider
+// from the staged weights.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_ctx_pool_kernel(const T* __restrict__ clip, const T* __restrict__ tr1,
                       const T* __restrict__ tr2,
                       const int32_t* __restrict__ idx,
                       const float* __restrict__ mask,
-                      float* __restrict__ out, int M, int R, int d_clip,
-                      int d_tr, int guard_zero, int rows_per_block,
-                      int vec_clip, int vec_tr) {
+                      float* __restrict__ out, int M, int R, int chunk,
+                      int d_clip, int d_tr, int guard_zero,
+                      int rows_per_block, int vec_clip, int vec_tr) {
   extern __shared__ int32_t smem[];
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
   const int rows = static_cast<int>(
       M - m0 < rows_per_block ? M - m0 : rows_per_block);
-  int32_t* s_idx = smem;                                        // [rows, R, 3]
-  float* s_w = reinterpret_cast<float*>(smem + 3 * rows_per_block * R);
-  for (int i = threadIdx.x; i < rows * 3 * R; i += kThreads)
-    s_idx[i] = idx[m0 * 3 * R + i];
-  for (int i = threadIdx.x; i < rows * R; i += kThreads)
-    s_w[i] = mask[m0 * R + i];
-  __syncthreads();
+  int32_t* s_idx = smem;                                   // [rows, chunk, 3]
+  float* s_w = reinterpret_cast<float*>(smem + 3 * rows_per_block * chunk);
+  float* s_div = s_w + rows_per_block * chunk;             // [rows]
 
   constexpr int n = Raw<T>::n;
   const int n_clip = vec_clip ? d_clip / n : d_clip;  // lanes per table
   const int n_tr = vec_tr ? d_tr / n : d_tr;
   const int lanes = n_clip + 2 * n_tr;
   const int width = d_clip + 2 * d_tr;
-  for (int item = threadIdx.x; item < rows * lanes; item += kThreads) {
-    const int g = item / lanes;
-    int lane = item - g * lanes;
-    const float* w = s_w + g * R;
-    const int32_t* ix = s_idx + g * 3 * R;
-    float div = 0.f;
-    for (int r = 0; r < R; ++r) div = __fadd_rn(div, w[r]);
-    if (guard_zero && div == 0.f) div = 1.f;
-    const float inv = __fdiv_rn(1.f, div);
-    const T* table;
-    int which, ld, vec, col0;
-    if (lane < n_clip) {
-      table = clip; which = 0; ld = d_clip; vec = vec_clip; col0 = 0;
-    } else {
-      lane -= n_clip;
-      which = lane < n_tr ? 1 : 2;
-      if (which == 2) lane -= n_tr;
-      table = which == 1 ? tr1 : tr2;
-      ld = d_tr; vec = vec_tr; col0 = d_clip + (which - 1) * d_tr;
+  for (int c0 = 0; c0 < R; c0 += chunk) {
+    const int k = R - c0 < chunk ? R - c0 : chunk;
+    const bool first = c0 == 0, last = c0 + k == R;
+    if (!first) __syncthreads();  // the previous chunk is done with
+    for (int i = threadIdx.x; i < rows * 3 * k; i += kThreads) {
+      const int g = i / (3 * k), j = i - g * 3 * k;
+      s_idx[g * 3 * chunk + j] = idx[(m0 + g) * 3 * R + 3 * c0 + j];
     }
-    float* o = out + (m0 + g) * width + col0;
-    if (vec)
-      pool_vec(table, ld, lane * n, ix, which, w, R, inv, o + lane * n);
-    else
-      pool_col(table, ld, lane, ix, which, w, R, inv, o + lane);
+    for (int i = threadIdx.x; i < rows * k; i += kThreads) {
+      const int g = i / k, j = i - g * k;
+      s_w[g * chunk + j] = mask[(m0 + g) * R + c0 + j];
+    }
+    __syncthreads();
+    if (!last)  // the divider's running sum, one thread per pooled row
+      for (int g = threadIdx.x; g < rows; g += kThreads) {
+        float div = first ? 0.f : s_div[g];
+        for (int r = 0; r < k; ++r) div = __fadd_rn(div, s_w[g * chunk + r]);
+        s_div[g] = div;
+      }
+
+    for (int item = threadIdx.x; item < rows * lanes; item += kThreads) {
+      const int g = item / lanes;
+      int lane = item - g * lanes;
+      const float* w = s_w + g * chunk;
+      const int32_t* ix = s_idx + g * 3 * chunk;
+      const T* table;
+      int which, ld, vec, col0;
+      if (lane < n_clip) {
+        table = clip; which = 0; ld = d_clip; vec = vec_clip; col0 = 0;
+      } else {
+        lane -= n_clip;
+        which = lane < n_tr ? 1 : 2;
+        if (which == 2) lane -= n_tr;
+        table = which == 1 ? tr1 : tr2;
+        ld = d_tr; vec = vec_tr; col0 = d_clip + (which - 1) * d_tr;
+      }
+      const int cnt = vec ? n : 1;
+      float* o = out + (m0 + g) * width + col0 + lane * cnt;
+      float acc[n];
+#pragma unroll
+      for (int e = 0; e < n; ++e) acc[e] = 0.f;
+      if (!first) get<n>(o, acc, cnt);
+      if (vec)
+        chain_vec(table, ld, lane * n, ix, which, w, k, acc);
+      else
+        chain_col(table, ld, lane, ix, which, w, k, acc);
+      if (last) {
+        float div = first ? 0.f : s_div[g];
+        for (int r = 0; r < k; ++r) div = __fadd_rn(div, w[r]);
+        if (guard_zero && div == 0.f) div = 1.f;
+        const float inv = __fdiv_rn(1.f, div);
+#pragma unroll
+        for (int e = 0; e < n; ++e) acc[e] = tanhf(__fmul_rn(acc[e], inv));
+      }
+      put<n>(o, acc, cnt);
+    }
   }
 }
 
-size_t smem_bytes(int R, int rows_per_block) {
-  return static_cast<size_t>(rows_per_block) * R * 4 * sizeof(int32_t);
+// Shared memory of a launch: a chunk's index triples and weights of each
+// pooled row (16 bytes an entry), and the rows' running dividers where the
+// context takes more than one chunk.
+size_t smem_bytes(int R, int chunk, int rows_per_block) {
+  return static_cast<size_t>(rows_per_block) *
+         (static_cast<size_t>(chunk) * 4 * sizeof(int32_t) +
+          (R > chunk ? sizeof(float) : 0));
 }
 
 template <typename T>
 int launch(const void* clip, const void* tr1, const void* tr2,
            const void* idx, const void* mask, void* out, int M, int R,
-           int d_clip, int d_tr, int guard_zero, int rows_per_block,
-           int vec_clip, int vec_tr, void* stream) {
-  if (rows_per_block < 1) return static_cast<int>(cudaErrorInvalidValue);
+           int chunk, int d_clip, int d_tr, int guard_zero,
+           int rows_per_block, int vec_clip, int vec_tr, void* stream) {
+  if (rows_per_block < 1 || chunk < 1 || chunk > R)
+    return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks =
       static_cast<unsigned>((M + rows_per_block - 1) / rows_per_block);
   fused_ctx_pool_kernel<T><<<blocks, kThreads,
-                             smem_bytes(R, rows_per_block),
+                             smem_bytes(R, chunk, rows_per_block),
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(clip), static_cast<const T*>(tr1),
       static_cast<const T*>(tr2), static_cast<const int32_t*>(idx),
-      static_cast<const float*>(mask), static_cast<float*>(out), M, R,
+      static_cast<const float*>(mask), static_cast<float*>(out), M, R, chunk,
       d_clip, d_tr, guard_zero, rows_per_block, vec_clip, vec_tr);
   return static_cast<int>(cudaGetLastError());
 }
@@ -251,28 +315,31 @@ extern "C" {
 
 // Pointers are device pointers of contiguous tensors: clip [Nc, d_clip],
 // tr1/tr2 [Nt, d_tr], idx int32 [M, R, 3], mask f32 [M, R], out f32
-// [M, d_clip + 2 * d_tr]. rows_per_block pooled rows per block (their
-// R x 16 bytes of indices and weights in shared memory); vec_clip /
-// vec_tr: 1 where every row of that table (tr1 and tr2 both) starts on a
-// 16-byte boundary, so it is read in 16-byte lanes. Returns the
-// cudaError_t of the launch (0 = ok).
+// [M, d_clip + 2 * d_tr]. The context is walked in chunks of `chunk`
+// entries (1 <= chunk <= R); rows_per_block pooled rows per block (a
+// chunk's chunk x 16 bytes of indices and weights each in shared memory,
+// and 4 bytes of divider where R > chunk); vec_clip / vec_tr: 1 where
+// every row of that table (tr1 and tr2 both) starts on a 16-byte
+// boundary, so it is read in 16-byte lanes. Returns the cudaError_t of
+// the launch (0 = ok).
 int fused_ctx_pool_f32(const void* clip, const void* tr1, const void* tr2,
                        const void* idx, const void* mask, void* out, int M,
-                       int R, int d_clip, int d_tr, int guard_zero,
-                       int rows_per_block, int vec_clip, int vec_tr,
-                       void* stream) {
-  return launch<float>(clip, tr1, tr2, idx, mask, out, M, R, d_clip, d_tr,
-                       guard_zero, rows_per_block, vec_clip, vec_tr, stream);
+                       int R, int chunk, int d_clip, int d_tr,
+                       int guard_zero, int rows_per_block, int vec_clip,
+                       int vec_tr, void* stream) {
+  return launch<float>(clip, tr1, tr2, idx, mask, out, M, R, chunk, d_clip,
+                       d_tr, guard_zero, rows_per_block, vec_clip, vec_tr,
+                       stream);
 }
 
 int fused_ctx_pool_bf16(const void* clip, const void* tr1, const void* tr2,
                         const void* idx, const void* mask, void* out, int M,
-                        int R, int d_clip, int d_tr, int guard_zero,
-                        int rows_per_block, int vec_clip, int vec_tr,
-                        void* stream) {
-  return launch<__nv_bfloat16>(clip, tr1, tr2, idx, mask, out, M, R, d_clip,
-                               d_tr, guard_zero, rows_per_block, vec_clip,
-                               vec_tr, stream);
+                        int R, int chunk, int d_clip, int d_tr,
+                        int guard_zero, int rows_per_block, int vec_clip,
+                        int vec_tr, void* stream) {
+  return launch<__nv_bfloat16>(clip, tr1, tr2, idx, mask, out, M, R, chunk,
+                               d_clip, d_tr, guard_zero, rows_per_block,
+                               vec_clip, vec_tr, stream);
 }
 
 }  // extern "C"

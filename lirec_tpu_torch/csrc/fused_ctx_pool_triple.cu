@@ -54,6 +54,13 @@
 // * Column slabs where the rows are few: blockIdx.y takes slab_lanes
 //   lanes of the block's rows, so that M = 64 pooled rows still spread
 //   over every SM (ops/gather_pool.gather_plan chooses both numbers).
+// * Any R: the context is staged in chunks of at most `chunk` entries
+//   (ops/gather_pool.CONTEXT_CHUNK, 2,048: 16 KB of one row's indices and
+//   weights). At R <= chunk that is one chunk, the one-pass kernel above.
+//   Past it the plan takes one pooled row per block and at most one lane
+//   per thread, so each thread carries its chains and divider in
+//   registers across the chunks (the masked sum's output may be bf16, too
+//   narrow to park a partial sum in), bitwise the one-pass order.
 // * A table whose rows do not all start on 16-byte boundaries (a view off
 //   an aligned base, or a row width in bytes not a multiple of 16) is read
 //   by the same code with one column per lane and scalar loads; the
@@ -139,25 +146,24 @@ __device__ __forceinline__ void store_lane(__nv_bfloat16* o,
                  bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
 }
 
-// The chains of one 16-byte lane: columns c .. c + n - 1 of `table`
+// The chains of one 16-byte lane: columns c .. c + n - 1 of `table`; adds
+// the k staged entries of a chunk to acc, in r order
 template <typename T>
 __device__ __forceinline__ void sum_vec(const T* __restrict__ table,
                                         int64_t ld, int c, const int32_t* ix,
-                                        const float* w, int R,
+                                        const float* w, int k,
                                         float (&acc)[Raw<T>::n]) {
   using V = typename Raw<T>::type;
   constexpr int n = Raw<T>::n;
-#pragma unroll
-  for (int e = 0; e < n; ++e) acc[e] = 0.f;
-  for (int r0 = 0; r0 < R; r0 += kChunk) {
-    const int k = R - r0 < kChunk ? R - r0 : kChunk;
+  for (int r0 = 0; r0 < k; r0 += kChunk) {
+    const int a = k - r0 < kChunk ? k - r0 : kChunk;
     V x[kChunk];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j)
-      if (j < k) x[j] = load16(table + ix[r0 + j] * ld + c);
+      if (j < a) x[j] = load16(table + ix[r0 + j] * ld + c);
 #pragma unroll
     for (int j = 0; j < kChunk; ++j)
-      if (j < k) {
+      if (j < a) {
         const float wr = w[r0 + j];
 #pragma unroll
         for (int e = 0; e < n; ++e)
@@ -166,99 +172,126 @@ __device__ __forceinline__ void sum_vec(const T* __restrict__ table,
   }
 }
 
-// The chain of one column c with scalar loads: rows not 16-B aligned
+// The chain of one column c with scalar loads (rows not 16-B aligned):
+// acc plus the chunk's k terms, in r order
 template <typename T>
 __device__ __forceinline__ float sum_col(const T* __restrict__ table,
                                          int64_t ld, int c, const int32_t* ix,
-                                         const float* w, int R) {
-  float acc = 0.f;
-  for (int r0 = 0; r0 < R; r0 += kChunk) {
-    const int k = R - r0 < kChunk ? R - r0 : kChunk;
+                                         const float* w, int k, float acc) {
+  for (int r0 = 0; r0 < k; r0 += kChunk) {
+    const int a = k - r0 < kChunk ? k - r0 : kChunk;
     float x[kChunk];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j)
-      if (j < k) x[j] = to_f32(table[ix[r0 + j] * ld + c]);
+      if (j < a) x[j] = to_f32(table[ix[r0 + j] * ld + c]);
 #pragma unroll
     for (int j = 0; j < kChunk; ++j)
-      if (j < k) acc = __fadd_rn(acc, __fmul_rn(w[r0 + j], x[j]));
+      if (j < a) acc = __fadd_rn(acc, __fmul_rn(w[r0 + j], x[j]));
   }
   return acc;
 }
 
 // kPool: the triple pool (tanh of the mean, f32 out); else the masked sum
 // (out in T). Block (x, y): pooled rows x * rows_per_block .. and lanes
-// y * slab_lanes .. of each.
+// y * slab_lanes .. of each. The context is staged in chunks of at most
+// `chunk` entries; at R <= chunk that is one chunk, and each item sums
+// its chains (and the pool's divider) from 0.f over the staged entries.
+// Past one chunk the wrapper's plan gives each thread at most one item
+// (one pooled row per block, at most kThreads lanes a slab), so a
+// thread's chains and divider stay in registers from chunk to chunk and
+// every sum still runs in r order from 0.f: the same operations in the
+// same order as in one pass.
 template <typename T, bool kPool>
 __global__ void __launch_bounds__(kThreads)
 gather_lanes_kernel(const T* __restrict__ table,
                     const int32_t* __restrict__ idx,
                     const float* __restrict__ mask, void* __restrict__ out,
-                    int M, int R, int width, int guard_zero,
+                    int M, int R, int chunk, int width, int guard_zero,
                     int rows_per_block, int slab_lanes, int vec) {
   using Out = typename std::conditional<kPool, float, T>::type;
   extern __shared__ int32_t smem[];
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
   const int rows = static_cast<int>(
       M - m0 < rows_per_block ? M - m0 : rows_per_block);
-  int32_t* s_idx = smem;                                          // [rows, R]
-  float* s_w = reinterpret_cast<float*>(smem + rows_per_block * R);  // [rows, R]
-  for (int i = threadIdx.x; i < rows * R; i += kThreads) {
-    s_idx[i] = idx[m0 * R + i];
-    s_w[i] = mask[m0 * R + i];
-  }
-  __syncthreads();
+  int32_t* s_idx = smem;                                      // [rows, chunk]
+  float* s_w = reinterpret_cast<float*>(smem + rows_per_block * chunk);
 
   constexpr int n = Raw<T>::n;
   const int lanes = vec ? width / n : width;
   const int lane0 = blockIdx.y * slab_lanes;
   const int slab = lanes - lane0 < slab_lanes ? lanes - lane0 : slab_lanes;
-  for (int item = threadIdx.x; item < rows * slab; item += kThreads) {
-    const int g = item / slab;
-    const int lane = lane0 + item - g * slab;
-    const float* w = s_w + g * R;
-    const int32_t* ix = s_idx + g * R;
-    float inv = 1.f;
-    if constexpr (kPool) {
-      float div = 0.f;
-      for (int r = 0; r < R; ++r) div = __fadd_rn(div, w[r]);
-      if (guard_zero && div == 0.f) div = 1.f;
-      inv = __fdiv_rn(1.f, div);
+  float acc[n];
+  float div = 0.f;
+  for (int c0 = 0; c0 < R; c0 += chunk) {
+    const int k = R - c0 < chunk ? R - c0 : chunk;
+    const bool first = c0 == 0, last = c0 + k == R;
+    if (!first) __syncthreads();  // the previous chunk is done with
+    for (int i = threadIdx.x; i < rows * k; i += kThreads) {
+      const int g = i / k, j = i - g * k;
+      s_idx[g * chunk + j] = idx[(m0 + g) * R + c0 + j];
+      s_w[g * chunk + j] = mask[(m0 + g) * R + c0 + j];
     }
-    Out* o = static_cast<Out*>(out) + (m0 + g) * width;
-    if (vec) {
-      float acc[n];
-      sum_vec(table, width, lane * n, ix, w, R, acc);
-      if constexpr (kPool) {
+    __syncthreads();
+    for (int item = threadIdx.x; item < rows * slab; item += kThreads) {
+      const int g = item / slab;
+      const int lane = lane0 + item - g * slab;
+      const float* w = s_w + g * chunk;
+      const int32_t* ix = s_idx + g * chunk;
+      if (first) {
 #pragma unroll
-        for (int e = 0; e < n; ++e) acc[e] = tanhf(__fmul_rn(acc[e], inv));
+        for (int e = 0; e < n; ++e) acc[e] = 0.f;
+        div = 0.f;
       }
-      store_lane(o + lane * n, acc);
-    } else {
-      const float acc = sum_col(table, width, lane, ix, w, R);
       if constexpr (kPool)
-        o[lane] = tanhf(__fmul_rn(acc, inv));
-      else
-        store(o + lane, acc);
+        for (int r = 0; r < k; ++r) div = __fadd_rn(div, w[r]);
+      Out* o = static_cast<Out*>(out) + (m0 + g) * width;
+      if (vec) {
+        sum_vec(table, width, lane * n, ix, w, k, acc);
+        if (last) {
+          if constexpr (kPool) {
+            const float inv =
+                __fdiv_rn(1.f, guard_zero && div == 0.f ? 1.f : div);
+#pragma unroll
+            for (int e = 0; e < n; ++e)
+              acc[e] = tanhf(__fmul_rn(acc[e], inv));
+          }
+          store_lane(o + lane * n, acc);
+        }
+      } else {
+        acc[0] = sum_col(table, width, lane, ix, w, k, acc[0]);
+        if (last) {
+          if constexpr (kPool)
+            o[lane] = tanhf(__fmul_rn(
+                acc[0], __fdiv_rn(1.f, guard_zero && div == 0.f ? 1.f
+                                                                : div)));
+          else
+            store(o + lane, acc[0]);
+        }
+      }
     }
   }
 }
 
 template <typename T, bool kPool>
 int launch(const void* table, const void* idx, const void* mask, void* out,
-           int M, int R, int width, int guard_zero, int rows_per_block,
-           int slab_lanes, int vec, void* stream) {
-  if (rows_per_block < 1 || slab_lanes < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+           int M, int R, int chunk, int width, int guard_zero,
+           int rows_per_block, int slab_lanes, int vec, void* stream) {
   const int lanes = vec ? width / Raw<T>::n : width;
+  if (rows_per_block < 1 || slab_lanes < 1 || chunk < 1 || chunk > R)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // past one chunk a thread keeps one item's chains from chunk to chunk
+  if (R > chunk &&
+      rows_per_block * (slab_lanes < lanes ? slab_lanes : lanes) > kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(
       static_cast<unsigned>((static_cast<int64_t>(M) + rows_per_block - 1) /
                             rows_per_block),
       static_cast<unsigned>((lanes + slab_lanes - 1) / slab_lanes));
-  const size_t smem = static_cast<size_t>(rows_per_block) * R * 8;
+  const size_t smem = static_cast<size_t>(rows_per_block) * chunk * 8;
   gather_lanes_kernel<T, kPool><<<grid, kThreads, smem,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(table), static_cast<const int32_t*>(idx),
-      static_cast<const float*>(mask), out, M, R, width, guard_zero,
+      static_cast<const float*>(mask), out, M, R, chunk, width, guard_zero,
       rows_per_block, slab_lanes, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -268,45 +301,50 @@ int launch(const void* table, const void* idx, const void* mask, void* out,
 extern "C" {
 
 // Pointers are device pointers of contiguous tensors: fused [U, width],
-// tidx int32 [M, R], mask f32 [M, R], out f32 [M, width]. rows_per_block
-// pooled rows per block (their R x 8 bytes of indices and weights in
-// shared memory), slab_lanes lanes of them per block; vec: 1 where every
-// row of the table starts on a 16-byte boundary, so it is read in 16-byte
-// lanes. Returns the cudaError_t of the launch (0 = ok).
+// tidx int32 [M, R], mask f32 [M, R], out f32 [M, width]. The context is
+// walked in chunks of `chunk` entries (1 <= chunk <= R); rows_per_block
+// pooled rows per block (a chunk's chunk x 8 bytes of indices and weights
+// each in shared memory), slab_lanes lanes of them per block (past one
+// chunk at most 128 lanes a block); vec: 1 where every row of the table
+// starts on a 16-byte boundary, so it is read in 16-byte lanes. Returns
+// the cudaError_t of the launch (0 = ok).
 int fused_ctx_pool_triple_f32(const void* fused, const void* tidx,
                               const void* mask, void* out, int M, int R,
-                              int width, int guard_zero, int rows_per_block,
-                              int slab_lanes, int vec, void* stream) {
-  return launch<float, true>(fused, tidx, mask, out, M, R, width, guard_zero,
-                             rows_per_block, slab_lanes, vec, stream);
+                              int chunk, int width, int guard_zero,
+                              int rows_per_block, int slab_lanes, int vec,
+                              void* stream) {
+  return launch<float, true>(fused, tidx, mask, out, M, R, chunk, width,
+                             guard_zero, rows_per_block, slab_lanes, vec,
+                             stream);
 }
 
 int fused_ctx_pool_triple_bf16(const void* fused, const void* tidx,
                                const void* mask, void* out, int M, int R,
-                               int width, int guard_zero, int rows_per_block,
-                               int slab_lanes, int vec, void* stream) {
-  return launch<__nv_bfloat16, true>(fused, tidx, mask, out, M, R, width,
-                                     guard_zero, rows_per_block, slab_lanes,
-                                     vec, stream);
+                               int chunk, int width, int guard_zero,
+                               int rows_per_block, int slab_lanes, int vec,
+                               void* stream) {
+  return launch<__nv_bfloat16, true>(fused, tidx, mask, out, M, R, chunk,
+                                     width, guard_zero, rows_per_block,
+                                     slab_lanes, vec, stream);
 }
 
 // table [N, width], idx int32 [M, R], mask f32 [M, R], out [M, width] in
-// the table's dtype; the launch geometry as above.
+// the table's dtype; the chunks and launch geometry as above.
 int gather_masked_sum_f32(const void* table, const void* idx,
                           const void* mask, void* out, int M, int R,
-                          int width, int rows_per_block, int slab_lanes,
-                          int vec, void* stream) {
-  return launch<float, false>(table, idx, mask, out, M, R, width, 0,
+                          int chunk, int width, int rows_per_block,
+                          int slab_lanes, int vec, void* stream) {
+  return launch<float, false>(table, idx, mask, out, M, R, chunk, width, 0,
                               rows_per_block, slab_lanes, vec, stream);
 }
 
 int gather_masked_sum_bf16(const void* table, const void* idx,
                            const void* mask, void* out, int M, int R,
-                           int width, int rows_per_block, int slab_lanes,
-                           int vec, void* stream) {
-  return launch<__nv_bfloat16, false>(table, idx, mask, out, M, R, width, 0,
-                                      rows_per_block, slab_lanes, vec,
-                                      stream);
+                           int chunk, int width, int rows_per_block,
+                           int slab_lanes, int vec, void* stream) {
+  return launch<__nv_bfloat16, false>(table, idx, mask, out, M, R, chunk,
+                                      width, 0, rows_per_block, slab_lanes,
+                                      vec, stream);
 }
 
 }  // extern "C"

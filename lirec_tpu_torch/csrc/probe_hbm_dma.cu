@@ -63,7 +63,8 @@
 //   reciprocal, applies tanhf and stores 16-byte vectors.
 // * The ring's size depends on neither R nor the width: the wrapper raises
 //   only where one row of the three tables exceeds a stage or the lanes the
-//   consumers keep; R is limited by MAX_CONTEXT alone.
+//   consumers keep; R is limited by the probes' own limit alone
+//   (ops/probes.PROBE_MAX_CONTEXT).
 // * A run that leaves its table is not copied: its bytes are left out of
 //   the stage's expected count and its output segment is NaN (no fault, no
 //   silent value).

@@ -47,6 +47,14 @@ into column slabs over several blocks. The triple pool's operations are
 the 3-table kernel's, so the two agree bit for bit; the masked sum's
 column is the same ``__fadd_rn`` chain, stored in the table's dtype.
 
+Every pool kernel takes any context length R. A pooled row's indices and
+weights are staged in shared memory a chunk of at most CONTEXT_CHUNK
+(2,048) entries at a time, each chain carried from chunk to chunk in r
+order (parked in the f32 output by the 3-table kernel, in registers by
+the one-table kernels, whose plan then gives a thread one lane), so a
+row of any length is bitwise what one pass over it would give, and a
+launch's shared memory stays within 48 KB.
+
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version (``*_reference``) only for CPU tensors. For a CUDA tensor it
 launches or raises: a missing nvcc or a failed build is an error.
@@ -62,7 +70,7 @@ from lirec_tpu_torch.ops import dispatch
 __all__ = [
     "fused_ctx_pool", "fused_ctx_pool_reference", "pool_plan", "rows_aligned",
     "fused_ctx_pool_triple", "fused_ctx_pool_triple_reference", "matmul_pool",
-    "gather_plan",
+    "gather_plan", "CONTEXT_CHUNK",
     "gather_masked_sum", "gather_masked_sum_reference", "KERNEL_NAMES",
 ]
 
@@ -73,7 +81,10 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # launch-count keys and C symbols, one per (wrapper, table dtype)
 KERNEL_NAMES = {(op, dt): "%s_%s" % (op, tag)
                 for op in _SOURCES for dt, tag in _DTYPES.items()}
-MAX_CONTEXT = 2048  # at most 16 bytes of shared memory per context entry
+# the most context entries of a pooled row the pool kernels stage in
+# shared memory at once (16 bytes each in the 3-table kernel, 8 in the
+# one-table kernels); a longer context is walked in chunks of this many
+CONTEXT_CHUNK = 2048
 # csrc/fused_ctx_pool.cu: threads per block; the plan aims at this many
 # 16-byte lanes per thread, within 48 KB of staged indices and weights
 POOL_THREADS = 128
@@ -93,29 +104,49 @@ def rows_aligned(t: torch.Tensor) -> bool:
 
 
 def pool_plan(M: int, R: int, d_clip: int, d_tr: int, elem_size: int,
-              vec_clip: bool, vec_tr: bool) -> dict:
-    """Launch geometry of the 3-table kernel: lanes per pooled row, pooled
-    rows per block (about POOL_LANES_PER_THREAD lanes per thread, and
-    their R index triples and weights within POOL_SMEM_BYTES), blocks."""
+              vec_clip: bool, vec_tr: bool, chunk: int | None = None) -> dict:
+    """Launch geometry of the 3-table kernel: lanes per pooled row, the
+    context entries staged at once (`chunk`: min(R, CONTEXT_CHUNK), or
+    the given chunk, at most what one row's 48 KB holds), pooled rows per
+    block (about POOL_LANES_PER_THREAD lanes per thread, and a chunk's
+    index triples and weights, 16 bytes an entry, plus a 4-byte running
+    divider where R > chunk, within POOL_SMEM_BYTES) and blocks."""
+    chunk = min(R, CONTEXT_CHUNK if chunk is None else chunk,
+                (POOL_SMEM_BYTES - 4) // 16)
     n = 16 // elem_size
     lanes = ((d_clip // n if vec_clip else d_clip)
              + 2 * (d_tr // n if vec_tr else d_tr))
+    per_row = 16 * chunk + (4 if R > chunk else 0)
     rows = max(1, POOL_THREADS * POOL_LANES_PER_THREAD // lanes)
-    rows = min(rows, max(1, POOL_SMEM_BYTES // (16 * R)))
-    return dict(lanes=lanes, rows_per_block=rows, blocks=-(-M // rows))
+    rows = min(rows, max(1, POOL_SMEM_BYTES // per_row))
+    return dict(lanes=lanes, rows_per_block=rows, blocks=-(-M // rows),
+                chunk=chunk)
 
 
 def gather_plan(M: int, R: int, width: int, elem_size: int, vec: bool,
-                sms: int = CARD_SMS) -> dict:
+                sms: int = CARD_SMS, chunk: int | None = None) -> dict:
     """Launch geometry of the one-table kernels (triple pool, masked sum):
-    lanes per pooled row (16-byte vectors where `vec`, else columns),
-    pooled rows per block (at least GATHER_LANES_PER_THREAD lanes per
-    thread, their R indices and weights, 8 bytes each, within
-    POOL_SMEM_BYTES), and, where that leaves fewer than `sms` blocks, one
-    row per block with its lanes cut into column slabs (slab_lanes, a
-    multiple of 32 where there are that many) so that the grid has at
-    least `sms` blocks when M x lanes allows."""
+    lanes per pooled row (16-byte vectors where `vec`, else columns), the
+    context entries staged at once (`chunk`: min(R, CONTEXT_CHUNK), or the
+    given chunk, at most what 48 KB holds), pooled rows per block (at
+    least GATHER_LANES_PER_THREAD lanes per thread, a chunk's indices and
+    weights, 8 bytes each, within POOL_SMEM_BYTES), and, where that leaves
+    fewer than `sms` blocks, one row per block with its lanes cut into
+    column slabs (slab_lanes, a multiple of 32 where there are that many)
+    so that the grid has at least `sms` blocks when M x lanes allows.
+    Where R > chunk a thread carries one lane across the chunks: one row
+    per block and at most POOL_THREADS lanes a slab."""
+    chunk = min(R, CONTEXT_CHUNK if chunk is None else chunk,
+                POOL_SMEM_BYTES // 8)
     lanes = width // (16 // elem_size) if vec else width
+    if R > chunk:
+        slabs = max(-(-lanes // POOL_THREADS), min(lanes, -(-sms // M)))
+        slab_lanes = lanes // slabs
+        if slab_lanes >= 32:
+            slab_lanes -= slab_lanes % 32
+        slabs = -(-lanes // slab_lanes)
+        return dict(lanes=lanes, rows_per_block=1, slab_lanes=slab_lanes,
+                    slabs=slabs, blocks=M * slabs, chunk=chunk)
     rows = -(-POOL_THREADS * GATHER_LANES_PER_THREAD // lanes)
     rows = min(rows, max(1, POOL_SMEM_BYTES // (8 * R)))
     slab_lanes = lanes
@@ -127,7 +158,7 @@ def gather_plan(M: int, R: int, width: int, elem_size: int, vec: bool,
             slab_lanes -= slab_lanes % 32
     slabs = -(-lanes // slab_lanes)
     return dict(lanes=lanes, rows_per_block=rows, slab_lanes=slab_lanes,
-                slabs=slabs, blocks=-(-M // rows) * slabs)
+                slabs=slabs, blocks=-(-M // rows) * slabs, chunk=chunk)
 
 
 def _sms(device) -> int:
@@ -184,12 +215,12 @@ def _check(emb, idx, mask):
     if mask.dtype != torch.float32 or tuple(mask.shape) != (M, R):
         raise ValueError("fused_ctx_pool mask must be float32 [%d, %d]; got "
                          "%s %s" % (M, R, mask.dtype, tuple(mask.shape)))
-    if not 1 <= R <= MAX_CONTEXT:
-        raise ValueError("fused_ctx_pool needs 1 <= R <= %d; got %d"
-                         % (MAX_CONTEXT, R))
-    if M >= 2**31 or clip.shape[1] + 2 * tr1.shape[1] >= 2**31:
-        raise ValueError("fused_ctx_pool: M and the row width must fit in "
-                         "an int32")
+    if R < 1:
+        raise ValueError("fused_ctx_pool needs R >= 1; got %d" % R)
+    if (M >= 2**31 or 3 * R >= 2**31
+            or clip.shape[1] + 2 * tr1.shape[1] >= 2**31):
+        raise ValueError("fused_ctx_pool: M, 3 x R and the row width must "
+                         "fit in an int32")
 
 
 def _launch(op, table, n_ptrs, args):
@@ -232,9 +263,9 @@ def fused_ctx_pool(emb, idx: torch.Tensor, mask: torch.Tensor,
                          vec_clip, vec_tr)
         _launch("fused_ctx_pool", emb.clip, 6, (
             emb.clip.data_ptr(), emb.tr1.data_ptr(), emb.tr2.data_ptr(),
-            idx.data_ptr(), mask.data_ptr(), out.data_ptr(), M, R, d_clip,
-            d_tr, int(bool(guard_zero)), plan["rows_per_block"],
-            int(vec_clip), int(vec_tr)))
+            idx.data_ptr(), mask.data_ptr(), out.data_ptr(), M, R,
+            plan["chunk"], d_clip, d_tr, int(bool(guard_zero)),
+            plan["rows_per_block"], int(vec_clip), int(vec_tr)))
     return out
 
 
@@ -315,11 +346,11 @@ def _check_single(op, table, idx, mask):
     if mask.dtype != torch.float32 or tuple(mask.shape) != (M, R):
         raise ValueError("%s mask must be float32 [%d, %d]; got %s %s"
                          % (op, M, R, mask.dtype, tuple(mask.shape)))
-    if not 1 <= R <= MAX_CONTEXT:
-        raise ValueError("%s needs 1 <= R <= %d; got %d"
-                         % (op, MAX_CONTEXT, R))
-    if M >= 2**31 or table.shape[1] >= 2**31:
-        raise ValueError("%s: M and the row width must fit in an int32" % op)
+    if R < 1:
+        raise ValueError("%s needs R >= 1; got %d" % (op, R))
+    if M >= 2**31 or R >= 2**31 or table.shape[1] >= 2**31:
+        raise ValueError("%s: M, R and the row width must fit in an int32"
+                         % op)
 
 
 def _launch_single(op, table, idx, mask, out, extra):
@@ -333,9 +364,9 @@ def _launch_single(op, table, idx, mask, out, extra):
     plan = gather_plan(M, R, width, table.element_size(), vec,
                        _sms(table.device))
     _launch(op, table, 4, (table.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                           out.data_ptr(), M, R, width, *extra,
-                           plan["rows_per_block"], plan["slab_lanes"],
-                           int(vec)))
+                           out.data_ptr(), M, R, plan["chunk"], width,
+                           *extra, plan["rows_per_block"],
+                           plan["slab_lanes"], int(vec)))
 
 
 def fused_ctx_pool_triple(fused: torch.Tensor, tidx: torch.Tensor,

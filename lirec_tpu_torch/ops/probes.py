@@ -38,13 +38,13 @@ import torch
 
 from lirec_tpu_torch.ops import dispatch
 from lirec_tpu_torch.ops.gather_pool import (
-    CARD_SMS, MAX_CONTEXT, _check, _sms, gather_plan, rows_aligned,
+    CARD_SMS, _check, _sms, gather_plan, rows_aligned,
 )
 
 __all__ = [
     "run_pool", "run_pool_reference", "run_pool_plan", "pack_bf16",
     "unpack_bf16", "packed_gather_sum", "packed_gather_sum_reference",
-    "KERNEL_NAMES",
+    "KERNEL_NAMES", "PROBE_MAX_CONTEXT",
 ]
 
 _SOURCES = {"run_pool": "probe_hbm_dma",
@@ -64,6 +64,16 @@ RUN_HEADER_BYTES = 128 + RUN_MAX_STAGES * (16 + 4 * RUN_MAX_CHUNK_ROWS)
 RUN_STAGE_BYTES = 108 * 1024  # a pooled row's whole runs at R = 18, 1536
 RUN_STAGES = 2                # columns: the fastest geometry measured
 SMEM_OPTIN = 232448
+# the probes' own context limit: they answer layout questions at the eval
+# sweep's shapes, and kernel 10 stages a row's whole context at once (the
+# product pools take any R, in chunks of gather_pool.CONTEXT_CHUNK)
+PROBE_MAX_CONTEXT = 2048
+
+
+def _check_context(op, R):
+    if not 1 <= R <= PROBE_MAX_CONTEXT:
+        raise ValueError("%s needs 1 <= R <= %d; got %d"
+                         % (op, PROBE_MAX_CONTEXT, R))
 
 
 def _launch(op, device, n_ptrs, args):
@@ -148,6 +158,7 @@ def run_pool(emb, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     of the three tables must fit in a stage.
     """
     _check(emb, idx, mask)
+    _check_context("run_pool", idx.shape[1])
     if emb.clip.dtype != torch.float32:
         raise TypeError("run_pool tables must be float32; got %s"
                         % emb.clip.dtype)
@@ -226,9 +237,7 @@ def _check_packed(packed, idx, mask):
     if mask.dtype != torch.float32 or tuple(mask.shape) != (M, R):
         raise ValueError("packed_gather_sum mask must be float32 [%d, %d]; "
                          "got %s %s" % (M, R, mask.dtype, tuple(mask.shape)))
-    if not 1 <= R <= MAX_CONTEXT:
-        raise ValueError("packed_gather_sum needs 1 <= R <= %d; got %d"
-                         % (MAX_CONTEXT, R))
+    _check_context("packed_gather_sum", R)
     if M >= 2**31 or 2 * packed.shape[1] >= 2**31:
         raise ValueError("packed_gather_sum: M and the row width must fit "
                          "in an int32")
@@ -253,7 +262,8 @@ def packed_gather_sum(packed: torch.Tensor, idx: torch.Tensor,
                       device=packed.device)
     if M:
         vec = rows_aligned(packed)
-        plan = gather_plan(M, R, d_half, 4, vec, _sms(packed.device))
+        plan = gather_plan(M, R, d_half, 4, vec, _sms(packed.device),
+                           chunk=R)
         _launch("packed_gather_sum", packed.device, 4, (
             packed.data_ptr(), idx.data_ptr(), mask.data_ptr(),
             out.data_ptr(), M, R, d_half, plan["rows_per_block"],

@@ -81,6 +81,20 @@ def test_jax_flags_accepted_or_refused_by_name(tmp_path, flag, value, item):
                              "int_rel_ch") is None
 
 
+@pytest.mark.parametrize("preset", ["int_rel_ch", "int_ch", "int_rels",
+                                    "modalities"])
+def test_mesh_help_describes_the_ported_model_axis(preset, capsys):
+    """--help describes --mesh as the DATAxMODEL mesh that shards training
+    (the model axis is ported), as the JAX package's help does, and
+    says nowhere that something is not ported."""
+    with pytest.raises(SystemExit) as exc:
+        common.build_parser(preset).parse_args(["--help"])
+    assert exc.value.code == 0
+    text = " ".join(capsys.readouterr().out.split())
+    assert "not ported" not in text
+    assert "DATAxMODEL" in text and "tp over joint_dim" in text
+
+
 @pytest.mark.parametrize("as_dir", [True])
 def test_auto_resume_refuses_a_jax_latest_ckpt(synth_root, tmp_path,
                                                monkeypatch, as_dir):

@@ -209,6 +209,63 @@ def test_one_table_kernel_edges_bitwise(cuda, R, M, dtype, widths, offset):
         assert torch.equal(got, _loop_sum(table, ids, mask))
 
 
+@pytest.mark.parametrize("widths", [(1024, 256), (1000, 250)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-6),
+                                        (torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("M", [3, 64])
+@pytest.mark.parametrize("R", [2048, 2049, 4096])
+def test_pools_past_one_chunk_bitwise_one_pass(cuda, R, M, dtype, atol,
+                                               widths, monkeypatch):
+    """Kernels 1-2, 4 and 5 around and past the context chunk (2,048
+    entries): at R = 2,048 one chunk, the one-pass kernel; at 2,049 and
+    4,096 the chunked walk. Kernel 4 bit for bit kernel 1, kernel 5 bit
+    for bit the r-ordered loop; each bit for bit its own output with other
+    chunk sizes (one pass where 48 KB holds the row: kernels 4-5 at 4,096;
+    kernel 1 cut into chunks of 700); kernels 1 and 4 within the card
+    tests' tolerance of the plain version (f32 2e-6, bf16 1e-5), empty rows
+    NaN without the guard; one launch per call."""
+    from lirec_tpu_torch.ops import gather_pool as gp
+
+    emb, idx, mask = _edge_inputs(cuda, dtype, R, *widths, M=M, Nc=500,
+                                  Nt=700, seed=R + M)
+    fused, tidx = _triple_of(emb, idx)
+    one = idx[..., 0].contiguous()
+
+    def run():
+        out = {}
+        for guard in (True, False):
+            out["three", guard] = fused_ctx_pool(emb, idx, mask, guard)
+            out["tri", guard] = fused_ctx_pool_triple(fused, tidx, mask,
+                                                      guard)
+        out["sum_fused"] = gather_masked_sum(fused, tidx, mask)
+        out["sum_clip"] = gather_masked_sum(emb.clip, one, mask)
+        torch.cuda.synchronize()
+        return out
+
+    names = [KERNEL_NAMES[(op, dtype)] for op in (
+        "fused_ctx_pool", "fused_ctx_pool_triple", "gather_masked_sum")]
+    before = [dispatch.launches(n) for n in names]
+    got = run()
+    assert [dispatch.launches(n) - b for n, b in zip(names, before)] == [
+        2, 2, 2]
+    for guard in (True, False):
+        three, tri = got["three", guard], got["tri", guard]
+        assert torch.equal(torch.nan_to_num(three), torch.nan_to_num(tri))
+        assert torch.equal(three.isnan(), tri.isnan())
+        assert bool(three[-1].isnan().all()) != guard
+        want = fused_ctx_pool_reference(emb, idx, mask, guard)
+        torch.testing.assert_close(three, want, rtol=0, atol=atol,
+                                   equal_nan=True)
+    assert torch.equal(got["sum_fused"], _loop_sum(fused, tidx, mask))
+    assert torch.equal(got["sum_clip"], _loop_sum(emb.clip, one, mask))
+    for chunk in (700, R if 8 * R <= gp.POOL_SMEM_BYTES else 3000):
+        monkeypatch.setattr(gp, "CONTEXT_CHUNK", chunk)
+        again = run()
+        for key, t in got.items():
+            assert torch.equal(torch.nan_to_num(again[key]),
+                               torch.nan_to_num(t)), (chunk, key)
+
+
 def test_kernel_raises_instead_of_falling_back(cuda):
     emb, idx, mask = _inputs(cuda, torch.float32)
     with pytest.raises(ValueError, match="int32"):

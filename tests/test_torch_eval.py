@@ -495,10 +495,9 @@ def test_rels_only_buckets_are_powers_of_two(synth_root, monkeypatch):
     """Each flushed bucket is [B, padded + 1, 3] / [B, padded, 1] with
     padded the next power of two >= the items' clip counts (at least 2),
     every pad row and clip has weight 0, and the buckets flush in sorted
-    order at the end; the fixture's largest L is far below the kernels'
-    MAX_CONTEXT."""
+    order at the end; the buckets are powers of two with no upper limit
+    (the pool kernels take any R)."""
     from lirec_tpu_torch.evaluation import runner as port_runner
-    from lirec_tpu_torch.ops.gather_pool import MAX_CONTEXT
 
     _, (pc, pd, pb) = _rels_only_pair(synth_root)
     pd.test_rels_multi_clip = True
@@ -525,7 +524,9 @@ def test_rels_only_buckets_are_powers_of_two(synth_root, monkeypatch):
     tail = [s[0][1] - 1 for s in seen[-len(pads):]]
     assert tail == sorted(tail)
     assert sum(s[2] for s in seen) > 0
-    assert max(lengths) < MAX_CONTEXT
+    padded = {s[0][1] - 1 for s in seen}
+    assert all(p >= 2 and p & (p - 1) == 0 for p in padded)
+    assert padded == {1 << max(1, L - 1).bit_length() for L in lengths}
 
 
 @pytest.mark.parametrize("preset,mode,batch_size", [

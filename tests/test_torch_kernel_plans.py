@@ -83,20 +83,28 @@ def test_pool_lanes_cover_every_output_column_once(esize, d_clip, d_tr,
     assert plan["lanes"] == len(lanes)
 
 
-@pytest.mark.parametrize("M,R", [(1280, 18), (7, 1), (41, 64), (3, 2048)]
+@pytest.mark.parametrize("M,R", [(1280, 18), (7, 1), (41, 64), (3, 2048),
+                                 (1, 2049), (64, 4096)]
                          # the rels-only eval's buckets
                          + [(64, r) for r in (2, 4, 8, 16, 32, 64, 128)])
 @pytest.mark.parametrize("esize", [4, 2])
 def test_pool_plan_blocks_cover_the_rows_within_shared_memory(M, R, esize):
     """Every pooled row in exactly one block; a block's staged indices and
-    weights (16 bytes per entry) within 48 KB; about three lanes per
-    thread where the row is narrow enough."""
+    weights (16 bytes per entry of a chunk of min(R, CONTEXT_CHUNK)
+    entries, and a 4-byte running divider per row past one chunk) within
+    48 KB at every R; about three lanes per thread where the row is
+    narrow enough."""
     plan = gp.pool_plan(M, R, 1024, 256, esize, True, True)
     rows = plan["rows_per_block"]
     covered = sorted(b * rows + i for b in range(plan["blocks"])
                      for i in range(rows) if b * rows + i < M)
     assert covered == list(range(M))
-    assert rows * R * 16 <= gp.POOL_SMEM_BYTES
+    C = gp.CONTEXT_CHUNK
+    assert plan["chunk"] == min(R, C)
+    assert rows * min(R, C) * 16 <= gp.POOL_SMEM_BYTES
+    # what csrc/fused_ctx_pool.cu's launch asks for: the staged chunk and,
+    # past one chunk, a running divider per row
+    assert rows * (min(R, C) * 16 + 4 * (R > C)) <= gp.POOL_SMEM_BYTES
     if R <= 18:
         per_thread = rows * plan["lanes"] / gp.POOL_THREADS
         assert 1.5 <= per_thread <= gp.POOL_LANES_PER_THREAD
@@ -150,15 +158,18 @@ def test_gather_plan_writes_every_output_column_once(M, esize, width,
 
 @pytest.mark.parametrize("width", [1536, 1500, 1024, 1000])
 @pytest.mark.parametrize("esize", [4, 2])
-@pytest.mark.parametrize("R", [1, 9, 18, 64, 2048])
+@pytest.mark.parametrize("R", [1, 9, 18, 64, 2048, 2049, 4096])
 @pytest.mark.parametrize("M", [1, 64, 1280])
 def test_gather_plan_blocks_cover_the_rows_and_fill_the_card(M, R, esize,
                                                              width):
     """Every pooled row in exactly one block row, every lane in exactly
-    one slab; a block's staged indices and weights (8 bytes per entry)
-    within 48 KB; at least two lanes per thread where shared memory and
-    the rows allow, and no row more than that needs; and at least one
-    block per SM (132) wherever M x lanes allows it, as at M = 64."""
+    one slab; a block's staged indices and weights (8 bytes per entry of
+    a chunk of min(R, CONTEXT_CHUNK) entries) within 48 KB; past one
+    chunk one row per block and at most one lane per thread (a thread
+    carries its chains across the chunks); else at least two lanes per
+    thread where shared memory and the rows allow, and no row more than
+    that needs; and at least one block per SM (132) wherever M x lanes
+    allows it, as at M = 64."""
     vec = width * esize % 16 == 0
     plan = gp.gather_plan(M, R, width, esize, vec)
     rows, slab_lanes = plan["rows_per_block"], plan["slab_lanes"]
@@ -169,7 +180,14 @@ def test_gather_plan_blocks_cover_the_rows_and_fill_the_card(M, R, esize,
              for s in range(plan["slabs"])]
     assert [lane for s in slabs for lane in s] == list(range(plan["lanes"]))
     assert all(len(s) > 0 for s in slabs)
-    assert rows * R * 8 <= gp.POOL_SMEM_BYTES
+    C = gp.CONTEXT_CHUNK
+    assert plan["chunk"] == min(R, C)
+    assert rows * min(R, C) * 8 <= gp.POOL_SMEM_BYTES
+    if R > C:
+        assert rows == 1 and slab_lanes <= gp.POOL_THREADS
+        if M * plan["lanes"] >= gp.CARD_SMS:
+            assert plan["blocks"] >= gp.CARD_SMS
+        return
     want = gp.POOL_THREADS * gp.GATHER_LANES_PER_THREAD
     per_block = rows * slab_lanes
     assert rows == 1 or (rows - 1) * slab_lanes < want
@@ -179,6 +197,25 @@ def test_gather_plan_blocks_cover_the_rows_and_fill_the_card(M, R, esize,
         assert plan["blocks"] >= gp.CARD_SMS
     if M == 64:
         assert plan["blocks"] >= 132
+
+
+@pytest.mark.parametrize("width", [1536, 1500, 1000, 40])
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("M,R", [(1, 2049), (64, 4096), (7, 4097)])
+def test_gather_plan_past_one_chunk_gives_each_thread_one_lane(M, R, esize,
+                                                               width):
+    """Past CONTEXT_CHUNK entries the one-table kernels carry each lane's
+    chains in a thread's registers from chunk to chunk: the plan writes
+    every output column of every row exactly once, with one pooled row a
+    block and no more lanes a block than threads (the launch refuses
+    more), and the chunk is CONTEXT_CHUNK."""
+    vec = width * esize % 16 == 0
+    plan = gp.gather_plan(M, R, width, esize, vec)
+    assert plan["chunk"] == gp.CONTEXT_CHUNK < R
+    assert plan["rows_per_block"] == 1
+    assert plan["slab_lanes"] <= gp.POOL_THREADS
+    assert (_gather_hits(plan, M, width, esize, vec) == 1).all()
+    assert plan["blocks"] == M * plan["slabs"]
 
 
 def _item_columns(plan, rows, widths, esize, vec, item):
@@ -328,11 +365,12 @@ def test_run_pool_plan_raises_where_a_row_exceeds_a_stage():
     """The ring's size depends on neither R nor the width: a row of the
     three tables is refused only where it exceeds a stage or the lanes the
     consumers keep in registers (9,216 columns), at any R up to
-    MAX_CONTEXT; the shipped stage takes a pooled row's whole runs at the
-    probe's R = 18, and the plan cuts longer runs into chunks."""
+    the probes' own PROBE_MAX_CONTEXT; the shipped stage takes a pooled
+    row's whole runs at the probe's R = 18, and the plan cuts longer runs
+    into chunks."""
     cols = probes.RUN_CONSUMERS * probes.RUN_MAX_LANES * 4
     assert cols == 9216 and cols * 4 <= probes.RUN_STAGE_BYTES
-    probes.run_pool_plan(1, gp.MAX_CONTEXT, cols - 2048, 1024)
+    probes.run_pool_plan(1, probes.PROBE_MAX_CONTEXT, cols - 2048, 1024)
     with pytest.raises(ValueError, match="lanes"):
         probes.run_pool_plan(1, 1, cols - 2044, 1024)
     with pytest.raises(ValueError, match="exceeds a stage"):
