@@ -50,15 +50,16 @@
 //   and weights staged in shared memory once.
 // * No serial thread and no second barrier: each thread sums the divider
 //   itself from the staged weights, in r order.
-// * Any R: the context is staged in chunks of at most `chunk` entries
-//   (ops/gather_pool.CONTEXT_CHUNK, 2,048: 32 KB of one row's indices and
-//   weights), so shared memory stays within 48 KB however long a row's
-//   context is. At R <= chunk there is one chunk and the kernel is the
-//   one-pass kernel above. Past it, each item parks its partial sums in
-//   its own f32 cells of `out` between chunks and one thread per pooled
-//   row keeps the divider's running sum in shared memory; every chain
-//   still runs in r order from 0.f, so the result is bitwise the one-pass
-//   kernel's (and the triple kernel's) on the same rows.
+// * Any R: past ops/gather_pool.CONTEXT_CHUNK (2,048) entries the context
+//   is staged a chunk at a time (32 KB of one row's indices and weights),
+//   so shared memory stays within 48 KB however long a row's context is.
+//   The plan then takes the one-table kernels' geometry (one pooled row a
+//   block, its lanes cut into column slabs of at most kThreads over
+//   blockIdx.y), so each thread carries one lane's chains and the divider
+//   in registers from chunk to chunk. Every chain still runs in r order
+//   from 0.f, so the result is bitwise the one-pass kernel's (and the
+//   triple kernel's) on the same rows. At R <= 2,048 the one-pass
+//   instantiation runs, unchanged.
 // * A table whose rows do not all start on 16-byte boundaries (a view off
 //   an aligned base, or a row width in bytes not a multiple of 16) is read
 //   by the same code with one column per lane and scalar loads; the
@@ -164,43 +165,35 @@ __device__ __forceinline__ void chain_col(const T* __restrict__ table,
   *acc = a0;
 }
 
-// cnt f32 values between registers and o (16-byte accesses where o is on a
-// 16-byte boundary)
+// tanh(acc * inv) of a lane's n columns to o (16-byte stores where o is on
+// a 16-byte boundary)
 template <int n>
-__device__ __forceinline__ void put(float* o, const float* v, int cnt) {
-  if (cnt == n && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+__device__ __forceinline__ void store_tanh(float* o, const float* acc,
+                                           float inv) {
+  float res[n];
+#pragma unroll
+  for (int e = 0; e < n; ++e) res[e] = tanhf(__fmul_rn(acc[e], inv));
+  if ((reinterpret_cast<uintptr_t>(o) & 15) == 0) {
 #pragma unroll
     for (int e = 0; e < n; e += 4)
       *reinterpret_cast<float4*>(o + e) =
-          make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+          make_float4(res[e], res[e + 1], res[e + 2], res[e + 3]);
   } else {
-    for (int e = 0; e < cnt; ++e) o[e] = v[e];
-  }
-}
-template <int n>
-__device__ __forceinline__ void get(const float* o, float* v, int cnt) {
-  if (cnt == n && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
 #pragma unroll
-    for (int e = 0; e < n; e += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(o + e);
-      v[e] = q.x; v[e + 1] = q.y; v[e + 2] = q.z; v[e + 3] = q.w;
-    }
-  } else {
-    for (int e = 0; e < cnt; ++e) v[e] = o[e];
+    for (int e = 0; e < n; ++e) o[e] = res[e];
   }
 }
 
-// A block takes rows_per_block pooled rows and walks their context in
-// chunks of at most `chunk` entries: it stages a chunk's index triples and
-// weights in shared memory, and every item (one lane of one pooled row)
-// adds the chunk's terms to its chains. Between chunks an item's partial
-// sums are parked in its own cells of `out` (f32: a store and a reload
-// are exact), and the divider's partial sum of each row in s_div, kept by
-// one thread per row; the last chunk adds its own weights to it, so every
-// sum runs in r order from 0.f as in one pass. At R <= chunk there is one
-// chunk: nothing is parked, and each item sums its row's whole divider
-// from the staged weights.
-template <typename T>
+// Block (x, y): pooled rows x * rows_per_block .. and lanes y * slab_lanes
+// .. of each; an item is one lane of one pooled row. kChunked = false: the
+// block stages its rows' whole context at once (chunk == R) and each item
+// sums its chains and its row's divider in one pass. kChunked = true (R >
+// chunk): the block stages the context a chunk at a time, and the plan
+// gives it one pooled row and at most kThreads lanes, so a thread holds
+// one item and carries its chains and divider in registers from chunk to
+// chunk. Every sum runs in r order from 0.f either way: the same
+// operations in the same order.
+template <typename T, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 fused_ctx_pool_kernel(const T* __restrict__ clip, const T* __restrict__ tr1,
                       const T* __restrict__ tr2,
@@ -208,45 +201,48 @@ fused_ctx_pool_kernel(const T* __restrict__ clip, const T* __restrict__ tr1,
                       const float* __restrict__ mask,
                       float* __restrict__ out, int M, int R, int chunk,
                       int d_clip, int d_tr, int guard_zero,
-                      int rows_per_block, int vec_clip, int vec_tr) {
+                      int rows_per_block, int slab_lanes, int vec_clip,
+                      int vec_tr) {
   extern __shared__ int32_t smem[];
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
   const int rows = static_cast<int>(
       M - m0 < rows_per_block ? M - m0 : rows_per_block);
-  int32_t* s_idx = smem;                                   // [rows, chunk, 3]
-  float* s_w = reinterpret_cast<float*>(smem + 3 * rows_per_block * chunk);
-  float* s_div = s_w + rows_per_block * chunk;             // [rows]
+  const int step = kChunked ? chunk : R;  // entries staged at once
+  int32_t* s_idx = smem;                                    // [rows, step, 3]
+  float* s_w = reinterpret_cast<float*>(smem + 3 * rows_per_block * step);
 
   constexpr int n = Raw<T>::n;
   const int n_clip = vec_clip ? d_clip / n : d_clip;  // lanes per table
   const int n_tr = vec_tr ? d_tr / n : d_tr;
   const int lanes = n_clip + 2 * n_tr;
   const int width = d_clip + 2 * d_tr;
-  for (int c0 = 0; c0 < R; c0 += chunk) {
-    const int k = R - c0 < chunk ? R - c0 : chunk;
-    const bool first = c0 == 0, last = c0 + k == R;
+  const int lane0 = blockIdx.y * slab_lanes;
+  const int slab = lanes - lane0 < slab_lanes ? lanes - lane0 : slab_lanes;
+  float acc[n];
+  float div = 0.f;
+  for (int c0 = 0; c0 < R; c0 += step) {
+    const int k = R - c0 < step ? R - c0 : step;
+    const bool first = !kChunked || c0 == 0;
+    const bool last = !kChunked || c0 + k == R;
     if (!first) __syncthreads();  // the previous chunk is done with
-    for (int i = threadIdx.x; i < rows * 3 * k; i += kThreads) {
-      const int g = i / (3 * k), j = i - g * 3 * k;
-      s_idx[g * 3 * chunk + j] = idx[(m0 + g) * 3 * R + 3 * c0 + j];
-    }
-    for (int i = threadIdx.x; i < rows * k; i += kThreads) {
-      const int g = i / k, j = i - g * k;
-      s_w[g * chunk + j] = mask[(m0 + g) * R + c0 + j];
-    }
+    // one chunk, or one row: the staged entries are contiguous in idx/mask
+    for (int i = threadIdx.x; i < rows * 3 * k; i += kThreads)
+      s_idx[i] = idx[(m0 * R + c0) * 3 + i];
+    for (int i = threadIdx.x; i < rows * k; i += kThreads)
+      s_w[i] = mask[m0 * R + c0 + i];
     __syncthreads();
-    if (!last)  // the divider's running sum, one thread per pooled row
-      for (int g = threadIdx.x; g < rows; g += kThreads) {
-        float div = first ? 0.f : s_div[g];
-        for (int r = 0; r < k; ++r) div = __fadd_rn(div, s_w[g * chunk + r]);
-        s_div[g] = div;
-      }
 
-    for (int item = threadIdx.x; item < rows * lanes; item += kThreads) {
-      const int g = item / lanes;
-      int lane = item - g * lanes;
-      const float* w = s_w + g * chunk;
-      const int32_t* ix = s_idx + g * 3 * chunk;
+    for (int item = threadIdx.x; item < rows * slab; item += kThreads) {
+      const int g = item / slab;
+      int lane = lane0 + item - g * slab;
+      const float* w = s_w + g * k;
+      const int32_t* ix = s_idx + g * 3 * k;
+      if (first) {
+#pragma unroll
+        for (int e = 0; e < n; ++e) acc[e] = 0.f;
+        div = 0.f;
+      }
+      for (int r = 0; r < k; ++r) div = __fadd_rn(div, w[r]);
       const T* table;
       int which, ld, vec, col0;
       if (lane < n_clip) {
@@ -258,54 +254,50 @@ fused_ctx_pool_kernel(const T* __restrict__ clip, const T* __restrict__ tr1,
         table = which == 1 ? tr1 : tr2;
         ld = d_tr; vec = vec_tr; col0 = d_clip + (which - 1) * d_tr;
       }
-      const int cnt = vec ? n : 1;
-      float* o = out + (m0 + g) * width + col0 + lane * cnt;
-      float acc[n];
-#pragma unroll
-      for (int e = 0; e < n; ++e) acc[e] = 0.f;
-      if (!first) get<n>(o, acc, cnt);
       if (vec)
         chain_vec(table, ld, lane * n, ix, which, w, k, acc);
       else
         chain_col(table, ld, lane, ix, which, w, k, acc);
       if (last) {
-        float div = first ? 0.f : s_div[g];
-        for (int r = 0; r < k; ++r) div = __fadd_rn(div, w[r]);
-        if (guard_zero && div == 0.f) div = 1.f;
-        const float inv = __fdiv_rn(1.f, div);
-#pragma unroll
-        for (int e = 0; e < n; ++e) acc[e] = tanhf(__fmul_rn(acc[e], inv));
+        const float inv =
+            __fdiv_rn(1.f, guard_zero && div == 0.f ? 1.f : div);
+        float* o = out + (m0 + g) * width + col0;
+        if (vec)
+          store_tanh<n>(o + lane * n, acc, inv);
+        else
+          o[lane] = tanhf(__fmul_rn(acc[0], inv));
       }
-      put<n>(o, acc, cnt);
     }
   }
-}
-
-// Shared memory of a launch: a chunk's index triples and weights of each
-// pooled row (16 bytes an entry), and the rows' running dividers where the
-// context takes more than one chunk.
-size_t smem_bytes(int R, int chunk, int rows_per_block) {
-  return static_cast<size_t>(rows_per_block) *
-         (static_cast<size_t>(chunk) * 4 * sizeof(int32_t) +
-          (R > chunk ? sizeof(float) : 0));
 }
 
 template <typename T>
 int launch(const void* clip, const void* tr1, const void* tr2,
            const void* idx, const void* mask, void* out, int M, int R,
            int chunk, int d_clip, int d_tr, int guard_zero,
-           int rows_per_block, int vec_clip, int vec_tr, void* stream) {
-  if (rows_per_block < 1 || chunk < 1 || chunk > R)
+           int rows_per_block, int slab_lanes, int vec_clip, int vec_tr,
+           void* stream) {
+  constexpr int n = Raw<T>::n;
+  const int lanes =
+      (vec_clip ? d_clip / n : d_clip) + 2 * (vec_tr ? d_tr / n : d_tr);
+  const bool chunked = R > chunk;
+  if (rows_per_block < 1 || slab_lanes < 1 || chunk < 1 || chunk > R ||
+      (chunked && (rows_per_block != 1 || slab_lanes > kThreads)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks =
-      static_cast<unsigned>((M + rows_per_block - 1) / rows_per_block);
-  fused_ctx_pool_kernel<T><<<blocks, kThreads,
-                             smem_bytes(R, chunk, rows_per_block),
-                             static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(
+      static_cast<unsigned>((static_cast<int64_t>(M) + rows_per_block - 1) /
+                            rows_per_block),
+      static_cast<unsigned>((lanes + slab_lanes - 1) / slab_lanes));
+  // a chunk's index triples and weights of each pooled row, 16 B an entry
+  const size_t smem = static_cast<size_t>(rows_per_block) * chunk * 16;
+  auto kernel = chunked ? fused_ctx_pool_kernel<T, true>
+                        : fused_ctx_pool_kernel<T, false>;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(clip), static_cast<const T*>(tr1),
       static_cast<const T*>(tr2), static_cast<const int32_t*>(idx),
       static_cast<const float*>(mask), static_cast<float*>(out), M, R, chunk,
-      d_clip, d_tr, guard_zero, rows_per_block, vec_clip, vec_tr);
+      d_clip, d_tr, guard_zero, rows_per_block, slab_lanes, vec_clip,
+      vec_tr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -315,31 +307,31 @@ extern "C" {
 
 // Pointers are device pointers of contiguous tensors: clip [Nc, d_clip],
 // tr1/tr2 [Nt, d_tr], idx int32 [M, R, 3], mask f32 [M, R], out f32
-// [M, d_clip + 2 * d_tr]. The context is walked in chunks of `chunk`
-// entries (1 <= chunk <= R); rows_per_block pooled rows per block (a
-// chunk's chunk x 16 bytes of indices and weights each in shared memory,
-// and 4 bytes of divider where R > chunk); vec_clip / vec_tr: 1 where
-// every row of that table (tr1 and tr2 both) starts on a 16-byte
-// boundary, so it is read in 16-byte lanes. Returns the cudaError_t of
-// the launch (0 = ok).
+// [M, d_clip + 2 * d_tr]. The context is staged `chunk` entries at a time
+// (1 <= chunk <= R; 16 bytes an entry of each of the block's pooled rows
+// in shared memory); rows_per_block pooled rows per block and slab_lanes
+// lanes of them (past one chunk: one row, at most 128 lanes); vec_clip /
+// vec_tr: 1 where every row of that table (tr1 and tr2 both) starts on a
+// 16-byte boundary, so it is read in 16-byte lanes. Returns the
+// cudaError_t of the launch (0 = ok).
 int fused_ctx_pool_f32(const void* clip, const void* tr1, const void* tr2,
                        const void* idx, const void* mask, void* out, int M,
                        int R, int chunk, int d_clip, int d_tr,
-                       int guard_zero, int rows_per_block, int vec_clip,
-                       int vec_tr, void* stream) {
+                       int guard_zero, int rows_per_block, int slab_lanes,
+                       int vec_clip, int vec_tr, void* stream) {
   return launch<float>(clip, tr1, tr2, idx, mask, out, M, R, chunk, d_clip,
-                       d_tr, guard_zero, rows_per_block, vec_clip, vec_tr,
-                       stream);
+                       d_tr, guard_zero, rows_per_block, slab_lanes,
+                       vec_clip, vec_tr, stream);
 }
 
 int fused_ctx_pool_bf16(const void* clip, const void* tr1, const void* tr2,
                         const void* idx, const void* mask, void* out, int M,
                         int R, int chunk, int d_clip, int d_tr,
-                        int guard_zero, int rows_per_block, int vec_clip,
-                        int vec_tr, void* stream) {
+                        int guard_zero, int rows_per_block, int slab_lanes,
+                        int vec_clip, int vec_tr, void* stream) {
   return launch<__nv_bfloat16>(clip, tr1, tr2, idx, mask, out, M, R, chunk,
                                d_clip, d_tr, guard_zero, rows_per_block,
-                               vec_clip, vec_tr, stream);
+                               slab_lanes, vec_clip, vec_tr, stream);
 }
 
 }  // extern "C"

@@ -45,7 +45,12 @@
 //   row is 384 lanes in f32, 192 in bf16). bf16 pairs are widened by
 //   shifts, exactly as __bfloat162float; outputs go out in 16-B stores.
 // * Loads ahead of the chain: a thread issues the loads of kChunk
-//   gathered rows before it adds any of them (R = 18 is three chunks).
+//   gathered rows before it adds any of them (R = 18 is three groups).
+//   Whole groups run without a per-row predicate and the rest as one
+//   predicated group: with the predicate inside the loop nvcc may wrap
+//   each row of a group in a convergence barrier (BSSY/BSYNC) and
+//   interleave the adds, which measured 6-9% slower at the eval batch
+//   and up to 24% past one chunk (PERF.md).
 // * A block takes rows_per_block pooled rows (at least two lanes per
 //   thread) with their R indices and weights staged in shared memory
 //   once, 8 bytes per entry; no serial thread and no second barrier:
@@ -54,13 +59,13 @@
 // * Column slabs where the rows are few: blockIdx.y takes slab_lanes
 //   lanes of the block's rows, so that M = 64 pooled rows still spread
 //   over every SM (ops/gather_pool.gather_plan chooses both numbers).
-// * Any R: the context is staged in chunks of at most `chunk` entries
-//   (ops/gather_pool.CONTEXT_CHUNK, 2,048: 16 KB of one row's indices and
-//   weights). At R <= chunk that is one chunk, the one-pass kernel above.
-//   Past it the plan takes one pooled row per block and at most one lane
-//   per thread, so each thread carries its chains and divider in
-//   registers across the chunks (the masked sum's output may be bf16, too
-//   narrow to park a partial sum in), bitwise the one-pass order.
+// * Any R: past ops/gather_pool.CONTEXT_CHUNK (2,048) entries the context
+//   is staged a chunk at a time (16 KB of one row's indices and weights).
+//   The plan then takes one pooled row per block and at most one lane per
+//   thread, so each thread carries its chains and divider in registers
+//   across the chunks (the masked sum's output may be bf16, too narrow to
+//   hold a partial sum), bitwise the one-pass order. At R <= 2,048 the
+//   one-pass instantiation runs.
 // * A table whose rows do not all start on 16-byte boundaries (a view off
 //   an aligned base, or a row width in bytes not a multiple of 16) is read
 //   by the same code with one column per lane and scalar loads; the
@@ -70,7 +75,7 @@
 // resident; 18 ahead only wins at the bf16 probe's M = 64), three lanes
 // per thread, registers capped by __launch_bounds__ (at 48 they spill)
 // and 256 threads per block. The column slabs measure level with none at M = 64:
-// the latency chain (launch, index staging, three chunks of gathered
+// the latency chain (launch, index staging, three groups of gathered
 // rows), not the SM count, holds that case.
 //
 // Indices are not range-checked here; they come from the host-side
@@ -146,62 +151,81 @@ __device__ __forceinline__ void store_lane(__nv_bfloat16* o,
                  bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
 }
 
-// The chains of one 16-byte lane: columns c .. c + n - 1 of `table`; adds
-// the k staged entries of a chunk to acc, in r order
+// Adds a (<= kChunk) staged entries to the chains of one 16-byte lane,
+// columns c .. c + n - 1 of `table`: all a loads first, then the adds in r
+// order
+template <typename T>
+__device__ __forceinline__ void add_vec(const T* __restrict__ table,
+                                        int64_t ld, int c, const int32_t* ix,
+                                        const float* w, int a,
+                                        float (&acc)[Raw<T>::n]) {
+  using V = typename Raw<T>::type;
+  constexpr int n = Raw<T>::n;
+  V x[kChunk];
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j)
+    if (j < a) x[j] = load16(table + ix[j] * ld + c);
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j)
+    if (j < a) {
+      const float wr = w[j];
+#pragma unroll
+      for (int e = 0; e < n; ++e)
+        acc[e] = __fadd_rn(acc[e], __fmul_rn(wr, elem(x[j], e)));
+    }
+}
+
+// The same for one column c with scalar loads (rows not 16-B aligned)
+template <typename T>
+__device__ __forceinline__ float add_col(const T* __restrict__ table,
+                                         int64_t ld, int c, const int32_t* ix,
+                                         const float* w, int a, float acc) {
+  float x[kChunk];
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j)
+    if (j < a) x[j] = to_f32(table[ix[j] * ld + c]);
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j)
+    if (j < a) acc = __fadd_rn(acc, __fmul_rn(w[j], x[j]));
+  return acc;
+}
+
+// The chains of one lane over the k staged entries of a chunk, in r order:
+// whole groups of kChunk entries (no per-entry predicate in the loop), then
+// one group of the rest
 template <typename T>
 __device__ __forceinline__ void sum_vec(const T* __restrict__ table,
                                         int64_t ld, int c, const int32_t* ix,
                                         const float* w, int k,
                                         float (&acc)[Raw<T>::n]) {
-  using V = typename Raw<T>::type;
-  constexpr int n = Raw<T>::n;
-  for (int r0 = 0; r0 < k; r0 += kChunk) {
-    const int a = k - r0 < kChunk ? k - r0 : kChunk;
-    V x[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-      if (j < a) x[j] = load16(table + ix[r0 + j] * ld + c);
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-      if (j < a) {
-        const float wr = w[r0 + j];
-#pragma unroll
-        for (int e = 0; e < n; ++e)
-          acc[e] = __fadd_rn(acc[e], __fmul_rn(wr, elem(x[j], e)));
-      }
-  }
+  int r0 = 0;
+  for (; r0 + kChunk <= k; r0 += kChunk)
+    add_vec(table, ld, c, ix + r0, w + r0, kChunk, acc);
+  if (r0 < k) add_vec(table, ld, c, ix + r0, w + r0, k - r0, acc);
 }
 
-// The chain of one column c with scalar loads (rows not 16-B aligned):
-// acc plus the chunk's k terms, in r order
 template <typename T>
 __device__ __forceinline__ float sum_col(const T* __restrict__ table,
                                          int64_t ld, int c, const int32_t* ix,
                                          const float* w, int k, float acc) {
-  for (int r0 = 0; r0 < k; r0 += kChunk) {
-    const int a = k - r0 < kChunk ? k - r0 : kChunk;
-    float x[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-      if (j < a) x[j] = to_f32(table[ix[r0 + j] * ld + c]);
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-      if (j < a) acc = __fadd_rn(acc, __fmul_rn(w[r0 + j], x[j]));
-  }
+  int r0 = 0;
+  for (; r0 + kChunk <= k; r0 += kChunk)
+    acc = add_col(table, ld, c, ix + r0, w + r0, kChunk, acc);
+  if (r0 < k) acc = add_col(table, ld, c, ix + r0, w + r0, k - r0, acc);
   return acc;
 }
 
 // kPool: the triple pool (tanh of the mean, f32 out); else the masked sum
 // (out in T). Block (x, y): pooled rows x * rows_per_block .. and lanes
-// y * slab_lanes .. of each. The context is staged in chunks of at most
-// `chunk` entries; at R <= chunk that is one chunk, and each item sums
-// its chains (and the pool's divider) from 0.f over the staged entries.
-// Past one chunk the wrapper's plan gives each thread at most one item
-// (one pooled row per block, at most kThreads lanes a slab), so a
-// thread's chains and divider stay in registers from chunk to chunk and
-// every sum still runs in r order from 0.f: the same operations in the
-// same order as in one pass.
-template <typename T, bool kPool>
+// y * slab_lanes .. of each. kChunked = false: the block stages its rows'
+// whole context at once (chunk == R) and each item sums its chains (and
+// the pool's divider) in one pass. kChunked = true (R > chunk): the
+// context is staged a chunk at a time, and the wrapper's plan gives each
+// thread at most one item (one pooled row per block, at most kThreads
+// lanes a slab), so a thread's chains and divider stay in registers from
+// chunk to chunk and every sum still runs in r order from 0.f: the same
+// operations in the same order as in one pass.
+template <typename T, bool kPool, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 gather_lanes_kernel(const T* __restrict__ table,
                     const int32_t* __restrict__ idx,
@@ -213,8 +237,9 @@ gather_lanes_kernel(const T* __restrict__ table,
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
   const int rows = static_cast<int>(
       M - m0 < rows_per_block ? M - m0 : rows_per_block);
-  int32_t* s_idx = smem;                                      // [rows, chunk]
-  float* s_w = reinterpret_cast<float*>(smem + rows_per_block * chunk);
+  const int step = kChunked ? chunk : R;  // entries staged at once
+  int32_t* s_idx = smem;                                       // [rows, step]
+  float* s_w = reinterpret_cast<float*>(smem + rows_per_block * step);
 
   constexpr int n = Raw<T>::n;
   const int lanes = vec ? width / n : width;
@@ -222,21 +247,22 @@ gather_lanes_kernel(const T* __restrict__ table,
   const int slab = lanes - lane0 < slab_lanes ? lanes - lane0 : slab_lanes;
   float acc[n];
   float div = 0.f;
-  for (int c0 = 0; c0 < R; c0 += chunk) {
-    const int k = R - c0 < chunk ? R - c0 : chunk;
-    const bool first = c0 == 0, last = c0 + k == R;
+  for (int c0 = 0; c0 < R; c0 += step) {
+    const int k = R - c0 < step ? R - c0 : step;
+    const bool first = !kChunked || c0 == 0;
+    const bool last = !kChunked || c0 + k == R;
     if (!first) __syncthreads();  // the previous chunk is done with
+    // one chunk, or one row: the staged entries are contiguous in idx/mask
     for (int i = threadIdx.x; i < rows * k; i += kThreads) {
-      const int g = i / k, j = i - g * k;
-      s_idx[g * chunk + j] = idx[(m0 + g) * R + c0 + j];
-      s_w[g * chunk + j] = mask[(m0 + g) * R + c0 + j];
+      s_idx[i] = idx[m0 * R + c0 + i];
+      s_w[i] = mask[m0 * R + c0 + i];
     }
     __syncthreads();
     for (int item = threadIdx.x; item < rows * slab; item += kThreads) {
       const int g = item / slab;
       const int lane = lane0 + item - g * slab;
-      const float* w = s_w + g * chunk;
-      const int32_t* ix = s_idx + g * chunk;
+      const float* w = s_w + g * k;
+      const int32_t* ix = s_idx + g * k;
       if (first) {
 #pragma unroll
         for (int e = 0; e < n; ++e) acc[e] = 0.f;
@@ -277,19 +303,19 @@ int launch(const void* table, const void* idx, const void* mask, void* out,
            int M, int R, int chunk, int width, int guard_zero,
            int rows_per_block, int slab_lanes, int vec, void* stream) {
   const int lanes = vec ? width / Raw<T>::n : width;
-  if (rows_per_block < 1 || slab_lanes < 1 || chunk < 1 || chunk > R)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // past one chunk a thread keeps one item's chains from chunk to chunk
-  if (R > chunk &&
-      rows_per_block * (slab_lanes < lanes ? slab_lanes : lanes) > kThreads)
+  const bool chunked = R > chunk;
+  if (rows_per_block < 1 || slab_lanes < 1 || chunk < 1 || chunk > R ||
+      (chunked && (rows_per_block != 1 || slab_lanes > kThreads)))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(
       static_cast<unsigned>((static_cast<int64_t>(M) + rows_per_block - 1) /
                             rows_per_block),
       static_cast<unsigned>((lanes + slab_lanes - 1) / slab_lanes));
+  // a chunk's indices and weights of each pooled row, 8 B an entry
   const size_t smem = static_cast<size_t>(rows_per_block) * chunk * 8;
-  gather_lanes_kernel<T, kPool><<<grid, kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = chunked ? gather_lanes_kernel<T, kPool, true>
+                        : gather_lanes_kernel<T, kPool, false>;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(table), static_cast<const int32_t*>(idx),
       static_cast<const float*>(mask), out, M, R, chunk, width, guard_zero,
       rows_per_block, slab_lanes, vec);
@@ -302,10 +328,10 @@ extern "C" {
 
 // Pointers are device pointers of contiguous tensors: fused [U, width],
 // tidx int32 [M, R], mask f32 [M, R], out f32 [M, width]. The context is
-// walked in chunks of `chunk` entries (1 <= chunk <= R); rows_per_block
-// pooled rows per block (a chunk's chunk x 8 bytes of indices and weights
-// each in shared memory), slab_lanes lanes of them per block (past one
-// chunk at most 128 lanes a block); vec: 1 where every row of the table
+// staged `chunk` entries at a time (1 <= chunk <= R; 8 bytes an entry of
+// each of the block's pooled rows in shared memory); rows_per_block
+// pooled rows per block and slab_lanes lanes of them (past one chunk: one
+// row, at most 128 lanes); vec: 1 where every row of the table
 // starts on a 16-byte boundary, so it is read in 16-byte lanes. Returns
 // the cudaError_t of the launch (0 = ok).
 int fused_ctx_pool_triple_f32(const void* fused, const void* tidx,

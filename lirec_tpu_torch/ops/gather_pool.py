@@ -49,11 +49,12 @@ column is the same ``__fadd_rn`` chain, stored in the table's dtype.
 
 Every pool kernel takes any context length R. A pooled row's indices and
 weights are staged in shared memory a chunk of at most CONTEXT_CHUNK
-(2,048) entries at a time, each chain carried from chunk to chunk in r
-order (parked in the f32 output by the 3-table kernel, in registers by
-the one-table kernels, whose plan then gives a thread one lane), so a
-row of any length is bitwise what one pass over it would give, and a
-launch's shared memory stays within 48 KB.
+(2,048) entries at a time. Past one chunk every pool kernel takes one
+pooled row per block and at most one lane per thread, so a thread
+carries its chains and divider in registers from chunk to chunk in r
+order: a row of any length is bitwise what one pass over it would give,
+and a launch's shared memory stays within 48 KB. At R <= CONTEXT_CHUNK
+the kernels run their one-pass instantiation.
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version (``*_reference``) only for CPU tensors. For a CUDA tensor it
@@ -103,50 +104,59 @@ def rows_aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and t.shape[-1] * t.element_size() % 16 == 0
 
 
+def _one_lane_a_thread(M: int, lanes: int, sms: int) -> dict:
+    """Geometry past one chunk, where a thread carries one lane's chains
+    from chunk to chunk: one pooled row per block, its lanes cut into
+    column slabs of at most POOL_THREADS (a multiple of 32 where there are
+    that many), at least `sms` blocks where M x lanes allows."""
+    slabs = max(-(-lanes // POOL_THREADS), min(lanes, -(-sms // M)))
+    slab_lanes = lanes // slabs
+    if slab_lanes >= 32:
+        slab_lanes -= slab_lanes % 32
+    slabs = -(-lanes // slab_lanes)
+    return dict(rows_per_block=1, slab_lanes=slab_lanes, slabs=slabs,
+                blocks=M * slabs)
+
+
 def pool_plan(M: int, R: int, d_clip: int, d_tr: int, elem_size: int,
-              vec_clip: bool, vec_tr: bool, chunk: int | None = None) -> dict:
+              vec_clip: bool, vec_tr: bool, sms: int = CARD_SMS) -> dict:
     """Launch geometry of the 3-table kernel: lanes per pooled row, the
-    context entries staged at once (`chunk`: min(R, CONTEXT_CHUNK), or
-    the given chunk, at most what one row's 48 KB holds), pooled rows per
-    block (about POOL_LANES_PER_THREAD lanes per thread, and a chunk's
-    index triples and weights, 16 bytes an entry, plus a 4-byte running
-    divider where R > chunk, within POOL_SMEM_BYTES) and blocks."""
-    chunk = min(R, CONTEXT_CHUNK if chunk is None else chunk,
-                (POOL_SMEM_BYTES - 4) // 16)
+    context entries staged at once (`chunk`: min(R, CONTEXT_CHUNK), at
+    most what 48 KB holds at 16 bytes an entry), and the blocks. At
+    R <= chunk: pooled rows per block (about POOL_LANES_PER_THREAD lanes
+    per thread, their index triples and weights within POOL_SMEM_BYTES),
+    every lane of a row in one block. Past one chunk: `_one_lane_a_thread`,
+    as the one-table kernels."""
+    chunk = min(R, CONTEXT_CHUNK, POOL_SMEM_BYTES // 16)
     n = 16 // elem_size
     lanes = ((d_clip // n if vec_clip else d_clip)
              + 2 * (d_tr // n if vec_tr else d_tr))
-    per_row = 16 * chunk + (4 if R > chunk else 0)
+    if R > chunk:
+        return dict(lanes=lanes, chunk=chunk,
+                    **_one_lane_a_thread(M, lanes, sms))
     rows = max(1, POOL_THREADS * POOL_LANES_PER_THREAD // lanes)
-    rows = min(rows, max(1, POOL_SMEM_BYTES // per_row))
-    return dict(lanes=lanes, rows_per_block=rows, blocks=-(-M // rows),
-                chunk=chunk)
+    rows = min(rows, max(1, POOL_SMEM_BYTES // (16 * R)))
+    return dict(lanes=lanes, rows_per_block=rows, slab_lanes=lanes, slabs=1,
+                blocks=-(-M // rows), chunk=chunk)
 
 
 def gather_plan(M: int, R: int, width: int, elem_size: int, vec: bool,
-                sms: int = CARD_SMS, chunk: int | None = None) -> dict:
+                sms: int = CARD_SMS) -> dict:
     """Launch geometry of the one-table kernels (triple pool, masked sum):
     lanes per pooled row (16-byte vectors where `vec`, else columns), the
-    context entries staged at once (`chunk`: min(R, CONTEXT_CHUNK), or the
-    given chunk, at most what 48 KB holds), pooled rows per block (at
-    least GATHER_LANES_PER_THREAD lanes per thread, a chunk's indices and
-    weights, 8 bytes each, within POOL_SMEM_BYTES), and, where that leaves
-    fewer than `sms` blocks, one row per block with its lanes cut into
-    column slabs (slab_lanes, a multiple of 32 where there are that many)
-    so that the grid has at least `sms` blocks when M x lanes allows.
-    Where R > chunk a thread carries one lane across the chunks: one row
-    per block and at most POOL_THREADS lanes a slab."""
-    chunk = min(R, CONTEXT_CHUNK if chunk is None else chunk,
-                POOL_SMEM_BYTES // 8)
+    context entries staged at once (`chunk`: min(R, CONTEXT_CHUNK), at
+    most what 48 KB holds at 8 bytes an entry), pooled rows per block (at
+    least GATHER_LANES_PER_THREAD lanes per thread, their indices and
+    weights within POOL_SMEM_BYTES), and, where that leaves fewer than
+    `sms` blocks, one row per block with its lanes cut into column slabs
+    (slab_lanes, a multiple of 32 where there are that many) so that the
+    grid has at least `sms` blocks when M x lanes allows. Past one chunk:
+    `_one_lane_a_thread`."""
+    chunk = min(R, CONTEXT_CHUNK, POOL_SMEM_BYTES // 8)
     lanes = width // (16 // elem_size) if vec else width
     if R > chunk:
-        slabs = max(-(-lanes // POOL_THREADS), min(lanes, -(-sms // M)))
-        slab_lanes = lanes // slabs
-        if slab_lanes >= 32:
-            slab_lanes -= slab_lanes % 32
-        slabs = -(-lanes // slab_lanes)
-        return dict(lanes=lanes, rows_per_block=1, slab_lanes=slab_lanes,
-                    slabs=slabs, blocks=M * slabs, chunk=chunk)
+        return dict(lanes=lanes, chunk=chunk,
+                    **_one_lane_a_thread(M, lanes, sms))
     rows = -(-POOL_THREADS * GATHER_LANES_PER_THREAD // lanes)
     rows = min(rows, max(1, POOL_SMEM_BYTES // (8 * R)))
     slab_lanes = lanes
@@ -260,12 +270,13 @@ def fused_ctx_pool(emb, idx: torch.Tensor, mask: torch.Tensor,
         vec_clip = rows_aligned(emb.clip)
         vec_tr = rows_aligned(emb.tr1) and rows_aligned(emb.tr2)
         plan = pool_plan(M, R, d_clip, d_tr, emb.clip.element_size(),
-                         vec_clip, vec_tr)
+                         vec_clip, vec_tr, _sms(emb.clip.device))
         _launch("fused_ctx_pool", emb.clip, 6, (
             emb.clip.data_ptr(), emb.tr1.data_ptr(), emb.tr2.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), out.data_ptr(), M, R,
             plan["chunk"], d_clip, d_tr, int(bool(guard_zero)),
-            plan["rows_per_block"], int(vec_clip), int(vec_tr)))
+            plan["rows_per_block"], plan["slab_lanes"], int(vec_clip),
+            int(vec_tr)))
     return out
 
 

@@ -262,8 +262,7 @@ def packed_gather_sum(packed: torch.Tensor, idx: torch.Tensor,
                       device=packed.device)
     if M:
         vec = rows_aligned(packed)
-        plan = gather_plan(M, R, d_half, 4, vec, _sms(packed.device),
-                           chunk=R)
+        plan = gather_plan(M, R, d_half, 4, vec, _sms(packed.device))
         _launch("packed_gather_sum", packed.device, 4, (
             packed.data_ptr(), idx.data_ptr(), mask.data_ptr(),
             out.data_ptr(), M, R, d_half, plan["rows_per_block"],

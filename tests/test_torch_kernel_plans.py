@@ -89,22 +89,31 @@ def test_pool_lanes_cover_every_output_column_once(esize, d_clip, d_tr,
                          + [(64, r) for r in (2, 4, 8, 16, 32, 64, 128)])
 @pytest.mark.parametrize("esize", [4, 2])
 def test_pool_plan_blocks_cover_the_rows_within_shared_memory(M, R, esize):
-    """Every pooled row in exactly one block; a block's staged indices and
-    weights (16 bytes per entry of a chunk of min(R, CONTEXT_CHUNK)
-    entries, and a 4-byte running divider per row past one chunk) within
-    48 KB at every R; about three lanes per thread where the row is
-    narrow enough."""
+    """Every lane of every pooled row in exactly one block; a block's
+    staged indices and weights (16 bytes per entry of a chunk of
+    min(R, CONTEXT_CHUNK) entries) within 48 KB at every R; at one chunk
+    every lane of a row in one block and about three lanes per thread
+    where the row is narrow enough; past one chunk one row a block, at
+    most one lane per thread (a thread carries its chains across the
+    chunks) and a block per SM (132)."""
     plan = gp.pool_plan(M, R, 1024, 256, esize, True, True)
-    rows = plan["rows_per_block"]
-    covered = sorted(b * rows + i for b in range(plan["blocks"])
-                     for i in range(rows) if b * rows + i < M)
-    assert covered == list(range(M))
+    rows, slab_lanes, lanes = (plan["rows_per_block"], plan["slab_lanes"],
+                               plan["lanes"])
+    hits = np.zeros((M, lanes), dtype=int)
+    for b in range(-(-M // rows)):
+        for y in range(plan["slabs"]):
+            hits[b * rows:(b + 1) * rows,
+                 y * slab_lanes:(y + 1) * slab_lanes] += 1
+    assert (hits == 1).all()
+    assert plan["blocks"] == -(-M // rows) * plan["slabs"]
     C = gp.CONTEXT_CHUNK
     assert plan["chunk"] == min(R, C)
     assert rows * min(R, C) * 16 <= gp.POOL_SMEM_BYTES
-    # what csrc/fused_ctx_pool.cu's launch asks for: the staged chunk and,
-    # past one chunk, a running divider per row
-    assert rows * (min(R, C) * 16 + 4 * (R > C)) <= gp.POOL_SMEM_BYTES
+    if R > C:
+        assert rows == 1 and slab_lanes <= gp.POOL_THREADS
+        assert plan["blocks"] >= gp.CARD_SMS
+        return
+    assert plan["slabs"] == 1
     if R <= 18:
         per_thread = rows * plan["lanes"] / gp.POOL_THREADS
         assert 1.5 <= per_thread <= gp.POOL_LANES_PER_THREAD
