@@ -26,16 +26,24 @@
    updates 1024 / 512 wide) into the Localizer's batch-local tables (the
    train path's own case) and into split-scale tables (12,288 / 24,576
    rows), with structured indices and with every update sent to 8 rows,
-   f32 and bf16 updates, three tables, flattened and single-table; checks
-   that two launches are bit-identical; prints median times (L2 flushed),
-   the sort apart from the kernel, and each launch's device time inside
-   the op (``torch.profiler``).
+   f32 and bf16 updates, three tables, flattened and single-table, then at
+   the int_rels score table's shapes (INT_RELS_SHAPES: one table, few
+   narrow updates, the one-launch path where ``scatter_path`` picks it);
+   checks that two launches are bit-identical and that the op launched
+   only the port's kernels; holds the counting sort's perm and offsets
+   bitwise against ``sort_by_row``; prints median times (L2 flushed) of
+   the whole op, the sort (beside ``sort_by_row`` and ``torch.sort``), the
+   kernel alone and ``index_add_``, each launch's device time inside the
+   op (``torch.profiler``), and at the int_rels shapes the op forced down
+   each path; then the counting sort alone past one pass (SORT_CASES:
+   2**17 to 2**22 rows, two and three passes by digit), bitwise
+   ``sort_by_row`` and timed beside it.
 7. Trains int_rel_ch at its published widths on split-scale tables, B = 64
    structured batches through the port's Localizer, in bf16 and f32
    compute: holds one step's gradients against the same step with the
    plain scatter, then runs 10 steps, checks every loss finite, every
-   parameter moved and one scatter launch per step, and prints the median
-   ms/step and clips/s.
+   parameter moved and one sort and one scatter launch per step (and
+   nothing else), and prints the median ms/step and clips/s.
 8. Runs the port's train() on a synthetic MovieGraphs fixture on the card:
    2 epochs at batch 8 (the last batch of 6 is padded with loss_weight 0).
 9. Evaluates int_rel_ch at its published widths over a split of 168
@@ -158,7 +166,8 @@
    run's first pool call, beside ``embedding_bag`` and the bound; and the
    datasets' start-up built against loaded; (c) the int_rels eval CLI from its artifact on the card
    (counted run: kernel 8, the single-table scatter of the relationship
-   score table, at least once per batch) and on the CPU (the plain
+   score table, at least once per batch, on its one-launch path) and on
+   the CPU (the plain
    versions), the same counters; then the test split's sweep carry on the
    card, its ``rels_table`` bitwise the CPU's in-order sum of the same
    update rows, its integer counters equal to the CPU sweep's; kernel 8
@@ -280,18 +289,21 @@ the line before it lists each kernel with its launch count, error, times
 and bound (the larger of the bytes this run's inputs need over 3.35 TB/s
 and the operations over 67 TFLOP/s of f32 arithmetic), at the shapes of
 the path that launches it: the 3-table pool on the eval sweep's batch
-(launches: one off-tier sweep, what ``auto`` runs), the scatter at the
-Localizer's tables (launches: phase 7's steps); the serve path's random
+(launches: one off-tier sweep, what ``auto`` runs), the scatter and its
+counting sort (``scatter_sort``) at the Localizer's tables (launches:
+phase 7's steps); the serve path's random
 rows, the giant tables and the split-scale scatter are entries of their
 own (``name@case``); ``name@dist`` entries give phase 16's launches (the
 world of one's and each rank's), ``name@model_axis`` phase 20's (the
 ranks' sweeps and steps; the scatter at the shard widths), and
 ``gather_masked_sum_f32@context`` kernel 5's from phase 20(c), ``name@ingest`` kernels 1-2 at phase
-18(b)'s first pool call (its ``shapes``), and the scatter's
-``@int_rels`` entry kernel 8 at phase 18(c)'s sweep; ``name@graph``
-entries give phase 19's launches from graph replays (kernels 1-2 and 6,
-with their main entries' numbers), and ``@int_rels_graph`` kernel 8's at
-phase 19(d)'s B = 8 (held and timed on that sweep's first scatter call);
+18(b)'s first pool call (its ``shapes``), and ``scatter_small_f32@int_rels``
+kernel 8 at phase 18(c)'s sweep (its one-launch path; the sorted kernel
+on the same inputs is ``scatter_accum_f32@int_rels``, no launches);
+``name@graph`` entries give phase 19's launches from graph replays
+(kernels 1-2 and 6 and the sort, with their main entries' numbers), and
+``scatter_small_f32@int_rels_graph`` kernel 8's at phase 19(d)'s B = 8
+(held and timed on that sweep's first scatter call);
 ``@mesh_graph`` entries give the scatter's launches from phase 16(a)'s
 graph replays of the mesh step, ``@orbax`` kernels 1-2's from phase
 22(c)'s eval CLI on an Orbax directory, ``@gt`` kernels 1-2's and 6's
@@ -371,6 +383,26 @@ PREFETCH_TURNS = ("plain", "prefetch", "prefetch", "plain", "plain",
 SWEEP_TURNS = ("eager", "graph", "graph", "eager")
 SWEEP_CHUNK = 3
 INT_RELS_GRAPH_B = 8  # phase 19(d)'s batch: full batches, graph replays
+# phase 6's cases at the int_rels sweep's score table (evaluation/packed.py:
+# the table's rows, then a batch's hashed score rows): (hashes + 1 rows,
+# batch, width). The fixture's 43 and phase 19(d)'s 17 updates into 9 rows
+# of 6, then a synthetic B = 64 into 1,024 to 8,192 hashes at the
+# published 15 relationship heads (sizes chosen about the one-launch
+# path's threshold, not a real split's pair count)
+INT_RELS_SHAPES = ((9, 34, 6), (9, 8, 6), (1025, 64, 15), (2049, 64, 15),
+                   (2561, 64, 15), (3073, 64, 15), (4097, 64, 15),
+                   (5121, 64, 15), (6145, 64, 15), (8193, 64, 15))
+# phase 6's counting sort alone past one pass: (updates a table, rows),
+# a quarter of the updates on row 0; 23,040 updates into 2**17 and 2**20
+# rows and 2**21 into 2**20 (two passes), 2**21 into 2**22 (three)
+SORT_CASES = ((23040, (1 << 17,)), (23040, (1 << 20,)),
+              (1 << 21, (1 << 20,)), (1 << 21, (1 << 22,)))
+# every kernel a scatter op may launch: the port's own (no library sort,
+# searchsorted or index_add_)
+SCATTER_OP_KERNELS = ("sort_count_kernel", "sort_prefix_kernel",
+                      "sort_place_kernel", "sort_offsets_kernel",
+                      "scatter_hot_kernel", "scatter_short_kernel",
+                      "scatter_small_kernel")
 
 
 def log(*args):
@@ -1119,14 +1151,28 @@ def ctx_idx(torch, batch):
 
 
 def scatter_case(torch, label, idx, gs, rows, single):
-    """Kernel vs the plain version on the card (index_add_, f32 atomics)
-    and vs the in-order sum on the CPU; two launches must be bitwise equal.
-    Returns the entry: max |diff| vs the card's plain version, the kernel's
-    ms (the sort apart), the sort's, the plain version's (``index_add_``,
-    also the library call), each launch's device ms inside the op, and
-    the bound."""
+    """The op (``scatter_accum3`` / ``scatter_accum1``) vs its plain
+    version on the card (index_add_, f32 atomics) and vs the in-order sum
+    on the CPU; two launches must be bitwise equal. Returns the entry: max
+    |diff| vs the card's plain version; the path the op takes (`op_path`:
+    "sorted" or "small", ``scatter_path``); the op's ms (everything it
+    launches: `op_ms`, and each launch's device ms inside it,
+    `op_split_ms`, all of them the port's own kernels); the kernel's ms
+    (`ms`: the sorted kernel alone on sorted updates, `sorted_ms`, or the
+    one-launch kernel where the op takes it); the counting sort's ms
+    (`sort_ms`, its perm and offsets bitwise sort_by_row's) and
+    sort_by_row's (`plain_sort_ms`); the plain version's (``index_add_``,
+    also the library call); the sorted kernel's device ms per launch
+    inside it; the bound; and `sort`, the counting sort's own entry. On a
+    single table narrow enough for the one-launch path, also the op
+    forced down each path (`path_ms`: allocation and ``launch_small``, or
+    allocation, ``sort_updates`` and ``launch_sorted``). Against a
+    checkout without the counting sort (a parent,
+    ``tools/kernel_phases.py``) it times what that checkout has:
+    sort_by_row as the sort."""
     from lirec_tpu_torch.ops import scatter_accum as sa
 
+    new = hasattr(sa, "count_sort")
     if single:
         one = idx[..., 0].contiguous()
         run = lambda: (sa.scatter_accum1(one, gs[0], rows[0]),)  # noqa: E731
@@ -1141,6 +1187,9 @@ def scatter_case(torch, label, idx, gs, rows, single):
         flat = idx.reshape(-1, 3)
         gflat = [g.reshape(-1, g.shape[-1]) for g in gs]
         rows_k = rows
+    widths = [g.shape[-1] for g in gflat]
+    path = sa.scatter_path(flat.shape[0], rows_k, widths) if new \
+        else "sorted"
     got, again = run(), run()
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -1158,32 +1207,92 @@ def scatter_case(torch, label, idx, gs, rows, single):
                   for a, b in zip(got, want_cpu))
     scale = max(float(b.abs().max()) for b in want_cpu)
     log("  %-44s max|diff| vs card plain %.3e, vs CPU in-order %.3e "
-        "(scale %.1f)" % (label, err_gpu, err_cpu, scale))
+        "(scale %.1f); path %s" % (label, err_gpu, err_cpu, scale, path))
     # the kernel sums each row in update order with f32 adds, as index_add_
     # does on the CPU: bitwise equal; the card's plain version sums with
     # atomics in another order: 1e-5 of the largest sum
     check(err_cpu == 0.0, "%s: differs from the in-order sum" % label)
     check(err_gpu <= 1e-5 * scale, "%s: differs from the plain version"
           % label)
+    op_ms = median_ms(torch, run)
+    op_split = launch_split_ms(torch, run)
+    if new:
+        others = [k for k in op_split
+                  if k.split("<")[0] not in SCATTER_OP_KERNELS]
+        check(not others, "%s: the op launched %s beside the port's "
+              "kernels" % (label, others))
     perm, offsets = sa.sort_by_row(flat, rows_k)
+    plain_sort_ms = median_ms(torch, lambda: sa.sort_by_row(flat, rows_k))
+    starts = torch.tensor([sum(rows_k[:t]) for t in range(len(rows_k))],
+                          dtype=torch.int32, device="cuda")
+    keys = (flat + starts).reshape(-1)
+    library_sort_ms = median_ms(torch, lambda: torch.sort(keys, stable=True))
+    if new:
+        mine = sa.count_sort(flat, rows_k)
+        torch.cuda.synchronize()
+        check(torch.equal(mine[0], perm) and torch.equal(mine[1], offsets),
+              "%s: the counting sort differs from sort_by_row" % label)
+        sort_ms = median_ms(torch, lambda: sa.count_sort(flat, rows_k))
+        sort_split = launch_split_ms(torch, lambda: sa.count_sort(
+            flat, rows_k))
+    else:
+        sort_ms, sort_split = plain_sort_ms, {}
     outs = [torch.empty_like(o) for o in got]
-    launch = lambda: sa.launch_sorted(gflat, outs, perm, offsets)  # noqa: E731
-    ms = median_ms(torch, launch)
+    if new:  # the sort lists the hot tiles: a workspace of its own
+        ordered = sa.sort_updates(flat, gflat, rows_k)
+        launch = lambda: sa.launch_sorted(gflat, outs, *ordered)  # noqa: E731
+    else:
+        launch = lambda: sa.launch_sorted(  # noqa: E731
+            gflat, outs, perm, offsets)
+    sorted_ms = median_ms(torch, launch)
     split = launch_split_ms(torch, launch)
-    sort_ms = median_ms(torch, lambda: sa.sort_by_row(flat, rows_k))
     plain_ms = median_ms(torch, plain)
     check(all(torch.equal(a, b) for a, b in zip(outs, got)),
           "%s: timed launches differ" % label)
+    ms = sorted_ms
+    path_ms = {}
+    if new and single and widths[0] <= sa.SMALL_MAX_WIDTH \
+            and flat.shape[0] <= sa.SMALL_MAX_UPDATES:
+        small_out = torch.empty_like(got[0])
+        small = lambda: sa.launch_small(  # noqa: E731
+            flat.reshape(-1), gflat[0], small_out)
+        small_ms = median_ms(torch, small)
+        check(torch.equal(small_out, got[0]), "%s: the one-launch kernel "
+              "differs from the op" % label)
+        if path == "small":
+            ms = small_ms
+
+        def forced_small():  # what the op does on each path
+            out = torch.empty_like(got[0])
+            sa.launch_small(flat.reshape(-1), gflat[0], out)
+
+        def forced_sorted():
+            out = torch.empty_like(got[0])
+            sa.launch_sorted(gflat, [out], *sa.sort_updates(flat, gflat,
+                                                            rows_k))
+
+        path_ms = {"small": median_ms(torch, forced_small),
+                   "sorted": median_ms(torch, forced_sorted)}
     upd, out = nbytes(*gflat), nbytes(*got)
     adds = sum(g.numel() for g in gflat)
     b = bound(upd + out + nbytes(flat), adds)
-    log("  %-44s kernel %.4f ms, sort %.4f ms, plain %.4f ms; bound %.4f "
-        "ms (%s, %.1f MB); device ms per launch inside the op %s" % (
-            "", ms, sort_ms, plain_ms, b["bound_ms"], b["bound_by"],
-            (upd + out) / 1e6, json.dumps(split)))
-    return dict(max_abs_err=err_gpu, ms=ms, sort_ms=sort_ms,
-                plain_ms=plain_ms, library_ms=plain_ms,
-                launch_split_ms=split, **b)
+    sort_bound = bound(nbytes(flat, perm, offsets), 0)
+    log("  %-44s op %.4f ms (%s); kernel %.4f ms (sorted kernel %.4f); "
+        "sort %.4f ms, sort_by_row %.4f, torch.sort %.4f; plain %.4f ms; "
+        "bound %.4f ms (%s, %.1f MB), sort's %.5f ms; device ms per launch "
+        "inside the op %s%s" % (
+            "", op_ms, path, ms, sorted_ms, sort_ms, plain_sort_ms,
+            library_sort_ms, plain_ms, b["bound_ms"], b["bound_by"],
+            (upd + out) / 1e6, sort_bound["bound_ms"], json.dumps(op_split),
+            "; forced paths %s" % json.dumps(path_ms) if path_ms else ""))
+    return dict(max_abs_err=err_gpu, op_path=path, ms=ms, op_ms=op_ms,
+                sorted_ms=sorted_ms, sort_ms=sort_ms,
+                plain_sort_ms=plain_sort_ms, plain_ms=plain_ms,
+                library_ms=plain_ms, launch_split_ms=split,
+                op_split_ms=op_split, path_ms=path_ms,
+                sort=dict(max_abs_err=0.0, ms=sort_ms, plain_ms=plain_sort_ms,
+                          library_ms=library_sort_ms,
+                          launch_split_ms=sort_split, **sort_bound), **b)
 
 
 def launch_split_ms(torch, fn, reps=10):
@@ -1219,10 +1328,14 @@ def launch_split_ms(torch, fn, reps=10):
 def scatter_checks(torch, spec, raw, local, caps):
     """Phase 6, on the ctx indices of one structured batch (`raw`) and of
     the same batch localized (`local`, tables of `caps` rows, what the
-    train step scatters into). Returns {entry: {max_abs_err, ms, sort_ms,
-    plain_ms, library_ms, launch_split_ms, bound_ms, bound_by}}: the
+    train step scatters into), then the int_rels score table's shapes
+    (INT_RELS_SHAPES). Returns {entry: scatter_case's entry}: the
     localized case under the dtype's name (the train path's shapes), the
-    split-scale, flattened and single-table cases under suffixes."""
+    split-scale, flattened and single-table cases under suffixes, the
+    int_rels cases as int_rels_<updates>x<rows>, and with the counting
+    sort ``sort_checks``'s cases."""
+    from lirec_tpu_torch.ops import scatter_accum as sa
+
     idx_full, idx_loc = ctx_idx(torch, raw), ctx_idx(torch, local)
     idx_dup = idx_full % 8  # every update into 8 rows of each table
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -1250,7 +1363,59 @@ def scatter_checks(torch, spec, raw, local, caps):
             torch, "single table (clip) %s" % tag, idx_full, gs, full,
             single=True)
     del base, gs
+    # the int_rels sweep's score table: one table, few narrow updates
+    for n_rows, batch, width in INT_RELS_SHAPES:
+        hashes = torch.randint(0, n_rows, (batch,), device="cuda",
+                               generator=g)
+        ids = torch.cat([torch.arange(n_rows, device="cuda"), hashes])
+        upd = torch.rand(n_rows + batch, width, device="cuda", generator=g)
+        results["int_rels_%dx%d" % (n_rows + batch, n_rows)] = scatter_case(
+            torch, "int_rels table: %d updates of %d into %d" % (
+                n_rows + batch, width, n_rows),
+            ids[:, None].expand(-1, 3).to(torch.int32).contiguous(), [upd],
+            [n_rows], single=True)
+    if hasattr(sa, "count_sort"):
+        results.update(sort_checks(torch, g))
     torch.cuda.empty_cache()
+    return results
+
+
+def sort_checks(torch, g):
+    """The counting sort alone at SORT_CASES: perm and offsets bitwise
+    sort_by_row's; median ms of count_sort, sort_by_row and torch.sort of
+    the keys, and each launch's device ms. Returns {sort_<P>x<rows>:
+    entry}."""
+    from lirec_tpu_torch.ops import scatter_accum as sa
+
+    results = {}
+    for M, rows in SORT_CASES:
+        idx = torch.stack([torch.randint(0, n, (M,), device="cuda",
+                                         generator=g) for n in rows], 1)
+        idx[torch.rand(M, device="cuda", generator=g) < 0.25] = 0
+        idx = idx.to(torch.int32).contiguous()
+        sp = sa.sort_plan(idx.numel(), rows)
+        want = sa.sort_by_row(idx, rows)
+        got = sa.count_sort(idx, rows)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              "counting sort of %d into %s rows differs from sort_by_row"
+              % (idx.numel(), rows))
+        ms = median_ms(torch, lambda: sa.count_sort(idx, rows))
+        plain_ms = median_ms(torch, lambda: sa.sort_by_row(idx, rows))
+        keys = idx.reshape(-1)
+        library_ms = median_ms(torch, lambda: torch.sort(keys, stable=True))
+        split = launch_split_ms(torch, lambda: sa.count_sort(idx, rows))
+        b = bound(nbytes(idx, *want), 0)
+        log("  counting sort, %d positions into %d rows: bitwise "
+            "sort_by_row; %d pass(es) of %s bits, %d units; %.4f ms, "
+            "sort_by_row %.4f, torch.sort %.4f; bound %.5f ms; device ms "
+            "per launch %s" % (idx.numel(), sum(rows), sp["passes"],
+                               sp["digit_bits"] or "all", sp["units"], ms,
+                               plain_ms, library_ms, b["bound_ms"],
+                               json.dumps(split)))
+        results["sort_%dx%d" % (idx.numel(), sum(rows))] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            passes=sp["passes"], launch_split_ms=split, **b)
     return results
 
 
@@ -1286,7 +1451,7 @@ def train_path(torch, batches):
     from lirec_tpu_torch.utils.fake_batch import make_tables
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.ops import dispatch
-    from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES
+    from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES, SORT_NAME
     from lirec_tpu_torch.train.loop import make_train_step, step_generators
     from lirec_tpu_torch.train.optim import make_optimizer
 
@@ -1344,15 +1509,14 @@ def train_path(torch, batches):
         counted = dispatch.launches()
         # ---- end of the counted run
         check(all(np.isfinite(losses)), "%s: losses %s" % (compute, losses))
-        check(counted.get(name, 0) == len(batches),
-              "%s: %d launches of %s for %d steps" % (
-                  compute, counted.get(name, 0), name, len(batches)))
-        check(set(counted) == {name}, "%s: other launches %s"
-              % (compute, counted))
+        check(counted == {name: len(batches), SORT_NAME: len(batches)},
+              "%s: launches %s for %d steps (the sort, then the scatter, "
+              "once a step)" % (compute, counted, len(batches)))
         for n, p in bundle.model.named_parameters():
             check(not torch.equal(p.detach(), before[n]),
                   "%s: parameter %s did not move" % (compute, n))
         counts[name] = counted[name]
+        counts[SORT_NAME] = counts.get(SORT_NAME, 0) + counted[SORT_NAME]
         step_ms[compute] = statistics.median(times[1:])
         finals[compute] = (losses, {n: p.detach().cpu() for n, p in
                                     bundle.model.named_parameters()})
@@ -2484,6 +2648,7 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
     from lirec_tpu_torch.data.pipeline import local_batch
     from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES as SCATTER
+    from lirec_tpu_torch.ops.scatter_accum import SORT_NAME
     from lirec_tpu_torch.parallel import dist
     from lirec_tpu_torch.parallel.step import make_dp_train_step
     from lirec_tpu_torch.tools import dist_check
@@ -2563,7 +2728,10 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
                           "%s: world-of-one parameter %s differs from "
                           "phase 7's" % (compute, n))
                 counts[scatter] = stepped.get(scatter, 0)
-                check(counts[scatter] == len(local),
+                counts[SORT_NAME] = (counts.get(SORT_NAME, 0)
+                                     + stepped.get(SORT_NAME, 0))
+                check(counts[scatter] == len(local)
+                      and stepped.get(SORT_NAME, 0) == len(local),
                       "%s: world-of-one steps launched %s" % (compute,
                                                               stepped))
                 ms = statistics.median(times[1:])
@@ -2746,14 +2914,15 @@ def mesh_graph_steps(torch, ccfg, mesh, batches, tables, eager_losses,
     """Phase 16(a)'s graph: phase 7's steps through the epoch sweep over
     the world of one's NCCL mesh (the counted run: the step captured once,
     then replayed), bitwise the eager mesh steps' losses and phase 7's
-    parameters, "graph" recorded for "cuda: nccl mesh", one scatter a
-    replay (added to `launches`); then epochs of graph replays and of the
+    parameters, "graph" recorded for "cuda: nccl mesh", one sort and one
+    scatter a replay (added to `launches`); then epochs of graph replays and of the
     same step run eagerly in turns on its model. Returns {ms/step lists,
     capture ms}."""
     import numpy as np
 
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.scatter_accum import SORT_NAME
     from lirec_tpu_torch.train.loop import step_generators
     from lirec_tpu_torch.train.optim import make_optimizer
     from lirec_tpu_torch.train.sweep import SEED_STRIDE, EpochSweep
@@ -2780,9 +2949,11 @@ def mesh_graph_steps(torch, ccfg, mesh, batches, tables, eager_losses,
         check(torch.equal(p.detach().cpu(), want_params[n]),
               "%s: the mesh graph's parameter %s differs from phase 7's"
               % (compute, n))
-    check(replayed == {scatter: len(batches)}, "%s: the mesh graph "
-          "launched %s for %d steps" % (compute, replayed, len(batches)))
+    check(replayed == {scatter: len(batches), SORT_NAME: len(batches)},
+          "%s: the mesh graph launched %s for %d steps" % (
+              compute, replayed, len(batches)))
     launches[scatter] = replayed[scatter]
+    launches[SORT_NAME] = launches.get(SORT_NAME, 0) + replayed[SORT_NAME]
     times = {"graph": [], "eager": []}
     for turn, kind in enumerate(SWEEP_TURNS):
         epoch = turn + 1
@@ -3693,8 +3864,8 @@ def int_rels_sweep_checks(torch, root, arts, device, dims):
         n_full, tail = divmod(len(splits[split]), B)
         batches += n_full + (tail > 1)
     log("  (c) cli.int_rels.main from its artifact on %s and on the CPU: "
-        "val %s, test %s (the same counters); %d batches" % (
-            device, card["val"], card["test"], batches))
+        "val %s, test %s (the same counters); %d batches; launches %s" % (
+            device, card["val"], card["test"], batches, launched))
 
     # the test split's carry on the device, every scatter call recorded
     # (its ids and rows: the running table, then the batch's updates),
@@ -3809,7 +3980,7 @@ def train_sweep_checks(torch, batches, finals):
     from lirec_tpu_torch import config as config_lib
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.ops import dispatch
-    from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES
+    from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES, SORT_NAME
     from lirec_tpu_torch.train.loop import make_train_step, step_generators
     from lirec_tpu_torch.train.optim import make_optimizer
     from lirec_tpu_torch.train.sweep import SEED_STRIDE, EpochSweep
@@ -3853,12 +4024,14 @@ def train_sweep_checks(torch, batches, finals):
         first_ms = (time.perf_counter() - t) * 1e3
         counted = dispatch.launches()
         # ---- end of the counted run
-        check(counted == {name: len(batches)}, "%s sweep launched %s for "
-              "%d steps" % (compute, counted, len(batches)))
+        check(counted == {name: len(batches), SORT_NAME: len(batches)},
+              "%s sweep launched %s for %d steps" % (compute, counted,
+                                                     len(batches)))
         check(dispatch.last_dispatch("train_loop")["path"] == "graph",
               "%s: the sweep did not run as a graph" % compute)
         held(bundle, losses, "graph sweep")
         counts[name] = counted[name]
+        counts[SORT_NAME] = counts.get(SORT_NAME, 0) + counted[SORT_NAME]
         chunked_bundle, _, chunked = fresh(SWEEP_CHUNK)
         held(chunked_bundle, chunked.fetch(chunked.run(batches, 0)),
              "chunked sweep (%d steps a chunk)" % SWEEP_CHUNK)
@@ -4072,7 +4245,8 @@ def int_rels_graph_checks(torch, root):
 
     art = os.path.join(root, "phase18", "ingest_int_rels.npz")
     ckpt = os.path.join(root, "phase18", "int_rels.pth.tar")
-    name = scatter_accum.KERNEL_NAMES[torch.float32]
+    # kernel 8 at the score table's shapes: the one-launch path
+    name = scatter_accum.SMALL_NAMES[torch.float32]
     fixture = ["--data-root", root, "--compute-dtype", "float32"] + \
         dim_args(PUBLISHED_DIMS)
     args = fixture + ["--resume-path", ckpt, "--quiet", "--ingest-cache",
@@ -4627,8 +4801,10 @@ def gt_int_rel_ch_checks(torch, local, eval_ref, card):
 
         bundle, numbers = sweep_and_steps(
             torch, "GT int_rel_ch %s" % compute, fresh, local, tables,
-            {scatter: len(local)})
+            {scatter: len(local), scatter_accum.SORT_NAME: len(local)})
         counts[scatter] = len(local)
+        counts[scatter_accum.SORT_NAME] = (
+            counts.get(scatter_accum.SORT_NAME, 0) + len(local))
         ecfg = ccfg.with_optim(batch_size=EVAL_B)
         torch.cuda.synchronize()
         # ---- a counted run: the GT model's cadence sweep of the split
@@ -5352,6 +5528,9 @@ def main():
     kernels.append(dict(name=f32 + "@giant_tables", route="cuda", source=CU,
                         replaces="%s:334" % TPU_SRC, launches=counts[f32],
                         path="serve", **perf["giant"]))
+    def numbers(r):  # a scatter_case entry without its sort's own
+        return {k: v for k, v in r.items() if k != "sort"}
+
     # scatter: one entry per instantiation at the train path's shapes (three
     # tables at the Localizer's caps); the split-scale, flattened (kernel 7)
     # and single-table (kernel 8) cases of phase 6 are the same kernel on
@@ -5364,16 +5543,47 @@ def main():
         r = scatter[tag]
         kernels.append(dict(name=name, route="cuda", source=SCATTER_CU,
                             replaces="%s:91" % SCATTER_TPU_SRC,
-                            launches=launches, path="train", **r))
+                            launches=launches, path="train", **numbers(r)))
         for suffix, line in (("@split_tables", 91), ("@flat", 49),
                              ("@single_table", 282)):
             kernels.append(dict(
                 name=name + suffix, route="cuda", source=SCATTER_CU,
                 replaces="%s:%d" % (SCATTER_TPU_SRC, line), launches=0,
-                path="none", **scatter[tag + suffix]))
-        log("scatter %s at caps: sort %.4f ms beside the kernel's %.4f ms; "
-            "launches inside the op %s" % (tag, r["sort_ms"], r["ms"],
-                                           json.dumps(r["launch_split_ms"])))
+                path="none", **numbers(scatter[tag + suffix])))
+        log("scatter %s at caps: the op %.4f ms = the counting sort %.4f ms "
+            "(sort_by_row %.4f) + the kernel %.4f ms; launches inside the op "
+            "%s" % (tag, r["op_ms"], r["sort_ms"], r["plain_sort_ms"],
+                    r["ms"], json.dumps(r["op_split_ms"])))
+    # the counting sort in front of kernels 6-8 (one launch count per op):
+    # the train path's, at the caps' ids (the same for both dtypes); the
+    # split-scale, flattened and single-table ids of phase 6 on entries of
+    # their own
+    sort_launches = train_counts.get(scatter_accum.SORT_NAME, 0)
+    check(sort_launches > 0, "%s was not launched by the train path"
+          % scatter_accum.SORT_NAME)
+    kernels.append(dict(name=scatter_accum.SORT_NAME, route="cuda",
+                        source=SCATTER_CU,
+                        replaces="%s:91" % SCATTER_TPU_SRC,
+                        launches=sort_launches, path="train",
+                        **scatter["float32"]["sort"]))
+    for suffix, line in (("@split_tables", 91), ("@flat", 49),
+                         ("@single_table", 282)):
+        kernels.append(dict(
+            name=scatter_accum.SORT_NAME + suffix, route="cuda",
+            source=SCATTER_CU, replaces="%s:%d" % (SCATTER_TPU_SRC, line),
+            launches=0, path="none", **scatter["float32" + suffix]["sort"]))
+    # and alone past one pass (phase 6's SORT_CASES: passes by digit)
+    for key, entry in scatter.items():
+        if key.startswith("sort_"):
+            kernels.append(dict(
+                name="%s@%s" % (scatter_accum.SORT_NAME, key), route="cuda",
+                source=SCATTER_CU, replaces="%s:91" % SCATTER_TPU_SRC,
+                launches=0, path="none", **entry))
+    log("scatter_ops: " + json.dumps({
+        k: {key: v[key] for key in ("op_path", "op_ms", "ms", "sorted_ms",
+                                     "sort_ms", "plain_sort_ms", "plain_ms",
+                                     "path_ms")}
+        for k, v in scatter.items() if "op_path" in v}))
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         name = KERNEL_NAMES[("fused_ctx_pool_triple", dtype)]
         check(eval_counts.get(name, 0) > 0,
@@ -5436,7 +5646,8 @@ def main():
             (KERNEL_NAMES[("fused_ctx_pool", torch.float32)], "eval"),
             (KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)], "eval"),
             (scatter_accum.KERNEL_NAMES[torch.float32], "train"),
-            (scatter_accum.KERNEL_NAMES[torch.bfloat16], "train")):
+            (scatter_accum.KERNEL_NAMES[torch.bfloat16], "train"),
+            (scatter_accum.SORT_NAME, "train")):
         main_entry = next(k for k in kernels if k["name"] == name
                           and k.get("path") == entry_of)
         per_rank = [launched.get(name, 0) for launched in rank_launches]
@@ -5444,11 +5655,12 @@ def main():
                             launches=dist_counts[name] + sum(per_rank),
                             world_of_one_launches=dist_counts[name],
                             rank_launches=per_rank))
-    # phase 16(a): kernel 6 launched from the mesh step's graph replays
-    # over the NCCL world of one, at the train path's shapes (the main
-    # entries' numbers)
-    for dtype in (torch.float32, torch.bfloat16):
-        name = scatter_accum.KERNEL_NAMES[dtype]
+    # phase 16(a): kernel 6 and its sort launched from the mesh step's
+    # graph replays over the NCCL world of one, at the train path's shapes
+    # (the main entries' numbers)
+    for name in (scatter_accum.KERNEL_NAMES[torch.float32],
+                 scatter_accum.KERNEL_NAMES[torch.bfloat16],
+                 scatter_accum.SORT_NAME):
         main_entry = next(k for k in kernels if k["name"] == name
                           and k.get("path") == "train")
         check(mesh_graph["launches"].get(name, 0) > 0,
@@ -5468,15 +5680,27 @@ def main():
                             replaces="%s:%d" % (TPU_SRC, line),
                             launches=ingest_counts[name], path="ingest",
                             **ingest_pool[tag]))
-    name = scatter_accum.KERNEL_NAMES[torch.float32]
+    # kernel 8 at the int_rels score table: the one-launch path (the size
+    # rule's pick there), and the sorted kernel on the same inputs, which
+    # no counted path launches there
+    name = scatter_accum.SMALL_NAMES[torch.float32]
     check(int_rels_counts.get(name, 0) >= clis["int_rels"]["batches"],
           "%s launched %d times by the int_rels sweep of %d batches"
           % (name, int_rels_counts.get(name, 0), clis["int_rels"]["batches"]))
+    check(k8["op_path"] == "small", "kernel 8 at the int_rels sweep took "
+          "the %s path" % k8["op_path"])
     kernels.append(dict(name=name + "@int_rels", route="cuda",
                         source=SCATTER_CU,
                         replaces="%s:282" % SCATTER_TPU_SRC,
                         launches=int_rels_counts[name], path="int_rels",
-                        **k8))
+                        **numbers(k8)))
+    kernels.append(dict(numbers(k8),
+                        name=scatter_accum.KERNEL_NAMES[torch.float32]
+                        + "@int_rels", route="cuda", source=SCATTER_CU,
+                        replaces="%s:282" % SCATTER_TPU_SRC,
+                        launches=int_rels_counts.get(
+                            scatter_accum.KERNEL_NAMES[torch.float32], 0),
+                        path="none", ms=k8["sorted_ms"]))
     # phase 19: kernels 1-2 and 6 launched from the sweeps' graph replays,
     # at the shapes of their main entries (whose numbers they repeat), and
     # kernel 8 from the int_rels eval's at a batch of INT_RELS_GRAPH_B,
@@ -5485,20 +5709,23 @@ def main():
             (KERNEL_NAMES[("fused_ctx_pool", torch.float32)], "eval"),
             (KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)], "eval"),
             (scatter_accum.KERNEL_NAMES[torch.float32], "train"),
-            (scatter_accum.KERNEL_NAMES[torch.bfloat16], "train")):
+            (scatter_accum.KERNEL_NAMES[torch.bfloat16], "train"),
+            (scatter_accum.SORT_NAME, "train")):
         main_entry = next(k for k in kernels if k["name"] == name
                           and k.get("path") == entry_of)
         check(graph_counts.get(name, 0) > 0,
               "%s was not launched by phase 19's graphs" % name)
         kernels.append(dict(main_entry, name=name + "@graph", path="graph",
                             launches=graph_counts[name]))
-    name = scatter_accum.KERNEL_NAMES[torch.float32]
+    name = scatter_accum.SMALL_NAMES[torch.float32]
+    check(k8_graph["op_path"] == "small", "kernel 8 at the B = %d int_rels "
+          "sweep took the %s path" % (INT_RELS_GRAPH_B, k8_graph["op_path"]))
     kernels.append(dict(name=name + "@int_rels_graph", route="cuda",
                         source=SCATTER_CU,
                         replaces="%s:282" % SCATTER_TPU_SRC,
                         launches=sweeps["int_rels"][
                             "B%d" % INT_RELS_GRAPH_B]["launches"],
-                        path="int_rels_graph", **k8_graph))
+                        path="int_rels_graph", **numbers(k8_graph)))
     # phase 20: kernels 1-2 in the ranks' cadence sweeps (the main eval
     # entries' shapes and numbers), kernel 6 at the M = 2 shard widths in
     # their steps, kernel 5 in the context-parallel pool
@@ -5517,7 +5744,15 @@ def main():
                             replaces="%s:91" % SCATTER_TPU_SRC,
                             launches=mesh_axes["launches"][name],
                             path="model_axis",
-                            **mesh_axes["tp_scatter"][tag]))
+                            **numbers(mesh_axes["tp_scatter"][tag])))
+    name = scatter_accum.SORT_NAME
+    check(mesh_axes["launches"].get(name, 0) > 0,
+          "%s was not launched by the model axis's steps" % name)
+    kernels.append(dict(name=name + "@model_axis", route="cuda",
+                        source=SCATTER_CU, replaces="%s:91" % SCATTER_TPU_SRC,
+                        launches=mesh_axes["launches"][name],
+                        path="model_axis",
+                        **mesh_axes["tp_scatter"]["float32"]["sort"]))
     name = KERNEL_NAMES[("gather_masked_sum", torch.float32)]
     check(mesh_axes["context_launches"] > 0,
           "%s was not launched by the context-parallel pool" % name)
@@ -5546,7 +5781,8 @@ def main():
             (KERNEL_NAMES[("fused_ctx_pool", torch.float32)], "eval"),
             (KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)], "eval"),
             (scatter_accum.KERNEL_NAMES[torch.float32], "train"),
-            (scatter_accum.KERNEL_NAMES[torch.bfloat16], "train")):
+            (scatter_accum.KERNEL_NAMES[torch.bfloat16], "train"),
+            (scatter_accum.SORT_NAME, "train")):
         main_entry = next(k for k in kernels if k["name"] == name
                           and k.get("path") == entry_of)
         check(grounding_counts["gt"].get(name, 0) > 0,

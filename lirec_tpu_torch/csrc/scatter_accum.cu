@@ -40,12 +40,9 @@
 // 16-column tiles that 240 of 256 threads only loaded) took 0.180 / 0.187
 // ms there (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
-// Design: a plan kernel, then two kernels at once on two streams.
-// * scatter_plan_kernel, one block, alone on the caller's stream (a block
-//   of 1024 threads finds no room beside the short items): lists the
-//   (segment, column tile) pairs of every segment longer than kShort (the
-//   hot tiles), and their count. It writes the count itself, so the
-//   workspace needs no clearing.
+// Design: the sort below lists the (segment, column tile) pairs of every
+// segment longer than kShort (the hot tiles), and their count; then two
+// kernels run at once on two streams.
 // * scatter_hot_kernel, on a stream of the highest priority: a block of
 //   five warps per hot tile, one 128-byte line of columns (32 f32 or 64
 //   bf16) of a long segment. Four copier warps stream the tile's update
@@ -77,10 +74,55 @@
 // positions divided as soon as they were loaded, which stalled the copiers
 // on every load (PERF.md).
 //
+// The front end: a stable counting sort by destination row, in place of
+// the library sort the port first used (torch.sort of the int32 keys plus
+// searchsorted: 0.079 ms at the train step's caps against this sort's
+// 0.023 and the scatter's 0.096, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+// The TPU kernels needed none: their grid walked the
+// updates in order. A stable sort of keys into S row segments is unique,
+// so `perm` and `offsets` are bitwise what ops/scatter_accum.sort_by_row
+// (the plain version) gives. Its positions (P = M x n_tables) are cut
+// into units of at most kSortUnit, and a pass is three launches, none of
+// which waits on another block or on the host:
+// * sort_count_kernel, a block per unit: the unit's count of each digit,
+//   as 16-bit pairs in shared memory, written densely as the unit's row
+//   of an [units, digits] matrix.
+// * sort_prefix_kernel, a thread per digit: each column of the matrix
+//   becomes its exclusive prefix in unit order, and its sum the digit's
+//   length; a block scans its range of digits' lengths and writes the
+//   range's sum.
+// * sort_place_kernel, a block per unit: scans the ranges' sums, stages
+//   each position's digit, destination base and rank among the equal
+//   digits of its step of 32 (__match_any_sync), then one warp walks the
+//   steps in order, a 16-bit counter per digit in shared memory carrying
+//   the rank from step to step. Destination: the digit's start + the
+//   unit's prefix + the rank.
+// Where the [units, S + 2] matrix is small (at most 2**22 ints and 2**16
+// buckets: the train step's caps, 68 x 13,570, and split-scale tables,
+// 68 x 61,442) one pass sorts by the whole bucket (a row, plus one before
+// the rows and one after them for ids out of range); the prefix kernel
+// lists the hot tiles and the place kernel writes `offsets`. Past it
+// (2**17 rows and beyond) a stable pass per digit of the bucket, the low
+// digit first (an LSD radix sort), each pass carrying the buckets and
+// positions in its order to the next, so the units stay 1,024 positions
+// and the counters stay in shared memory at every S; then
+// sort_offsets_kernel, a thread per row, finds `offsets` by a binary
+// search of the sorted buckets and lists the hot tiles. The matrix is
+// latency, from L2.
+//
+// And for few updates, one launch with no sort (scatter_small_kernel): a
+// warp per output row of one table, lanes over its columns, walks the
+// update ids in order from shared memory 32 at a time (__ballot_sync) and
+// adds the rows that hit from 0.f, in update order: the same chain, so the
+// same bits. The int_rels sweep's score table (a few dozen to a thousand
+// updates of 6-15 columns) takes it; the wrapper's size rule
+// (ops/scatter_accum.scatter_path) decides.
+//
 // Memory safety does not depend on the ids: reads go through `perm`
 // (positions < M) and writes through each item's own row. Ids out of a
-// table's range land in another table's segments or in none; the callers
-// check the ids on the host before the step.
+// table's range land in another table's segments or in none (the sort's
+// first or last bucket); the callers check the ids on the host before the
+// step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,8 +156,19 @@ constexpr int kPieces = kHotRowBytes / 16;                // copies a row
 constexpr int kRowsPerPass = 32 * kProducers / kPieces;   // 16
 constexpr int kPasses = kStageRows / kRowsPerPass;        // 8 copies a stage
 constexpr int kBarBytes = 512;  // the stages' full and empty mbarriers
-constexpr int kPlanThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
+// the sort
+constexpr int kCountThreads = 512;     // sort_count_kernel
+constexpr int kPrefixThreads = 256;    // sort_prefix_kernel
+constexpr int kPrefixAhead = 16;       // unit counts a thread loads at once
+constexpr int kPlaceThreads = 256;     // sort_place_kernel: stage, then walk
+constexpr int kOffsetThreads = 256;    // sort_offsets_kernel
+constexpr int kSortUnit = 1024;        // the most positions of a unit
+constexpr int kMaxBuckets = 1 << 16;   // the most buckets (digits) of a pass
+constexpr int kMaxRanges = kMaxBuckets / kPrefixThreads;  // prefix blocks
+// the one-launch path
+constexpr int kSmallWarps = 8;         // output rows of a block
+constexpr int kSmallMaxIds = 12288;    // update ids it stages (48 KB)
 
 static_assert(kShort <= 32, "one update position per lane");
 static_assert(kRun < 32, "a lane per segment start and the run's end");
@@ -124,6 +177,10 @@ static_assert(2 * kStages * 8 <= kBarBytes, "barrier space");
 static_assert(kStageRows % kRowsPerPass == 0, "whole copy passes");
 static_assert(kLag < kStages, "a stage is signalled before its reuse");
 static_assert(kStageRows % kBatch == 0, "whole adder batches");
+static_assert(kSortUnit < (1 << 16), "16-bit counts of a unit's positions");
+static_assert(kMaxRanges * 16 + kSortUnit * 4 * 5 + kMaxBuckets * 2 <=
+                  227 * 1024,
+              "sort_place_kernel's shared memory");
 
 struct Table {
   const void* g;  // [M, d] updates (T_in)
@@ -268,42 +325,6 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
         " selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
-}
-
-// plan[0] = number of hot tiles; plan[1 + h] their segments and
-// plan[1 + cap + h] their tiles, in no particular order
-template <int n_tables>
-__global__ void __launch_bounds__(kPlanThreads)
-scatter_plan_kernel(Tables tabs, const int64_t* __restrict__ offsets,
-                    int* __restrict__ plan, int64_t cap) {
-  constexpr int kAheadSeg = 8;  // segment lengths loaded before any is used
-  __shared__ int count;
-  if (threadIdx.x == 0) count = 0;
-  __syncthreads();
-  const int64_t n_seg = tabs.seg0[n_tables];
-  for (int64_t base = threadIdx.x; base < n_seg;
-       base += static_cast<int64_t>(kPlanThreads) * kAheadSeg) {
-    int64_t len[kAheadSeg];
-#pragma unroll
-    for (int u = 0; u < kAheadSeg; ++u) {
-      const int64_t s = base + u * kPlanThreads;
-      len[u] = s < n_seg ? offsets[s + 1] - offsets[s] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < kAheadSeg; ++u) {
-      if (len[u] <= kShort) continue;
-      const int64_t s = base + u * kPlanThreads;
-      int64_t row;
-      const int n = tabs.t[locate(tabs, n_tables, s, &row)].hot_tiles;
-      const int at = atomicAdd(&count, n);
-      for (int k = 0; k < n; ++k) {
-        plan[1 + at + k] = static_cast<int>(s);
-        plan[1 + cap + at + k] = k;
-      }
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) plan[0] = count;
 }
 
 // How a lane reads its columns of an update row: one 16-byte vector of n
@@ -665,7 +686,340 @@ scatter_short_kernel(Tables tabs, const int64_t* __restrict__ perm,
                                    offsets, out_bf16, ring);
 }
 
-// A stream of the highest priority per device for the plan and the hot
+// ------------------------------------------------------------------ sort
+
+struct Sort {
+  const int* idx;    // [P] row ids; position p = u * n_tables + t
+  const int* keys;   // a later pass: [P] buckets, in the last pass's order
+  const int* order;  // a later pass: [P] their positions
+  int64_t seg0[4];   // first segment (key) of each table; seg0[n] = S
+  int64_t P;         // positions
+  int S;             // segments: the tables' rows
+  int nb;            // this pass's buckets
+  int shift, mask;   // a bucket's digit in this pass: (bucket >> shift) & mask
+  int unit;          // positions of a unit (the last may hold fewer)
+  int ranges;        // sort_prefix_kernel's blocks, kPrefixThreads buckets each
+};
+
+// Where a pass writes: perm (the last pass) or order (an earlier one) at
+// each position's place; with several passes the buckets beside them
+// (keys); with one, its share of offsets
+struct Placed {
+  int64_t* perm;
+  int* order;
+  int* keys;
+  int64_t* offsets;
+};
+
+// The bucket of the pass's i-th input: 1 + the key (table offset + row
+// id) for keys in [0, S), 0 below, S + 1 at or above; a later pass reads
+// it from the last pass's keys
+template <int n_tables>
+__device__ __forceinline__ int bucket_in(const Sort& a, int64_t i) {
+  if (a.keys) return a.keys[i];
+  const int t = n_tables == 1 ? 0 : static_cast<int>(i % n_tables);
+  const int64_t key = static_cast<int64_t>(a.idx[i]) + a.seg0[t];
+  return key < 0 ? 0 : key >= a.S ? a.S + 1 : static_cast<int>(key) + 1;
+}
+
+__device__ __forceinline__ int digit_of(const Sort& a, int bucket) {
+  return (bucket >> a.shift) & a.mask;
+}
+
+// The exclusive scan of one int a thread over the block (blockDim.x a
+// multiple of 32, at most 32 warps), and the block's sum; `sums` is the
+// block's scratch of 32 ints
+__device__ __forceinline__ int block_exclusive(int v, int* sums,
+                                               int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32;
+  int incl = v;
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, k);
+    if (lane >= k) incl += y;
+  }
+  if (lane == 31) sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < warps ? sums[lane] : 0;
+#pragma unroll
+    for (int k = 1; k < 32; k <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, k);
+      if (lane >= k) w += y;
+    }
+    sums[lane] = w;
+  }
+  __syncthreads();
+  const int out = (warp ? sums[warp - 1] : 0) + incl - v;
+  *total = sums[warps - 1];
+  __syncthreads();  // sums is rewritten by the next call
+  return out;
+}
+
+// A unit's count of each digit, written as the unit's row of hist
+// [units, nb]: counted by order-free atomics in shared memory, two 16-bit
+// counts a word (a unit holds under 2**16 positions, so a count never
+// carries into its neighbour). With cap > 0 block 0 also zeroes the hot
+// tiles' count, which sort_prefix_kernel or sort_offsets_kernel adds to.
+template <int n_tables>
+__global__ void __launch_bounds__(kCountThreads)
+sort_count_kernel(Sort a, int* __restrict__ hist, int* __restrict__ plan,
+                  int64_t cap) {
+  extern __shared__ __align__(16) uint32_t pairs[];
+  if (blockIdx.x == 0 && threadIdx.x == 0 && cap > 0) plan[0] = 0;
+  int* row = hist + static_cast<int64_t>(blockIdx.x) * a.nb;
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * a.unit;
+  const int64_t hi = lo + a.unit < a.P ? lo + a.unit : a.P;
+  const int words = (a.nb + 1) / 2;
+  for (int w = threadIdx.x; w < words; w += kCountThreads) pairs[w] = 0;
+  __syncthreads();
+  for (int64_t p = lo + threadIdx.x; p < hi; p += kCountThreads) {
+    const int s = digit_of(a, bucket_in<n_tables>(a, p));
+    atomicAdd(&pairs[s >> 1], 1u << (16 * (s & 1)));
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < a.nb; s += kCountThreads)
+    row[s] = static_cast<int>((pairs[s >> 1] >> (16 * (s & 1))) & 0xffffu);
+}
+
+// The hot tiles of segment `seg` (one of over kShort updates) listed for
+// scatter_hot_kernel: plan[0] their count, plan[1 + h] segments,
+// plan[1 + cap + h] tiles, in no particular order
+template <int n_tables>
+__device__ __forceinline__ void list_hot(const Tables& tabs, int seg,
+                                         int* plan, int64_t cap) {
+  int64_t row;
+  const int n = tabs.t[locate(tabs, n_tables, seg, &row)].hot_tiles;
+  const int h = atomicAdd(plan, n);
+  for (int t = 0; t < n; ++t) {
+    plan[1 + h + t] = seg;
+    plan[1 + cap + h + t] = t;
+  }
+}
+
+// A block per range of kPrefixThreads digits, a thread per digit: its
+// column of hist -> its exclusive prefix over the units, in place, and its
+// sum, the digit's length; local[s] = the exclusive scan of the lengths
+// within the range, range_sum[r] = the range's sum. With cap > 0 (one
+// pass: a digit is a bucket) the buckets of over kShort updates are
+// listed as hot tiles.
+template <int n_tables>
+__global__ void __launch_bounds__(kPrefixThreads)
+sort_prefix_kernel(Tables tabs, Sort a, int units, int* __restrict__ hist,
+                   int* __restrict__ local, int* __restrict__ range_sum,
+                   int* __restrict__ plan, int64_t cap) {
+  __shared__ int sums[32];
+  const int s = blockIdx.x * kPrefixThreads + threadIdx.x;
+  int run = 0;
+  if (s < a.nb) {
+    for (int b0 = 0; b0 < units; b0 += kPrefixAhead) {
+      int v[kPrefixAhead];
+#pragma unroll
+      for (int u = 0; u < kPrefixAhead; ++u)
+        v[u] = b0 + u < units ? hist[static_cast<int64_t>(b0 + u) * a.nb + s]
+                              : 0;
+#pragma unroll
+      for (int u = 0; u < kPrefixAhead; ++u)
+        if (b0 + u < units) {
+          hist[static_cast<int64_t>(b0 + u) * a.nb + s] = run;
+          run += v[u];
+        }
+    }
+    if (cap > 0 && s >= 1 && s <= a.S && run > kShort)
+      list_hot<n_tables>(tabs, s - 1, plan, cap);
+  }
+  int total;
+  const int ex = block_exclusive(run, sums, &total);
+  if (s < a.nb) local[s] = ex;
+  if (threadIdx.x == 0) range_sum[blockIdx.x] = total;
+}
+
+// A unit's positions placed in order by one warp: 32 a step, a step's
+// equal digits ranked by lane, a 16-bit counter per digit in shared memory
+// carrying the rank from step to step (a block per unit; with one pass
+// more blocks, up to one per range and one wave of SMs, that only write
+// offsets). First the block scans the ranges' sums into range_start, so a
+// digit starts at range_start[s / kPrefixThreads] + local[s], and with one
+// pass writes its share of offsets (offsets[s - 1] = that start, for s in
+// 1 .. S + 1). Then the block's warps stage, for every step at once, each
+// position's digit, destination base (the digit's start plus the unit's
+// prefix) and place among the step's equal digits (__match_any_sync:
+// rank, group size and leader lane), and with several passes (kCarry) its
+// position and bucket, so the ordered walk reads no global memory and
+// matches nothing.
+template <int n_tables, bool kCarry>
+__global__ void __launch_bounds__(kPlaceThreads)
+sort_place_kernel(Sort a, const int* __restrict__ local,
+                  const int* __restrict__ range_sum,
+                  const int* __restrict__ hist, Placed out) {
+  extern __shared__ __align__(16) unsigned char staged[];
+  __shared__ int sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const unsigned below = (1u << lane) - 1;
+  int* range_start = reinterpret_cast<int*>(staged);  // [ranges]
+  {
+    const int per = (a.ranges + kPlaceThreads - 1) / kPlaceThreads;
+    const int r0 = threadIdx.x * per;
+    int sum = 0;
+    for (int r = r0; r < r0 + per && r < a.ranges; ++r) sum += range_sum[r];
+    int all;
+    int at = block_exclusive(sum, sums, &all);
+    for (int r = r0; r < r0 + per && r < a.ranges; ++r) {
+      range_start[r] = at;
+      at += range_sum[r];
+    }
+    __syncthreads();
+  }
+  auto start = [&](int s) {
+    return range_start[s / kPrefixThreads] + local[s];
+  };
+  if (!kCarry) {
+    const int span = (a.nb + gridDim.x - 1) / gridDim.x;
+    const int s0 = blockIdx.x * span;
+    for (int s = s0 + threadIdx.x; s < s0 + span && s < a.nb;
+         s += kPlaceThreads)
+      if (s >= 1) out.offsets[s - 1] = start(s);
+  }
+  const int* row = hist + static_cast<int64_t>(blockIdx.x) * a.nb;
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * a.unit;
+  const int64_t hi = lo + a.unit < a.P ? lo + a.unit : a.P;
+  const int n = hi > lo ? static_cast<int>(hi - lo) : 0;
+  const int steps = (n + 31) / 32;
+  int* digit = range_start + (a.ranges + 3) / 4 * 4;  // [steps * 32]
+  int* base_of = digit + steps * 32;                  // [steps * 32]
+  int* info_of = base_of + steps * 32;                // [steps * 32]
+  int* pos_of = info_of + steps * 32;                 // [steps * 32], kCarry
+  int* key_of = pos_of + steps * 32;                  // [steps * 32], kCarry
+  uint16_t* rel =
+      reinterpret_cast<uint16_t*>(kCarry ? key_of + steps * 32 : pos_of);
+#pragma unroll 4
+  for (int k = warp; k < steps; k += kPlaceThreads / 32) {
+    const int i = k * 32 + lane;
+    const bool valid = i < n;
+    const int b = valid ? bucket_in<n_tables>(a, lo + i) : -1;
+    const int s = valid ? digit_of(a, b) : -1;
+    const unsigned peers = __match_any_sync(kFull, s);
+    if (valid) {
+      digit[i] = s;
+      base_of[i] = start(s) + row[s];
+      info_of[i] = __popc(peers & below) | (__popc(peers) << 8) |
+                   ((__ffs(peers) - 1) << 16);
+      rel[s] = 0;
+      if (kCarry) {
+        pos_of[i] = a.order ? a.order[lo + i] : static_cast<int>(lo + i);
+        key_of[i] = b;
+      }
+    }
+  }
+  __syncthreads();
+  if (warp > 0) return;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    const bool valid = i < n;
+    const int s = valid ? digit[i] : 0;
+    const int info = valid ? info_of[i] : 0;
+    const int leader = (info >> 16) & 31;
+    int r = 0;
+    if (valid && lane == leader) {
+      r = rel[s];
+      rel[s] = static_cast<uint16_t>(r + ((info >> 8) & 63));
+    }
+    r = __shfl_sync(kFull, r, leader);
+    if (valid) {
+      const int64_t d = base_of[i] + r + (info & 31);
+      if (!kCarry) {
+        out.perm[d] = lo + i;
+      } else {
+        if (out.perm)
+          out.perm[d] = pos_of[i];
+        else
+          out.order[d] = pos_of[i];
+        out.keys[d] = key_of[i];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// After several passes, a thread per segment k = 0 .. S: offsets[k] = the
+// positions whose bucket is at most k, a binary search of the sorted
+// buckets (keys [P]); with cap > 0 the segments of over kShort updates
+// (a segment's end from the next lane) are listed as hot tiles.
+template <int n_tables>
+__global__ void __launch_bounds__(kOffsetThreads)
+sort_offsets_kernel(Tables tabs, const int* __restrict__ keys, int64_t P,
+                    int S, int64_t* __restrict__ offsets, int* plan,
+                    int64_t cap) {
+  const int64_t k =
+      static_cast<int64_t>(blockIdx.x) * kOffsetThreads + threadIdx.x;
+  auto at_most = [&](int64_t v) {  // positions whose bucket is at most v
+    long long lo = 0, hi = P;
+    while (lo < hi) {
+      const long long mid = (lo + hi) >> 1;
+      if (keys[mid] <= v)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    return lo;
+  };
+  const long long o = at_most(k);
+  long long end = __shfl_down_sync(kFull, o, 1);
+  if ((threadIdx.x & 31) == 31) end = at_most(k + 1);
+  if (k <= S) offsets[k] = o;
+  if (cap > 0 && k < S && end - o > kShort)
+    list_hot<n_tables>(tabs, static_cast<int>(k), plan, cap);
+}
+
+// ------------------------------------------------- the one-launch path
+
+// A warp per output row of one table, its lanes over the columns 32 at a
+// time: the update ids, staged in shared memory, are walked in order 32
+// at a time; the rows that hit are loaded up to 8 ahead of their adds and
+// added in update order from 0.f. A row no id hits is written as zeros.
+template <typename T>
+__global__ void __launch_bounds__(32 * kSmallWarps)
+scatter_small_kernel(Table tab, const int* __restrict__ idx, int M,
+                     int out_bf16) {
+  constexpr int kAheadRows = 8;
+  __shared__ int ids[kSmallMaxIds];
+  for (int u = threadIdx.x; u < M; u += 32 * kSmallWarps) ids[u] = idx[u];
+  __syncthreads();
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kSmallWarps + threadIdx.x / 32;
+  if (row >= tab.rows) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const T* g = static_cast<const T*>(tab.g);
+  const int d = tab.d;
+  for (int c0 = 0; c0 < d; c0 += 32) {
+    const int c = c0 + lane;
+    float acc = 0.f;
+    for (int j0 = 0; j0 < M; j0 += 32) {
+      unsigned hit = __ballot_sync(
+          kFull, j0 + lane < M && ids[j0 + lane] == row);
+      while (hit) {
+        int u[kAheadRows];
+        float x[kAheadRows];
+#pragma unroll
+        for (int k = 0; k < kAheadRows; ++k) {
+          u[k] = hit ? j0 + __ffs(hit) - 1 : -1;
+          hit &= hit - 1;
+        }
+#pragma unroll
+        for (int k = 0; k < kAheadRows; ++k)
+          if (u[k] >= 0 && c < d)
+            x[k] = to_f32(g[static_cast<int64_t>(u[k]) * d + c]);
+#pragma unroll
+        for (int k = 0; k < kAheadRows; ++k)
+          if (u[k] >= 0 && c < d) acc = __fadd_rn(acc, x[k]);
+      }
+    }
+    if (c < d) store1(tab, row * d + c, acc, out_bf16);
+  }
+}
+
+// A stream of the highest priority per device for the hot
 // tiles, and the events that fork it from and join it to the caller's
 // stream
 struct Side {
@@ -702,9 +1056,9 @@ int64_t hot_cap(int64_t n_positions, int max_hot_tiles) {
 template <typename T, int n_tables>
 int launch(const void* g0, const void* g1, const void* g2, void* out0,
            void* out1, void* out2, int64_t rows0, int64_t rows1,
-           int64_t rows2, int d0, int d1, int d2, const void* perm, const void* offsets, int64_t n_positions,
-           int out_bf16, int flags, int64_t cap, void* workspace,
-           void* stream) {
+           int64_t rows2, int d0, int d1, int d2, const void* perm,
+           const void* offsets, int64_t n_positions, int out_bf16, int flags,
+           int64_t cap, void* workspace, void* stream) {
   constexpr int n = Vec<T>::n;
   constexpr int kHotCols = kHotRowBytes / static_cast<int>(sizeof(T));
   const void* gs[3] = {g0, g1, g2};
@@ -741,14 +1095,11 @@ int launch(const void* g0, const void* g1, const void* g2, void* out0,
   cudaError_t err = cudaSuccess;
   Side* side = nullptr;
   if (cap > 0) {
-    // the plan alone (its block needs a whole SM's threads), then the hot
-    // tiles on the side stream, concurrent with the short items
-    int* plan = static_cast<int*>(workspace);
-    scatter_plan_kernel<n_tables><<<1, kPlanThreads, 0, s>>>(tabs, o, plan,
-                                                             cap);
+    // the hot tiles the sort listed, on the side stream, concurrent with
+    // the short items
+    const int* plan = static_cast<const int*>(workspace);
     int dev = 0, sms = 0;
-    if ((err = cudaGetLastError()) != cudaSuccess ||
-        (err = cudaGetDevice(&dev)) != cudaSuccess ||
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess ||
         (err = side_of(dev, &side)) != cudaSuccess ||
@@ -805,18 +1156,203 @@ int launch_n(const void* g0, const void* g1, const void* g2, void* out0,
   }
 }
 
+template <int n_tables>
+int sort_n(const int* idx, const int64_t* rows, const int* hot_tiles,
+           int64_t n_positions, int units, int unit, int digit_bits,
+           int64_t* perm, int64_t* offsets, int* hist, int* local,
+           int* range_sum, int* keys, int* plan, int64_t cap,
+           cudaStream_t s) {
+  Tables tabs;
+  Sort a;
+  tabs.seg0[0] = a.seg0[0] = 0;
+  for (int t = 0; t < 3; ++t) {
+    Table& tab = tabs.t[t];
+    tab = Table{};
+    tab.rows = t < n_tables ? rows[t] : 0;
+    tab.hot_tiles = t < n_tables ? hot_tiles[t] : 0;
+    tabs.seg0[t + 1] = a.seg0[t + 1] = tabs.seg0[t] + tab.rows;
+  }
+  const int64_t S = tabs.seg0[3];
+  // one pass: a digit is the bucket; several: digit_bits of it a pass,
+  // the low digits first
+  int passes = 1;
+  int64_t nb = S + 2;
+  if (digit_bits > 0 && digit_bits <= 16) {
+    int width = 0;
+    while ((S + 1) >> width) ++width;  // bits of the largest bucket
+    passes = (width + digit_bits - 1) / digit_bits;
+    nb = int64_t{1} << digit_bits;
+  }
+  if (S + 2 >= (int64_t{1} << 31) || digit_bits < 0 || digit_bits > 16 ||
+      (digit_bits > 0 && passes < 2) || nb > kMaxBuckets || units < 1 ||
+      unit < 32 || unit > kSortUnit ||
+      static_cast<int64_t>(units) * unit < n_positions ||
+      static_cast<int64_t>(units - 1) * unit >=
+          (n_positions > 0 ? n_positions : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.idx = idx;
+  a.P = n_positions;
+  a.S = static_cast<int>(S);
+  a.nb = static_cast<int>(nb);
+  a.mask = digit_bits > 0 ? a.nb - 1 : 0x7fffffff;
+  a.unit = unit;
+  a.ranges = (a.nb + kPrefixThreads - 1) / kPrefixThreads;
+  const bool several = passes > 1;
+  const int count_smem = (a.nb + 1) / 2 * 4;
+  const int place_smem = (a.ranges + 3) / 4 * 16 +
+                         (unit + 31) / 32 * 32 * 4 * (several ? 5 : 3) +
+                         (a.nb * 2 + 15) / 16 * 16;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaSuccess;
+  auto place = several ? sort_place_kernel<n_tables, true>
+                       : sort_place_kernel<n_tables, false>;
+  if ((err = cudaFuncSetAttribute(sort_count_kernel<n_tables>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  count_smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(place,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  place_smem)) != cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  // with one pass, blocks past the last unit only write their share of
+  // offsets: up to a block per range of buckets, at most one wave of SMs
+  const int writers = a.ranges < sms ? a.ranges : sms;
+  const int place_grid = !several && writers > units ? writers : units;
+  // several passes go through two pairs of (keys, order) in turn
+  const int64_t stride = (n_positions + 3) / 4 * 4;
+  for (int pass = 0; pass < passes; ++pass) {
+    const bool last = pass == passes - 1;
+    int* keys_in = keys + (pass + 1) % 2 * 2 * stride;
+    int* keys_out = keys + pass % 2 * 2 * stride;
+    a.shift = pass * digit_bits;
+    a.keys = pass > 0 ? keys_in : nullptr;
+    a.order = pass > 0 ? keys_in + stride : nullptr;
+    Placed out{last ? perm : nullptr, last ? nullptr : keys_out + stride,
+               several ? keys_out : nullptr, several ? nullptr : offsets};
+    sort_count_kernel<n_tables><<<units, kCountThreads, count_smem, s>>>(
+        a, hist, plan, pass == 0 ? cap : 0);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+    sort_prefix_kernel<n_tables><<<a.ranges, kPrefixThreads, 0, s>>>(
+        tabs, a, units, hist, local, range_sum, plan, several ? 0 : cap);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+    place<<<place_grid, kPlaceThreads, place_smem, s>>>(a, local, range_sum,
+                                                        hist, out);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  if (several) {
+    const int* sorted = keys + (passes - 1) % 2 * 2 * stride;
+    const int64_t grid = (S + 1 + kOffsetThreads - 1) / kOffsetThreads;
+    sort_offsets_kernel<n_tables>
+        <<<static_cast<unsigned>(grid), kOffsetThreads, 0, s>>>(
+            tabs, sorted, n_positions, a.S, offsets, plan, cap);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int small_launch(const void* g, void* out, int64_t rows, int d,
+                 const void* idx, int64_t n_updates, int out_bf16,
+                 void* stream) {
+  if (n_updates > kSmallMaxIds || n_updates < 0 || rows < 0 || d < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  Table tab{};
+  tab.g = g;
+  tab.out = out;
+  tab.rows = rows;
+  tab.d = d;
+  const int64_t grid = (rows + kSmallWarps - 1) / kSmallWarps;
+  if (grid >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  scatter_small_kernel<T>
+      <<<static_cast<unsigned>(grid), 32 * kSmallWarps, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          tab, static_cast<const int*>(idx), static_cast<int>(n_updates),
+          out_bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // The kernel's constants, for the wrapper's plan to check against:
-// kShort, kHotRowBytes, kRun, kThreads, kUnroll.
+// kShort, kHotRowBytes, kRun, kThreads, kUnroll, kSmallMaxIds, kMaxRanges,
+// kSortUnit, kMaxBuckets.
 void scatter_accum_config(int* out) {
   out[0] = kShort;
   out[1] = kHotRowBytes;
   out[2] = kRun;
   out[3] = kThreads;
   out[4] = kUnroll;
+  out[5] = kSmallMaxIds;
+  out[6] = kMaxRanges;
+  out[7] = kSortUnit;
+  out[8] = kMaxBuckets;
+}
+
+// The stable counting sort: idx int32 [n_positions] (flat [M, n_tables]
+// row ids of tables of rows_t rows) -> perm int64 [n_positions] (positions
+// u * n_tables + t stably sorted by table, then row), offsets int64
+// [rows_0 + ... + rows_{n-1} + 1] (each row's segment of perm). Positions
+// are cut into `units` units of `unit` (32 .. kSortUnit; the last unit
+// non-empty). digit_bits 0: one pass over the S + 2 buckets (S = the rows'
+// sum, at most kMaxBuckets - 2); else passes of 2**digit_bits digits
+// (digit_bits <= 16), the low digits first, until every bit of S + 1 is
+// sorted. Scratch int32: hist [units, buckets of a pass], local [buckets
+// of a pass], range_sum [kMaxRanges], and with several passes keys
+// [4 x n_positions rounded up to 4]. With cap > 0 it also lists the hot
+// tiles (hot_t per row of table t) into plan int32 [1 + 2 * cap], for
+// scatter_accum_*. Returns the cudaError_t of the launches.
+int scatter_sort(const void* idx, int n_tables, int64_t rows0, int64_t rows1,
+                 int64_t rows2, int hot0, int hot1, int hot2,
+                 int64_t n_positions, int units, int unit, int digit_bits,
+                 void* perm, void* offsets, void* hist, void* local,
+                 void* range_sum, void* keys, void* plan, int64_t cap,
+                 void* stream) {
+  const int64_t rows[3] = {rows0, rows1, rows2};
+  const int hot[3] = {hot0, hot1, hot2};
+  const int* i = static_cast<const int*>(idx);
+  int64_t* p = static_cast<int64_t*>(perm);
+  int64_t* o = static_cast<int64_t*>(offsets);
+  int* h = static_cast<int*>(hist);
+  int* l = static_cast<int*>(local);
+  int* r = static_cast<int*>(range_sum);
+  int* k = static_cast<int*>(keys);
+  int* pl = static_cast<int*>(plan);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_tables) {
+    case 1:
+      return sort_n<1>(i, rows, hot, n_positions, units, unit, digit_bits, p,
+                       o, h, l, r, k, pl, cap, s);
+    case 3:
+      return sort_n<3>(i, rows, hot, n_positions, units, unit, digit_bits, p,
+                       o, h, l, r, k, pl, cap, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The one-launch path for one table: g [n_updates, d] updates, idx int32
+// [n_updates] row ids, out [rows, d] float32 (bfloat16 when out_bf16);
+// n_updates <= kSmallMaxIds. Returns the cudaError_t of the launch.
+int scatter_small_f32(const void* g, void* out, int64_t rows, int d,
+                      const void* idx, int64_t n_updates, int out_bf16,
+                      void* stream) {
+  return small_launch<float>(g, out, rows, d, idx, n_updates, out_bf16,
+                             stream);
+}
+
+int scatter_small_bf16(const void* g, void* out, int64_t rows, int d,
+                       const void* idx, int64_t n_updates, int out_bf16,
+                       void* stream) {
+  return small_launch<__nv_bfloat16>(g, out, rows, d, idx, n_updates,
+                                     out_bf16, stream);
 }
 
 // Device pointers of contiguous tensors: g_t [M, d_t] updates, out_t
@@ -826,9 +1362,10 @@ void scatter_accum_config(int* out) {
 // workspace int32 [1 + 2 * cap]. flags: bit t set where table t's updates
 // are whole 16-byte vectors on 16-byte boundaries, bit 3 + t where its
 // output may be written in vectors. cap: hot tiles the workspace holds, at
-// least n_positions / (kShort + 1) x the most hot tiles of a row. Unused
-// table slots (t >= n_tables) are ignored. Returns the cudaError_t of the
-// launches.
+// least n_positions / (kShort + 1) x the most hot tiles of a row; the
+// workspace's plan is scatter_sort's list of the hot tiles for this cap.
+// Unused table slots (t >= n_tables) are ignored. Returns the cudaError_t
+// of the launches.
 int scatter_accum_f32(const void* g0, const void* g1, const void* g2,
                       void* out0, void* out1, void* out2, int64_t rows0,
                       int64_t rows1, int64_t rows2, int d0, int d1, int d2,

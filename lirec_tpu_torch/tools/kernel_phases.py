@@ -11,14 +11,16 @@ each against its plain version, with median times (L2 flushed), bounds
 and the scatter's device time per launch inside the op.
 
     python lirec_tpu_torch/tools/kernel_phases.py [TREE] [--label L]
+        [--scatter]
 
 TREE (default: this checkout) is the root of a checkout whose
 ``lirec_tpu_torch`` (kernels and wrappers) is imported; the phase code is
 this checkout's ``chip_smoke.py``. So a parent and a change are measured
 in one call, in turns, by the same code (unpack the parent with ``git
 archive`` into a git-ignored directory). Run it by path, not with ``-m``:
-the package must come from TREE. The phases' lines go to stdout, and
-last a line ``RESULT <L> <json>`` with the numbers.
+the package must come from TREE. ``--scatter`` runs the scatter's phase
+alone. The phases' lines go to stdout, and last a line ``RESULT <L>
+<json>`` with the numbers.
 """
 
 import importlib.util
@@ -36,6 +38,9 @@ def main(argv) -> int:
         k = argv.index("--label")
         label = argv[k + 1]
         del argv[k:k + 2]
+    scatter_only = "--scatter" in argv
+    if scatter_only:
+        argv.remove("--scatter")
     tree = os.path.abspath(argv[0]) if argv else here
     sys.path.insert(0, tree)
     import lirec_tpu_torch
@@ -67,8 +72,8 @@ def main(argv) -> int:
         list(pool.map(build.build, sources))
     print("built in %.1f s" % (time.perf_counter() - t0), flush=True)
     model = ModelSpec(n_classes=101, n_rels=15)
-    out = {"triple": cs.triple_checks(torch, model),
-           "probes": cs.probe_checks(torch)}
+    out = {} if scatter_only else {"triple": cs.triple_checks(torch, model),
+                                   "probes": cs.probe_checks(torch)}
     raw, local, caps = cs.train_batches(model)
     out["caps"] = caps
     out["scatter"] = cs.scatter_checks(torch, model, raw[0], local[0], caps)

@@ -16,10 +16,12 @@ It prints
 - the idle share: 1 - busy / the median of the unprofiled steps of the
   same run (profiling slows the host, so the profiled steps' own wall time
   would overstate it);
-- the scatter's kernels (``scatter_plan_kernel``, ``scatter_hot_kernel``,
-  ``scatter_short_kernel``, the last two concurrent) and its sort (cub
-  radix sort + ``searchsorted`` kernels), each group as the union of its
-  spans in µs per step and as a share of device busy;
+- the scatter's kernels (``scatter_hot_kernel`` and
+  ``scatter_short_kernel``, concurrent) and its counting sort
+  (``sort_count_kernel``, ``sort_prefix_kernel``, ``sort_place_kernel``,
+  and past one pass ``sort_offsets_kernel``),
+  each group as the union of its spans in µs per step and as a share of
+  device busy;
 - the profiler's table of the largest device items.
 
 Needs a CUDA card; exits 2 without one.
@@ -33,9 +35,9 @@ import time
 
 N_CLIPS, N_TRACKS, BATCH = 12288, 24576, 64
 WARMUP, STEPS, PROFILED = 3, 10, 5
-SCATTER_KERNELS = ("scatter_plan_kernel", "scatter_hot_kernel<",
-                   "scatter_short_kernel<")
-SORT_KERNELS = ("RadixSort", "searchsorted")
+SCATTER_KERNELS = ("scatter_hot_kernel<", "scatter_short_kernel<")
+SORT_KERNELS = ("sort_count_kernel<", "sort_prefix_kernel<",
+                "sort_place_kernel<", "sort_offsets_kernel<")
 
 
 def _batches(spec, n):

@@ -9,13 +9,14 @@ structured B = 64 batch localized by the port's Localizer (tables of
 ``caps`` rows), updates 1024 / 512 / 512 wide, f32 and bf16. Variants:
 
 - ``built``: the kernel as the wrapper launches it;
-- ``hot_only``: the plan and the hot tiles (long rows), no short items;
+- ``hot_only``: the hot tiles (long rows), no short items;
 - ``adder_only``: ``hot_only`` with the copier warps issuing no copies:
   the adder warp's in-order chain and the ring's handshakes alone;
-- ``short_only``: the plan and the short items; the hot blocks exit.
+- ``short_only``: the short items; the hot blocks exit.
 
-For each: the median ms of the op (L2 flushed, as ``chip_smoke.median_ms``)
-and the device ms of each launch inside it (``torch.profiler``). Only
+For each: the median ms of the kernel on updates the built counting sort
+ordered (L2 flushed, as ``chip_smoke.median_ms``) and the device ms of
+each launch inside it (``torch.profiler``). Only
 ``built`` computes the whole sum; it is checked bitwise against the CPU's
 in-order sum. The variants are built with nvcc into
 ``lirec_tpu_torch/_build/variants/``. Needs a CUDA card; exits 2 without
@@ -89,9 +90,9 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(6)
     base = [torch.randn(idx.shape[0], d, device="cuda", generator=g)
             for d in (1024, 512, 512)]
-    perm, offsets = sa.sort_by_row(idx, rows)
     for dtype in (torch.float32, torch.bfloat16):
         gs = [t.to(dtype).contiguous() for t in base]
+        perm, offsets, workspace = sa.sort_updates(idx, gs, rows)
         want = sa.scatter_accum3_reference(idx.cpu(), *(t.cpu() for t in gs),
                                            *caps)
         for name, lib in libs.items():
@@ -100,7 +101,7 @@ def main() -> int:
                     for r, t in zip(rows, gs)]
 
             def run():
-                sa.launch_sorted(gs, outs, perm, offsets)
+                sa.launch_sorted(gs, outs, perm, offsets, workspace)
 
             run()
             torch.cuda.synchronize()

@@ -8,6 +8,8 @@ so it runs on a machine without it:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -522,6 +524,202 @@ def test_scatter_raises_instead_of_falling_back(cuda):
         sa.scatter_accum3(idx, gs[0].cpu(), *gs[1:], 50, 70)
 
 
+def _sort_ids(device, M, rows, pad_share=0.25, seed=11):
+    """idx int32 [M, len(rows)]: uniform rows, and a padding row 0 taking
+    `pad_share` of the updates (the masked ctx slots)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.stack([torch.randint(0, n, (M,), device=device, generator=g)
+                       for n in rows], 1)
+    idx[torch.rand(M, device=device, generator=g) < pad_share] = 0
+    return idx.to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("rows,M", [
+    ((2816, 5376, 5376), 23040), ((12288, 24576, 24576), 23040),
+    ((40000, 50000, 50000), 23040), ((1 << 17,), 23040),
+    ((1 << 20,), 23040), ((2816,), 23040), ((1 << 22,), 1 << 21)])
+def test_counting_sort_is_bitwise_sort_by_row(cuda, rows, M):
+    """count_sort's perm and offsets against sort_by_row's, bit for bit, on
+    M updates a table: one pass at the Localizer's caps (13,568 rows), at
+    split-scale tables (61,440 rows) and on one table; two passes by digit
+    at 140,000 and 2**17 rows (9 bits each) and at 2**20 rows (11 bits),
+    each with units of 1,024 positions; three passes of 8 bits for 2**21
+    updates into 2**22 rows; then every update into 8 rows, a single
+    update and none. One launch count per sort."""
+    idx = _sort_ids(cuda, M, rows)
+    passes = sa.sort_plan(idx.numel(), rows)["passes"]
+    assert passes == (1 if sum(rows) <= 61440 else 3 if M > 23040 else 2)
+    before = dispatch.launches(sa.SORT_NAME)
+    for case in (idx, (idx % 8).contiguous(), idx[:1].contiguous(),
+                 idx[:0].contiguous()):
+        want = sa.sort_by_row(case, rows)
+        got = sa.count_sort(case, rows)
+        torch.cuda.synchronize()
+        assert got[0].dtype == got[1].dtype == torch.int64
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert dispatch.launches(sa.SORT_NAME) == before + 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_after_several_passes_lists_the_hot_tiles(cuda, dtype):
+    """scatter_accum3 into tables of 20,000 / 25,000 / 25,000 rows (the
+    sort by digits, whose last launch finds the offsets and lists the hot
+    tiles) with a quarter of the updates on row 0: bitwise the CPU's
+    in-order sum, one sort and one scatter launch."""
+    rows = (20000, 25000, 25000)
+    assert sa.sort_plan(23040 * 3, rows)["passes"] == 2
+    idx = _sort_ids(cuda, 23040, rows)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    gs = [torch.randn(23040, d, device=cuda, generator=g).to(dtype)
+          for d in (520, 256, 256)]
+    before = dispatch.launches()
+    got = sa.scatter_accum3(idx, *gs, rows[0], rows[1])
+    torch.cuda.synchronize()
+    delta = {k: n - before.get(k, 0) for k, n in dispatch.launches().items()
+             if n != before.get(k, 0)}
+    assert delta == {sa.KERNEL_NAMES[dtype]: 1, sa.SORT_NAME: 1}
+    want = sa.scatter_accum3_reference(idx.cpu(), *(t.cpu() for t in gs),
+                                       rows[0], rows[1])
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def _int_rels_table(device, n_rows, batch, width, dtype=torch.float32,
+                    seed=12):
+    """The int_rels score table's scatter: the table's own rows, then
+    `batch` rows into hashed rows (evaluation/packed.py)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.cat([torch.arange(n_rows, device=device),
+                     torch.randint(0, n_rows, (batch,), device=device,
+                                   generator=g)]).to(torch.int32)
+    upd = torch.rand(n_rows + batch, width, device=device,
+                     generator=g).to(dtype)
+    return ids, upd
+
+
+@pytest.mark.parametrize("past", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_launch_path_at_its_threshold(cuda, dtype, past):
+    """scatter_accum1 at the size rule's threshold (into half the square
+    root of SMALL_MAX_WORK rows, the most updates whose updates x rows
+    stays within it: one launch of the small kernel, no sort) and one
+    update past it (the counting sort and the sorted kernel): bitwise the
+    CPU's in-order sum either way, bf16 output the f32 sum rounded."""
+    n_rows = math.isqrt(sa.SMALL_MAX_WORK) // 2
+    batch = sa.SMALL_MAX_WORK // n_rows - n_rows + past
+    assert n_rows + batch <= sa.SMALL_MAX_UPDATES
+    ids, upd = _int_rels_table(cuda, n_rows, batch, 15, dtype)
+    want_path = "sorted" if past else "small"
+    assert sa.scatter_path(ids.numel(), (n_rows,), (15,)) == want_path
+    before = dispatch.launches()
+    got = sa.scatter_accum1(ids, upd, n_rows)
+    as_bf16 = sa.scatter_accum1(ids, upd, n_rows, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    delta = {k: n - before.get(k, 0) for k, n in dispatch.launches().items()
+             if n != before.get(k, 0)}
+    if past:
+        assert delta == {sa.KERNEL_NAMES[dtype]: 2, sa.SORT_NAME: 2}
+    else:
+        assert delta == {sa.SMALL_NAMES[dtype]: 2}
+    _assert_in_order(got, ids, upd, n_rows)
+    assert torch.equal(as_bf16, got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape", [(9, 34, 6), (9, 8, 6), (1025, 64, 15),
+                                   (40, 300, 520), (3, 0, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_kernel_matches_in_order_sum(cuda, dtype, shape):
+    """launch_small alone, bitwise the CPU's in-order sum: the int_rels
+    table's shapes (43 and 17 updates into 9 rows of 6; 1,089 into 1,025
+    of 15), a width past one warp's lanes (520: the ids walked once per 32
+    columns) with rows of many updates, and a table of rows only (each
+    row one update; a -0.0 update sums to +0.0 from the 0.0 start, as in
+    index_add_ into zeros)."""
+    n_rows, batch, width = shape
+    ids, upd = _int_rels_table(cuda, n_rows, batch, width, dtype)
+    if batch == 0:
+        upd[0, 0] = -0.0
+    out = torch.empty(n_rows, width, device=cuda)
+    sa.launch_small(ids, upd, out)
+    torch.cuda.synchronize()
+    _assert_in_order(out, ids, upd, n_rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_launch_path_under_capture(cuda, dtype):
+    """The int_rels score table's scatter (the one-launch path) captured in
+    a CUDA graph: each replay on new updates gives the eager op's output
+    bit for bit and counts one launch of the small kernel."""
+    from lirec_tpu_torch.utils.graphs import StepGraph
+
+    ids, upd = _int_rels_table(cuda, 9, 34, 6, dtype)
+    name = sa.SMALL_NAMES[dtype]
+    out = {}
+
+    def step():
+        out["table"] = sa.scatter_accum1(ids, upd, 9)
+
+    graph = StepGraph(step, cuda)
+    assert graph.launches == {name: 1}
+    for seed in (2, 3):
+        _, fresh = _int_rels_table(cuda, 9, 34, 6, dtype, seed=seed)
+        upd.copy_(fresh)
+        graph.replay()
+        want = sa.scatter_accum1(ids, fresh, 9)
+        torch.cuda.synchronize()
+        assert torch.equal(out["table"], want)
+        _assert_in_order(want, ids, fresh, 9)
+
+
+LIBRARY_SORT_KERNELS = ("RadixSort", "radix_sort", "searchsorted",
+                        "indexFunc", "index_add", "SegmentedSort",
+                        "DeviceSort", "sort_by_key")
+
+
+def _device_kernels(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def test_scatter_launches_no_library_sort_or_index_add(cuda):
+    """torch.profiler over scatter_accum3, scatter_accum1 (both paths) and
+    gather_h1's backward on CUDA tensors: the device runs the port's own
+    kernels (the counting sort, the scatter, the one-launch kernel) and no
+    torch.sort, searchsorted or index_add_ kernel."""
+    idx, gs = _updates(cuda, torch.float32, dup_rows=1)
+    ids, upd = _int_rels_table(cuda, 9, 34, 6)
+    tables = [torch.randn(n, d, device=cuda).requires_grad_(True)
+              for n, d in ((50, 1040), (70, 520), (70, 520))]
+
+    def backward():
+        outs = sa.gather_h1(*tables, idx)
+        sum((o * g).sum() for o, g in zip(outs, gs)).backward()
+
+    cases = {
+        "scatter_accum3": lambda: sa.scatter_accum3(idx, *gs, 50, 70),
+        "scatter_accum1 sorted": lambda: sa.scatter_accum1(
+            idx[..., 1].contiguous(), gs[1], 70),
+        "scatter_accum1 small": lambda: sa.scatter_accum1(ids, upd, 9),
+        "gather_h1 backward": backward,
+    }
+    for label, fn in cases.items():
+        names = _device_kernels(fn)
+        library = [n for n in names if any(k in n for k in
+                                           LIBRARY_SORT_KERNELS)]
+        assert not library, (label, library)
+        ours = [n for n in names if "sort_place_kernel" in n
+                or "scatter_small_kernel" in n]
+        assert ours, (label, names)
+
+
 @pytest.mark.parametrize("compute", ["bfloat16", "float32"])
 def test_one_train_step_on_the_card(cuda, compute):
     """int_rel_ch at small widths on the card: a finite loss, every
@@ -831,7 +1029,8 @@ def test_graph_train_steps_are_bitwise_the_eager_steps(cuda, compute,
     """Three steps through the epoch sweep's CUDA graph (the first its
     warm-up, then two replays) against make_train_step's eager steps with
     the same generators, capturable Adam on both: the losses and
-    parameters bit for bit, the same launch counts (one scatter a step),
+    parameters bit for bit, the same launch counts (one sort and one
+    scatter a step),
     "graph" recorded, Adam's step count 3 on the card. With tr_cat_distr
     on, the graph draws its samples with torch.multinomial's own method."""
     from lirec_tpu_torch.train.loop import make_train_step, step_generators
@@ -868,7 +1067,7 @@ def test_graph_train_steps_are_bitwise_the_eager_steps(cuda, compute,
         assert torch.equal(p_g[n], p), n
     name = sa.KERNEL_NAMES[torch.bfloat16 if compute == "bfloat16"
                            else torch.float32]
-    assert n_g == n_e == {name: 3}
+    assert n_g == n_e == {name: 3, sa.SORT_NAME: 3}
 
 
 def _eval_split(spec, full=6, tail=3, B=4):
@@ -979,11 +1178,12 @@ def test_graph_eval_sweep_reuses_its_graph(cuda, compute, tier):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_fork_and_join_under_capture(cuda, dtype):
     """scatter_accum3 captured in a CUDA graph, with a row of 414 updates
-    (the plan kernel, the hot tiles on the side stream, forked from and
-    joined to the capture stream by the launch's events, beside the short
-    items): each replay, on new updates copied into the static inputs,
-    gives the eager launch's output on those updates bit for bit and adds
-    one launch to the count."""
+    (the counting sort, which lists the hot tiles, then the hot tiles on
+    the side stream, forked from and joined to the capture stream by the
+    launch's events, beside the short items): each replay, on new updates
+    copied into the static inputs, gives the eager launch's output on
+    those updates bit for bit and adds one launch to the scatter's count
+    (and one to the sort's)."""
     from lirec_tpu_torch.utils.graphs import StepGraph
 
     idx, gs = _updates(cuda, dtype, dup_rows=1)
@@ -995,7 +1195,7 @@ def test_scatter_fork_and_join_under_capture(cuda, dtype):
 
     before = dispatch.launches(name)
     graph = StepGraph(step, cuda)  # the warm-up launches once
-    assert graph.launches == {name: 1}
+    assert graph.launches == {name: 1, sa.SORT_NAME: 1}
     assert dispatch.launches(name) == before + 1
     for seed in (2, 3):
         _, fresh = _updates(cuda, dtype, dup_rows=1, seed=seed)
@@ -1067,7 +1267,7 @@ def test_nccl_mesh_graph_steps_are_bitwise_the_eager_steps(cuda, compute,
     the mesh step (parallel/step.make_dp_train_step) through the epoch
     sweep's CUDA graph (recorded "graph" for "cuda: nccl mesh"), through
     its eager form and through make_train_step: the losses and parameters
-    bit for bit, one scatter a step on each side."""
+    bit for bit, one sort and one scatter a step on each side."""
     import torch.distributed as td
 
     from lirec_tpu_torch.parallel import dist
@@ -1111,7 +1311,7 @@ def test_nccl_mesh_graph_steps_are_bitwise_the_eager_steps(cuda, compute,
     name = sa.KERNEL_NAMES[torch.bfloat16 if compute == "bfloat16"
                            else torch.float32]
     losses, params, launched = runs["plain"]
-    assert launched == {name: 3}
+    assert launched == {name: 3, sa.SORT_NAME: 3}
     for side in ("mesh", "graph"):
         assert runs[side][0] == losses, side
         assert runs[side][2] == launched, side

@@ -2,7 +2,9 @@
 CPU: which tables are read in 16-byte vectors, how a pooled row is cut
 into lanes, how the one-table kernels (triple pool, masked sum, packed
 gather-sum) cut their rows into blocks and column slabs, how the scatter's
-work is cut into warp items and hot tiles, and how the run pool's runs are
+work is cut into warp items and hot tiles, how its counting sort cuts the
+positions into units and sizes its scratch, which launch the scatter's
+size rule picks, and how the run pool's runs are
 cut into bulk-copy chunks of a ring. Each is held against a plain
 enumeration, so that what surrounds the kernels stays covered where there
 is no card (the kernels themselves are held on the card:
@@ -296,6 +298,128 @@ def test_scatter_hot_cap_holds_every_hot_tile(seed):
                   if n > sa.SHORT_MAX)
         assert 0 < hot <= plan["hot_cap"]
         assert plan["workspace_ints"] == 1 + 2 * plan["hot_cap"]
+
+
+@pytest.mark.parametrize("P,rows", [
+    (0, (9,)), (1, (9,)), (43, (9,)), (1024, (40,)), (1025, (40,)),
+    (69120, (2816, 5376, 5376)), (69120, (12288, 24576, 24576)),
+    (69120, (1 << 20,)), (3000, (0, 0, 0)), (70000, ((1 << 31) - 4,)),
+    (1 << 21, (1 << 20,)), (1 << 21, (1 << 22,)), (100, (1 << 20,)),
+    (10 ** 7, (100,)),
+    (10 ** 7, (4000,))])
+def test_sort_plan_cuts_every_position_into_one_unit(P, rows):
+    """The counting sort's units cover positions 0 .. P - 1 once, in order,
+    the last unit non-empty (a block per unit, none idle); a unit is a
+    multiple of 32 positions (the walking warp's steps) and at most
+    SORT_UNIT whatever the rows. One pass over the buckets where the
+    [units, buckets] count matrix holds at most SORT_MATRIX_INTS (or no
+    digit would make it smaller), in at most SORT_MAX_BUCKETS; else passes
+    of digits that cover every bit of the largest bucket, as few as the
+    matrix allows, at most 16 bits (the shared counters) and no more
+    passes than SORT_MIN_DIGIT's need; the scratch holds the matrix, a
+    pass's bucket vector, the ranges' sums and, with several passes, two
+    pairs of (buckets, positions), each 16-byte aligned."""
+    sp = sa.sort_plan(P, rows)
+    units, unit, nb = sp["units"], sp["unit"], sp["buckets"]
+    bits, passes, per = sp["digit_bits"], sp["passes"], sp["pass_buckets"]
+    assert nb == sum(rows) + 2
+    assert unit % 32 == 0 and 32 <= unit <= sa.SORT_UNIT
+    assert units >= 1 and (units - 1) * unit < max(P, 1) <= units * unit
+    width = (nb - 1).bit_length()
+    most = min(16, max(sa.SORT_MIN_DIGIT,
+                       (sa.SORT_MATRIX_INTS // units).bit_length() - 1))
+    if passes == 1:
+        assert bits == 0 and per == nb <= sa.SORT_MAX_BUCKETS
+        assert units * nb <= sa.SORT_MATRIX_INTS or width <= most
+    else:
+        assert (passes - 1) * bits < width <= passes * bits
+        assert per == 1 << bits and bits <= most <= 16
+        assert passes == -(-width // most)
+        assert units * per <= max(sa.SORT_MATRIX_INTS,
+                                  units << sa.SORT_MIN_DIGIT)
+    assert -(-per // 256) <= sa.SORT_MAX_RANGES
+    assert sp["hist_ints"] >= units * per and sp["hist_ints"] % 4 == 0
+    assert sp["bucket_ints"] >= per and sp["bucket_ints"] % 4 == 0
+    assert sp["keys_ints"] == (0 if passes == 1 else 4 * (-(-P // 4) * 4))
+    assert sp["scratch_ints"] == (sp["hist_ints"] + sp["bucket_ints"]
+                                  + sa.SORT_MAX_RANGES + sp["keys_ints"])
+    covered = np.zeros(P if P < 10 ** 6 else 0, dtype=int)
+    for u in range(units if P < 10 ** 6 else 0):
+        covered[u * unit:min(P, (u + 1) * unit)] += 1
+    assert (covered == 1).all()
+
+
+def test_sort_plan_at_the_train_steps_caps():
+    """At the Localizer's caps (23,040 updates of 3 tables into 2,816 /
+    5,376 / 5,376 rows): one pass, 68 units of 1,024 positions, whose
+    counts fit a block's shared memory as 16-bit pairs (13,570 buckets, 27
+    KB) and whose staged walk does too (12 KB of digits, bases and ranks,
+    27 KB of counters)."""
+    sp = sa.sort_plan(23040 * 3, (2816, 5376, 5376))
+    assert (sp["units"], sp["unit"], sp["buckets"]) == (68, 1024, 13570)
+    assert (sp["passes"], sp["digit_bits"]) == (1, 0)
+    assert (sp["buckets"] + 1) // 2 * 4 <= 200 * 1024
+    assert sp["unit"] * 12 + sp["buckets"] * 2 <= 200 * 1024
+
+
+@pytest.mark.parametrize("P,rows,passes,bits", [
+    (69120, (12288, 24576, 24576), 1, 0),   # split-scale tables
+    (69120, (20000, 25000, 25000), 2, 9),
+    (69120, (40000, 50000, 50000), 2, 9),
+    (69120, (1 << 17,), 2, 9),
+    (69120, (1 << 20,), 2, 11),
+    (1 << 21, (1 << 20,), 2, 11),
+    (1 << 21, (1 << 22,), 3, 8),
+])
+def test_sort_plan_past_one_pass_keeps_units_of_1024(P, rows, passes, bits):
+    """The units stay SORT_UNIT positions whatever the rows (the counts and
+    counters in shared memory, every unit staged): one pass up to the
+    split-scale tables (a 68 x 61,442 count matrix), past them passes that
+    split the largest bucket's bits evenly: the card tests' and phase 6's
+    cases."""
+    sp = sa.sort_plan(P, rows)
+    assert (sp["unit"], sp["passes"], sp["digit_bits"]) == (1024, passes,
+                                                             bits)
+    assert sp["units"] * sp["pass_buckets"] <= sa.SORT_MATRIX_INTS
+
+
+@pytest.mark.parametrize("updates,rows,widths,want", [
+    ((43, (9,), (6,), "small")),     # the int_rels fixture's table
+    ((17, (9,), (6,), "small")),     # phase 19(d)'s B = 8
+    ((1089, (1025,), (15,), "small")),   # B = 64 into 1,024 hashes
+    ((3137, (3073,), (15,), "small")),   # 3,072: one launch still faster
+    ((4161, (4097,), (15,), "sorted")),  # 4,096: the sort faster
+    ((8257, (8193,), (15,), "sorted")),  # B = 64 into 8,192 hashes
+    ((0, (9,), (6,), "small")),
+    ((43, (9,), (33,), "sorted")),   # wider than a warp's lanes
+    ((43, (9,), (520,), "sorted")),
+    ((43, (3, 3, 3), (6, 6, 6), "sorted")),  # three tables: the sort
+    ((414, (50, 70, 70), (1040, 520, 520), "sorted")),
+])
+def test_scatter_path_picks_one_launch_for_few_narrow_updates(updates, rows,
+                                                              widths, want):
+    """The size rule: one launch (no sort) for one table of at most
+    SMALL_MAX_WIDTH columns whose updates x rows is at most SMALL_MAX_WORK,
+    the sort and the sorted kernel otherwise; at the int_rels shapes it
+    picks what the card measured faster."""
+    assert sa.scatter_path(updates, rows, widths) == want
+
+
+def test_scatter_path_thresholds():
+    """Each bound of the rule at the value and one past it: the work, the
+    ids the one-launch kernel stages in shared memory, the width."""
+    rows = 1024
+    at = sa.SMALL_MAX_WORK // rows
+    assert at * rows <= sa.SMALL_MAX_WORK < (at + 1) * rows
+    assert at + 1 <= sa.SMALL_MAX_UPDATES
+    assert sa.scatter_path(at, (rows,), (15,)) == "small"
+    assert sa.scatter_path(at + 1, (rows,), (15,)) == "sorted"
+    cap = sa.SMALL_MAX_UPDATES
+    assert sa.scatter_path(cap, (1,), (15,)) == "small"
+    assert sa.scatter_path(cap + 1, (1,), (15,)) == "sorted"
+    w = sa.SMALL_MAX_WIDTH
+    assert sa.scatter_path(8, (9,), (w,)) == "small"
+    assert sa.scatter_path(8, (9,), (w + 1,)) == "sorted"
 
 
 @pytest.mark.parametrize("offset", [False, True])

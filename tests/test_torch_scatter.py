@@ -9,7 +9,11 @@ f32 sum order that is not pinned down. The same numpy inputs, made from a
 seed, with heavy duplicate rows, go to both. The CUDA kernel is held
 against the plain version on the card (tests/test_torch_cuda.py,
 chip_smoke.py); its host half (the stable sort into row segments) is
-checked here by summing the segments in torch.
+checked here by summing the segments in torch, and the counting sort that
+orders the updates on the card is checked here as a numpy model of its
+launches (units, their counts, the prefix over units, the scan, the
+placing warp's steps, pass after pass, and the offsets' search) on
+``sort_plan``'s geometry, bitwise against ``sort_by_row``.
 """
 
 import jax
@@ -20,13 +24,16 @@ import torch
 
 from lirec_tpu.ops import scatter_accum as jsa
 from lirec_tpu_torch.ops import dispatch
+from lirec_tpu_torch.ops import scatter_accum as sa
 from lirec_tpu_torch.ops.scatter_accum import (
     KERNEL_NAMES,
+    count_sort,
     gather_h1,
     scatter_accum1,
     scatter_accum3,
     scatter_accum3_reference,
     sort_by_row,
+    sort_plan,
 )
 
 NC, NT, DC, DT = 24, 40, 256, 128
@@ -215,3 +222,137 @@ def test_cpu_tensors_take_the_plain_version_and_checks_raise():
         scatter_accum3(ti, tg[0][:1], tg[1], tg[2], NC, NT)
     with pytest.raises(TypeError, match="writes"):
         scatter_accum3(ti, *tg, NC, NT, out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("n_rows,batch,width", [(9, 34, 6), (9, 8, 6),
+                                                (25, 39, 15), (64, 64, 15)])
+def test_single_table_at_int_rels_shapes_matches_pallas_kernel(n_rows, batch,
+                                                               width):
+    """Kernel 8 (_pallas_call1, interpret mode) at the int_rels sweep's
+    score-table shapes (evaluation/packed.py): the table's own rows first,
+    one update each, then `batch` score rows into hashed rows, some
+    repeated, some rows untouched by them; [n, 1, d] updates (tile_n 1).
+    f32, exact: both add in update order from zero."""
+    rng = np.random.default_rng(n_rows * 100 + batch)
+    table = rng.random((n_rows, width)).astype(np.float32)
+    scores = rng.random((batch, width)).astype(np.float32)
+    hashes = rng.integers(0, max(1, n_rows // 3), size=batch)
+    idx = np.concatenate([np.arange(n_rows), hashes]).astype(np.int32)
+    upd = np.concatenate([table, scores])
+    want = jsa._pallas_call1(jnp.asarray(idx[:, None]),
+                             jnp.asarray(upd[:, None, :]), n_rows,
+                             interpret=True, tile_n=1)
+    got = scatter_accum1(torch.from_numpy(idx), torch.from_numpy(upd), n_rows)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert sa.scatter_path(len(idx), (n_rows,), (width,)) == "small"
+
+
+def _count_sort_model(idx, rows):
+    """The CUDA counting sort's algorithm in numpy, on sort_plan's
+    geometry. A pass: each unit's digit counts, their exclusive prefix over
+    the units and the digits' lengths; each range of 256 digits scanned
+    alone, the ranges' sums scanned, a digit's start the two added; then
+    each unit's inputs placed 32 at a time in order, a step's equal digits
+    ranked by lane (the warp's match), the rank carried from step to step
+    by a counter per digit. One pass: the digit is the bucket (bucket 0
+    below the rows, S + 1 at or past them) and the starts are the offsets.
+    Several (the low digit first): each pass carries the buckets and
+    positions in its order to the next, and the offsets are the positions
+    whose bucket is at most the row (the offsets kernel's binary
+    search)."""
+    n = len(rows)
+    S = sum(rows)
+    sp = sort_plan(idx.size, rows)
+    units, unit, bits = sp["units"], sp["unit"], sp["digit_bits"]
+    assert (units - 1) * unit < max(idx.size, 1) <= units * unit
+    seg0 = np.concatenate([[0], np.cumsum(rows)])[:n]
+    flat = idx.reshape(-1).astype(np.int64)
+    key = flat + seg0[np.arange(flat.size) % n]
+    keys = np.clip(key + 1, 0, S + 1)
+    pos = np.arange(flat.size)
+    for p in range(sp["passes"]):
+        nb = sp["pass_buckets"]
+        digit = (keys >> (p * bits)) & (nb - 1) if bits else keys
+        hist = np.stack([np.bincount(digit[u * unit:(u + 1) * unit],
+                                     minlength=nb) for u in range(units)])
+        prefix = np.cumsum(hist, 0) - hist
+        total = hist.sum(0)
+        local = np.concatenate([np.cumsum(total[r:r + 256]) - total[r:r + 256]
+                                for r in range(0, nb, 256)])
+        range_sum = np.array([total[r:r + 256].sum()
+                              for r in range(0, nb, 256)])
+        assert range_sum.size <= sa.SORT_MAX_RANGES
+        range_start = np.cumsum(range_sum) - range_sum
+        start = range_start[np.arange(nb) // 256] + local
+        assert (start == np.cumsum(total) - total).all()
+        out_pos = np.full(flat.size, -1, dtype=np.int64)
+        out_keys = np.full(flat.size, -1, dtype=np.int64)
+        for u in range(units):
+            rel = np.zeros(nb, dtype=np.int64)
+            for j in range(u * unit, min(flat.size, (u + 1) * unit), 32):
+                step = digit[j:min(j + 32, (u + 1) * unit, flat.size)]
+                for lane, s in enumerate(step):
+                    rank = int((step[:lane] == s).sum())
+                    d = start[s] + prefix[u, s] + rel[s] + rank
+                    out_pos[d], out_keys[d] = pos[j + lane], keys[j + lane]
+                for s, c in zip(*np.unique(step, return_counts=True)):
+                    rel[s] += c
+        pos, keys = out_pos, out_keys
+    if bits:
+        return pos, np.searchsorted(keys, np.arange(S + 1), side="right")
+    return pos, start[1:]
+
+
+@pytest.mark.parametrize("case", ["three_tables", "one_table", "into_one_row",
+                                  "one_update", "no_updates", "rows_sum_0",
+                                  "empty_tables", "skewed_many_units",
+                                  "two_passes", "three_passes",
+                                  "two_passes_one_table"])
+def test_counting_sort_model_is_bitwise_sort_by_row(case, monkeypatch):
+    """The counting sort (as a numpy model of its launches) gives
+    sort_by_row's perm and offsets bit for bit: 3 and 1 tables, every
+    update into one row, a single update, no updates, sum(rows) = 0, empty
+    tables (ids 0, which land in the next table's first row or past the
+    last), and a padding row with a quarter of the updates over many units
+    and ranges (SORT_UNIT cut to 64: 43 units, 2,402 buckets in 10 ranges);
+    then the passes by digit, on the same skewed updates with the count
+    matrix cut to 2**12 ints (two passes of 6 bits; to 2**11 with
+    SORT_MIN_DIGIT 4, three of 4 bits) and on one table of 2,000 rows. On
+    the CPU count_sort is sort_by_row itself."""
+    rng = np.random.default_rng(len(case))
+    rows, M = {"three_tables": ((30, 50, 50), 700),
+               "one_table": ((40,), 1500),
+               "into_one_row": ((30, 50, 50), 300),
+               "one_update": ((30, 50, 50), 1),
+               "no_updates": ((30, 50, 50), 0),
+               "rows_sum_0": ((0, 0, 0), 0),
+               "empty_tables": ((0, 7, 0), 90),
+               "skewed_many_units": ((600, 900, 900), 900),
+               "two_passes": ((600, 900, 900), 900),
+               "three_passes": ((600, 900, 900), 900),
+               "two_passes_one_table": ((2000,), 2500)}[case]
+    passes = {"two_passes": 2, "three_passes": 3,
+              "two_passes_one_table": 2}.get(case, 1)
+    if case in ("skewed_many_units", "two_passes", "three_passes"):
+        monkeypatch.setattr(sa, "SORT_UNIT", 64)
+    if passes > 1:
+        monkeypatch.setattr(sa, "SORT_MATRIX_INTS", 1 << (14 - passes))
+    if case == "three_passes":
+        monkeypatch.setattr(sa, "SORT_MIN_DIGIT", 4)
+    n = len(rows)
+    idx = np.stack([rng.integers(0, max(r, 1), size=M) for r in rows],
+                   1).astype(np.int32)
+    if case == "into_one_row":
+        idx[:] = [r - 1 for r in rows]
+    if case in ("skewed_many_units", "two_passes", "three_passes"):
+        idx[rng.random(M) < 0.25] = 0
+    want = sort_by_row(torch.from_numpy(idx), rows)
+    perm, offsets = _count_sort_model(idx, rows)
+    assert sorted(perm.tolist()) == list(range(M * n))
+    np.testing.assert_array_equal(perm, want[0].numpy())
+    np.testing.assert_array_equal(offsets, want[1].numpy())
+    got = count_sort(torch.from_numpy(idx.reshape(-1, n).copy()), rows)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert sort_plan(M * n, rows)["passes"] == passes
+    if case == "skewed_many_units":
+        assert sort_plan(M * n, rows)["units"] > 1
