@@ -26,7 +26,9 @@
    updates 1024 / 512 wide) into the Localizer's batch-local tables (the
    train path's own case) and into split-scale tables (12,288 / 24,576
    rows), with structured indices and with every update sent to 8 rows,
-   f32 and bf16 updates, three tables, flattened and single-table, then at
+   f32 and bf16 updates, three tables, flattened and single-table, the
+   train step's scatter at B = 1,024 into split-scale tables (368,640
+   updates of three tables: the sort by digits), then at
    the int_rels score table's shapes (INT_RELS_SHAPES: one table, few
    narrow updates, the one-launch path where ``scatter_path`` picks it);
    checks that two launches are bit-identical and that the op launched
@@ -36,8 +38,9 @@
    kernel alone and ``index_add_``, each launch's device time inside the
    op (``torch.profiler``), and at the int_rels shapes the op forced down
    each path; then the counting sort alone past one pass (SORT_CASES:
-   2**17 to 2**22 rows, two and three passes by digit), bitwise
-   ``sort_by_row`` and timed beside it.
+   2**17 to 2**22 rows in three passes of 8 bits, and split-scale tables
+   at B = 256 and 1,024 in two), bitwise ``sort_by_row`` and timed beside
+   it and ``torch.sort``.
 7. Trains int_rel_ch at its published widths on split-scale tables, B = 64
    structured batches through the port's Localizer, in bf16 and f32
    compute: holds one step's gradients against the same step with the
@@ -394,13 +397,23 @@ INT_RELS_SHAPES = ((9, 34, 6), (9, 8, 6), (1025, 64, 15), (2049, 64, 15),
                    (5121, 64, 15), (6145, 64, 15), (8193, 64, 15))
 # phase 6's counting sort alone past one pass: (updates a table, rows),
 # a quarter of the updates on row 0; 23,040 updates into 2**17 and 2**20
-# rows and 2**21 into 2**20 (two passes), 2**21 into 2**22 (three)
+# rows and 2**21 into 2**20 and 2**22 rows (three passes of 8 bits), then
+# the train step's scatter at split-scale tables for B = 256 and 1,024
+# (92,160 and 368,640 updates of three tables, two passes)
+SPLIT_TABLES = (N_CLIPS, N_TRACKS, N_TRACKS)
 SORT_CASES = ((23040, (1 << 17,)), (23040, (1 << 20,)),
-              (1 << 21, (1 << 20,)), (1 << 21, (1 << 22,)))
+              (1 << 21, (1 << 20,)), (1 << 21, (1 << 22,)),
+              (92160, SPLIT_TABLES), (368640, SPLIT_TABLES))
+# phase 6's whole op at split-scale tables for the train step at B = 1,024
+# (the sort by digits, then kernel 6), f32 and bf16, against index_add_
+BIG_SCATTER_M = 368640
 # every kernel a scatter op may launch: the port's own (no library sort,
-# searchsorted or index_add_)
+# searchsorted or index_add_); sort_offsets_kernel is an earlier
+# checkout's (tools/kernel_phases.py runs this phase on a parent)
 SCATTER_OP_KERNELS = ("sort_count_kernel", "sort_prefix_kernel",
-                      "sort_place_kernel", "sort_offsets_kernel",
+                      "sort_place_kernel", "sort_zero_kernel",
+                      "sort_digits_kernel", "sort_tile_kernel",
+                      "sort_bounds_kernel", "sort_offsets_kernel",
                       "scatter_hot_kernel", "scatter_short_kernel",
                       "scatter_small_kernel")
 
@@ -1331,7 +1344,8 @@ def scatter_checks(torch, spec, raw, local, caps):
     train step scatters into), then the int_rels score table's shapes
     (INT_RELS_SHAPES). Returns {entry: scatter_case's entry}: the
     localized case under the dtype's name (the train path's shapes), the
-    split-scale, flattened and single-table cases under suffixes, the
+    split-scale, flattened, single-table and B = 1,024 cases under
+    suffixes, the
     int_rels cases as int_rels_<updates>x<rows>, and with the counting
     sort ``sort_checks``'s cases."""
     from lirec_tpu_torch.ops import scatter_accum as sa
@@ -1363,6 +1377,22 @@ def scatter_checks(torch, spec, raw, local, caps):
             torch, "single table (clip) %s" % tag, idx_full, gs, full,
             single=True)
     del base, gs
+    # the train step's scatter at B = 1,024 into split-scale tables: the
+    # sort by digits in front of kernel 6
+    M = BIG_SCATTER_M
+    idx_big = torch.stack([torch.randint(0, n, (M,), device="cuda",
+                                         generator=g) for n in full], 1)
+    idx_big[torch.rand(M, device="cuda", generator=g) < 0.25] = 0
+    idx_big = idx_big.to(torch.int32).contiguous()
+    base = [torch.randn(M, d, device="cuda", generator=g)
+            for d in (d_clip, d_tr, d_tr)]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        results[tag + "@B1024"] = scatter_case(
+            torch, "3 tables, B = 1,024, %dx%d rows %s" % (
+                N_CLIPS, N_TRACKS, tag), idx_big,
+            [t.to(dtype) for t in base], full, single=False)
+    del base, idx_big
     # the int_rels sweep's score table: one table, few narrow updates
     for n_rows, batch, width in INT_RELS_SHAPES:
         hashes = torch.randint(0, n_rows, (batch,), device="cuda",
@@ -1407,12 +1437,13 @@ def sort_checks(torch, g):
         split = launch_split_ms(torch, lambda: sa.count_sort(idx, rows))
         b = bound(nbytes(idx, *want), 0)
         log("  counting sort, %d positions into %d rows: bitwise "
-            "sort_by_row; %d pass(es) of %s bits, %d units; %.4f ms, "
-            "sort_by_row %.4f, torch.sort %.4f; bound %.5f ms; device ms "
-            "per launch %s" % (idx.numel(), sum(rows), sp["passes"],
-                               sp["digit_bits"] or "all", sp["units"], ms,
-                               plain_ms, library_ms, b["bound_ms"],
-                               json.dumps(split)))
+            "sort_by_row; %d pass(es) of %s bits, %d units, %s tiles; %.4f "
+            "ms, sort_by_row %.4f, torch.sort %.4f; bound %.5f ms; device "
+            "ms per launch %s" % (idx.numel(), sum(rows), sp["passes"],
+                                  sp["digit_bits"] or "all", sp["units"],
+                                  sp.get("tiles", "no"), ms, plain_ms,
+                                  library_ms, b["bound_ms"],
+                                  json.dumps(split)))
         results["sort_%dx%d" % (idx.numel(), sum(rows))] = dict(
             max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             passes=sp["passes"], launch_split_ms=split, **b)
@@ -5545,7 +5576,7 @@ def main():
                             replaces="%s:91" % SCATTER_TPU_SRC,
                             launches=launches, path="train", **numbers(r)))
         for suffix, line in (("@split_tables", 91), ("@flat", 49),
-                             ("@single_table", 282)):
+                             ("@single_table", 282), ("@B1024", 91)):
             kernels.append(dict(
                 name=name + suffix, route="cuda", source=SCATTER_CU,
                 replaces="%s:%d" % (SCATTER_TPU_SRC, line), launches=0,
@@ -5567,7 +5598,7 @@ def main():
                         launches=sort_launches, path="train",
                         **scatter["float32"]["sort"]))
     for suffix, line in (("@split_tables", 91), ("@flat", 49),
-                         ("@single_table", 282)):
+                         ("@single_table", 282), ("@B1024", 91)):
         kernels.append(dict(
             name=scatter_accum.SORT_NAME + suffix, route="cuda",
             source=SCATTER_CU, replaces="%s:%d" % (SCATTER_TPU_SRC, line),

@@ -81,34 +81,46 @@
 // The TPU kernels needed none: their grid walked the
 // updates in order. A stable sort of keys into S row segments is unique,
 // so `perm` and `offsets` are bitwise what ops/scatter_accum.sort_by_row
-// (the plain version) gives. Its positions (P = M x n_tables) are cut
-// into units of at most kSortUnit, and a pass is three launches, none of
-// which waits on another block or on the host:
-// * sort_count_kernel, a block per unit: the unit's count of each digit,
-//   as 16-bit pairs in shared memory, written densely as the unit's row
-//   of an [units, digits] matrix.
-// * sort_prefix_kernel, a thread per digit: each column of the matrix
-//   becomes its exclusive prefix in unit order, and its sum the digit's
-//   length; a block scans its range of digits' lengths and writes the
-//   range's sum.
-// * sort_place_kernel, a block per unit: scans the ranges' sums, stages
-//   each position's digit, destination base and rank among the equal
-//   digits of its step of 32 (__match_any_sync), then one warp walks the
-//   steps in order, a 16-bit counter per digit in shared memory carrying
-//   the rank from step to step. Destination: the digit's start + the
-//   unit's prefix + the rank.
-// Where the [units, S + 2] matrix is small (at most 2**22 ints and 2**16
-// buckets: the train step's caps, 68 x 13,570, and split-scale tables,
-// 68 x 61,442) one pass sorts by the whole bucket (a row, plus one before
-// the rows and one after them for ids out of range); the prefix kernel
-// lists the hot tiles and the place kernel writes `offsets`. Past it
-// (2**17 rows and beyond) a stable pass per digit of the bucket, the low
-// digit first (an LSD radix sort), each pass carrying the buckets and
-// positions in its order to the next, so the units stay 1,024 positions
-// and the counters stay in shared memory at every S; then
-// sort_offsets_kernel, a thread per row, finds `offsets` by a binary
-// search of the sorted buckets and lists the hot tiles. The matrix is
-// latency, from L2.
+// (the plain version) gives. Every position goes into a bucket: its row
+// (table offset + row id) plus one, with one bucket before the rows and
+// one after them for ids out of range. Two designs, by size:
+// * One pass over the whole bucket, where the [units, S + 2] count matrix
+//   below is small (at most 2**22 ints and 2**16 buckets: the train
+//   step's caps, 68 x 13,570, and split-scale tables at B = 64, 68 x
+//   61,442). Positions (P = M x n_tables) are cut into units of at most
+//   kSortUnit, three launches, none of which waits on another block or on
+//   the host: sort_count_kernel, a block per unit, writes the unit's count
+//   of each bucket (16-bit pairs in shared memory) as its row of the
+//   matrix; sort_prefix_kernel, a thread per bucket, turns each column
+//   into its exclusive prefix in unit order, its sum the bucket's length,
+//   scans each range of 256 lengths and lists the hot tiles;
+//   sort_place_kernel, a block per unit, scans the ranges' sums, writes
+//   `offsets`, stages each position's bucket, base and rank among the
+//   equal buckets of its step of 32 (__match_any_sync), then one warp walks
+//   the steps in order, a 16-bit counter per bucket carrying the rank.
+// * Past it, a stable LSD radix sort in the manner of onesweep (Adinets
+//   and Merrill, 2022): digits of 8 bits, the low digit first, as many
+//   passes as the bits of S + 1 need (2 at split-scale, 3 at 2**17 to
+//   2**23 rows). sort_zero_kernel clears the scratch; sort_digits_kernel
+//   reads the ids once and counts every pass's 256 digits (eight copies of
+//   the counters in shared memory, then global atomics); a launch of
+//   sort_tile_kernel per pass, a block per tile taken in order by ticket
+//   (4,096 positions from 132 such tiles on, one wave of 4 blocks an SM,
+//   else 1,280), counts the tile's digits and publishes them at once (early
+//   counts), ranks its keys stably by a warp multi-split (a ballot per
+//   digit bit) straight into digit order in shared memory, finds each
+//   digit's place by a decoupled look-back over the earlier tiles, and
+//   writes the tile out, so a digit's run lands on consecutive addresses;
+//   sort_bounds_kernel merges the sorted buckets with the rows (merge
+//   path) to write `offsets` and list the hot tiles. 3 + passes launches
+//   whatever S, no count matrix, and each pass moves the positions once.
+//   The design it replaces (three launches a pass over units of 1,024,
+//   then offsets by binary search) took 0.39 ms for 2**21 keys into 2**20
+//   rows, against torch.sort's 0.17 (NVIDIA H100 80GB HBM3, 700 W;
+//   PERF.md). What bounds it: latency, not bytes (a pass over 2**21
+//   positions moves ~40 MB, ~12 us at 3.35 TB/s): a tile's ticket, loads,
+//   ranking steps and look-back are a chain of dependent steps, so the
+//   tiles are sized for one wave of blocks.
 //
 // And for few updates, one launch with no sort (scatter_small_kernel): a
 // warp per output row of one table, lanes over its columns, walks the
@@ -162,10 +174,26 @@ constexpr int kCountThreads = 512;     // sort_count_kernel
 constexpr int kPrefixThreads = 256;    // sort_prefix_kernel
 constexpr int kPrefixAhead = 16;       // unit counts a thread loads at once
 constexpr int kPlaceThreads = 256;     // sort_place_kernel: stage, then walk
-constexpr int kOffsetThreads = 256;    // sort_offsets_kernel
 constexpr int kSortUnit = 1024;        // the most positions of a unit
 constexpr int kMaxBuckets = 1 << 16;   // the most buckets (digits) of a pass
 constexpr int kMaxRanges = kMaxBuckets / kPrefixThreads;  // prefix blocks
+// the sort by digits
+constexpr int kDigitBits = 8;          // a pass's digit
+constexpr int kDigits = 1 << kDigitBits;
+constexpr int kMaxPasses = 4;          // buckets below 2**31
+constexpr int kZeroThreads = 256;      // sort_zero_kernel
+constexpr int kDigitsThreads = 512;    // sort_digits_kernel,
+constexpr int kDigitsKeys = 8;         // the ids a thread counts at least,
+constexpr int kDigitsCopies = 8;       // and the copies of a block's counters
+constexpr int kTileThreads = 256;      // sort_tile_kernel: a thread a digit
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kTileBlocks = 4;         // its blocks an SM holds at least
+constexpr int kTileKeys = 16;          // keys a thread ranks in a tile,
+constexpr int kSmallTileKeys = 5;      // and in a small tile
+constexpr int kSortTile = kTileThreads * kTileKeys;  // 4,096 positions
+constexpr int kSmallSortTile = kTileThreads * kSmallTileKeys;  // 1,280
+constexpr int kBoundThreads = 256;     // sort_bounds_kernel,
+constexpr int kBoundItems = 4096;      // and the merged items of a block
 // the one-launch path
 constexpr int kSmallWarps = 8;         // output rows of a block
 constexpr int kSmallMaxIds = 12288;    // update ids it stages (48 KB)
@@ -178,9 +206,15 @@ static_assert(kStageRows % kRowsPerPass == 0, "whole copy passes");
 static_assert(kLag < kStages, "a stage is signalled before its reuse");
 static_assert(kStageRows % kBatch == 0, "whole adder batches");
 static_assert(kSortUnit < (1 << 16), "16-bit counts of a unit's positions");
-static_assert(kMaxRanges * 16 + kSortUnit * 4 * 5 + kMaxBuckets * 2 <=
+static_assert(kMaxRanges * 16 + kSortUnit * 4 * 3 + kMaxBuckets * 2 <=
                   227 * 1024,
               "sort_place_kernel's shared memory");
+static_assert(kTileThreads == kDigits, "sort_tile_kernel: a thread a digit");
+static_assert(kSortTile * 8 + kTileWarps * kDigits * 4 + kDigits * 8 <=
+                  46 * 1024,
+              "sort_tile_kernel's static shared memory");
+static_assert(kBoundItems % kBoundThreads == 0 && kBoundItems * 8 <= 46 * 1024,
+              "sort_bounds_kernel's items and shared memory");
 
 struct Table {
   const void* g;  // [M, d] updates (T_in)
@@ -690,40 +724,21 @@ scatter_short_kernel(Tables tabs, const int64_t* __restrict__ perm,
 
 struct Sort {
   const int* idx;    // [P] row ids; position p = u * n_tables + t
-  const int* keys;   // a later pass: [P] buckets, in the last pass's order
-  const int* order;  // a later pass: [P] their positions
   int64_t seg0[4];   // first segment (key) of each table; seg0[n] = S
   int64_t P;         // positions
   int S;             // segments: the tables' rows
-  int nb;            // this pass's buckets
-  int shift, mask;   // a bucket's digit in this pass: (bucket >> shift) & mask
+  int nb;            // buckets: S + 2
   int unit;          // positions of a unit (the last may hold fewer)
   int ranges;        // sort_prefix_kernel's blocks, kPrefixThreads buckets each
 };
 
-// Where a pass writes: perm (the last pass) or order (an earlier one) at
-// each position's place; with several passes the buckets beside them
-// (keys); with one, its share of offsets
-struct Placed {
-  int64_t* perm;
-  int* order;
-  int* keys;
-  int64_t* offsets;
-};
-
-// The bucket of the pass's i-th input: 1 + the key (table offset + row
-// id) for keys in [0, S), 0 below, S + 1 at or above; a later pass reads
-// it from the last pass's keys
-template <int n_tables>
-__device__ __forceinline__ int bucket_in(const Sort& a, int64_t i) {
-  if (a.keys) return a.keys[i];
+// The bucket of position i: 1 + the key (table offset + row id) for keys
+// in [0, S), 0 below, S + 1 at or above (A: Sort or Digits)
+template <int n_tables, typename A>
+__device__ __forceinline__ int bucket_in(const A& a, int64_t i) {
   const int t = n_tables == 1 ? 0 : static_cast<int>(i % n_tables);
   const int64_t key = static_cast<int64_t>(a.idx[i]) + a.seg0[t];
   return key < 0 ? 0 : key >= a.S ? a.S + 1 : static_cast<int>(key) + 1;
-}
-
-__device__ __forceinline__ int digit_of(const Sort& a, int bucket) {
-  return (bucket >> a.shift) & a.mask;
 }
 
 // The exclusive scan of one int a thread over the block (blockDim.x a
@@ -757,11 +772,11 @@ __device__ __forceinline__ int block_exclusive(int v, int* sums,
   return out;
 }
 
-// A unit's count of each digit, written as the unit's row of hist
+// A unit's count of each bucket, written as the unit's row of hist
 // [units, nb]: counted by order-free atomics in shared memory, two 16-bit
 // counts a word (a unit holds under 2**16 positions, so a count never
 // carries into its neighbour). With cap > 0 block 0 also zeroes the hot
-// tiles' count, which sort_prefix_kernel or sort_offsets_kernel adds to.
+// tiles' count, which sort_prefix_kernel adds to.
 template <int n_tables>
 __global__ void __launch_bounds__(kCountThreads)
 sort_count_kernel(Sort a, int* __restrict__ hist, int* __restrict__ plan,
@@ -775,7 +790,7 @@ sort_count_kernel(Sort a, int* __restrict__ hist, int* __restrict__ plan,
   for (int w = threadIdx.x; w < words; w += kCountThreads) pairs[w] = 0;
   __syncthreads();
   for (int64_t p = lo + threadIdx.x; p < hi; p += kCountThreads) {
-    const int s = digit_of(a, bucket_in<n_tables>(a, p));
+    const int s = bucket_in<n_tables>(a, p);
     atomicAdd(&pairs[s >> 1], 1u << (16 * (s & 1)));
   }
   __syncthreads();
@@ -798,12 +813,11 @@ __device__ __forceinline__ void list_hot(const Tables& tabs, int seg,
   }
 }
 
-// A block per range of kPrefixThreads digits, a thread per digit: its
+// A block per range of kPrefixThreads buckets, a thread per bucket: its
 // column of hist -> its exclusive prefix over the units, in place, and its
-// sum, the digit's length; local[s] = the exclusive scan of the lengths
-// within the range, range_sum[r] = the range's sum. With cap > 0 (one
-// pass: a digit is a bucket) the buckets of over kShort updates are
-// listed as hot tiles.
+// sum, the bucket's length; local[s] = the exclusive scan of the lengths
+// within the range, range_sum[r] = the range's sum. With cap > 0 the
+// buckets of over kShort updates are listed as hot tiles.
 template <int n_tables>
 __global__ void __launch_bounds__(kPrefixThreads)
 sort_prefix_kernel(Tables tabs, Sort a, int units, int* __restrict__ hist,
@@ -836,23 +850,23 @@ sort_prefix_kernel(Tables tabs, Sort a, int units, int* __restrict__ hist,
 }
 
 // A unit's positions placed in order by one warp: 32 a step, a step's
-// equal digits ranked by lane, a 16-bit counter per digit in shared memory
-// carrying the rank from step to step (a block per unit; with one pass
-// more blocks, up to one per range and one wave of SMs, that only write
+// equal buckets ranked by lane, a 16-bit counter per bucket in shared
+// memory carrying the rank from step to step (a block per unit, and more
+// blocks, up to one per range and one wave of SMs, that only write
 // offsets). First the block scans the ranges' sums into range_start, so a
-// digit starts at range_start[s / kPrefixThreads] + local[s], and with one
-// pass writes its share of offsets (offsets[s - 1] = that start, for s in
-// 1 .. S + 1). Then the block's warps stage, for every step at once, each
-// position's digit, destination base (the digit's start plus the unit's
-// prefix) and place among the step's equal digits (__match_any_sync:
-// rank, group size and leader lane), and with several passes (kCarry) its
-// position and bucket, so the ordered walk reads no global memory and
+// bucket starts at range_start[s / kPrefixThreads] + local[s], and writes
+// its share of offsets (offsets[s - 1] = that start, for s in 1 .. S + 1).
+// Then the block's warps stage, for every step at once, each position's
+// bucket, destination base (the bucket's start plus the unit's prefix)
+// and place among the step's equal buckets (__match_any_sync: rank, group
+// size and leader lane), so the ordered walk reads no global memory and
 // matches nothing.
-template <int n_tables, bool kCarry>
+template <int n_tables>
 __global__ void __launch_bounds__(kPlaceThreads)
 sort_place_kernel(Sort a, const int* __restrict__ local,
                   const int* __restrict__ range_sum,
-                  const int* __restrict__ hist, Placed out) {
+                  const int* __restrict__ hist, int64_t* __restrict__ perm,
+                  int64_t* __restrict__ offsets) {
   extern __shared__ __align__(16) unsigned char staged[];
   __shared__ int sums[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
@@ -874,42 +888,34 @@ sort_place_kernel(Sort a, const int* __restrict__ local,
   auto start = [&](int s) {
     return range_start[s / kPrefixThreads] + local[s];
   };
-  if (!kCarry) {
+  {
     const int span = (a.nb + gridDim.x - 1) / gridDim.x;
     const int s0 = blockIdx.x * span;
     for (int s = s0 + threadIdx.x; s < s0 + span && s < a.nb;
          s += kPlaceThreads)
-      if (s >= 1) out.offsets[s - 1] = start(s);
+      if (s >= 1) offsets[s - 1] = start(s);
   }
   const int* row = hist + static_cast<int64_t>(blockIdx.x) * a.nb;
   const int64_t lo = static_cast<int64_t>(blockIdx.x) * a.unit;
   const int64_t hi = lo + a.unit < a.P ? lo + a.unit : a.P;
   const int n = hi > lo ? static_cast<int>(hi - lo) : 0;
   const int steps = (n + 31) / 32;
-  int* digit = range_start + (a.ranges + 3) / 4 * 4;  // [steps * 32]
-  int* base_of = digit + steps * 32;                  // [steps * 32]
-  int* info_of = base_of + steps * 32;                // [steps * 32]
-  int* pos_of = info_of + steps * 32;                 // [steps * 32], kCarry
-  int* key_of = pos_of + steps * 32;                  // [steps * 32], kCarry
-  uint16_t* rel =
-      reinterpret_cast<uint16_t*>(kCarry ? key_of + steps * 32 : pos_of);
+  int* bucket = range_start + (a.ranges + 3) / 4 * 4;  // [steps * 32]
+  int* base_of = bucket + steps * 32;                  // [steps * 32]
+  int* info_of = base_of + steps * 32;                 // [steps * 32]
+  uint16_t* rel = reinterpret_cast<uint16_t*>(info_of + steps * 32);
 #pragma unroll 4
   for (int k = warp; k < steps; k += kPlaceThreads / 32) {
     const int i = k * 32 + lane;
     const bool valid = i < n;
-    const int b = valid ? bucket_in<n_tables>(a, lo + i) : -1;
-    const int s = valid ? digit_of(a, b) : -1;
+    const int s = valid ? bucket_in<n_tables>(a, lo + i) : -1;
     const unsigned peers = __match_any_sync(kFull, s);
     if (valid) {
-      digit[i] = s;
+      bucket[i] = s;
       base_of[i] = start(s) + row[s];
       info_of[i] = __popc(peers & below) | (__popc(peers) << 8) |
                    ((__ffs(peers) - 1) << 16);
       rel[s] = 0;
-      if (kCarry) {
-        pos_of[i] = a.order ? a.order[lo + i] : static_cast<int>(lo + i);
-        key_of[i] = b;
-      }
     }
   }
   __syncthreads();
@@ -917,7 +923,7 @@ sort_place_kernel(Sort a, const int* __restrict__ local,
   for (int i0 = 0; i0 < n; i0 += 32) {
     const int i = i0 + lane;
     const bool valid = i < n;
-    const int s = valid ? digit[i] : 0;
+    const int s = valid ? bucket[i] : 0;
     const int info = valid ? info_of[i] : 0;
     const int leader = (info >> 16) & 31;
     int r = 0;
@@ -926,50 +932,303 @@ sort_place_kernel(Sort a, const int* __restrict__ local,
       rel[s] = static_cast<uint16_t>(r + ((info >> 8) & 63));
     }
     r = __shfl_sync(kFull, r, leader);
-    if (valid) {
-      const int64_t d = base_of[i] + r + (info & 31);
-      if (!kCarry) {
-        out.perm[d] = lo + i;
-      } else {
-        if (out.perm)
-          out.perm[d] = pos_of[i];
-        else
-          out.order[d] = pos_of[i];
-        out.keys[d] = key_of[i];
-      }
-    }
+    if (valid) perm[base_of[i] + r + (info & 31)] = lo + i;
     __syncwarp();
   }
 }
 
-// After several passes, a thread per segment k = 0 .. S: offsets[k] = the
-// positions whose bucket is at most k, a binary search of the sorted
-// buckets (keys [P]); with cap > 0 the segments of over kShort updates
-// (a segment's end from the next lane) are listed as hot tiles.
+// ------------------------------------------- the sort by digits (onesweep)
+
+struct Digits {
+  const int* idx;    // [P] row ids; position p = u * n_tables + t
+  int64_t seg0[4];   // first segment (key) of each table; seg0[n] = S
+  int64_t P;         // positions
+  int S;             // segments: the tables' rows
+  int passes;        // digits of kDigitBits, the low digit first
+  int64_t tiles;     // tiles a pass, of kSortTile or kSmallSortTile positions
+  int* counts;       // [kMaxPasses, kDigits]: each pass's digit counts
+  unsigned* tickets;  // [kMaxPasses]: each pass's next tile
+  unsigned long long* status;  // [passes, tiles, kDigits] look-back words
+};
+
+// A look-back word: 0 (not yet), or a flag over a count of positions
+constexpr unsigned long long kAggregate = 1ull << 32;  // the tile's own
+constexpr unsigned long long kPrefix = 2ull << 32;     // tiles 0 .. t
+
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];\n"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;\n"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// Zeroes the look-back words, the counts, the tickets and (cap > 0) the
+// hot tiles' count
+__global__ void __launch_bounds__(kZeroThreads)
+sort_zero_kernel(Digits a, int* __restrict__ plan, int64_t cap) {
+  const int64_t words = static_cast<int64_t>(a.passes) * a.tiles * kDigits;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kZeroThreads;
+  for (int64_t w = static_cast<int64_t>(blockIdx.x) * kZeroThreads +
+                   threadIdx.x;
+       w < words; w += stride)
+    a.status[w] = 0ull;
+  if (blockIdx.x == 0) {
+    for (int i = threadIdx.x; i < kMaxPasses * kDigits; i += kZeroThreads)
+      a.counts[i] = 0;
+    if (threadIdx.x < kMaxPasses) a.tickets[threadIdx.x] = 0u;
+    if (threadIdx.x == 0 && cap > 0) plan[0] = 0;
+  }
+}
+
+// Every pass's digit counts in one read of the ids: per block in shared
+// memory, then added into counts. A lane counts into copy (lane %
+// kDigitsCopies) of the block's counters, the copies a word apart in the
+// banks, so that the lanes of a warp that share a digit (the top digit
+// takes few values, and a quarter of the ids go to row 0) meet at most
+// 32 / kDigitsCopies on one counter.
 template <int n_tables>
-__global__ void __launch_bounds__(kOffsetThreads)
-sort_offsets_kernel(Tables tabs, const int* __restrict__ keys, int64_t P,
-                    int S, int64_t* __restrict__ offsets, int* plan,
-                    int64_t cap) {
-  const int64_t k =
-      static_cast<int64_t>(blockIdx.x) * kOffsetThreads + threadIdx.x;
-  auto at_most = [&](int64_t v) {  // positions whose bucket is at most v
-    long long lo = 0, hi = P;
+__global__ void __launch_bounds__(kDigitsThreads)
+sort_digits_kernel(Digits a) {
+  constexpr int kCopy = kMaxPasses * kDigits + 1;  // a copy's stride
+  __shared__ int hist[kDigitsCopies * kCopy];
+  const int cells = a.passes * kDigits;
+  for (int i = threadIdx.x; i < kDigitsCopies * kCopy; i += kDigitsThreads)
+    hist[i] = 0;
+  __syncthreads();
+  int* mine = hist + (threadIdx.x % kDigitsCopies) * kCopy;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kDigitsThreads;
+  for (int64_t p = static_cast<int64_t>(blockIdx.x) * kDigitsThreads +
+                   threadIdx.x;
+       p < a.P; p += stride) {
+    const int b = bucket_in<n_tables>(a, p);
+#pragma unroll
+    for (int pass = 0; pass < kMaxPasses; ++pass)
+      if (pass < a.passes)
+        atomicAdd(&mine[pass * kDigits +
+                        ((b >> (pass * kDigitBits)) & (kDigits - 1))],
+                  1);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cells; i += kDigitsThreads) {
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < kDigitsCopies; ++k) c += hist[k * kCopy + i];
+    if (c) atomicAdd(&a.counts[i], c);
+  }
+}
+
+// One pass by digit over tiles of kKeys x kTileThreads positions, a block
+// a tile, taken in order by ticket. A warp loads its kKeys x 32
+// consecutive positions coalesced (key k of lane l at k * 32 + l) and
+// counts their digits in its own counters (order-free atomics in shared
+// memory). A thread per digit adds the warps' counts into the tile's
+// count of the digit and publishes it at once, so the next tiles' look-back
+// finds it while this tile ranks; scans the tile's counts over the digits
+// (the digit's start in the tile) and sets each warp's counter to where
+// its run of the digit starts. Then each warp ranks its keys in order: per
+// step of 32, a ballot per digit bit gives each lane its peers of equal
+// digit (a multi-split), the lowest peer moves the warp's counter past
+// them, and each lane's place in the tile is the counter before the step
+// plus its peers below it, where it stores its key and position in shared
+// memory. Meanwhile nothing waits on the look-back: the thread per digit
+// then looks back over the earlier tiles' words until one holds an
+// inclusive prefix (decoupled look-back), publishes its own, and the
+// digit's place in the output is its start over all positions (the scan
+// of the pass's digit counts) plus that prefix. The tile, now in digit
+// order, is written out, so a digit's run lands on consecutive addresses.
+// The first pass reads the ids (bucket_in); a later one the last pass's
+// buckets and positions (keys_in, vals_in). The last writes perm (int64)
+// and the buckets, an earlier one the buckets and positions for the next.
+template <int n_tables, int kKeys>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+sort_tile_kernel(Digits a, int pass, const int* __restrict__ keys_in,
+                 const int* __restrict__ vals_in, int* __restrict__ keys_out,
+                 int* __restrict__ vals_out, int64_t* __restrict__ perm) {
+  constexpr int kTile = kTileThreads * kKeys;
+  __shared__ int tile_keys[kTile];
+  __shared__ int tile_vals[kTile];
+  __shared__ int warp_count[kTileWarps][kDigits];
+  __shared__ int64_t place[kDigits];
+  __shared__ int sums[32];
+  __shared__ unsigned ticket;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int d = threadIdx.x;  // a thread per digit where one is needed
+  if (threadIdx.x == 0) ticket = atomicAdd(&a.tickets[pass], 1u);
+  const int digit_count = a.counts[pass * kDigits + d];
+  for (int i = threadIdx.x; i < kTileWarps * kDigits; i += kTileThreads)
+    (&warp_count[0][0])[i] = 0;
+  __syncthreads();
+  const int64_t tile = ticket;
+  const int64_t base = tile * kTile;
+  const int n = a.P - base < kTile ? static_cast<int>(a.P - base) : kTile;
+  const int shift = pass * kDigitBits;
+  const int w0 = warp * 32 * kKeys;
+  int* counter = warp_count[warp];
+  int key[kKeys], val[kKeys];
+#pragma unroll
+  for (int k = 0; k < kKeys; ++k) {
+    const int i = w0 + k * 32 + lane;
+    key[k] = val[k] = 0;
+    if (i < n) {
+      if (keys_in) {
+        key[k] = keys_in[base + i];
+        val[k] = vals_in[base + i];
+      } else {
+        key[k] = bucket_in<n_tables>(a, base + i);
+        val[k] = static_cast<int>(base + i);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kKeys; ++k)
+    if (w0 + k * 32 + lane < n)
+      atomicAdd(&counter[(key[k] >> shift) & (kDigits - 1)], 1);
+  __syncthreads();
+  int count = 0;
+#pragma unroll
+  for (int w = 0; w < kTileWarps; ++w) count += warp_count[w][d];
+  unsigned long long* word =
+      a.status + (static_cast<int64_t>(pass) * a.tiles + tile) * kDigits + d;
+  store_relaxed(word, (tile == 0 ? kPrefix : kAggregate) |
+                          static_cast<unsigned>(count));
+  int all;
+  const int own = block_exclusive(count, sums, &all);
+  const int start = block_exclusive(digit_count, sums, &all);
+  {
+    int run = own;  // each warp's run of digit d starts where the last ends
+#pragma unroll
+    for (int w = 0; w < kTileWarps; ++w) {
+      const int c = warp_count[w][d];
+      warp_count[w][d] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+  const unsigned below = (1u << lane) - 1;
+#pragma unroll
+  for (int k = 0; k < kKeys; ++k) {
+    const bool valid = w0 + k * 32 + lane < n;
+    const int dk = (key[k] >> shift) & (kDigits - 1);
+    unsigned peers = __ballot_sync(kFull, valid);
+#pragma unroll
+    for (int b = 0; b < kDigitBits; ++b) {
+      const bool bit = (dk >> b) & 1;
+      const unsigned m = __ballot_sync(kFull, bit);
+      peers &= bit ? m : ~m;
+    }
+    const int pre = valid ? counter[dk] : 0;
+    __syncwarp();
+    if (valid) {
+      if ((peers & below) == 0) counter[dk] = pre + __popc(peers);
+      const int at = pre + __popc(peers & below);
+      tile_keys[at] = key[k];
+      tile_vals[at] = val[k];
+    }
+    __syncwarp();
+  }
+  int64_t before = 0;
+  for (int64_t t = tile - 1; t >= 0;) {
+    const unsigned long long w = load_relaxed(word - (tile - t) * kDigits);
+    if (w == 0ull) continue;  // tile t has not counted yet
+    before += static_cast<unsigned>(w);
+    t = (w & ~0xffffffffull) == kPrefix ? -1 : t - 1;
+  }
+  if (tile > 0)
+    store_relaxed(word, kPrefix | static_cast<unsigned>(before + count));
+  place[d] = start + before - own;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kTileThreads) {
+    const int k = tile_keys[i];
+    const int64_t dst = place[(k >> shift) & (kDigits - 1)] + i;
+    if (perm)
+      perm[dst] = tile_vals[i];
+    else
+      vals_out[dst] = tile_vals[i];
+    keys_out[dst] = k;
+  }
+}
+
+// offsets[k] = the sorted positions whose bucket is at most k, k = 0 ..
+// S: a merge of the sorted buckets (keys [P]) with 0 .. S, a bucket before
+// an equal k, cut into blocks of kBoundItems merged items (merge path).
+// Warps 0 and 1 find where the block's first and last diagonals cut the
+// buckets (a 32-way search: a probe per lane a round); the block loads its
+// buckets into shared memory, coalesced; a thread merges kBoundItems /
+// kBoundThreads items of the block from its own diagonal, noting each k's
+// count in shared memory, and the block writes them out coalesced. With
+// cap > 0 the segments of over kShort updates (the bucket kShort places
+// past the segment's start still k + 1) are listed as hot tiles.
+template <int n_tables>
+__global__ void __launch_bounds__(kBoundThreads)
+sort_bounds_kernel(Tables tabs, const int* __restrict__ keys, int64_t P,
+                   int S, int64_t* __restrict__ offsets, int* plan,
+                   int64_t cap) {
+  constexpr int kPer = kBoundItems / kBoundThreads;
+  __shared__ int slice[kBoundItems];
+  __shared__ int found[kBoundItems];
+  __shared__ int64_t cut[2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int64_t items = P + S + 1;
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kBoundItems;
+  const int64_t d1 = d0 + kBoundItems < items ? d0 + kBoundItems : items;
+  if (warp < 2) {
+    // the buckets among the first d merged items: the first i with
+    // keys[i] > d - 1 - i, within [d - (S + 1), d] and [0, P]
+    const int64_t d = warp ? d1 : d0;
+    int64_t lo = d - (S + 1) > 0 ? d - (S + 1) : 0;
+    int64_t hi = d < P ? d : P;
     while (lo < hi) {
-      const long long mid = (lo + hi) >> 1;
-      if (keys[mid] <= v)
+      const int64_t probe = lo + (hi - 1 - lo) * lane / 31;
+      const bool after = keys[probe] <= d - 1 - probe;
+      const int c = __popc(__ballot_sync(kFull, after));
+      const int64_t below = __shfl_sync(kFull, probe, c > 0 ? c - 1 : 0);
+      const int64_t at = __shfl_sync(kFull, probe, c < 32 ? c : 31);
+      if (c > 0) lo = below + 1;
+      if (c < 32) hi = at;
+    }
+    if (lane == 0) cut[warp] = lo;
+  }
+  __syncthreads();
+  const int64_t i0 = cut[0];
+  const int n = static_cast<int>(cut[1] - i0);
+  const int64_t j0 = d0 - i0;
+  const int nk = static_cast<int>(d1 - cut[1] - j0);
+  for (int i = threadIdx.x; i < n; i += kBoundThreads) slice[i] = keys[i0 + i];
+  __syncthreads();
+  const int diag = threadIdx.x * kPer;
+  if (diag < n + nk) {
+    int lo = diag - nk > 0 ? diag - nk : 0, hi = diag < n ? diag : n;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (slice[mid] <= j0 + (diag - 1 - mid))
         lo = mid + 1;
       else
         hi = mid;
     }
-    return lo;
-  };
-  const long long o = at_most(k);
-  long long end = __shfl_down_sync(kFull, o, 1);
-  if ((threadIdx.x & 31) == 31) end = at_most(k + 1);
-  if (k <= S) offsets[k] = o;
-  if (cap > 0 && k < S && end - o > kShort)
-    list_hot<n_tables>(tabs, static_cast<int>(k), plan, cap);
+    int i = lo, j = diag - lo;
+    const int end = diag + kPer < n + nk ? diag + kPer : n + nk;
+    for (int q = diag; q < end; ++q)
+      if (i < n && (j >= nk || slice[i] <= j0 + j)) {
+        ++i;
+      } else {
+        found[j] = i;
+        ++j;
+      }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < nk; j += kBoundThreads) {
+    const int64_t k = j0 + j;
+    const int64_t o = i0 + found[j];
+    offsets[k] = o;
+    if (cap > 0 && k < S && o + kShort < P && keys[o + kShort] == k + 1)
+      list_hot<n_tables>(tabs, static_cast<int>(k), plan, cap);
+  }
 }
 
 // ------------------------------------------------- the one-launch path
@@ -1158,10 +1417,9 @@ int launch_n(const void* g0, const void* g1, const void* g2, void* out0,
 
 template <int n_tables>
 int sort_n(const int* idx, const int64_t* rows, const int* hot_tiles,
-           int64_t n_positions, int units, int unit, int digit_bits,
-           int64_t* perm, int64_t* offsets, int* hist, int* local,
-           int* range_sum, int* keys, int* plan, int64_t cap,
-           cudaStream_t s) {
+           int64_t n_positions, int units, int unit, int64_t* perm,
+           int64_t* offsets, int* hist, int* local, int* range_sum,
+           int* plan, int64_t cap, cudaStream_t s) {
   Tables tabs;
   Sort a;
   tabs.seg0[0] = a.seg0[0] = 0;
@@ -1173,19 +1431,7 @@ int sort_n(const int* idx, const int64_t* rows, const int* hot_tiles,
     tabs.seg0[t + 1] = a.seg0[t + 1] = tabs.seg0[t] + tab.rows;
   }
   const int64_t S = tabs.seg0[3];
-  // one pass: a digit is the bucket; several: digit_bits of it a pass,
-  // the low digits first
-  int passes = 1;
-  int64_t nb = S + 2;
-  if (digit_bits > 0 && digit_bits <= 16) {
-    int width = 0;
-    while ((S + 1) >> width) ++width;  // bits of the largest bucket
-    passes = (width + digit_bits - 1) / digit_bits;
-    nb = int64_t{1} << digit_bits;
-  }
-  if (S + 2 >= (int64_t{1} << 31) || digit_bits < 0 || digit_bits > 16 ||
-      (digit_bits > 0 && passes < 2) || nb > kMaxBuckets || units < 1 ||
-      unit < 32 || unit > kSortUnit ||
+  if (S + 2 > kMaxBuckets || units < 1 || unit < 32 || unit > kSortUnit ||
       static_cast<int64_t>(units) * unit < n_positions ||
       static_cast<int64_t>(units - 1) * unit >=
           (n_positions > 0 ? n_positions : 1))
@@ -1193,64 +1439,112 @@ int sort_n(const int* idx, const int64_t* rows, const int* hot_tiles,
   a.idx = idx;
   a.P = n_positions;
   a.S = static_cast<int>(S);
-  a.nb = static_cast<int>(nb);
-  a.mask = digit_bits > 0 ? a.nb - 1 : 0x7fffffff;
+  a.nb = static_cast<int>(S + 2);
   a.unit = unit;
   a.ranges = (a.nb + kPrefixThreads - 1) / kPrefixThreads;
-  const bool several = passes > 1;
   const int count_smem = (a.nb + 1) / 2 * 4;
   const int place_smem = (a.ranges + 3) / 4 * 16 +
-                         (unit + 31) / 32 * 32 * 4 * (several ? 5 : 3) +
+                         (unit + 31) / 32 * 32 * 4 * 3 +
                          (a.nb * 2 + 15) / 16 * 16;
   int dev = 0, sms = 0;
   cudaError_t err = cudaSuccess;
-  auto place = several ? sort_place_kernel<n_tables, true>
-                       : sort_place_kernel<n_tables, false>;
   if ((err = cudaFuncSetAttribute(sort_count_kernel<n_tables>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   count_smem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(place,
+      (err = cudaFuncSetAttribute(sort_place_kernel<n_tables>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   place_smem)) != cudaSuccess ||
       (err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return static_cast<int>(err);
-  // with one pass, blocks past the last unit only write their share of
-  // offsets: up to a block per range of buckets, at most one wave of SMs
+  // blocks past the last unit only write their share of offsets: up to a
+  // block per range of buckets, at most one wave of SMs
   const int writers = a.ranges < sms ? a.ranges : sms;
-  const int place_grid = !several && writers > units ? writers : units;
-  // several passes go through two pairs of (keys, order) in turn
+  const int place_grid = writers > units ? writers : units;
+  sort_count_kernel<n_tables><<<units, kCountThreads, count_smem, s>>>(
+      a, hist, plan, cap);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  sort_prefix_kernel<n_tables><<<a.ranges, kPrefixThreads, 0, s>>>(
+      tabs, a, units, hist, local, range_sum, plan, cap);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  sort_place_kernel<n_tables><<<place_grid, kPlaceThreads, place_smem, s>>>(
+      a, local, range_sum, hist, perm, offsets);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int n_tables>
+int sort_digits_n(const int* idx, const int64_t* rows, const int* hot_tiles,
+                  int64_t n_positions, int tile, int64_t tiles, int64_t* perm,
+                  int64_t* offsets, int* counts, void* status, int* keys,
+                  int* plan, int64_t cap, cudaStream_t s) {
+  Tables tabs;
+  Digits a;
+  tabs.seg0[0] = a.seg0[0] = 0;
+  for (int t = 0; t < 3; ++t) {
+    Table& tab = tabs.t[t];
+    tab = Table{};
+    tab.rows = t < n_tables ? rows[t] : 0;
+    tab.hot_tiles = t < n_tables ? hot_tiles[t] : 0;
+    tabs.seg0[t + 1] = a.seg0[t + 1] = tabs.seg0[t] + tab.rows;
+  }
+  const int64_t S = tabs.seg0[3];
+  int width = 0;
+  while ((S + 1) >> width) ++width;  // bits of the largest bucket
+  const int passes = (width + kDigitBits - 1) / kDigitBits;
+  if (S + 2 >= (int64_t{1} << 31) || passes > kMaxPasses ||
+      n_positions < 0 || n_positions >= (int64_t{1} << 31) ||
+      (tile != kSortTile && tile != kSmallSortTile) ||
+      tiles != (n_positions + tile - 1) / tile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.idx = idx;
+  a.P = n_positions;
+  a.S = static_cast<int>(S);
+  a.passes = passes;
+  a.tiles = tiles;
+  a.counts = counts;
+  a.tickets = reinterpret_cast<unsigned*>(counts + kMaxPasses * kDigits);
+  a.status = static_cast<unsigned long long*>(status);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaSuccess;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int64_t words = passes * tiles * kDigits;
+  int64_t grid = (words + 4 * kZeroThreads - 1) / (4 * kZeroThreads);
+  grid = grid < 1 ? 1 : grid > 4 * sms ? 4 * sms : grid;
+  sort_zero_kernel<<<static_cast<unsigned>(grid), kZeroThreads, 0, s>>>(
+      a, plan, cap);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  auto ranker = tile == kSortTile ? sort_tile_kernel<n_tables, kTileKeys>
+                                  : sort_tile_kernel<n_tables, kSmallTileKeys>;
+  // two pairs of (buckets, positions) in turn, each padded to 16 bytes
   const int64_t stride = (n_positions + 3) / 4 * 4;
-  for (int pass = 0; pass < passes; ++pass) {
-    const bool last = pass == passes - 1;
-    int* keys_in = keys + (pass + 1) % 2 * 2 * stride;
-    int* keys_out = keys + pass % 2 * 2 * stride;
-    a.shift = pass * digit_bits;
-    a.keys = pass > 0 ? keys_in : nullptr;
-    a.order = pass > 0 ? keys_in + stride : nullptr;
-    Placed out{last ? perm : nullptr, last ? nullptr : keys_out + stride,
-               several ? keys_out : nullptr, several ? nullptr : offsets};
-    sort_count_kernel<n_tables><<<units, kCountThreads, count_smem, s>>>(
-        a, hist, plan, pass == 0 ? cap : 0);
+  if (n_positions > 0) {
+    const int64_t per = static_cast<int64_t>(kDigitsThreads) * kDigitsKeys;
+    grid = (n_positions + per - 1) / per;
+    grid = grid > 2 * sms ? 2 * sms : grid;
+    sort_digits_kernel<n_tables>
+        <<<static_cast<unsigned>(grid), kDigitsThreads, 0, s>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
-    sort_prefix_kernel<n_tables><<<a.ranges, kPrefixThreads, 0, s>>>(
-        tabs, a, units, hist, local, range_sum, plan, several ? 0 : cap);
-    if ((err = cudaGetLastError()) != cudaSuccess)
-      return static_cast<int>(err);
-    place<<<place_grid, kPlaceThreads, place_smem, s>>>(a, local, range_sum,
-                                                        hist, out);
-    if ((err = cudaGetLastError()) != cudaSuccess)
-      return static_cast<int>(err);
+    for (int pass = 0; pass < passes; ++pass) {
+      const int* in = pass > 0 ? keys + (pass + 1) % 2 * 2 * stride : nullptr;
+      int* out = keys + pass % 2 * 2 * stride;
+      const bool last = pass == passes - 1;
+      ranker<<<static_cast<unsigned>(tiles), kTileThreads, 0, s>>>(
+          a, pass, in, in ? in + stride : nullptr, out,
+          last ? nullptr : out + stride, last ? perm : nullptr);
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+    }
   }
-  if (several) {
-    const int* sorted = keys + (passes - 1) % 2 * 2 * stride;
-    const int64_t grid = (S + 1 + kOffsetThreads - 1) / kOffsetThreads;
-    sort_offsets_kernel<n_tables>
-        <<<static_cast<unsigned>(grid), kOffsetThreads, 0, s>>>(
-            tabs, sorted, n_positions, a.S, offsets, plan, cap);
-  }
+  const int* sorted = keys + (passes - 1) % 2 * 2 * stride;
+  grid = (n_positions + S + 1 + kBoundItems - 1) / kBoundItems;
+  sort_bounds_kernel<n_tables>
+      <<<static_cast<unsigned>(grid), kBoundThreads, 0, s>>>(
+          tabs, sorted, n_positions, a.S, offsets, plan, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1283,7 +1577,8 @@ extern "C" {
 
 // The kernel's constants, for the wrapper's plan to check against:
 // kShort, kHotRowBytes, kRun, kThreads, kUnroll, kSmallMaxIds, kMaxRanges,
-// kSortUnit, kMaxBuckets.
+// kSortUnit, kMaxBuckets, kSortTile, kMaxPasses, kBoundItems,
+// kSmallSortTile.
 void scatter_accum_config(int* out) {
   out[0] = kShort;
   out[1] = kHotRowBytes;
@@ -1294,27 +1589,27 @@ void scatter_accum_config(int* out) {
   out[6] = kMaxRanges;
   out[7] = kSortUnit;
   out[8] = kMaxBuckets;
+  out[9] = kSortTile;
+  out[10] = kMaxPasses;
+  out[11] = kBoundItems;
+  out[12] = kSmallSortTile;
 }
 
-// The stable counting sort: idx int32 [n_positions] (flat [M, n_tables]
-// row ids of tables of rows_t rows) -> perm int64 [n_positions] (positions
-// u * n_tables + t stably sorted by table, then row), offsets int64
-// [rows_0 + ... + rows_{n-1} + 1] (each row's segment of perm). Positions
-// are cut into `units` units of `unit` (32 .. kSortUnit; the last unit
-// non-empty). digit_bits 0: one pass over the S + 2 buckets (S = the rows'
-// sum, at most kMaxBuckets - 2); else passes of 2**digit_bits digits
-// (digit_bits <= 16), the low digits first, until every bit of S + 1 is
-// sorted. Scratch int32: hist [units, buckets of a pass], local [buckets
-// of a pass], range_sum [kMaxRanges], and with several passes keys
-// [4 x n_positions rounded up to 4]. With cap > 0 it also lists the hot
-// tiles (hot_t per row of table t) into plan int32 [1 + 2 * cap], for
-// scatter_accum_*. Returns the cudaError_t of the launches.
+// The stable counting sort in one pass: idx int32 [n_positions] (flat
+// [M, n_tables] row ids of tables of rows_t rows) -> perm int64
+// [n_positions] (positions u * n_tables + t stably sorted by table, then
+// row), offsets int64 [rows_0 + ... + rows_{n-1} + 1] (each row's segment
+// of perm). Positions are cut into `units` units of `unit` (32 ..
+// kSortUnit; the last unit non-empty), one pass over the S + 2 buckets (S
+// = the rows' sum, at most kMaxBuckets - 2). Scratch int32: hist [units,
+// S + 2], local [S + 2], range_sum [kMaxRanges]. With cap > 0 it also
+// lists the hot tiles (hot_t per row of table t) into plan int32 [1 + 2 *
+// cap], for scatter_accum_*. Returns the cudaError_t of the launches.
 int scatter_sort(const void* idx, int n_tables, int64_t rows0, int64_t rows1,
                  int64_t rows2, int hot0, int hot1, int hot2,
-                 int64_t n_positions, int units, int unit, int digit_bits,
-                 void* perm, void* offsets, void* hist, void* local,
-                 void* range_sum, void* keys, void* plan, int64_t cap,
-                 void* stream) {
+                 int64_t n_positions, int units, int unit, void* perm,
+                 void* offsets, void* hist, void* local, void* range_sum,
+                 void* plan, int64_t cap, void* stream) {
   const int64_t rows[3] = {rows0, rows1, rows2};
   const int hot[3] = {hot0, hot1, hot2};
   const int* i = static_cast<const int*>(idx);
@@ -1323,16 +1618,49 @@ int scatter_sort(const void* idx, int n_tables, int64_t rows0, int64_t rows1,
   int* h = static_cast<int*>(hist);
   int* l = static_cast<int*>(local);
   int* r = static_cast<int*>(range_sum);
+  int* pl = static_cast<int*>(plan);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_tables) {
+    case 1:
+      return sort_n<1>(i, rows, hot, n_positions, units, unit, p, o, h, l, r,
+                       pl, cap, s);
+    case 3:
+      return sort_n<3>(i, rows, hot, n_positions, units, unit, p, o, h, l, r,
+                       pl, cap, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same sort by digits of kDigitBits, the low digit first, as many
+// passes as the bits of S + 1 need (at most kMaxPasses), over `tiles`
+// tiles of `tile` positions (kSortTile or kSmallSortTile; the last
+// non-empty). Scratch: counts int32 [kMaxPasses * kDigits + kMaxPasses]
+// (digit counts, then tickets),
+// status uint64 [passes, tiles, kDigits] (8-byte aligned), keys int32 [4 x
+// n_positions rounded up to 4]. The rest as scatter_sort.
+int scatter_sort_digits(const void* idx, int n_tables, int64_t rows0,
+                        int64_t rows1, int64_t rows2, int hot0, int hot1,
+                        int hot2, int64_t n_positions, int tile,
+                        int64_t tiles, void* perm, void* offsets,
+                        void* counts, void* status, void* keys, void* plan,
+                        int64_t cap, void* stream) {
+  const int64_t rows[3] = {rows0, rows1, rows2};
+  const int hot[3] = {hot0, hot1, hot2};
+  const int* i = static_cast<const int*>(idx);
+  int64_t* p = static_cast<int64_t*>(perm);
+  int64_t* o = static_cast<int64_t*>(offsets);
+  int* c = static_cast<int*>(counts);
   int* k = static_cast<int*>(keys);
   int* pl = static_cast<int*>(plan);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_tables) {
     case 1:
-      return sort_n<1>(i, rows, hot, n_positions, units, unit, digit_bits, p,
-                       o, h, l, r, k, pl, cap, s);
+      return sort_digits_n<1>(i, rows, hot, n_positions, tile, tiles, p, o,
+                              c, status, k, pl, cap, s);
     case 3:
-      return sort_n<3>(i, rows, hot, n_positions, units, unit, digit_bits, p,
-                       o, h, l, r, k, pl, cap, s);
+      return sort_digits_n<3>(i, rows, hot, n_positions, tile, tiles, p, o,
+                              c, status, k, pl, cap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

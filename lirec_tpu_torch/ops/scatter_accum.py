@@ -19,13 +19,17 @@ sum is bitwise the plain version's in-order sum on the CPU (and the JAX
 kernels'), and it does not change from run to run (f32 atomics would).
 The sort is a hand-written stable counting sort in the same source
 (``count_sort``; its plain version is ``sort_by_row``, PyTorch's own sort,
-which no CUDA path calls), three launches a pass over units of at most
-1,024 positions: per-unit counts; their prefix over the units, each range
-scanned; then per unit a scan of the ranges' sums and a warp placing its
-positions in order. One pass sorts by the whole row where the [units,
-rows + 2] count matrix is small (``sort_plan``); past it, a pass per digit
-of the row, the low digit first, and a launch that finds the row offsets
-by binary search. Where the updates and outputs are few and narrow (the
+which no CUDA path calls). Where the [units, rows + 2] count matrix is
+small (``sort_plan``) one pass by the whole row: three launches over units
+of at most 1,024 positions (per-unit counts; their prefix over the units,
+each range scanned; per unit a scan of the ranges' sums and a warp placing
+its positions in order). Past it an LSD radix sort by digits of 8 bits in
+the manner of onesweep: one launch clears the scratch, one counts every
+pass's digits, a launch a pass ranks tiles of 1,280 or 4,096 positions
+(early counts, a warp multi-split by ballots, a decoupled look-back over
+the earlier tiles, the tile written out by digit) and one launch merges
+the sorted rows with 0 .. rows to find the offsets.
+Where the updates and outputs are few and narrow (the
 int_rels sweep's score table) one launch does everything with no sort
 (``launch_small``): a warp per output row walks the update ids in order
 and adds the rows that hit, the same chain. ``scatter_path`` is that size
@@ -94,9 +98,11 @@ _OUT_DTYPES = (torch.float32, torch.bfloat16)
 # csrc/scatter_accum.cu's constants (checked against the built library):
 # the longest segment a warp sums, a hot tile's bytes of an update row,
 # the consecutive rows of one warp item, the update ids the one-launch
-# path stages, the sort's most ranges of buckets (256 each), the most
-# positions of its units (a warp walks a unit in order) and the most
-# buckets of a pass (16-bit counters in shared memory)
+# path stages, the one-pass sort's most ranges of buckets (256 each), the
+# most positions of its units (a warp walks a unit in order) and its most
+# buckets (16-bit counters in shared memory), the positions of a tile of
+# the sort by digits, its most passes (of SORT_DIGIT_BITS) and the merged
+# (position, row) items of a block of its offsets' launch
 SHORT_MAX = 32
 HOT_ROW_BYTES = 128
 RUN_ROWS = 8
@@ -104,12 +110,26 @@ SMALL_MAX_UPDATES = 12288
 SORT_MAX_RANGES = 256
 SORT_UNIT = 1024
 SORT_MAX_BUCKETS = 1 << 16
+SORT_TILE = 4096
+SORT_SMALL_TILE = 1280
+SORT_MAX_PASSES = 4
+SORT_BOUND_ITEMS = 4096
+SORT_DIGIT_BITS = 8
+# the sort by digits' scratch: every pass's 256 digit counts, then a
+# ticket per pass (16-byte padded)
+SORT_COUNT_INTS = SORT_MAX_PASSES * (1 << SORT_DIGIT_BITS) + 4
+# the sort by digits takes tiles of SORT_TILE positions from
+# SORT_LARGE_TILES of them on (a tile an SM), else tiles of
+# SORT_SMALL_TILE: on an NVIDIA H100 80GB HBM3 at 700 W
+# (tools/sort_passes.py) the small tiles were faster up to the train
+# step's B = 256 at split-scale tables (0.0498 against 0.0503 ms), the
+# large ones from B = 512 (0.0582 against 0.0617)
+SORT_LARGE_TILES = 132
 # one pass where the [units, rows + 2] count matrix holds at most
-# SORT_MATRIX_INTS (one pass measured faster than two by digit at every
-# table up to split-scale's 68 x 61,442); past it a pass per digit of at
-# least SORT_MIN_DIGIT bits, as many bits as keep the matrix within it
+# SORT_MATRIX_INTS, past it the passes by digit: on the same card one
+# pass was no slower at split-scale tables at B = 64 (68 x 61,442: 0.0385
+# against 0.0393 ms), by digit faster from B = 128 (0.0425 against 0.0735)
 SORT_MATRIX_INTS = 1 << 22
-SORT_MIN_DIGIT = 8
 # the one-launch path: one table of at most SMALL_MAX_WIDTH columns (a
 # lane a column), and updates x rows at most SMALL_MAX_WORK (every warp
 # walks every id): the int_rels table of B = 64 into 3,072 hashes, the
@@ -167,35 +187,37 @@ def sort_plan(n_positions: int, rows: Sequence[int]) -> dict:
     multiple of 32, at most SORT_UNIT, the last unit non-empty). One pass
     (`digit_bits` 0, `pass_buckets` = buckets) where buckets <=
     SORT_MAX_BUCKETS and the [units, buckets] count matrix holds at most
-    SORT_MATRIX_INTS (or no digit would make it smaller); else `passes` of
-    `digit_bits` bits each (at most 16, at least SORT_MIN_DIGIT, as few
-    passes as keep the matrix within SORT_MATRIX_INTS where SORT_MIN_DIGIT
-    allows, the bits of the largest bucket shared evenly).
-    The int32 scratch: the count matrix, a pass's buckets' starts within
-    their range, the ranges' sums (SORT_MAX_RANGES), and with several
-    passes two pairs of (buckets, positions), each padded to 16 bytes
-    (`scratch_ints` in all)."""
+    SORT_MATRIX_INTS; its int32 scratch the matrix, the buckets' starts
+    within their range and the ranges' sums (SORT_MAX_RANGES). Else
+    `passes` = ceil(width / SORT_DIGIT_BITS) by digit (width: the bits of
+    the largest bucket), over `tiles` tiles of `tile` positions
+    (SORT_TILE from SORT_LARGE_TILES such tiles, else SORT_SMALL_TILE); its
+    scratch the digit counts and tickets (SORT_COUNT_INTS), the look-back
+    words (`status_ints`: an int64 per pass, tile and digit) and two pairs
+    of (buckets, positions) (`keys_ints`), each padded to 16 bytes.
+    `scratch_ints` in all."""
     buckets = sum(rows) + 2
     units = max(1, -(-n_positions // SORT_UNIT))
     per = -(-n_positions // units)
     unit = max(32, -(-per // 32) * 32)
     units = max(1, -(-n_positions // unit))
+    plan = dict(buckets=buckets, units=units, unit=unit)
+    if buckets <= SORT_MAX_BUCKETS and units * buckets <= SORT_MATRIX_INTS:
+        hist, vec = -(-units * buckets // 4) * 4, -(-buckets // 4) * 4
+        return dict(plan, digit_bits=0, passes=1, pass_buckets=buckets,
+                    tile=0, tiles=0, hist_ints=hist, bucket_ints=vec,
+                    scratch_ints=hist + vec + SORT_MAX_RANGES)
     width = (buckets - 1).bit_length()
-    most = min(16, max(SORT_MIN_DIGIT,
-                       (SORT_MATRIX_INTS // units).bit_length() - 1))
-    if buckets <= SORT_MAX_BUCKETS and (units * buckets <= SORT_MATRIX_INTS
-                                        or width <= most):
-        bits, passes, nb = 0, 1, buckets
-    else:
-        passes = -(-width // most)
-        bits = -(-width // passes)
-        nb = 1 << bits
-    hist, vec = -(-units * nb // 4) * 4, -(-nb // 4) * 4
-    keys = 0 if passes == 1 else 4 * (-(-n_positions // 4) * 4)
-    return dict(buckets=buckets, units=units, unit=unit, digit_bits=bits,
-                passes=passes, pass_buckets=nb, hist_ints=hist,
-                bucket_ints=vec, keys_ints=keys,
-                scratch_ints=hist + vec + SORT_MAX_RANGES + keys)
+    passes = -(-width // SORT_DIGIT_BITS)
+    tile = SORT_TILE if -(-n_positions // SORT_TILE) >= SORT_LARGE_TILES \
+        else SORT_SMALL_TILE
+    tiles = -(-n_positions // tile)
+    status = 2 * passes * tiles << SORT_DIGIT_BITS
+    keys = 4 * (-(-n_positions // 4) * 4)
+    return dict(plan, digit_bits=SORT_DIGIT_BITS, passes=passes,
+                pass_buckets=1 << SORT_DIGIT_BITS, tile=tile, tiles=tiles,
+                status_ints=status, keys_ints=keys,
+                scratch_ints=SORT_COUNT_INTS + status + keys)
 
 
 def scatter_path(n_updates: int, rows: Sequence[int],
@@ -285,18 +307,25 @@ def _library():
             fn.argtypes = [p, p, i64, i, p, i64, i, p]
             fn.restype = ctypes.c_int
         lib.scatter_sort.argtypes = ([p, i] + [i64] * 3 + [i] * 3 + [i64]
-                                     + [i] * 3 + [p] * 7 + [i64, p])
+                                     + [i] * 2 + [p] * 6 + [i64, p])
         lib.scatter_sort.restype = ctypes.c_int
+        lib.scatter_sort_digits.argtypes = ([p, i] + [i64] * 3 + [i] * 3
+                                            + [i64, i, i64] + [p] * 6
+                                            + [i64, p])
+        lib.scatter_sort_digits.restype = ctypes.c_int
         config.argtypes, config.restype = [ctypes.c_void_p], None
-        got = (ctypes.c_int * 9)()
+        got = (ctypes.c_int * 13)()
         config(ctypes.cast(got, ctypes.c_void_p))
         got = (*got[:3], *got[5:])
         want = (SHORT_MAX, HOT_ROW_BYTES, RUN_ROWS, SMALL_MAX_UPDATES,
-                SORT_MAX_RANGES, SORT_UNIT, SORT_MAX_BUCKETS)
+                SORT_MAX_RANGES, SORT_UNIT, SORT_MAX_BUCKETS, SORT_TILE,
+                SORT_MAX_PASSES, SORT_BOUND_ITEMS, SORT_SMALL_TILE)
         if got != want:
             raise RuntimeError("scatter_accum.cu has kShort, kHotRowBytes, "
                                "kRun, kSmallMaxIds, kMaxRanges, kSortUnit, "
-                               "kMaxBuckets %s; the wrapper plans for %s"
+                               "kMaxBuckets, kSortTile, kMaxPasses, "
+                               "kBoundItems, kSmallSortTile %s; the wrapper "
+                               "plans for %s"
                                % (got, want))
     return lib
 
@@ -344,20 +373,27 @@ def _sort(idx, rows, plan=None):
     offsets = torch.empty(sum(rows) + 1, dtype=torch.int64,
                           device=idx.device)
     base = workspace.data_ptr()
-    hist = base + 4 * front
-    local = hist + 4 * sp["hist_ints"]
-    range_sum = local + 4 * sp["bucket_ints"]
-    keys = range_sum + 4 * SORT_MAX_RANGES
+    scratch = base + 4 * front
     pad = 3 - n
     hot = list(plan["hot_tiles"]) if plan is not None else [0] * n
+    cap = 0 if plan is None else plan["hot_cap"]
+    lib = _library()
     dispatch.record(SORT_NAME, "cuda", "cuda tensors",
                     dict(positions=P, rows=tuple(rows), units=sp["units"],
-                         passes=sp["passes"]))
-    dispatch.launch(SORT_NAME, _library().scatter_sort, idx.device, (
-        idx.data_ptr(), n, *rows, *[0] * pad, *hot, *[0] * pad, P,
-        sp["units"], sp["unit"], sp["digit_bits"], perm.data_ptr(),
-        offsets.data_ptr(), hist, local, range_sum, keys, base,
-        0 if plan is None else plan["hot_cap"]))
+                         tiles=sp["tiles"], passes=sp["passes"]))
+    head = (idx.data_ptr(), n, *rows, *[0] * pad, *hot, *[0] * pad, P)
+    if sp["digit_bits"] == 0:
+        local = scratch + 4 * sp["hist_ints"]
+        range_sum = local + 4 * sp["bucket_ints"]
+        dispatch.launch(SORT_NAME, lib.scatter_sort, idx.device, (
+            *head, sp["units"], sp["unit"], perm.data_ptr(),
+            offsets.data_ptr(), scratch, local, range_sum, base, cap))
+    else:
+        status = scratch + 4 * SORT_COUNT_INTS
+        keys = status + 4 * sp["status_ints"]
+        dispatch.launch(SORT_NAME, lib.scatter_sort_digits, idx.device, (
+            *head, sp["tile"], sp["tiles"], perm.data_ptr(),
+            offsets.data_ptr(), scratch, status, keys, base, cap))
     return perm, offsets, workspace
 
 

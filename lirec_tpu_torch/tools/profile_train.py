@@ -19,7 +19,8 @@ It prints
 - the scatter's kernels (``scatter_hot_kernel`` and
   ``scatter_short_kernel``, concurrent) and its counting sort
   (``sort_count_kernel``, ``sort_prefix_kernel``, ``sort_place_kernel``,
-  and past one pass ``sort_offsets_kernel``),
+  and past one pass ``sort_zero_kernel``, ``sort_digits_kernel``,
+  ``sort_tile_kernel``, ``sort_bounds_kernel``),
   each group as the union of its spans in µs per step and as a share of
   device busy;
 - the profiler's table of the largest device items.
@@ -37,7 +38,9 @@ N_CLIPS, N_TRACKS, BATCH = 12288, 24576, 64
 WARMUP, STEPS, PROFILED = 3, 10, 5
 SCATTER_KERNELS = ("scatter_hot_kernel<", "scatter_short_kernel<")
 SORT_KERNELS = ("sort_count_kernel<", "sort_prefix_kernel<",
-                "sort_place_kernel<", "sort_offsets_kernel<")
+                "sort_place_kernel<", "sort_zero_kernel",
+                "sort_digits_kernel<", "sort_tile_kernel<",
+                "sort_bounds_kernel<")
 
 
 def _batches(spec, n):

@@ -534,40 +534,66 @@ def _sort_ids(device, M, rows, pad_share=0.25, seed=11):
     return idx.to(torch.int32).contiguous()
 
 
-@pytest.mark.parametrize("rows,M", [
-    ((2816, 5376, 5376), 23040), ((12288, 24576, 24576), 23040),
-    ((40000, 50000, 50000), 23040), ((1 << 17,), 23040),
-    ((1 << 20,), 23040), ((2816,), 23040), ((1 << 22,), 1 << 21)])
-def test_counting_sort_is_bitwise_sort_by_row(cuda, rows, M):
+@pytest.mark.parametrize("rows,M,passes", [
+    ((2816, 5376, 5376), 23040, 1), ((12288, 24576, 24576), 23040, 1),
+    ((12288, 24576, 24576), 92160, 2), ((12288, 24576, 24576), 368640, 2),
+    ((40000, 50000, 50000), 23040, 3), ((1 << 17,), 23040, 3),
+    ((1 << 20,), 23040, 3), ((2816,), 23040, 1), ((1 << 20,), 1 << 21, 3),
+    ((1 << 22,), 1 << 21, 3)])
+def test_counting_sort_is_bitwise_sort_by_row(cuda, rows, M, passes):
     """count_sort's perm and offsets against sort_by_row's, bit for bit, on
     M updates a table: one pass at the Localizer's caps (13,568 rows), at
-    split-scale tables (61,440 rows) and on one table; two passes by digit
-    at 140,000 and 2**17 rows (9 bits each) and at 2**20 rows (11 bits),
-    each with units of 1,024 positions; three passes of 8 bits for 2**21
-    updates into 2**22 rows; then every update into 8 rows, a single
-    update and none. One launch count per sort."""
+    split-scale tables (61,440 rows) and on one table; by digits of 8 bits
+    at split-scale tables for the train step at B = 256 and 1,024 (92,160
+    and 368,640 updates of three tables, two passes), at 140,000, 2**17
+    and 2**20 rows (three), and for 2**21 updates into 2**20 and 2**22
+    rows (three); then every update into 8 rows, every update into one
+    row, ids out of range on both sides (-1 in the first table, the last
+    table's row count in the last: the bucket before the rows and the one
+    after them), a single update and none. One launch count per sort.
+    Ids out of range by other amounts keep sort_by_row's offsets and the
+    rows' part of its perm (it orders them by value, the sort by
+    position)."""
     idx = _sort_ids(cuda, M, rows)
-    passes = sa.sort_plan(idx.numel(), rows)["passes"]
-    assert passes == (1 if sum(rows) <= 61440 else 3 if M > 23040 else 2)
+    assert sa.sort_plan(idx.numel(), rows)["passes"] == passes
+    one_row = torch.full_like(idx, 5)
+    outside = idx.clone()
+    outside[::7, 0] = -1
+    outside[3::11, -1] = rows[-1]
+    cases = (idx, (idx % 8).contiguous(), one_row, outside,
+             idx[:1].contiguous(), idx[:0].contiguous())
     before = dispatch.launches(sa.SORT_NAME)
-    for case in (idx, (idx % 8).contiguous(), idx[:1].contiguous(),
-                 idx[:0].contiguous()):
+    for case in cases:
         want = sa.sort_by_row(case, rows)
         got = sa.count_sort(case, rows)
         torch.cuda.synchronize()
         assert got[0].dtype == got[1].dtype == torch.int64
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert dispatch.launches(sa.SORT_NAME) == before + 4
+    far = idx.clone()
+    far[::5, 0] = torch.arange(-1, -1 - len(far[::5]), -1, device=cuda,
+                               dtype=torch.int32)
+    far[2::9, -1] = rows[-1] + torch.arange(len(far[2::9]), device=cuda,
+                                            dtype=torch.int32)
+    want = sa.sort_by_row(far, rows)
+    got = sa.count_sort(far, rows)
+    torch.cuda.synchronize()
+    S, o = sum(rows), want[1]
+    assert torch.equal(got[1], o)
+    assert torch.equal(got[0][o[0]:o[S]], want[0][o[0]:o[S]])
+    for lo, hi in ((0, o[0]), (o[S], far.numel())):
+        assert torch.equal(got[0][lo:hi].sort().values,
+                           want[0][lo:hi].sort().values)
+    assert dispatch.launches(sa.SORT_NAME) == before + len(cases) + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_after_several_passes_lists_the_hot_tiles(cuda, dtype):
     """scatter_accum3 into tables of 20,000 / 25,000 / 25,000 rows (the
-    sort by digits, whose last launch finds the offsets and lists the hot
-    tiles) with a quarter of the updates on row 0: bitwise the CPU's
-    in-order sum, one sort and one scatter launch."""
+    sort by digits in three passes, whose last launch finds the offsets and
+    lists the hot tiles) with a quarter of the updates on row 0: bitwise
+    the CPU's in-order sum, one sort and one scatter launch."""
     rows = (20000, 25000, 25000)
-    assert sa.sort_plan(23040 * 3, rows)["passes"] == 2
+    assert sa.sort_plan(23040 * 3, rows)["passes"] == 3
     idx = _sort_ids(cuda, 23040, rows)
     g = torch.Generator(device=cuda).manual_seed(13)
     gs = [torch.randn(23040, d, device=cuda, generator=g).to(dtype)
@@ -671,6 +697,31 @@ def test_one_launch_path_under_capture(cuda, dtype):
         _assert_in_order(want, ids, fresh, 9)
 
 
+def test_sort_by_digits_under_capture(cuda):
+    """The sort by digits (the train step's scatter from B = 128 at
+    split-scale tables) captured in a CUDA graph: each replay on new ids
+    clears its tickets and look-back words and gives sort_by_row's perm
+    and offsets bit for bit, one launch count per replay."""
+    from lirec_tpu_torch.utils.graphs import StepGraph
+
+    rows = (12288, 24576, 24576)
+    idx = _sort_ids(cuda, 46080, rows)
+    assert sa.sort_plan(idx.numel(), rows)["passes"] == 2
+    out = {}
+
+    def step():
+        out["sorted"] = sa.count_sort(idx, rows)
+
+    graph = StepGraph(step, cuda)
+    assert graph.launches == {sa.SORT_NAME: 1}
+    for seed in (3, 4):
+        idx.copy_(_sort_ids(cuda, 46080, rows, seed=seed))
+        graph.replay()
+        want = sa.sort_by_row(idx, rows)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out["sorted"], want))
+
+
 LIBRARY_SORT_KERNELS = ("RadixSort", "radix_sort", "searchsorted",
                         "indexFunc", "index_add", "SegmentedSort",
                         "DeviceSort", "sort_by_key")
@@ -690,9 +741,10 @@ def _device_kernels(fn):
 
 
 def test_scatter_launches_no_library_sort_or_index_add(cuda):
-    """torch.profiler over scatter_accum3, scatter_accum1 (both paths) and
-    gather_h1's backward on CUDA tensors: the device runs the port's own
-    kernels (the counting sort, the scatter, the one-launch kernel) and no
+    """torch.profiler over scatter_accum3, scatter_accum1 (both paths, and
+    into 2**17 rows: the sort by digits) and gather_h1's backward on CUDA
+    tensors: the device runs the port's own kernels (the counting sort in
+    one pass or by digits, the scatter, the one-launch kernel) and no
     torch.sort, searchsorted or index_add_ kernel."""
     idx, gs = _updates(cuda, torch.float32, dup_rows=1)
     ids, upd = _int_rels_table(cuda, 9, 34, 6)
@@ -708,6 +760,8 @@ def test_scatter_launches_no_library_sort_or_index_add(cuda):
         "scatter_accum1 sorted": lambda: sa.scatter_accum1(
             idx[..., 1].contiguous(), gs[1], 70),
         "scatter_accum1 small": lambda: sa.scatter_accum1(ids, upd, 9),
+        "scatter_accum1 by digits": lambda: sa.scatter_accum1(
+            idx[..., 1].contiguous(), gs[1], 1 << 17),
         "gather_h1 backward": backward,
     }
     for label, fn in cases.items():
@@ -716,7 +770,7 @@ def test_scatter_launches_no_library_sort_or_index_add(cuda):
                                            LIBRARY_SORT_KERNELS)]
         assert not library, (label, library)
         ours = [n for n in names if "sort_place_kernel" in n
-                or "scatter_small_kernel" in n]
+                or "sort_tile_kernel" in n or "scatter_small_kernel" in n]
         assert ours, (label, names)
 
 

@@ -312,12 +312,14 @@ def test_sort_plan_cuts_every_position_into_one_unit(P, rows):
     the last unit non-empty (a block per unit, none idle); a unit is a
     multiple of 32 positions (the walking warp's steps) and at most
     SORT_UNIT whatever the rows. One pass over the buckets where the
-    [units, buckets] count matrix holds at most SORT_MATRIX_INTS (or no
-    digit would make it smaller), in at most SORT_MAX_BUCKETS; else passes
-    of digits that cover every bit of the largest bucket, as few as the
-    matrix allows, at most 16 bits (the shared counters) and no more
-    passes than SORT_MIN_DIGIT's need; the scratch holds the matrix, a
-    pass's bucket vector, the ranges' sums and, with several passes, two
+    [units, buckets] count matrix holds at most SORT_MATRIX_INTS, in at
+    most SORT_MAX_BUCKETS; its scratch holds the matrix, the bucket vector
+    and the ranges' sums. Else passes of SORT_DIGIT_BITS that cover every
+    bit of the largest bucket, over tiles that cover every position once
+    (the last non-empty), of SORT_TILE positions where there are at least
+    SORT_LARGE_TILES such tiles, else of SORT_SMALL_TILE; its scratch
+    holds the counts and
+    tickets, an int64 look-back word per pass, tile and digit, and two
     pairs of (buckets, positions), each 16-byte aligned."""
     sp = sa.sort_plan(P, rows)
     units, unit, nb = sp["units"], sp["unit"], sp["buckets"]
@@ -326,23 +328,30 @@ def test_sort_plan_cuts_every_position_into_one_unit(P, rows):
     assert unit % 32 == 0 and 32 <= unit <= sa.SORT_UNIT
     assert units >= 1 and (units - 1) * unit < max(P, 1) <= units * unit
     width = (nb - 1).bit_length()
-    most = min(16, max(sa.SORT_MIN_DIGIT,
-                       (sa.SORT_MATRIX_INTS // units).bit_length() - 1))
-    if passes == 1:
-        assert bits == 0 and per == nb <= sa.SORT_MAX_BUCKETS
-        assert units * nb <= sa.SORT_MATRIX_INTS or width <= most
+    one = nb <= sa.SORT_MAX_BUCKETS and units * nb <= sa.SORT_MATRIX_INTS
+    assert (passes == 1 and bits == 0) == one
+    if one:
+        assert per == nb and sp["tiles"] == 0
+        assert -(-per // 256) <= sa.SORT_MAX_RANGES
+        assert sp["hist_ints"] >= units * per and sp["hist_ints"] % 4 == 0
+        assert sp["bucket_ints"] >= per and sp["bucket_ints"] % 4 == 0
+        assert sp["scratch_ints"] == (sp["hist_ints"] + sp["bucket_ints"]
+                                      + sa.SORT_MAX_RANGES)
     else:
+        assert bits == sa.SORT_DIGIT_BITS and per == 1 << bits
         assert (passes - 1) * bits < width <= passes * bits
-        assert per == 1 << bits and bits <= most <= 16
-        assert passes == -(-width // most)
-        assert units * per <= max(sa.SORT_MATRIX_INTS,
-                                  units << sa.SORT_MIN_DIGIT)
-    assert -(-per // 256) <= sa.SORT_MAX_RANGES
-    assert sp["hist_ints"] >= units * per and sp["hist_ints"] % 4 == 0
-    assert sp["bucket_ints"] >= per and sp["bucket_ints"] % 4 == 0
-    assert sp["keys_ints"] == (0 if passes == 1 else 4 * (-(-P // 4) * 4))
-    assert sp["scratch_ints"] == (sp["hist_ints"] + sp["bucket_ints"]
-                                  + sa.SORT_MAX_RANGES + sp["keys_ints"])
+        assert passes <= sa.SORT_MAX_PASSES
+        tiles, tile = sp["tiles"], sp["tile"]
+        large = -(-P // sa.SORT_TILE) >= sa.SORT_LARGE_TILES
+        assert tile == (sa.SORT_TILE if large else sa.SORT_SMALL_TILE)
+        assert tile % 256 == 0
+        assert tiles == 0 if P == 0 else (tiles - 1) * tile < P <= tiles * tile
+        assert sa.SORT_COUNT_INTS >= sa.SORT_MAX_PASSES * per \
+            + sa.SORT_MAX_PASSES and sa.SORT_COUNT_INTS % 4 == 0
+        assert sp["status_ints"] == 2 * passes * tiles * per
+        assert sp["keys_ints"] == 4 * (-(-P // 4) * 4)
+        assert sp["scratch_ints"] == (sa.SORT_COUNT_INTS + sp["status_ints"]
+                                      + sp["keys_ints"])
     covered = np.zeros(P if P < 10 ** 6 else 0, dtype=int)
     for u in range(units if P < 10 ** 6 else 0):
         covered[u * unit:min(P, (u + 1) * unit)] += 1
@@ -362,25 +371,39 @@ def test_sort_plan_at_the_train_steps_caps():
     assert sp["unit"] * 12 + sp["buckets"] * 2 <= 200 * 1024
 
 
-@pytest.mark.parametrize("P,rows,passes,bits", [
-    (69120, (12288, 24576, 24576), 1, 0),   # split-scale tables
-    (69120, (20000, 25000, 25000), 2, 9),
-    (69120, (40000, 50000, 50000), 2, 9),
-    (69120, (1 << 17,), 2, 9),
-    (69120, (1 << 20,), 2, 11),
-    (1 << 21, (1 << 20,), 2, 11),
-    (1 << 21, (1 << 22,), 3, 8),
+@pytest.mark.parametrize("P,rows,passes", [
+    (69120, (12288, 24576, 24576), 1),   # split-scale tables, B = 64
+    (138240, (12288, 24576, 24576), 2),  # B = 128
+    (276480, (12288, 24576, 24576), 2),  # B = 256
+    (1105920, (12288, 24576, 24576), 2),  # B = 1,024
+    (69120, (20000, 25000, 25000), 3),
+    (69120, (40000, 50000, 50000), 3),
+    (69120, (1 << 17,), 3),
+    (69120, (1 << 20,), 3),
+    (1 << 21, (1 << 20,), 3),
+    (1 << 21, (1 << 22,), 3),
+    (3, ((1 << 31) - 4,), 4),
 ])
-def test_sort_plan_past_one_pass_keeps_units_of_1024(P, rows, passes, bits):
-    """The units stay SORT_UNIT positions whatever the rows (the counts and
-    counters in shared memory, every unit staged): one pass up to the
-    split-scale tables (a 68 x 61,442 count matrix), past them passes that
-    split the largest bucket's bits evenly: the card tests' and phase 6's
-    cases."""
+def test_sort_plan_past_one_pass_keeps_units_of_1024(P, rows, passes):
+    """Past one pass the sort goes by digits of 8 bits: passes = ceil(width
+    / 8) of the largest bucket's bits whatever the positions (two at the
+    train step's split-scale tables from B = 128, three at 2**17 to 2**22
+    rows, four at the most rows), and every position falls in exactly one
+    tile; the one-pass units stay SORT_UNIT positions: the
+    card tests' and phase 6's cases."""
     sp = sa.sort_plan(P, rows)
-    assert (sp["unit"], sp["passes"], sp["digit_bits"]) == (1024, passes,
-                                                             bits)
-    assert sp["units"] * sp["pass_buckets"] <= sa.SORT_MATRIX_INTS
+    width = (sum(rows) + 1).bit_length()
+    assert sp["passes"] == passes
+    assert sp["unit"] == min(sa.SORT_UNIT, -(-P // 32) * 32)
+    if passes == 1:
+        assert sp["units"] * sp["buckets"] <= sa.SORT_MATRIX_INTS
+        return
+    assert sp["passes"] == -(-width // 8) and sp["digit_bits"] == 8
+    tiles = sp["tiles"]
+    starts = np.arange(tiles) * sp["tile"]
+    ends = np.minimum(starts + sp["tile"], P)
+    assert starts[0] == 0 and ends[-1] == P and (ends > starts).all()
+    assert (starts[1:] == ends[:-1]).all()
 
 
 @pytest.mark.parametrize("updates,rows,widths,want", [

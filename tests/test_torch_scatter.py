@@ -247,98 +247,275 @@ def test_single_table_at_int_rels_shapes_matches_pallas_kernel(n_rows, batch,
     assert sa.scatter_path(len(idx), (n_rows,), (width,)) == "small"
 
 
+def _ballot(pred):
+    return sum(1 << lane for lane, p in enumerate(pred) if p)
+
+
+def _popc(x):
+    return bin(x).count("1")
+
+
+def _multi_split(digits, valid):
+    """A warp's step of 32: per lane its peers (the valid lanes of equal
+    digit) from one ballot per digit bit, as sort_tile_kernel finds them."""
+    peers = [_ballot(valid)] * 32
+    for b in range(sa.SORT_DIGIT_BITS):
+        bits = [(d >> b) & 1 for d in digits]
+        m = _ballot(bits)
+        peers = [p & (m if bit else ~m & 0xFFFFFFFF)
+                 for p, bit in zip(peers, bits)]
+    return peers
+
+
+def _rank_tile(digit, n, per_lane):
+    """sort_tile_kernel's ranking of a tile's n digits: each warp's counts
+    of its keys w * 32 * per_lane + k * 32 + lane (order-free), the
+    tile's count of each digit and its start in the tile, each warp's
+    counter set to where its run of the digit starts; then step k after
+    step k - 1, each lane's place the counter plus its peers below it, the
+    lowest peer moving the counter past them. Returns (each key's place in
+    the tile, the tile's count of each digit, their starts)."""
+    nd = 1 << sa.SORT_DIGIT_BITS
+    warps = 8
+    warp_of = np.arange(n) // (32 * per_lane)
+    count = np.zeros((warps, nd), dtype=np.int64)
+    np.add.at(count, (warp_of, digit), 1)
+    total = count.sum(0)
+    own = np.cumsum(total) - total
+    counter = own + np.cumsum(count, 0) - count
+    at = np.full(n, -1, dtype=np.int64)
+    for w in range(warps):
+        for k in range(per_lane):
+            i = [w * 32 * per_lane + k * 32 + lane for lane in range(32)]
+            valid = [j < n for j in i]
+            d = [int(digit[j]) if j < n else 0 for j in i]
+            peers = _multi_split(d, valid)
+            pre = [int(counter[w, d[lane]]) if valid[lane] else 0
+                   for lane in range(32)]
+            for lane in range(32):
+                below = peers[lane] & ((1 << lane) - 1)
+                if valid[lane]:
+                    at[i[lane]] = pre[lane] + _popc(below)
+                    if below == 0:
+                        counter[w, d[lane]] = pre[lane] + _popc(peers[lane])
+    return at, total, own
+
+
+def _bounds_model(keys, S):
+    """sort_bounds_kernel: the merge of the sorted buckets with 0 .. S in
+    blocks of SORT_BOUND_ITEMS items; a block's cuts by a 32-way search (a
+    probe a lane), then each of its 256 threads merges SORT_BOUND_ITEMS /
+    256 items from its own diagonal (found by binary search), noting each
+    k's count. Returns (offsets, the rows listed as hot)."""
+    P = keys.size
+    items = P + S + 1
+    per = sa.SORT_BOUND_ITEMS // 256
+    assert per * 256 == sa.SORT_BOUND_ITEMS
+    offsets = np.full(S + 1, -1, dtype=np.int64)
+    hot = []
+
+    def cut(d):
+        lo, hi = max(0, d - (S + 1)), min(d, P)
+        while lo < hi:
+            probe = [lo + (hi - 1 - lo) * lane // 31 for lane in range(32)]
+            after = [keys[p] <= d - 1 - p for p in probe]
+            c = sum(after)
+            assert after == [True] * c + [False] * (32 - c)
+            if c > 0:
+                lo = probe[c - 1] + 1
+            if c < 32:
+                hi = probe[c]
+        return lo
+
+    for d0 in range(0, items, sa.SORT_BOUND_ITEMS):
+        d1 = min(d0 + sa.SORT_BOUND_ITEMS, items)
+        i0, i1 = cut(d0), cut(d1)
+        j0 = d0 - i0
+        n, nk = i1 - i0, d1 - i1 - j0
+        part = keys[i0:i1]
+        found = np.full(nk, -1, dtype=np.int64)
+        for diag in range(0, n + nk, per):
+            lo, hi = max(0, diag - nk), min(diag, n)
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if part[mid] <= j0 + diag - 1 - mid:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            i, j = lo, diag - lo
+            for _ in range(diag, min(diag + per, n + nk)):
+                if i < n and (j >= nk or part[i] <= j0 + j):
+                    i += 1
+                else:
+                    assert found[j] == -1
+                    found[j] = i
+                    j += 1
+        assert (found >= 0).all() and (offsets[j0:j0 + nk] == -1).all()
+        offsets[j0:j0 + nk] = i0 + found
+    assert (offsets >= 0).all()
+    for k in range(S):
+        o = offsets[k]
+        if o + sa.SHORT_MAX < P and keys[o + sa.SHORT_MAX] == k + 1:
+            hot.append(k)
+    return offsets, hot
+
+
+def _digit_sort_model(buckets, S, sp, wave=3):
+    """The sort by digits: every pass's digit counts from the ids and
+    their starts; per pass, tiles counted and ranked into digit order,
+    then their look-backs, `wave` tiles at a time, the tiles of a wave
+    publishing their counts before any looks back and looking back last
+    tile first (tile t walks back over the counts of tiles that have not
+    found their prefix yet); each tile written out in digit order; then
+    the offsets."""
+    P = buckets.size
+    nd = 1 << sa.SORT_DIGIT_BITS
+    tile = sp["tile"]
+    assert tile % 256 == 0 and sp["tiles"] == -(-P // tile)
+    starts = []
+    for p in range(sp["passes"]):
+        c = np.bincount((buckets >> (8 * p)) & (nd - 1), minlength=nd)
+        starts.append(np.cumsum(c) - c)
+    keys, vals = buckets.copy(), np.arange(P)
+    for p in range(sp["passes"]):
+        digit = (keys >> (8 * p)) & (nd - 1)
+        out_keys = np.full(P, -1, dtype=np.int64)
+        out_vals = np.full(P, -1, dtype=np.int64)
+        status = {}
+        for t0 in range(0, sp["tiles"], wave):
+            counted = {}
+            for t in range(t0, min(t0 + wave, sp["tiles"])):
+                lo = t * tile
+                n = min(tile, P - lo)
+                at, total, own = _rank_tile(digit[lo:lo + n], n, tile // 256)
+                status[t] = ["P" if t == 0 else "A", total]
+                counted[t] = (lo, n, at, total, own)
+            for t in sorted(counted, reverse=True):
+                lo, n, at, total, own = counted[t]
+                before = np.zeros(nd, dtype=np.int64)
+                for d in range(nd):
+                    j = t - 1
+                    while j >= 0:
+                        flag, v = status[j]
+                        before[d] += v[d]
+                        if flag == "P":
+                            break
+                        j -= 1
+                status[t] = ["P", before + total]
+                assert sorted(at.tolist()) == list(range(n))
+                tile_keys = np.empty(n, dtype=np.int64)
+                tile_vals = np.empty(n, dtype=np.int64)
+                tile_keys[at], tile_vals[at] = keys[lo:lo + n], vals[lo:lo + n]
+                place = starts[p] + before - own
+                dst = place[(tile_keys >> (8 * p)) & (nd - 1)] + np.arange(n)
+                assert (out_keys[dst] == -1).all()
+                out_keys[dst], out_vals[dst] = tile_keys, tile_vals
+        keys, vals = out_keys, out_vals
+        assert (vals >= 0).all()
+    offsets, hot = _bounds_model(keys, S)
+    return vals, offsets, hot
+
+
 def _count_sort_model(idx, rows):
     """The CUDA counting sort's algorithm in numpy, on sort_plan's
-    geometry. A pass: each unit's digit counts, their exclusive prefix over
-    the units and the digits' lengths; each range of 256 digits scanned
-    alone, the ranges' sums scanned, a digit's start the two added; then
-    each unit's inputs placed 32 at a time in order, a step's equal digits
-    ranked by lane (the warp's match), the rank carried from step to step
-    by a counter per digit. One pass: the digit is the bucket (bucket 0
-    below the rows, S + 1 at or past them) and the starts are the offsets.
-    Several (the low digit first): each pass carries the buckets and
-    positions in its order to the next, and the offsets are the positions
-    whose bucket is at most the row (the offsets kernel's binary
-    search)."""
+    geometry -> (perm, offsets, the rows listed as hot). Buckets: 0 below
+    the rows, 1 + the key for rows, S + 1 at or past them. One pass: each
+    unit's bucket counts, their exclusive prefix over the units and the
+    buckets' lengths; each range of 256 buckets scanned alone, the ranges'
+    sums scanned, a bucket's start the two added; then each unit's inputs
+    placed 32 at a time in order, a step's equal buckets ranked by lane
+    (the warp's match), the rank carried from step to step by a counter
+    per bucket; the starts are the offsets. By digits: ``_digit_sort_model``."""
     n = len(rows)
     S = sum(rows)
     sp = sort_plan(idx.size, rows)
-    units, unit, bits = sp["units"], sp["unit"], sp["digit_bits"]
-    assert (units - 1) * unit < max(idx.size, 1) <= units * unit
     seg0 = np.concatenate([[0], np.cumsum(rows)])[:n]
     flat = idx.reshape(-1).astype(np.int64)
     key = flat + seg0[np.arange(flat.size) % n]
     keys = np.clip(key + 1, 0, S + 1)
-    pos = np.arange(flat.size)
-    for p in range(sp["passes"]):
-        nb = sp["pass_buckets"]
-        digit = (keys >> (p * bits)) & (nb - 1) if bits else keys
-        hist = np.stack([np.bincount(digit[u * unit:(u + 1) * unit],
-                                     minlength=nb) for u in range(units)])
-        prefix = np.cumsum(hist, 0) - hist
-        total = hist.sum(0)
-        local = np.concatenate([np.cumsum(total[r:r + 256]) - total[r:r + 256]
-                                for r in range(0, nb, 256)])
-        range_sum = np.array([total[r:r + 256].sum()
-                              for r in range(0, nb, 256)])
-        assert range_sum.size <= sa.SORT_MAX_RANGES
-        range_start = np.cumsum(range_sum) - range_sum
-        start = range_start[np.arange(nb) // 256] + local
-        assert (start == np.cumsum(total) - total).all()
-        out_pos = np.full(flat.size, -1, dtype=np.int64)
-        out_keys = np.full(flat.size, -1, dtype=np.int64)
-        for u in range(units):
-            rel = np.zeros(nb, dtype=np.int64)
-            for j in range(u * unit, min(flat.size, (u + 1) * unit), 32):
-                step = digit[j:min(j + 32, (u + 1) * unit, flat.size)]
-                for lane, s in enumerate(step):
-                    rank = int((step[:lane] == s).sum())
-                    d = start[s] + prefix[u, s] + rel[s] + rank
-                    out_pos[d], out_keys[d] = pos[j + lane], keys[j + lane]
-                for s, c in zip(*np.unique(step, return_counts=True)):
-                    rel[s] += c
-        pos, keys = out_pos, out_keys
-    if bits:
-        return pos, np.searchsorted(keys, np.arange(S + 1), side="right")
-    return pos, start[1:]
+    if sp["digit_bits"]:
+        return _digit_sort_model(keys, S, sp)
+    units, unit, nb = sp["units"], sp["unit"], sp["buckets"]
+    assert (units - 1) * unit < max(idx.size, 1) <= units * unit
+    hist = np.stack([np.bincount(keys[u * unit:(u + 1) * unit],
+                                 minlength=nb) for u in range(units)])
+    prefix = np.cumsum(hist, 0) - hist
+    total = hist.sum(0)
+    local = np.concatenate([np.cumsum(total[r:r + 256]) - total[r:r + 256]
+                            for r in range(0, nb, 256)])
+    range_sum = np.array([total[r:r + 256].sum() for r in range(0, nb, 256)])
+    assert range_sum.size <= sa.SORT_MAX_RANGES
+    range_start = np.cumsum(range_sum) - range_sum
+    start = range_start[np.arange(nb) // 256] + local
+    assert (start == np.cumsum(total) - total).all()
+    perm = np.full(flat.size, -1, dtype=np.int64)
+    for u in range(units):
+        rel = np.zeros(nb, dtype=np.int64)
+        for j in range(u * unit, min(flat.size, (u + 1) * unit), 32):
+            step = keys[j:min(j + 32, (u + 1) * unit, flat.size)]
+            for lane, s in enumerate(step):
+                rank = int((step[:lane] == s).sum())
+                perm[start[s] + prefix[u, s] + rel[s] + rank] = j + lane
+            for s, c in zip(*np.unique(step, return_counts=True)):
+                rel[s] += c
+    hot = [s - 1 for s in range(1, S + 1) if total[s] > sa.SHORT_MAX]
+    return perm, start[1:], hot
 
 
-@pytest.mark.parametrize("case", ["three_tables", "one_table", "into_one_row",
-                                  "one_update", "no_updates", "rows_sum_0",
-                                  "empty_tables", "skewed_many_units",
-                                  "two_passes", "three_passes",
-                                  "two_passes_one_table"])
+_SORT_CASES = {
+    # case: (rows, updates a table, passes)
+    "three_tables": ((30, 50, 50), 700, 1),
+    "one_table": ((40,), 1500, 1),
+    "into_one_row": ((30, 50, 50), 300, 1),
+    "one_update": ((30, 50, 50), 1, 1),
+    "no_updates": ((30, 50, 50), 0, 1),
+    "rows_sum_0": ((0, 0, 0), 0, 1),
+    "empty_tables": ((0, 7, 0), 90, 1),
+    "skewed_many_units": ((600, 900, 900), 900, 1),
+    "two_passes": ((600, 900, 900), 900, 2),
+    "three_passes": ((40000, 50000, 50000), 900, 3),
+    "two_passes_one_table": ((2000,), 2500, 2),
+    "run_across_a_tile": ((1 << 17,), 9000, 3),
+    "already_sorted": ((5000,), 9000, 2),
+    "reverse_sorted": ((5000,), 9000, 2),
+    "seventeen_bits": ((65535,), 3000, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(_SORT_CASES))
 def test_counting_sort_model_is_bitwise_sort_by_row(case, monkeypatch):
     """The counting sort (as a numpy model of its launches) gives
-    sort_by_row's perm and offsets bit for bit: 3 and 1 tables, every
+    sort_by_row's perm and offsets bit for bit, and lists as hot exactly
+    the rows of over SHORT_MAX updates. One pass: 3 and 1 tables, every
     update into one row, a single update, no updates, sum(rows) = 0, empty
     tables (ids 0, which land in the next table's first row or past the
     last), and a padding row with a quarter of the updates over many units
-    and ranges (SORT_UNIT cut to 64: 43 units, 2,402 buckets in 10 ranges);
-    then the passes by digit, on the same skewed updates with the count
-    matrix cut to 2**12 ints (two passes of 6 bits; to 2**11 with
-    SORT_MIN_DIGIT 4, three of 4 bits) and on one table of 2,000 rows. On
-    the CPU count_sort is sort_by_row itself."""
+    and ranges (SORT_UNIT cut to 64: 43 units, 2,402 buckets in 10
+    ranges). By digits of 8 bits, small tiles of 512 positions
+    (SORT_SMALL_TILE cut, the look-back over up to 6 tiles) and blocks of
+    1,024 merged items in the offsets' launch (SORT_BOUND_ITEMS cut): the
+    same skewed updates with the count matrix cut to 2**12 ints (two
+    passes), 140,000 rows (three), one table of 2,000 rows (the matrix cut
+    too); then at the shipped tiles: a run of one row across the first
+    large tile's end (2**17 rows, three passes, SORT_LARGE_TILES cut to 1:
+    tiles of 4,096), ids already sorted (a run of one row across the first
+    small tile's end) and sorted in reverse (5,000 rows, two passes, the
+    matrix cut), and a width of 17 bits (65,535 rows: the top bucket
+    65,536) with ids -1 and 65,535 on both sides of the rows. On the CPU
+    count_sort is
+    sort_by_row itself."""
     rng = np.random.default_rng(len(case))
-    rows, M = {"three_tables": ((30, 50, 50), 700),
-               "one_table": ((40,), 1500),
-               "into_one_row": ((30, 50, 50), 300),
-               "one_update": ((30, 50, 50), 1),
-               "no_updates": ((30, 50, 50), 0),
-               "rows_sum_0": ((0, 0, 0), 0),
-               "empty_tables": ((0, 7, 0), 90),
-               "skewed_many_units": ((600, 900, 900), 900),
-               "two_passes": ((600, 900, 900), 900),
-               "three_passes": ((600, 900, 900), 900),
-               "two_passes_one_table": ((2000,), 2500)}[case]
-    passes = {"two_passes": 2, "three_passes": 3,
-              "two_passes_one_table": 2}.get(case, 1)
-    if case in ("skewed_many_units", "two_passes", "three_passes"):
+    rows, M, passes = _SORT_CASES[case]
+    if case == "skewed_many_units":
         monkeypatch.setattr(sa, "SORT_UNIT", 64)
-    if passes > 1:
-        monkeypatch.setattr(sa, "SORT_MATRIX_INTS", 1 << (14 - passes))
-    if case == "three_passes":
-        monkeypatch.setattr(sa, "SORT_MIN_DIGIT", 4)
+    if case in ("two_passes", "three_passes", "two_passes_one_table"):
+        monkeypatch.setattr(sa, "SORT_SMALL_TILE", 512)
+        monkeypatch.setattr(sa, "SORT_BOUND_ITEMS", 1024)
+    if case in ("two_passes", "two_passes_one_table", "already_sorted",
+                "reverse_sorted"):
+        monkeypatch.setattr(sa, "SORT_MATRIX_INTS", 1 << 12)
+    if case == "run_across_a_tile":
+        monkeypatch.setattr(sa, "SORT_LARGE_TILES", 1)
     n = len(rows)
     idx = np.stack([rng.integers(0, max(r, 1), size=M) for r in rows],
                    1).astype(np.int32)
@@ -346,13 +523,31 @@ def test_counting_sort_model_is_bitwise_sort_by_row(case, monkeypatch):
         idx[:] = [r - 1 for r in rows]
     if case in ("skewed_many_units", "two_passes", "three_passes"):
         idx[rng.random(M) < 0.25] = 0
+    if case == "run_across_a_tile":
+        idx[sa.SORT_TILE - 300:sa.SORT_TILE + 500] = 77
+    if case == "already_sorted":
+        idx.sort(axis=0)
+        lo = sa.SORT_SMALL_TILE - 100
+        idx[lo:lo + 1000] = idx[lo]
+    if case == "reverse_sorted":
+        idx[::-1].sort(axis=0)
+    if case == "seventeen_bits":
+        idx[rng.random(M) < 0.1] = -1
+        idx[rng.random(M) < 0.1] = rows[0]
     want = sort_by_row(torch.from_numpy(idx), rows)
-    perm, offsets = _count_sort_model(idx, rows)
+    perm, offsets, hot = _count_sort_model(idx, rows)
     assert sorted(perm.tolist()) == list(range(M * n))
     np.testing.assert_array_equal(perm, want[0].numpy())
     np.testing.assert_array_equal(offsets, want[1].numpy())
+    lens = np.diff(want[1].numpy())
+    assert sorted(hot) == np.flatnonzero(lens > sa.SHORT_MAX).tolist()
     got = count_sort(torch.from_numpy(idx.reshape(-1, n).copy()), rows)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert sort_plan(M * n, rows)["passes"] == passes
+    sp = sort_plan(M * n, rows)
+    assert sp["passes"] == passes
     if case == "skewed_many_units":
-        assert sort_plan(M * n, rows)["units"] > 1
+        assert sp["units"] > 1
+    if case == "run_across_a_tile":
+        assert (sp["tile"], sp["tiles"]) == (sa.SORT_TILE, 3)
+    if case in ("already_sorted", "reverse_sorted", "seventeen_bits"):
+        assert (sp["tile"], sp["digit_bits"]) == (sa.SORT_SMALL_TILE, 8)
