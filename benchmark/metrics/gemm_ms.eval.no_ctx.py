@@ -1,0 +1,18 @@
+"""Per-layer metric gemm_ms.eval.no_ctx: gemm_ms.eval's reading
+(metrics/gemm_ms.eval.py), in the cells whose rate is the no-context
+configurations' own eval_clips_per_s.no_ctx."""
+
+import os
+
+from harness.cells import load_module
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_BASE = load_module(os.path.join(_HERE, "gemm_ms.eval.py"),
+                    "bench_metric_gemm_ms.eval")
+
+LAYER = _BASE.LAYER
+UNIT = _BASE.UNIT
+SOURCE = _BASE.SOURCE
+MOVES = "eval_clips_per_s.no_ctx"
+PATTERNS = _BASE.PATTERNS
+read = _BASE.read
