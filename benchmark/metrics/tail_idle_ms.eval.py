@@ -1,0 +1,24 @@
+"""Per-layer metric tail_idle_ms.eval: the milliseconds a sweep in which
+the card sat idle while the host ran the eval sweep's ragged tail: inside
+the program's span ``lirec.eval.tail`` (the tail's rows made device tensors
+and its one eager step; evaluation/packed.sweep_carry), over the traced
+window's sweeps (harness/spans.idle_in_spans_s). Nothing where the program
+opens no such span (a program without these spans reads nothing, and the
+line leaves the metric out)."""
+
+from harness.spans import NoSpans, idle_in_spans_s
+
+LAYER = "eval sweep"
+UNIT = "ms/sweep"
+SOURCE = "program_span"
+MOVES = "eval_clips_per_s"
+PATTERNS = ()
+SPANS = ("lirec.eval.tail",)
+
+
+def read(view):
+    try:
+        idle_s = idle_in_spans_s(view, SPANS)
+    except NoSpans:
+        return None
+    return 1e3 * idle_s / view.counts["sweeps"]

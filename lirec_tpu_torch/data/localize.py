@@ -243,35 +243,41 @@ class Localizer:
         disabled/unprofitable. All batches of a call share the current
         capacities (uniform stacked shapes for the epoch sweep)."""
         from lirec_tpu_torch.ops import dispatch
+        from lirec_tpu_torch.utils.profiling import span
 
         if not self.enabled or not batches or "feat_idx" not in batches[0]:
             return batches
-        # single analysis pass per batch; padding waits for the capacities
-        infos = [_analyze(b, self.n_clips, self.n_tracks) for b in batches]
-        mc = max((uc.size for uc, _, _ in infos), default=1)
-        mt = max((ut.size for _, ut, _ in infos), default=1)
-        self.cap_clip = max(self.cap_clip, _round_up(mc, self.n_clips))
-        self.cap_track = max(self.cap_track, _round_up(mt, self.n_tracks))
-        shapes = {
-            "caps": (self.cap_clip, self.cap_track),
-            "tables": (self.n_clips, self.n_tracks),
-        }
-        if not self._profitable():
-            if self.force is not True:
-                self.enabled = False  # cardinality won't shrink; stop measuring
+        with span("lirec.localize"):
+            # single analysis pass per batch; padding waits for the
+            # capacities
+            infos = [_analyze(b, self.n_clips, self.n_tracks)
+                     for b in batches]
+            mc = max((uc.size for uc, _, _ in infos), default=1)
+            mt = max((ut.size for _, ut, _ in infos), default=1)
+            self.cap_clip = max(self.cap_clip, _round_up(mc, self.n_clips))
+            self.cap_track = max(self.cap_track,
+                                 _round_up(mt, self.n_tracks))
+            shapes = {
+                "caps": (self.cap_clip, self.cap_track),
+                "tables": (self.n_clips, self.n_tracks),
+            }
+            if not self._profitable():
+                if self.force is not True:
+                    # cardinality won't shrink; stop measuring
+                    self.enabled = False
+                dispatch.record(
+                    "localize_tables", "off",
+                    "batch-unique rows not under %.0f%% of table rows"
+                    % (100 * _PROFIT_FRAC), shapes,
+                )
+                return batches
+            out = [
+                _emit(b, nfi, uc, ut, self.cap_clip, self.cap_track)
+                for b, (uc, ut, nfi) in zip(batches, infos)
+            ]
+            self.applied = True
             dispatch.record(
-                "localize_tables", "off",
-                "batch-unique rows not under %.0f%% of table rows"
-                % (100 * _PROFIT_FRAC), shapes,
+                "localize_tables", "on",
+                "forced" if self.force is True else "profitable", shapes,
             )
-            return batches
-        out = [
-            _emit(b, nfi, uc, ut, self.cap_clip, self.cap_track)
-            for b, (uc, ut, nfi) in zip(batches, infos)
-        ]
-        self.applied = True
-        dispatch.record(
-            "localize_tables", "on",
-            "forced" if self.force is True else "profitable", shapes,
-        )
-        return out
+            return out

@@ -57,6 +57,7 @@ import torch
 from lirec_tpu_torch.evaluation.metrics import MetricAccumulator, RelationshipsAcc
 from lirec_tpu_torch.evaluation.runner import summarize_metrics
 from lirec_tpu_torch.utils.graphs import StepGraph, capturing, take
+from lirec_tpu_torch.utils.profiling import span
 
 __all__ = [
     "evaluate_packed",
@@ -488,20 +489,26 @@ def sweep_carry(
         bundle, t, n_classes, n_rels, n_hashes, use_kernel=use_kernel)
     model.eval()
     with torch.inference_mode():
-        # numpy arrays or tensors (the train cadence passes its own)
-        tables = {k: torch.as_tensor(tables[k], dtype=torch.float32,
-                                     device=device)
-                  for k in ("text", "visual", "track")}
-        embedded = embed_all(model, bundle.spec, tables)
-        # remapped feat_idx replaces the sweep rows (tail rows untouched);
-        # per-batch unique ids ride a separate [n_full, cap] tree
-        loc = _maybe_localize_eval_ctx(dataset, data, embedded, B, n_full,
-                                       t, use_kernel, localize_ctx)
-        data = loc_apply_data(data, loc)
-        # staged once: [n_full, B, ...], indexed per batch
-        stack = {k: np.asarray(v)[: n_full * B].reshape(
-            (n_full, B) + np.shape(v)[1:]) for k, v in data.items()}
-        loc_dev = _loc_device_tree(loc, device)
+        with span("lirec.eval.tables"):
+            # numpy arrays or tensors (the train cadence passes its own)
+            tables = {k: torch.as_tensor(tables[k], dtype=torch.float32,
+                                         device=device)
+                      for k in ("text", "visual", "track")}
+        with span("lirec.eval.embed"):
+            embedded = embed_all(model, bundle.spec, tables)
+        with span("lirec.eval.localize"):
+            # remapped feat_idx replaces the sweep rows (tail rows
+            # untouched); per-batch unique ids ride a separate [n_full,
+            # cap] tree
+            loc = _maybe_localize_eval_ctx(dataset, data, embedded, B,
+                                           n_full, t, use_kernel,
+                                           localize_ctx)
+            data = loc_apply_data(data, loc)
+            loc_dev = _loc_device_tree(loc, device)
+        with span("lirec.eval.stage"):
+            # staged once: [n_full, B, ...], indexed per batch
+            stack = {k: np.asarray(v)[: n_full * B].reshape(
+                (n_full, B) + np.shape(v)[1:]) for k, v in data.items()}
         if graph and device.type != "cuda":
             raise ValueError("the eval sweep's CUDA graph needs the model "
                              "on a card; it is on %s" % device)
@@ -531,21 +538,28 @@ def sweep_carry(
             carry = captured.carry
             tables, embedded = captured.tables, captured.embedded
         else:
-            data_dev = {k: torch.as_tensor(v).to(device)
-                        for k, v in stack.items()}
-            carry = init_carry(device)
-            for i in range(n_full):
-                batch = inject_loc({k: v[i] for k, v in data_dev.items()},
-                                   loc_dev, i)
-                step(model, tables, embedded, carry, batch)
+            with span("lirec.eval.stage"):
+                data_dev = {k: torch.as_tensor(v).to(device)
+                            for k, v in stack.items()}
+            with span("lirec.eval.zero"):
+                carry = init_carry(device)
+            with span("lirec.eval.replays"):
+                for i in range(n_full):
+                    batch = inject_loc({k: v[i] for k, v in
+                                        data_dev.items()}, loc_dev, i)
+                    step(model, tables, embedded, carry, batch)
         if tail:
-            tail_batch = {
-                k: torch.as_tensor(np.asarray(v)[n_full * B:]).to(device)
-                for k, v in data.items()
-            }
-            carry = step(model, tables, embedded, carry, tail_batch)
+            with span("lirec.eval.tail"):
+                tail_batch = {
+                    k: torch.as_tensor(np.asarray(v)[n_full * B:]).to(device)
+                    for k, v in data.items()
+                }
+                carry = step(model, tables, embedded, carry, tail_batch)
+    with span("lirec.eval.fetch"):
         carry = {k: v.cpu().numpy() for k, v in carry.items()}
-    return allreduce_carry(carry, mesh) if mesh is not None else carry
+        if mesh is not None:
+            carry = allreduce_carry(carry, mesh)
+    return carry
 
 
 # model -> {key: _EvalGraph}: a model's graphs go with it
@@ -589,11 +603,13 @@ class _EvalGraph:
     def __init__(self, step, init_carry, model, tables, embedded, stack,
                  loc_dev, device):
         self.tables, self.embedded = tables, embedded
-        self.stack = {k: torch.as_tensor(v).to(device)
-                      for k, v in stack.items()}
+        with span("lirec.eval.stage"):
+            self.stack = {k: torch.as_tensor(v).to(device)
+                          for k, v in stack.items()}
         self.loc = loc_dev
-        self.carry = init_carry(device)
-        self.index = torch.zeros(1, dtype=torch.int64, device=device)
+        with span("lirec.eval.zero"):
+            self.carry = init_carry(device)
+            self.index = torch.zeros(1, dtype=torch.int64, device=device)
         gen = step.loss_generator(device)
         self.generators = [gen] if gen is not None else []
         self.n_full = len(stack["labels"])
@@ -605,11 +621,12 @@ class _EvalGraph:
             step(model, self.tables, self.embedded, self.carry, batch)
             self.index.add_(1)
 
-        self._seed()
-        self.graph = StepGraph(one, device, self.generators)
-        for _ in range(self.n_full - 1):
+        with span("lirec.eval.replays"):
             self._seed()
-            self.graph.replay()
+            self.graph = StepGraph(one, device, self.generators)
+            for _ in range(self.n_full - 1):
+                self._seed()
+                self.graph.replay()
 
     def _seed(self):
         for g in self.generators:
@@ -618,16 +635,19 @@ class _EvalGraph:
     def sweep(self, tables, embedded, stack, loc_dev) -> None:
         """The full batches of `stack` (the shapes of the first sweep's)
         into a zeroed carry."""
-        _copy_into(self.tables, tables)
-        _copy_into(self.embedded, embedded)
-        _copy_into(self.stack, stack)
-        _copy_into(self.loc, loc_dev)
-        for v in self.carry.values():
-            v.zero_()
-        self.index.zero_()
-        for _ in range(self.n_full):
-            self._seed()
-            self.graph.replay()
+        with span("lirec.eval.stage"):
+            _copy_into(self.tables, tables)
+            _copy_into(self.embedded, embedded)
+            _copy_into(self.stack, stack)
+            _copy_into(self.loc, loc_dev)
+        with span("lirec.eval.zero"):
+            for v in self.carry.values():
+                v.zero_()
+            self.index.zero_()
+        with span("lirec.eval.replays"):
+            for _ in range(self.n_full):
+                self._seed()
+                self.graph.replay()
 
 
 def evaluate_packed(
@@ -656,8 +676,9 @@ def evaluate_packed(
                         use_kernel=use_kernel, localize_ctx=localize_ctx,
                         mesh=mesh, graph=graph)
     n_hashes = len(getattr(dataset, "hashidx_rels", ()) or ())
-    return finish_from_carry(carry, cfg.tasks, dataset.n_rels, n_hashes,
-                             mode, verbose)
+    with span("lirec.eval.finish"):
+        return finish_from_carry(carry, cfg.tasks, dataset.n_rels, n_hashes,
+                                 mode, verbose)
 
 
 def finish_from_carry(

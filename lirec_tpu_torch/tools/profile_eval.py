@@ -16,14 +16,19 @@ prints
 
 - ms/batch and clips/s of the unprofiled sweeps;
 - device busy ms/batch: the slope of the union of the kernel spans;
-- the idle share: 1 - busy / the unprofiled ms/batch;
-- the traced sweeps' own ms/batch (their host clock under the profiler)
-  and the idle share against it, and how long the N2 trace's kernel spans
-  overlap (their summed lengths less their union): under graph replays
-  the busy slope has read above the unprofiled wall slope, which these
-  tell apart (the profiler slowing the replays, or spans that overlap);
+- the traced sweeps' own ms/batch (their host clock under the profiler),
+  and how long the N2 trace's kernel spans overlap (their summed lengths
+  less their union): under graph replays the busy slope has read above
+  the unprofiled wall slope, which these tell apart (the profiler slowing
+  the replays, or spans that overlap);
 - the ctx pool kernels' µs per batch (the 3-table or the triple kernel),
   and the profiler's table of the largest device items of the N2 sweep.
+
+The device's idle share is not a slope over two runs: the benchmark reads
+it over one traced window of whole sweeps (``benchmark/metrics/
+device_idle.*``), and which host phase of the sweep leaves the card idle
+from the program's own spans (``restart_idle_ms.*``, ``replay_idle_ms.*``;
+PERF.md §3).
 
 Needs a CUDA card; exits 2 without one.
 """
@@ -106,8 +111,7 @@ def profile(compute: str, tier, data, tables, graph: bool) -> dict:
     traced_ms = slope(lambda n: traced[n]) * 1e3
     return {
         "batch_ms": batch_ms, "clips_per_s": BATCH / batch_ms * 1e3,
-        "busy_ms": busy_ms, "idle_share": 1 - busy_ms / batch_ms,
-        "traced_ms": traced_ms, "traced_idle_share": 1 - busy_ms / traced_ms,
+        "busy_ms": busy_ms, "traced_ms": traced_ms,
         "span_overlap_us": _overlap_us(spans[N2]),
         "pool_us": pool_us,
         "table": prof.key_averages().table(sort_by="self_device_time_total",
@@ -143,14 +147,12 @@ def main() -> int:
                 label = "%s localize=%s %s" % (compute, tier or "off",
                                                "graph" if graph else "eager")
                 print("%s: %.4f ms/batch (%.0f clips/s), device busy %.4f "
-                      "ms/batch, idle share %.3f; traced %.4f ms/batch, "
-                      "idle share of the traced sweep %.3f, kernel spans "
+                      "ms/batch; traced %.4f ms/batch, kernel spans "
                       "overlapping %.1f us in the N2 trace; ctx pool "
                       "kernel %.1f us/batch" % (
                           label, r["batch_ms"], r["clips_per_s"],
-                          r["busy_ms"], r["idle_share"], r["traced_ms"],
-                          r["traced_idle_share"], r["span_overlap_us"],
-                          r["pool_us"]))
+                          r["busy_ms"], r["traced_ms"],
+                          r["span_overlap_us"], r["pool_us"]))
                 print(r["table"], flush=True)
     return 0
 

@@ -13,9 +13,6 @@ It prints
 - the unprofiled steps' median ms/step and clips/s;
 - device busy ms/step: the union of the profiled steps' kernel spans,
   divided by the number of profiled steps;
-- the idle share: 1 - busy / the median of the unprofiled steps of the
-  same run (profiling slows the host, so the profiled steps' own wall time
-  would overstate it);
 - the scatter's kernels (``scatter_hot_kernel`` and
   ``scatter_short_kernel``, concurrent) and its counting sort
   (``sort_count_kernel``, ``sort_prefix_kernel``, ``sort_place_kernel``,
@@ -24,6 +21,11 @@ It prints
   each group as the union of its spans in µs per step and as a share of
   device busy;
 - the profiler's table of the largest device items.
+
+The device's idle share of the epoch sweep is the benchmark's, over one
+traced window of whole epochs (``benchmark/metrics/device_idle.train*``),
+and which host phase leaves the card idle the program's own spans
+(``staging_idle_ms.*``, ``replay_idle_ms.train*``; PERF.md §3).
 
 Needs a CUDA card; exits 2 without one.
 """
@@ -121,7 +123,7 @@ def profile(compute: str) -> dict:
     return {
         "compute": compute, "step_ms": step_ms, "step_ms_all": times,
         "clips_per_s": BATCH / step_ms * 1e3,
-        "busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / 1e3 / step_ms,
+        "busy_ms": busy_us / 1e3,
         "scatter_us": scatter_us, "sort_us": sort_us,
         "scatter_share": scatter_us / busy_us, "sort_share": sort_us / busy_us,
         "table": prof.key_averages().table(sort_by="self_device_time_total",
@@ -145,8 +147,7 @@ def main() -> int:
                   compute, r["step_ms"], STEPS, r["clips_per_s"],
                   ["%.2f" % t for t in r["step_ms_all"]]))
         print("%s: device busy %.4f ms/step (union of kernel spans over %d "
-              "profiled steps); idle share %.3f of the unprofiled median"
-              % (compute, r["busy_ms"], PROFILED, r["idle_share"]))
+              "profiled steps)" % (compute, r["busy_ms"], PROFILED))
         print("%s: scatter kernel %.1f us/step (%.3f of busy), its sort "
               "%.1f us/step (%.3f of busy)" % (
                   compute, r["scatter_us"], r["scatter_share"], r["sort_us"],

@@ -97,6 +97,7 @@ from lirec_tpu_torch.parallel.mesh import (
 from lirec_tpu_torch.train.optim import file_state, load_state, make_optimizer
 from lirec_tpu_torch.train.sweep import SEED_STRIDE, EpochSweep
 from lirec_tpu_torch.utils.meters import Averaging, MetricsLogger
+from lirec_tpu_torch.utils.profiling import span
 
 __all__ = ["train", "make_train_step", "train_loss", "step_generators",
            "step_seeds"]
@@ -141,8 +142,9 @@ def check_batch(batch: Dict, tables: Optional[Dict]) -> None:
     """check_indices of a packed host batch against `tables`; a dense
     batch has no row ids."""
     if tables is not None and "feat_idx" in batch:
-        check_indices(batch, tables["text"].shape[0],
-                      tables["track"].shape[0])
+        with span("lirec.train.check"):
+            check_indices(batch, tables["text"].shape[0],
+                          tables["track"].shape[0])
 
 
 def staged(batch: Dict, device) -> bool:

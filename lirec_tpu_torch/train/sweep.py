@@ -44,6 +44,7 @@ import torch
 
 from lirec_tpu_torch.data.pipeline import BATCH_LEVEL_KEYS
 from lirec_tpu_torch.ops import dispatch
+from lirec_tpu_torch.utils.profiling import span
 
 __all__ = ["EpochSweep", "stack_epoch_batches", "SEED_STRIDE"]
 
@@ -156,8 +157,9 @@ class EpochSweep:
         returns one device tensor of losses per chunk."""
         out = []
         for c0 in range(0, len(batches), self.chunk):
-            stacked = stack_epoch_batches(batches[c0:c0 + self.chunk],
-                                          self.batch_size)
+            with span("lirec.train.stack"):
+                stacked = stack_epoch_batches(batches[c0:c0 + self.chunk],
+                                              self.batch_size)
             offset = epoch * SEED_STRIDE + c0
             shapes = {k: tuple(v.shape) for k, v in stacked.items()}
             dispatch.record("train_loop", "graph" if self.graph else "eager",
@@ -169,7 +171,8 @@ class EpochSweep:
     @staticmethod
     def fetch(losses: List[torch.Tensor]) -> List[float]:
         """The host values of ``run``'s losses (one read per chunk)."""
-        return [float(x) for part in losses for x in part.cpu().numpy()]
+        with span("lirec.train.fetch"):
+            return [float(x) for part in losses for x in part.cpu().numpy()]
 
     def _host(self, stacked: Dict) -> Dict[str, torch.Tensor]:
         """The stacked arrays as host tensors (this rank's rows under a
@@ -180,24 +183,28 @@ class EpochSweep:
 
             rows = process_local_slice(self.mesh, self.batch_size)
         out = {}
-        for k, v in stacked.items():
-            t = torch.from_numpy(v if k in BATCH_LEVEL_KEYS
-                                 else np.ascontiguousarray(v[:, rows]))
-            out[k] = t.pin_memory() if self.device.type == "cuda" else t
+        with span("lirec.train.pin"):
+            for k, v in stacked.items():
+                t = torch.from_numpy(v if k in BATCH_LEVEL_KEYS
+                                     else np.ascontiguousarray(v[:, rows]))
+                out[k] = t.pin_memory() if self.device.type == "cuda" else t
         return out
 
     def _run_eager(self, stacked, offset, flag):
         from lirec_tpu_torch.train.loop import step_generators
 
-        staged = {k: v.to(self.device, non_blocking=True)
-                  for k, v in self._host(stacked).items()}
+        host = self._host(stacked)
+        with span("lirec.train.h2d"):
+            staged = {k: v.to(self.device, non_blocking=True)
+                      for k, v in host.items()}
         losses = torch.empty(len(stacked["labels"]), dtype=torch.float32,
                              device=self.device)
-        for i in range(len(losses)):
-            losses[i] = self.step(
-                {k: v[i] for k, v in staged.items()}, self.tables,
-                step_generators(self.seed, offset + i, self.device),
-                tr_sum_max_flag=flag)
+        with span("lirec.train.replays"):
+            for i in range(len(losses)):
+                losses[i] = self.step(
+                    {k: v[i] for k, v in staged.items()}, self.tables,
+                    step_generators(self.seed, offset + i, self.device),
+                    tr_sum_max_flag=flag)
         return losses
 
     def _run_graph(self, stacked, offset, flag):
@@ -214,8 +221,9 @@ class EpochSweep:
             # older graphs (and their memory) are not needed again
             self._captured.clear()
             cap = self._captured[key] = _Captured(host, self.device)
-        for k, v in host.items():
-            cap.stack[k][:steps].copy_(v, non_blocking=True)
+        with span("lirec.train.h2d"):
+            for k, v in host.items():
+                cap.stack[k][:steps].copy_(v, non_blocking=True)
         cap.index.zero_()
 
         def step():
@@ -225,14 +233,15 @@ class EpochSweep:
             cap.losses.index_copy_(0, cap.index, loss.reshape(1).float())
             cap.index.add_(1)
 
-        for i in range(steps):
-            for gen, s in zip(cap.generators, step_seeds(self.seed,
-                                                         offset + i)):
-                gen.manual_seed(s)
-            if cap.graph is None:  # its warm-up is this step
-                cap.graph = StepGraph(step, self.device, cap.generators)
-                cap.grads = [p.grad for p in self.params]
-                self.capture_s.append(cap.graph.capture_s)
-            else:
-                cap.graph.replay()
+        with span("lirec.train.replays"):
+            for i in range(steps):
+                for gen, s in zip(cap.generators, step_seeds(self.seed,
+                                                             offset + i)):
+                    gen.manual_seed(s)
+                if cap.graph is None:  # its warm-up is this step
+                    cap.graph = StepGraph(step, self.device, cap.generators)
+                    cap.grads = [p.grad for p in self.params]
+                    self.capture_s.append(cap.graph.capture_s)
+                else:
+                    cap.graph.replay()
         return cap.losses[:steps].clone()

@@ -19,7 +19,11 @@ process's counts at every replay. The ``torch.Generator``s the step draws
 from are registered with the graph; the caller seeds them before each
 replay, and the replay then draws what the eager step draws from the same
 seeds. A capture that fails raises: nothing falls back to eager steps.
-``CAPTURE_SECONDS`` keeps the host seconds of the latest captures.
+``CAPTURE_SECONDS`` keeps the host seconds of the latest captures. A
+capture is the host span ``lirec.graph.capture`` of a trace
+(utils/profiling.span); the step inside opens none. A replay opens no span
+of its own: the trace marks each with its ``cudaGraphLaunch``, and the
+callers' ``lirec.<layer>.replays`` spans hold their loops of replays.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Callable, Sequence
 import torch
 
 from lirec_tpu_torch.ops import dispatch
+from lirec_tpu_torch.utils.profiling import span
 
 __all__ = ["StepGraph", "capturing", "take", "CAPTURE_SECONDS"]
 
@@ -82,7 +87,7 @@ class StepGraph:
         for gen in generators:
             self.graph.register_generator_state(gen)
         t0 = time.perf_counter()
-        with torch.cuda.stream(stream), \
+        with span("lirec.graph.capture"), torch.cuda.stream(stream), \
                 dispatch.recording_launches() as launches:
             self.graph.capture_begin()
             try:

@@ -3,18 +3,36 @@
 ``trace(log_dir)`` wraps a block in a ``torch.profiler`` trace (host
 activity, and the card's kernels and copies when the work runs on one)
 and writes it as one Chrome trace JSON (``chrome://tracing``, Perfetto);
-``StepTimer`` aggregates named wall-clock spans.
+``span(name)`` names a stretch of the program's host work in that trace:
+a ``torch.profiler.record_function`` while a profiler runs (the span lands
+beside the card's kernels and copies, on the profiler's clock), one shared
+no-op context otherwise, so that a span costs a flag test when nothing
+traces. The port's spans are named ``lirec.<layer>.<phase>``
+(PERF.md §3 lists them with the metrics that read them); none is opened
+inside a captured CUDA graph step, since a replay records no host span.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import ContextManager, Iterator, Optional
 
-__all__ = ["trace", "trace_path", "StepTimer"]
+import torch
+
+__all__ = ["trace", "trace_path", "span"]
+
+_OFF = contextlib.nullcontext()  # the span while no profiler runs
+
+
+def span(name: str) -> ContextManager:
+    """A host span `name` in the running profiler's trace
+    (``torch.profiler.record_function``); the shared no-op when no profiler
+    runs (``record_function`` costs over ten microseconds of host time a
+    span even then, the guard well under one)."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def trace_path(log_dir: str, name: str, rank: Optional[int] = None) -> str:
@@ -33,7 +51,6 @@ def trace(log_dir: Optional[str], device="cpu", name: str = "trace",
     if not log_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -43,30 +60,3 @@ def trace(log_dir: Optional[str], device="cpu", name: str = "trace",
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(trace_path(log_dir, name, rank))
-
-
-class StepTimer:
-    """Named wall-clock spans with running stats."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def span(self, name: str) -> Iterator[None]:
-        start = time.time()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.time() - start
-            self.counts[name] += 1
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {
-            name: {
-                "total_s": self.totals[name],
-                "count": self.counts[name],
-                "mean_ms": 1000.0 * self.totals[name] / max(self.counts[name], 1),
-            }
-            for name in self.totals
-        }

@@ -1,10 +1,10 @@
 """--profile on the port's CLIs (utils/profiling.py): a torch.profiler
 Chrome trace of the training run and of each evaluation, one file per
-data-parallel rank; and StepTimer, a copy of the JAX package's."""
+data-parallel rank. The host spans inside the program are
+tests/test_torch_spans.py's."""
 
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -13,7 +13,7 @@ import torch
 from lirec_tpu_torch.cli import common, int_rel_ch
 from lirec_tpu_torch.cli import train as train_cli
 from lirec_tpu_torch.models.factory import create_model
-from lirec_tpu_torch.utils.profiling import StepTimer, trace, trace_path
+from lirec_tpu_torch.utils.profiling import trace, trace_path
 
 DIM_ARGS = ["--text-dim", "16", "--visual-dim", "32", "--text-layers", "4",
             "--joint-dim", "16", "--compute-dtype", "float32"]
@@ -48,9 +48,9 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 
 def test_profile_traces_train_and_eval(synth_root, tmp_path):
     """--profile DIR on the training CLI writes train.json (the train
-    step's ops and the scatter's plain index_add_ on the CPU), and on the
-    eval CLI val.json and test.json; the metrics are those of the run
-    without it."""
+    step's ops and the scatter's plain index_add_ on the CPU, and the
+    program's lirec.* spans), and on the eval CLI val.json and test.json;
+    the metrics are those of the run without it."""
     prof = str(tmp_path / "prof")
     base = ["--data-root", synth_root, "--batch-size", "8", "--device",
             "cpu", "--quiet", "--sanity-check", "--lr", "1e-3"] + DIM_ARGS
@@ -59,6 +59,10 @@ def test_profile_traces_train_and_eval(synth_root, tmp_path):
     assert np.isfinite(out["train"]["losses"]).all()
     names = _events(os.path.join(prof, "train.json"))
     assert "aten::index_add_" in names and "Optimizer.step#Adam.step" in names
+    # the program's spans: the epoch sweep's phases, the Localizer, and
+    # the cadence eval's sweep
+    assert {"lirec.train.check", "lirec.train.replays", "lirec.train.fetch",
+            "lirec.localize", "lirec.eval.replays"} <= names
 
     ckpt = str(tmp_path / "weights.pth.tar")
     args = base + ["--resume-path", ckpt, "--store-root",
@@ -76,7 +80,10 @@ def test_profile_traces_train_and_eval(synth_root, tmp_path):
     assert sorted(os.listdir(prof)) == ["test.json", "train.json",
                                         "val.json"]
     for split in ("val", "test"):
-        assert "aten::tanh" in _events(os.path.join(prof, split + ".json"))
+        names = _events(os.path.join(prof, split + ".json"))
+        assert "aten::tanh" in names
+        assert {"lirec.eval.stage", "lirec.eval.replays",
+                "lirec.eval.finish"} <= names
 
 
 def test_profile_under_a_mesh_writes_one_trace_per_rank(synth_root,
@@ -92,19 +99,6 @@ def test_profile_under_a_mesh_writes_one_trace_per_rank(synth_root,
                                         "train.rank1.json"]
     for name in os.listdir(prof):
         assert "aten::index_add_" in _events(os.path.join(prof, name))
-
-
-def test_step_timer_aggregates_spans():
-    timer = StepTimer()
-    for _ in range(3):
-        with timer.span("a"):
-            time.sleep(0.002)
-    with timer.span("b"):
-        pass
-    s = timer.summary()
-    assert s["a"]["count"] == 3 and s["b"]["count"] == 1
-    assert s["a"]["total_s"] >= 0.006
-    assert s["a"]["mean_ms"] == pytest.approx(1000 * s["a"]["total_s"] / 3)
 
 
 def test_kernel_span_union_and_overlap():
