@@ -431,6 +431,18 @@ def check(cond, msg):
         raise Failure(msg)
 
 
+def kernel_launches():
+    """ops/dispatch's launch counts of the hand-written kernels: the bf16
+    GEMMs' (models/layers.GEMM_NAME, cuBLAS under bf16 compute) are left
+    out, so that a phase's counts name its kernels alone."""
+    from lirec_tpu_torch.models.layers import GEMM_NAME
+    from lirec_tpu_torch.ops import dispatch
+
+    counts = dispatch.launches()
+    counts.pop(GEMM_NAME, None)
+    return counts
+
+
 # ------------------------------------------------------------------ card
 
 
@@ -1063,7 +1075,7 @@ def main_path(torch):
                 log("  %s /predict B=%-2d median %.2f ms over %d requests"
                     % (compute, B, latency[(compute, B)], len(times) - 1))
         forwards[compute] = n
-    counts = dispatch.launches()
+    counts = kernel_launches()
     # ---- end of the counted run
 
     names = {"bfloat16": KERNEL_NAMES[("fused_ctx_pool", torch.bfloat16)],
@@ -1537,7 +1549,7 @@ def train_path(torch, batches):
             losses.append(float(loss))  # waits for the step
             times.append((time.perf_counter() - t) * 1e3)
         torch.cuda.synchronize()
-        counted = dispatch.launches()
+        counted = kernel_launches()
         # ---- end of the counted run
         check(all(np.isfinite(losses)), "%s: losses %s" % (compute, losses))
         check(counted == {name: len(batches), SORT_NAME: len(batches)},
@@ -1588,7 +1600,7 @@ def train_entry(torch):
         dispatch.reset_launches()
         out = train(cfg, bundle, ds, verbose=False)
         torch.cuda.synchronize()
-        counted = dispatch.launches()
+        counted = kernel_launches()
     name = KERNEL_NAMES[torch.bfloat16]  # the preset computes in bf16
     steps = 2 * -(-len(ds) // 8)
     check(len(out["losses"]) == 2 and all(np.isfinite(out["losses"])),
@@ -1722,7 +1734,7 @@ def eval_sweep(torch, spec):
                 dispatch.reset_launches()
                 metrics = sweep(tier)
                 torch.cuda.synchronize()
-                launched = dispatch.launches()
+                launched = kernel_launches()
                 # ---- end of the counted run
                 carries[tier] = captured["carry"]
                 want = ({tri: EVAL_FULL, three: 1} if tier == "triple"
@@ -1826,7 +1838,7 @@ def eval_cli(torch):
         dispatch.reset_launches()
         out = int_rel_ch.main(args)
         torch.cuda.synchronize()
-        launched = dispatch.launches()
+        launched = kernel_launches()
     for split in ("val", "test"):
         check(all(math.isfinite(v) for v in out[split].values()),
               "CLI %s metrics %s" % (split, out[split]))
@@ -1851,7 +1863,7 @@ def probe_phase(torch):
     dma = probe_hbm_dma.main([])
     pack = probe_bf16_pack.main([])
     torch.cuda.synchronize()
-    counts = dispatch.launches()
+    counts = kernel_launches()
     # ---- end of the counted run
     check(all(math.isfinite(dma[k + "_ms"]) and dma[k + "_ms"] > 0
               for k in ("per_row", "per_row_runs", "per_run", "plain")),
@@ -2028,7 +2040,7 @@ def train_cli_phase(torch):
         out = train_cli.main(base + ["--epochs", "3", "--checkpoint-every",
                                      "1"])
         torch.cuda.synchronize()
-        counts = dispatch.launches()
+        counts = kernel_launches()
         # ---- end of the counted run
         secs = time.perf_counter() - t0
         losses = out["train"]["losses"]
@@ -2178,7 +2190,7 @@ def counted_none(torch, label):
     dispatch.reset_launches()
     yield
     torch.cuda.synchronize()
-    counts = dispatch.launches()
+    counts = kernel_launches()
     check(not any(counts.values()), "%s launched kernels: %s"
           % (label, counts))
 
@@ -2471,7 +2483,7 @@ def rels_only_phase(torch, root, card):
         got = evaluate_rels_only(ds, bundle, bundle.model, cfg,
                                  verbose=False, batch_size=EVAL_B)
         torch.cuda.synchronize()
-        launched = dispatch.launches()
+        launched = kernel_launches()
         plain = evaluate_rels_only(ds, bundle, bundle.model, cfg,
                                    verbose=False, batch_size=EVAL_B,
                                    use_kernel=False)
@@ -2501,7 +2513,7 @@ def rels_only_phase(torch, root, card):
                                  verbose=False, batch_size=EVAL_B)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        launched = dispatch.launches()
+        launched = kernel_launches()
         # ---- end of the counted run
         plain = evaluate_rels_only(stand_in, bundle, bundle.model, cfg,
                                    verbose=False, batch_size=EVAL_B,
@@ -2725,7 +2737,7 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
                     data=split, tables=host_tables, localize_ctx=False,
                     mesh=mesh)
                 torch.cuda.synchronize()
-                swept = dispatch.launches()
+                swept = kernel_launches()
                 # ---- end of the counted run
                 want = eval_ref["carries"][compute]
                 check(set(carry) == set(want), "carry keys")
@@ -2749,7 +2761,7 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
                                              step_generators(0, i, "cuda"))))
                     times.append((time.perf_counter() - t) * 1e3)
                 torch.cuda.synchronize()
-                stepped = dispatch.launches()
+                stepped = kernel_launches()
                 # ---- end of the counted run
                 want_losses, want_params = train_finals[compute]
                 check(losses == want_losses, "%s: world-of-one losses %s, "
@@ -2969,7 +2981,7 @@ def mesh_graph_steps(torch, ccfg, mesh, batches, tables, eager_losses,
     dispatch.reset_launches()
     losses = sweep.fetch(sweep.run(batches, 0))
     torch.cuda.synchronize()
-    replayed = dispatch.launches()
+    replayed = kernel_launches()
     # ---- end of the counted run
     last = dispatch.last_dispatch("train_loop")
     check((last["path"], last["reason"]) == ("graph", "cuda: nccl mesh"),
@@ -3502,8 +3514,8 @@ def dense_train_steps(torch, raw):
         del dense, staged
     torch.cuda.synchronize()
     check(all(np.isfinite(losses)), "dense train losses %s" % losses)
-    check(dispatch.launches() == {}, "dense steps launched %s"
-          % dispatch.launches())
+    check(kernel_launches() == {}, "dense steps launched %s"
+          % kernel_launches())
     out["losses"] = losses
     log("  (b) 3 dense int_rel_ch steps at B=%d (features [%d, 20, 19, "
         "6912] f32, %.1f MB a batch): losses %s; host to_dense %s ms, "
@@ -3809,7 +3821,7 @@ def ingest_and_eval_clis(torch, root, device, dims):
             "--ingest-cache: val %s, test %s, all three equal"
             % (compute, runs[0]["val"], runs[0]["test"]))
     torch.cuda.synchronize()
-    launched = dispatch.launches()
+    launched = kernel_launches()
     # the f32 artifact through the plain versions on the CPU
     plain = int_rel_ch.main(
         ["--data-root", root, "--device", "cpu", "--quiet"] + dim_args(dims)
@@ -3885,7 +3897,7 @@ def int_rels_sweep_checks(torch, root, arts, device, dims):
     card = int_rels.main(args + ["--device", device])
     if device == "cuda":
         torch.cuda.synchronize()
-    launched = dispatch.launches()
+    launched = kernel_launches()
     plain = int_rels.main(args + ["--device", "cpu"])
     same_metrics(card, plain, "int_rels", device)
     splits = load_ingest(arts["int_rels"], cfg)
@@ -4053,7 +4065,7 @@ def train_sweep_checks(torch, batches, finals):
         t = time.perf_counter()
         losses = sweep.fetch(sweep.run(batches, 0))
         first_ms = (time.perf_counter() - t) * 1e3
-        counted = dispatch.launches()
+        counted = kernel_launches()
         # ---- end of the counted run
         check(counted == {name: len(batches), SORT_NAME: len(batches)},
               "%s sweep launched %s for %d steps" % (compute, counted,
@@ -4153,7 +4165,7 @@ def eval_graph_checks(torch, eval_ref):
                 if not tier:
                     whole["first graph" if graph else "eager"] = \
                         time.perf_counter() - t
-                launched[graph] = dispatch.launches()
+                launched[graph] = kernel_launches()
                 # ---- end of the counted run
                 check(dispatch.last_dispatch("eval_sweep")["path"]
                       == ("graph" if graph else "eager"),
@@ -4292,7 +4304,7 @@ def int_rels_graph_checks(torch, root):
         dispatch.reset_launches()
         metrics = int_rels.main(args + ["--batch-size", str(B)])
         torch.cuda.synchronize()
-        launched = dispatch.launches()
+        launched = kernel_launches()
         # ---- end of the counted run
         full = batches = graphed = 0
         for split in ("val", "test"):
@@ -4340,7 +4352,7 @@ def int_rels_graph_checks(torch, root):
         finally:
             scatter_accum.scatter_accum1 = real
         torch.cuda.synchronize()
-        launches[graph] = dispatch.launches()
+        launches[graph] = kernel_launches()
     for key, v in carries[False].items():
         check(np.array_equal(carries[True][key], v), "int_rels test "
               "split: graph carry %s differs from the eager sweep's" % key)
@@ -4578,7 +4590,7 @@ def orbax_phase(torch, local):
         finally:
             tabular.fused_ctx_pool = real_pool
         torch.cuda.synchronize()
-        launched = dispatch.launches()
+        launched = kernel_launches()
         msgpack_file = os.path.join(root, "same_weights.ckpt")
         state, _, _ = load_jax_checkpoint(final)
         save_params(msgpack_file, state)
@@ -4623,7 +4635,7 @@ def orbax_phase(torch, local):
     for i, batch in enumerate(local[:ORBAX_STEPS]):
         step(batch, tables, step_generators(0, i, "cuda"))
     torch.cuda.synchronize()
-    steps = dispatch.launches()
+    steps = kernel_launches()
     name = KERNEL_NAMES[torch.bfloat16]
     check(steps.get(name, 0) == ORBAX_STEPS, "(d) %d launches of %s for %d "
           "steps" % (steps.get(name, 0), name, ORBAX_STEPS))
@@ -4738,7 +4750,7 @@ def sweep_and_steps(torch, label, fresh, batches, tables, expect):
     # ---- a counted run: one epoch of the sweep's graph
     dispatch.reset_launches()
     losses = sweep.fetch(sweep.run(batches, 0))
-    counted = dispatch.launches()
+    counted = kernel_launches()
     # ---- end of the counted run
     check(counted == expect, "%s: the graph's epoch launched %s, want %s"
           % (label, counted, expect))
@@ -4846,7 +4858,7 @@ def gt_int_rel_ch_checks(torch, local, eval_ref, card):
                                    tables=np_tables)
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t
-        launched = dispatch.launches()
+        launched = kernel_launches()
         # ---- end of the counted run
         check(launched == {pool: EVAL_FULL + 1}, "GT int_rel_ch %s cadence "
               "sweep launched %s" % (compute, launched))
@@ -5144,7 +5156,7 @@ def grounding_clis(torch, root):
                                          "--checkpoint-every", "2"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        launched = dispatch.launches()
+        launched = kernel_launches()
         losses = trained["train"]["losses"]
         check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
               "%s --tr-correct training CLI losses %s" % (preset, losses))
@@ -5358,7 +5370,7 @@ def long_rels_only(torch, card):
                                      verbose=False, batch_size=EVAL_B)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t
-            launched = dispatch.launches()
+            launched = kernel_launches()
             # ---- end of the counted run
         finally:
             gather_pool._launch = launch

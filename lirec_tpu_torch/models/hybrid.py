@@ -41,6 +41,7 @@ from lirec_tpu_torch.models.layers import (
     compute_dtype,
     dropout,
     linear,
+    product,
     row_reduce,
 )
 from lirec_tpu_torch.parallel.mesh import shard_of
@@ -48,6 +49,7 @@ from lirec_tpu_torch.ops.scatter_accum import gather_h1
 
 __all__ = [
     "H1Tables",
+    "masked_sum",
     "project_tables",
     "midfusion_hybrid",
     "midfusion_maxtracks_hybrid",
@@ -105,6 +107,24 @@ def _embed_from_h1(model, prefix: str, h1: H1Tables, idx: torch.Tensor,
     return torch.cat([txt, vis, tr1, tr2], dim=-1)
 
 
+def masked_sum(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """sum_r m[n, r] h[n, r, :] in f32: h [N, R, J], 0/1 weights m [N, R]
+    (f32) -> [N, J]. A bf16 h on a card: ``_masked_sum_bf16``; otherwise
+    the einsum of h in f32."""
+    if h.is_cuda and h.dtype == torch.bfloat16:
+        return _masked_sum_bf16(h, m)
+    return torch.einsum("nrj,nr->nj", h.float(), m)
+
+
+def _masked_sum_bf16(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``masked_sum`` of a bf16 h without its f32 copy: the products in
+    bf16 (exact, the weights are 0/1) summed in f32 by one reduction that
+    reads h once, where the einsum casts h to f32 and runs an f32 batched
+    GEMM. Its gradient, the incoming one rounded to bf16 times the
+    weights, is the einsum's bit for bit."""
+    return (h * m.to(h.dtype)[..., None]).sum(dim=1, dtype=torch.float32)
+
+
 def _pooled_ctx_from_h1(model, prefix: str, h1: H1Tables, idx: torch.Tensor,
                         mask: torch.Tensor, spec, rng: DropoutRng,
                         deterministic: bool, guard_zero_divide: bool,
@@ -112,10 +132,15 @@ def _pooled_ctx_from_h1(model, prefix: str, h1: H1Tables, idx: torch.Tensor,
     """ctx branch with the second layers applied after the masked mean.
 
     idx [N, R, 3], mask [N, R] -> [N, 3 * joint]. The pool sums the
-    relu(dropout) activations in f32 (bf16 values times 0/1 weights are
-    exact in f32, as in the JAX package's f32-accumulating einsum); the
-    second layer's bias is scaled by msum / divider (1 for a non-empty
-    context, 0 for an empty guarded one, NaN for an empty unguarded one).
+    relu(dropout) activations in f32 (``masked_sum``: bf16 values times
+    0/1 weights are exact, as in the JAX package's f32-accumulating
+    einsum); the second layer's bias is scaled by msum / divider (1 for a
+    non-empty context, 0 for an empty guarded one, NaN for an empty
+    unguarded one).
+    The second layers' products are ``layers.product`` of the pooled rows:
+    under bf16 compute cuBLAS's bf16 GEMM with an f32 result on CUDA
+    tensors (``layers.matmul_bf16``, backward too), the f32 product of the
+    bf16-rounded operands on CPU tensors.
     use_kernel=False takes the plain scatter in the gathers' backward.
     Under a model axis the pools run on this process's columns and the
     second layers' products are summed over the model group before the
@@ -135,12 +160,9 @@ def _pooled_ctx_from_h1(model, prefix: str, h1: H1Tables, idx: torch.Tensor,
         layer = model.get_submodule(name % prefix)
         h = torch.relu(dropout(h, p, rng, deterministic,
                                cols=shard_of(layer)))
-        ph = torch.einsum("nrj,nr->nj", h.float(), m) / divider
-        w = layer.weight
-        if cdt is not None:
-            ph = ph.to(cdt).float()
-            w = w.to(cdt).float()
-        return row_reduce(layer, ph @ w.t()) + layer.bias * bias_scale
+        ph = masked_sum(h, m) / divider
+        return (row_reduce(layer, product(ph, layer.weight, cdt))
+                + layer.bias * bias_scale)
 
     clip, g_tr1, g_tr2 = gather_h1(h1.clip, h1.tr1, h1.tr2, idx,
                                    use_kernel=use_kernel)

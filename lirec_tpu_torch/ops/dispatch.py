@@ -33,8 +33,13 @@ def record(kernel: str, path: str, reason: str, shapes) -> None:
     """Record (and log once per distinct decision) a dispatch choice."""
     _DISPATCH[kernel] = {"path": path, "reason": reason, "shapes": shapes}
     _DECISIONS[(kernel, path)] = _DECISIONS.get((kernel, path), 0) + 1
-    key = (kernel, path, reason, str(shapes))
-    if key not in _LOGGED:
+    key = (kernel, path, reason, shapes)
+    try:
+        fresh = key not in _LOGGED
+    except TypeError:  # shapes of lists or dicts
+        key = (kernel, path, reason, str(shapes))
+        fresh = key not in _LOGGED
+    if fresh:
         _LOGGED.add(key)
         _logger.info(
             "kernel dispatch: %s -> %s (%s) shapes=%s",

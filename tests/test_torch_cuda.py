@@ -1,6 +1,7 @@
 """The CUDA kernels (ctx pools, masked gather-sum, scatter-accumulate)
-against their plain PyTorch versions, one train step, and the one-dispatch
-sweeps' CUDA graphs against their eager steps, on the card.
+against their plain PyTorch versions, the bf16 GEMMs against their CPU
+emulation, one train step, and the one-dispatch sweeps' CUDA graphs
+against their eager steps, on the card.
 
 Marked ``cuda``: these skip without a CUDA device. The file imports no jax,
 so it runs on a machine without it:
@@ -13,6 +14,7 @@ import math
 import pytest
 import torch
 
+from lirec_tpu_torch.models.layers import GEMM_NAME
 from lirec_tpu_torch.models.tabular import EmbeddedTables
 from lirec_tpu_torch.ops import dispatch
 from lirec_tpu_torch.ops import scatter_accum as sa
@@ -1076,6 +1078,169 @@ def _launch_delta(before):
             if n != before.get(k, 0)}
 
 
+# the bf16 GEMMs of one int_rel_ch train step (forward and backward;
+# tests/test_torch_bf16_gemm.py counts them on the CPU)
+GEMMS_PER_STEP = 79
+# an int_rel_ch eval sweep's: embed_all's 16 once, the gate and 2 heads a
+# batch
+GEMMS_PER_SWEEP, GEMMS_PER_BATCH = 16, 3
+
+
+def _step_launches(compute, steps):
+    """The launch counts of `steps` int_rel_ch train steps: one sort and
+    one scatter a step; under bf16 compute the bf16 GEMMs too."""
+    name = sa.KERNEL_NAMES[torch.bfloat16 if compute == "bfloat16"
+                           else torch.float32]
+    want = {name: steps, sa.SORT_NAME: steps}
+    if compute == "bfloat16":
+        want[GEMM_NAME] = steps * GEMMS_PER_STEP
+    return want
+
+
+def test_a_replayed_step_counts_the_eager_steps_bf16_gemms(cuda):
+    """bf16 compute: one eager train step counts GEMMS_PER_STEP bf16 GEMMs
+    ("cuda" decisions), and so does one replay of the epoch sweep's graph
+    (a sweep of three steps less one of two: the same warm-up and
+    capture, one more replay)."""
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.train.sweep import EpochSweep
+    from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
+
+    def counted(run):
+        torch.cuda.synchronize()
+        before = dispatch.launches(GEMM_NAME)
+        run()
+        torch.cuda.synchronize()
+        return dispatch.launches(GEMM_NAME) - before
+
+    _, pb = _small_int_rel_ch("bfloat16", cuda)
+    batches = [make_batch(pb.spec, 4, 64, 96, seed=s) for s in range(3)]
+    tables = {k: torch.from_numpy(v).to(cuda)
+              for k, v in make_tables(pb.spec, 64, 96).items()}
+    step = make_train_step(pb, make_optimizer(pb.model.parameters(), 1e-3))
+    eager = counted(lambda: step(batches[0], tables,
+                                 step_generators(0, 0, cuda)))
+    assert dispatch.last_dispatch(GEMM_NAME)["path"] == "cuda"
+    swept = {}
+    for n in (2, 3):
+        _, pb = _small_int_rel_ch("bfloat16", cuda)
+        sweep = EpochSweep(pb, make_optimizer(pb.model.parameters(), 1e-3),
+                           tables, 0, 4, require_graph=True)
+        swept[n] = counted(lambda: sweep.fetch(sweep.run(batches[:n], 0)))
+    assert eager == swept[3] - swept[2] == GEMMS_PER_STEP
+    assert swept[2] == 2 * GEMMS_PER_STEP
+
+
+# the constant of _sum_order_bound: an H100's bf16 GEMMs (cuBLAS, torch
+# 2.11) read up to 6.0 at the gate's shape, f32 sums on a CPU 0.26
+SUM_ORDER_C = 16
+
+
+def _sum_order_bound(a, b):
+    """Elementwise bound on an f32 sum of the products a[i, k] b[k, j]
+    against their exact sum: SUM_ORDER_C sqrt(K) 2**-24 of the products'
+    norm sqrt(sum_k (a b)**2), the size of K roundings of random sign, each
+    of a partial sum that the norm bounds in size. (A bf16 result, or a
+    bf16 split-K, errs by up to 2**-8 of the sum: at the gate's shape
+    2**6 above the bound where the sum is as large as the norm.)"""
+    a, b = a.double(), b.double()
+    return (SUM_ORDER_C * math.sqrt(a.shape[1]) * 2.0 ** -24
+            * ((a * a) @ (b * b)).sqrt())
+
+
+def _within(got, exact, bound, rounded):
+    """|got - exact| <= bound elementwise; for a result rounded to bf16
+    (`rounded`), <= 2**-8 |exact| (the rounding, bf16's unit roundoff) +
+    twice the bound."""
+    if rounded:
+        bound = 2.0 ** -8 * exact.abs() + 2 * bound
+    return bool(((got.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("M,K,N", [(1280, 3072, 3072), (1280, 3072, 101)])
+def test_matmul_bf16_against_the_emulation(cuda, M, K, N):
+    """models/layers.matmul_bf16 on the card (cuBLAS's bf16 GEMMs with f32
+    results) at the gate's shape and a head's (N = 101), forward and both
+    gradients, and the same function on CPU tensors (the f32 product of
+    the same bf16 values), each against the f64 product of its operands:
+    the forward within _sum_order_bound; each gradient (the f32 incoming
+    gradient against its two bf16 terms: 2**-17 of the products' norm
+    more) rounded to bf16 and within _within's rounded bound. Planted
+    faults fail the same bounds: the forward rounded to bf16, the
+    gradients of the incoming gradient rounded to bf16. One GEMM forward
+    and four backward are counted; no f32 GEMM kernel (``f32f32``,
+    ``sgemm``) runs."""
+    from lirec_tpu_torch.models.layers import matmul_bf16
+
+    bf16 = torch.bfloat16
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(M, K, generator=g)
+    w = torch.randn(N, K, generator=g) / math.sqrt(K)
+    dy = torch.randn(M, N, generator=g)
+    out = {}
+    before = dispatch.launches(GEMM_NAME)
+    for dev in (cuda, torch.device("cpu")):
+        xd = x.to(dev).requires_grad_()
+        wd = w.to(dev).requires_grad_()
+        y = matmul_bf16(xd, wd)
+        y.backward(dy.to(dev))
+        out[dev.type] = [t.detach().clone() for t in (y, xd.grad, wd.grad)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert dispatch.launches(GEMM_NAME) == before + 5
+            names = _device_kernels(
+                lambda: matmul_bf16(xd, wd).backward(dy.to(dev)))
+            assert not [n for n in names
+                        if "f32f32" in n or "sgemm" in n], names
+    # the f64 products on the card
+    xb, wb = (t.to(bf16).to(cuda).double() for t in (x, w))
+    gd = dy.to(cuda).double()
+    cases = [(xb, wb.t(), False), (gd, wb, True), (gd.t(), xb, True)]
+    for i, (a, b, rounded) in enumerate(cases):
+        exact = a @ b
+        bound = _sum_order_bound(a, b)
+        if rounded:
+            bound = bound + 2.0 ** -17 * ((a * a) @ (b * b)).sqrt()
+        for side in ("cuda", "cpu"):
+            got = out[side][i].to(cuda)
+            assert got.dtype == torch.float32
+            if rounded:
+                assert torch.equal(got, got.to(bf16).float())
+            assert _within(got, exact, bound, rounded), (i, side)
+        planted = (out["cuda"][0].to(bf16).float() if not rounded else
+                   (a.to(bf16).double() @ b).to(bf16).float())
+        assert not _within(planted, exact, bound, rounded), i
+
+
+@pytest.mark.parametrize("N,R,J", [(1280, 18, 512), (7, 1, 520)])
+def test_masked_sum_on_the_card_against_the_einsum(cuda, N, R, J):
+    """models/hybrid.masked_sum of bf16 activations on the card (the
+    training ctx pool's f32 sums of bf16 products, no f32 GEMM) against the
+    f32 einsum on the CPU: within R 2**-23 of the terms' magnitudes, the
+    gradient bit for bit; no f32 GEMM kernel runs."""
+    from lirec_tpu_torch.models.hybrid import masked_sum
+
+    g = torch.Generator().manual_seed(8)
+    h = torch.relu(torch.randn(N, R, J, generator=g)).to(torch.bfloat16)
+    m = (torch.rand(N, R, generator=g) < 0.6).float()
+    m[0] = 0.0
+    dy = torch.randn(N, J, generator=g)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        hd = h.to(dev).requires_grad_()
+        if dev.type == "cuda":
+            names = _device_kernels(lambda: masked_sum(hd, m.to(dev)))
+            assert not [n for n in names if "gemm" in n.lower()], names
+        y = masked_sum(hd, m.to(dev))
+        y.backward(dy.to(dev))
+        out[dev.type] = (y.detach().cpu(), hd.grad.cpu())
+    (y, gh), (want_y, want_gh) = out["cuda"], out["cpu"]
+    bound = R * 2.0 ** -23 * torch.einsum("nrj,nr->nj", h.float(), m)
+    assert bool(((y - want_y).abs() <= bound).all())
+    assert torch.equal(gh, want_gh)
+
+
 @pytest.mark.parametrize("tr_cat_distr", [False, True])
 @pytest.mark.parametrize("compute", ["bfloat16", "float32"])
 def test_graph_train_steps_are_bitwise_the_eager_steps(cuda, compute,
@@ -1084,7 +1249,7 @@ def test_graph_train_steps_are_bitwise_the_eager_steps(cuda, compute,
     warm-up, then two replays) against make_train_step's eager steps with
     the same generators, capturable Adam on both: the losses and
     parameters bit for bit, the same launch counts (one sort and one
-    scatter a step),
+    scatter a step; under bf16 compute GEMMS_PER_STEP bf16 GEMMs),
     "graph" recorded, Adam's step count 3 on the card. With tr_cat_distr
     on, the graph draws its samples with torch.multinomial's own method."""
     from lirec_tpu_torch.train.loop import make_train_step, step_generators
@@ -1119,9 +1284,7 @@ def test_graph_train_steps_are_bitwise_the_eager_steps(cuda, compute,
     assert l_g == l_e
     for n, p in p_e.items():
         assert torch.equal(p_g[n], p), n
-    name = sa.KERNEL_NAMES[torch.bfloat16 if compute == "bfloat16"
-                           else torch.float32]
-    assert n_g == n_e == {name: 3, sa.SORT_NAME: 3}
+    assert n_g == n_e == _step_launches(compute, 3)
 
 
 def _eval_split(spec, full=6, tail=3, B=4):
@@ -1141,7 +1304,8 @@ def test_graph_eval_sweep_is_bitwise_the_eager_sweep(cuda, compute, tier):
     graph (batch 0 its warm-up, 5 replays, the tail eager) and as eager
     steps, in each ctx localisation tier: every carry entry bit for bit,
     the same launch counts (7 of the 3-table pool; the triple tier 6 of
-    the triple pool and the tail's one), "graph" recorded."""
+    the triple pool and the tail's one; under bf16 compute the bf16
+    GEMMs, GEMMS_PER_SWEEP + 7 GEMMS_PER_BATCH), "graph" recorded."""
     import types
 
     import numpy as np
@@ -1172,6 +1336,8 @@ def test_graph_eval_sweep_is_bitwise_the_eager_sweep(cuda, compute, tier):
     three = KERNEL_NAMES[("fused_ctx_pool", dtype)]
     tri = KERNEL_NAMES[("fused_ctx_pool_triple", dtype)]
     want = {tri: 6, three: 1} if tier == "triple" else {three: 7}
+    if compute == "bfloat16":
+        want[GEMM_NAME] = GEMMS_PER_SWEEP + 7 * GEMMS_PER_BATCH
     assert counts[True] == counts[False] == want
 
 
@@ -1321,7 +1487,8 @@ def test_nccl_mesh_graph_steps_are_bitwise_the_eager_steps(cuda, compute,
     the mesh step (parallel/step.make_dp_train_step) through the epoch
     sweep's CUDA graph (recorded "graph" for "cuda: nccl mesh"), through
     its eager form and through make_train_step: the losses and parameters
-    bit for bit, one sort and one scatter a step on each side."""
+    bit for bit, one sort and one scatter a step on each side (and
+    GEMMS_PER_STEP bf16 GEMMs under bf16 compute)."""
     import torch.distributed as td
 
     from lirec_tpu_torch.parallel import dist
@@ -1362,10 +1529,8 @@ def test_nccl_mesh_graph_steps_are_bitwise_the_eager_steps(cuda, compute,
             runs[side] = (losses, _param_copy(pb), _launch_delta(before))
     finally:
         td.destroy_process_group()
-    name = sa.KERNEL_NAMES[torch.bfloat16 if compute == "bfloat16"
-                           else torch.float32]
     losses, params, launched = runs["plain"]
-    assert launched == {name: 3, sa.SORT_NAME: 3}
+    assert launched == _step_launches(compute, 3)
     for side in ("mesh", "graph"):
         assert runs[side][0] == losses, side
         assert runs[side][2] == launched, side

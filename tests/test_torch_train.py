@@ -41,6 +41,7 @@ from lirec_tpu_torch.data.dataset import InteractionDataset as PortDataset
 from lirec_tpu_torch.data.pipeline import EpochIterator
 from lirec_tpu_torch.models import layers, losses
 from lirec_tpu_torch.models.factory import create_model
+from lirec_tpu_torch.ops import dispatch
 from lirec_tpu_torch.ops.select import select_along_axis
 from lirec_tpu_torch.train.loop import (
     _pad_batch,
@@ -217,6 +218,28 @@ def test_hybrid_forward_and_step_grads_match_jax(preset, compute, rel):
     rounded to bf16 on both sides; a value one f32 ulp apart can round to
     the neighbouring bf16), and the weight gradients, which end in that
     rounding, one bf16 ulp more."""
+    _forward_and_step_grads_match_jax(preset, compute, rel)
+
+
+@pytest.mark.parametrize("preset", ["int_rel_ch", "int_ch", "int_rels"])
+def test_hybrid_step_grads_through_matmul_bf16_match_jax(preset,
+                                                         monkeypatch):
+    """The same under bf16 compute with the products a card runs: every
+    bf16 product through layers.matmul_bf16 (its GEMM emulated in f32 on
+    CPU tensors: the incoming gradients rounded to bf16 before the
+    backward products) and the training ctx pool's masked sum as the
+    card's bf16 reduction, held to the same 4.1e-3 contract."""
+    from lirec_tpu_torch.models import hybrid
+
+    monkeypatch.setattr(layers, "on_tensor_cores",
+                        lambda x, w, cdt: cdt == torch.bfloat16)
+    monkeypatch.setattr(hybrid, "masked_sum", hybrid._masked_sum_bf16)
+    routed = dispatch.launches(layers.GEMM_NAME)
+    _forward_and_step_grads_match_jax(preset, "bfloat16", 4.1e-3)
+    assert dispatch.launches(layers.GEMM_NAME) > routed
+
+
+def _forward_and_step_grads_match_jax(preset, compute, rel):
     jb, pb = _pair(preset, compute)
     jt, pt = _tables(jb.spec)
     batch = _batch(jb.spec, preset)
