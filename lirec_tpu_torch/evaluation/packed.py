@@ -181,6 +181,30 @@ def _grounding_counters(preds, gt_classes, gt_tracks, just_zeros,
     return counters
 
 
+def _has_rels_table(t) -> bool:
+    """Whether the sweep folds RelationshipsAcc's per-hash score table
+    (the int_rels preset: relationships without the grounding)."""
+    return t.rels_multitask and t.ctx and not t.tr_maximize
+
+
+def _record_rels_fold(n_rows: int, batch_size: int, width: int,
+                      device) -> None:
+    """Record the shape of the score table's fold (once a sweep build):
+    each full batch folds ``n_rows`` table rows and ``batch_size`` update
+    rows of ``width`` through ``scatter_accum1``, on the launch
+    ``scatter_path`` picks for a card ("reference" for CPU tensors)."""
+    from lirec_tpu_torch.ops import dispatch
+    from lirec_tpu_torch.ops.scatter_accum import scatter_path
+
+    updates = n_rows + batch_size
+    path = scatter_path(updates, (n_rows,), (width,))
+    dispatch.record("eval_rels_fold",
+                    path if device.type == "cuda" else "reference",
+                    "%s tensors" % device.type,
+                    {"rows": n_rows, "updates": updates, "width": width,
+                     "scatter_path": path})
+
+
 def device_sweep_builder(bundle, t, n_classes: int, n_rels: int,
                          n_hashes: int, use_kernel: bool = True):
     """Build (init_carry, step) for the metric sweep on the card.
@@ -203,7 +227,7 @@ def device_sweep_builder(bundle, t, n_classes: int, n_rels: int,
     spec = bundle.spec
     maxtracks = t.tr_maximize and t.ints
     plain = not t.tr_maximize and not t.rels_multitask
-    rels_table = t.rels_multitask and t.ctx and not t.tr_maximize
+    rels_table = _has_rels_table(t)
     loss_rng = {}  # one fixed generator per device, for tr_cat_distr
 
     def init_carry(device):
@@ -487,6 +511,8 @@ def sweep_carry(
     device = next(model.parameters()).device
     init_carry, step = device_sweep_builder(
         bundle, t, n_classes, n_rels, n_hashes, use_kernel=use_kernel)
+    if _has_rels_table(t):
+        _record_rels_fold(n_hashes + 1, B, bundle.spec.n_rels, device)
     model.eval()
     with torch.inference_mode():
         with span("lirec.eval.tables"):
@@ -686,7 +712,8 @@ def finish_from_carry(
 ) -> Dict[str, float]:
     """Host finish of the sweep: fill the accumulators from the fetched
     counters and emit the metric dict (divisions + the per-hash argsort of
-    RelationshipsAcc only)."""
+    RelationshipsAcc only; the per-hash fill and argsort inside the span
+    ``lirec.eval.rels_finish``)."""
     carry = {k: np.asarray(v) for k, v in carry.items()}
     prec = MetricAccumulator(n_rels=n_rels)
     prec.total = int(carry.get("total", 0))
@@ -703,10 +730,12 @@ def finish_from_carry(
 
     prec_rels = None
     if "rels_table" in carry:
-        prec_rels = RelationshipsAcc(n_rels=n_rels)
-        for h in np.nonzero(carry["rels_seen"][:n_hashes])[0]:
-            prec_rels._pr_probs[int(h)] = carry["rels_table"][h]
-            prec_rels._gt[int(h)] = int(carry["rels_gt"][h])
+        with span("lirec.eval.rels_finish"):
+            prec_rels = RelationshipsAcc(n_rels=n_rels)
+            for h in np.nonzero(carry["rels_seen"][:n_hashes])[0]:
+                prec_rels._pr_probs[int(h)] = carry["rels_table"][h]
+                prec_rels._gt[int(h)] = int(carry["rels_gt"][h])
+            prec_rels.top1()  # the per-hash argsort, inside the span
 
     n_batches = int(carry["n_batches"])
     avg_loss = float(carry["loss_sum"]) / n_batches if n_batches else 0.0
