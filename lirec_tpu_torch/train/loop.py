@@ -8,8 +8,9 @@ an AssemblyPool of worker processes, bitwise the same batches), localized
 together to batch-local tables (data/localize.Localizer). Then, by
 default (``epoch_sweep=None``: on unless ``dense``), the epoch sweep
 (train/sweep.EpochSweep): the batches padded and stacked as the JAX
-package stacks them, staged on the device in chunks of at most
-``sweep_max_steps`` steps, each step one replay of a CUDA graph of the
+package stacks them, in chunks of at most ``sweep_max_steps`` steps,
+staged on the device a slab of steps at a time while the card runs the
+previous slab, each step one replay of a CUDA graph of the
 whole step on a card, under a mesh over an NCCL group too (eager steps
 on the CPU and over gloo); the next epoch's batches are assembled while
 the card runs this one, and the losses are read once per epoch. With ``epoch_sweep=False``
@@ -75,7 +76,7 @@ import collections
 import copy
 import os.path as ops
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -123,19 +124,39 @@ def step_generators(seed: int, offset: int, device):
 def check_indices(batch: Dict, n_clips: int, n_tracks: int) -> None:
     """Raise on row ids outside the tables (the gathers and the scatter
     kernel do not check them): feat_idx against the batch-local tables
-    when the batch has them, and those against the full tables."""
-    fi = np.asarray(batch["feat_idx"])
+    when the batch has them, and those against the full tables. Each
+    array is read once (``_column_max``)."""
     n_c, n_t = n_clips, n_tracks
     if "uniq_clip" in batch:
         for key, n in (("uniq_clip", n_clips), ("uniq_track", n_tracks)):
-            ids = np.asarray(batch[key])
-            if ids.size and (ids.min() < 0 or ids.max() >= n):
+            top = _column_max(batch[key], 1)
+            if top and top[0] >= n:
                 raise ValueError("%s out of range [0, %d)" % (key, n))
         n_c, n_t = len(batch["uniq_clip"]), len(batch["uniq_track"])
-    for name, ids, n in (("clip", fi[..., 0], n_c),
-                         ("track", fi[..., 1:], n_t)):
-        if ids.size and (ids.min() < 0 or ids.max() >= n):
+    fi = np.asarray(batch["feat_idx"])
+    top = _column_max(fi, fi.shape[-1])
+    for name, cols, n in (("clip", slice(0, 1), n_c),
+                          ("track", slice(1, None), n_t)):
+        if top[cols] and max(top[cols]) >= n:
             raise ValueError("%s index out of range [0, %d)" % (name, n))
+
+
+def _column_max(ids, width: int) -> List[int]:
+    """The greatest id of each of the `width` columns (the last axis) of
+    the integer array `ids`, its ids read as unsigned, so that a negative
+    id reads past every table: one pass over the array, the first axis
+    reduced in blocks of the rest (contiguous) before the columns are;
+    [] for no ids."""
+    ids = np.asarray(ids)
+    if ids.dtype.kind not in "iu":
+        raise TypeError("row ids must be integers, not %s" % ids.dtype)
+    if not ids.size:
+        return []
+    ids = ids.view(np.dtype("u%d" % ids.itemsize))
+    if ids.ndim == 1:
+        return [int(ids.max())]
+    return ids.reshape(len(ids), -1).max(axis=0).reshape(
+        -1, width).max(axis=0).tolist()
 
 
 def check_batch(batch: Dict, tables: Optional[Dict]) -> None:

@@ -1287,6 +1287,54 @@ def test_graph_train_steps_are_bitwise_the_eager_steps(cuda, compute,
     assert n_g == n_e == _step_launches(compute, 3)
 
 
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_graph_sweep_over_slabs_is_bitwise_the_eager_steps(cuda, compute):
+    """Two calls of the epoch sweep's graph path of 2 * SLAB_STEPS + 3
+    steps each (three slabs staged from the pinned stack, the second call
+    with other batches of the same shapes, into the same stacks) against
+    make_train_step's eager steps on the same batches with the same
+    generators: the losses and parameters bit for bit, one capture, and
+    each call's staging recorded as three slabs of pinned rows."""
+    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.optim import make_optimizer
+    from lirec_tpu_torch.train.sweep import (
+        SEED_STRIDE, SLAB_STEPS, EpochSweep,
+    )
+    from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
+
+    n = 2 * SLAB_STEPS + 3
+    runs = {}
+    for graph in (False, True):
+        _, pb = _small_int_rel_ch(compute, cuda)
+        epochs = [[make_batch(pb.spec, 4, 64, 96, seed=100 * e + s)
+                   for s in range(n)] for e in range(2)]
+        tables = {k: torch.from_numpy(v).to(cuda)
+                  for k, v in make_tables(pb.spec, 64, 96).items()}
+        opt = make_optimizer(pb.model.parameters(), 1e-3)
+        losses = []
+        if graph:
+            sweep = EpochSweep(pb, opt, tables, 0, 4, require_graph=True)
+            for e, batches in enumerate(epochs):
+                losses += sweep.fetch(sweep.run(batches, e))
+                last = dispatch.last_dispatch("train_staging")
+                assert last["reason"] == "pinned host stack"
+                assert last["shapes"] == {"steps": n, "slab": SLAB_STEPS,
+                                          "slabs": 3}
+            assert len(sweep.capture_s) == 1
+        else:
+            step = make_train_step(pb, opt)
+            for e, batches in enumerate(epochs):
+                losses += [float(step(b, tables, step_generators(
+                    0, e * SEED_STRIDE + i, cuda)))
+                    for i, b in enumerate(batches)]
+        torch.cuda.synchronize()
+        runs[graph] = (losses, _param_copy(pb))
+    (l_e, p_e), (l_g, p_g) = runs[False], runs[True]
+    assert l_g == l_e
+    for name, p in p_e.items():
+        assert torch.equal(p_g[name], p), name
+
+
 def _eval_split(spec, full=6, tail=3, B=4):
     import numpy as np
 

@@ -4,8 +4,11 @@ epoch sweep against the JAX package's epoch sweep and against the port's
 own per-batch path, chunked against unchunked, ``epoch_sweep_used`` in
 train() and in the training CLI's result as the JAX CLI reports it, the
 paths ``dispatch.decisions("train_loop")`` records, and the pieces the
-card's CUDA graphs are built from (the stacking, the launch counts a
-capture records, the capture-safe sampling, the optimizer's file state).
+card's CUDA graphs are built from (the stacking, the slab staging against
+it and its ``train_staging`` record, each call staging its own batches,
+the index check and train() stopping at it before the sweep, the launch
+counts a capture records, the capture-safe sampling, the optimizer's file
+state).
 
 The synthetic fixture is written under a fixed string-hash seed (as
 tests/test_torch_train.py pins it), f32, tr_cat_distr off, torch on one
@@ -39,9 +42,14 @@ from lirec_tpu_torch.data.pipeline import EpochIterator
 from lirec_tpu_torch.models import losses
 from lirec_tpu_torch.models.factory import create_model
 from lirec_tpu_torch.ops import dispatch
-from lirec_tpu_torch.train.loop import train
+from lirec_tpu_torch.parallel.mesh import Mesh2D
+from lirec_tpu_torch.train import loop as port_loop
+from lirec_tpu_torch.train.loop import check_batch, check_indices, train
 from lirec_tpu_torch.train.optim import file_state, load_state, make_optimizer
-from lirec_tpu_torch.train.sweep import EpochSweep, stack_epoch_batches
+from lirec_tpu_torch.train.sweep import (
+    SLAB_STEPS, EpochSweep, stack_epoch_batches,
+)
+from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
 from lirec_tpu_torch.utils.graphs import take
 from tests.jax_cache_guard import isolated_xla_cache  # noqa: F401
 
@@ -233,6 +241,193 @@ def test_stacking_is_the_jax_packages(pinned_root):
             np.testing.assert_array_equal(got[k], v, err_msg=k)
     assert got["loss_weight"][-1, 6:].sum() == 0
     assert got["loss_weight"][:-1].min() == 1
+
+
+def _tiny(mesh=None):
+    """A narrow int_rel_ch on the CPU, its tables, and a maker of epoch
+    sweeps at batch 4 of that model and one optimizer (under `mesh`, a
+    Mesh2D of no process group: its rows only)."""
+    cfg = port_config.preset("int_rel_ch").with_dims(
+        text_dim=16, visual_dim=32, joint_dim=16).with_runtime(
+        compute_dtype="float32")
+    pb = create_model(cfg, 9, n_rels=6, seed=0, device="cpu")
+    opt = make_optimizer(pb.model.parameters(), 1e-3)
+    tables = {k: torch.from_numpy(v)
+              for k, v in make_tables(pb.spec, 64, 96).items()}
+    return pb, tables, lambda **kw: EpochSweep(pb, opt, tables, 0, 4,
+                                               mesh=mesh, **kw)
+
+
+def _epoch(spec, full, ragged=0, seed=0):
+    """`full` batches of 4 and, where `ragged`, a last batch of that
+    many."""
+    out = [make_batch(spec, 4, 64, 96, seed=seed + s) for s in range(full)]
+    if ragged:
+        out.append(make_batch(spec, ragged, 64, 96, seed=seed + full))
+    return out
+
+
+# name: (full batches, rows of a ragged last batch (0: none),
+# sweep_max_steps, this rank's (data axis, rank) or None)
+STAGING = {
+    "past_a_slab": (SLAB_STEPS + 3, 0, 512, None),
+    "ragged_last": (SLAB_STEPS + 2, 3, 512, None),
+    "chunked": (2 * SLAB_STEPS + 2, 3, SLAB_STEPS + 2, None),
+    "one_slab": (3, 0, 512, None),
+    "mesh_rank": (SLAB_STEPS + 2, 3, 512, (2, 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGING))
+def test_slab_staging_is_the_stacking(case):
+    """What each step of EpochSweep.run (eager, on the CPU) reads from the
+    slab-staged device stack, and the stack after the call, are
+    stack_epoch_batches' arrays of its chunk bit for bit, with the same
+    keys and dtypes (this rank's rows under a mesh; a ragged last batch
+    padded, every batch of its chunk weighted); the train_staging counter
+    records each chunk's steps, the slab and its number of slabs."""
+    full, ragged, max_steps, place = STAGING[case]
+    mesh = None if place is None else Mesh2D(*place)
+    pb, _, make = _tiny(mesh)
+    sweep = make(sweep_max_steps=max_steps)
+    seen = []
+
+    def step(batch, tables, generators, tr_sum_max_flag=True):
+        seen.append({k: v.clone() for k, v in batch.items()})
+        return torch.tensor(float(len(seen)))
+
+    sweep.step = step
+    batches = _epoch(pb.spec, full, ragged)
+    before = dispatch.decisions("train_staging").get("slabs", 0)
+    losses = sweep.fetch(sweep.run(batches, 0))
+    assert losses == [float(i + 1) for i in range(len(batches))]
+    rows = slice(None) if mesh is None else slice(2 * place[1],
+                                                  2 * place[1] + 2)
+    chunks = [batches[c0:c0 + max_steps]
+              for c0 in range(0, len(batches), max_steps)]
+    c0 = 0
+    for chunk in chunks:
+        want = {k: v if k in ("uniq_clip", "uniq_track") else v[:, rows]
+                for k, v in stack_epoch_batches(chunk, 4).items()}
+        got = {k: np.stack([s[k].numpy() for s in seen[c0:c0 + len(chunk)]])
+               for k in seen[c0]}
+        assert sorted(got) == sorted(want)
+        assert ("loss_weight" in want) == (ragged > 0 and chunk is chunks[-1])
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        c0 += len(chunk)
+    (cap,) = sweep._captured.values()  # the last chunk's stack
+    for k, v in want.items():
+        np.testing.assert_array_equal(cap.stack[k][:len(chunk)].numpy(), v,
+                                      err_msg=k)
+    if ragged:
+        assert want["loss_weight"][:-1].min() == 1
+        np.testing.assert_array_equal(want["loss_weight"][-1],
+                                      np.arange(4)[rows] < ragged)
+    assert dispatch.decisions("train_staging")["slabs"] - before == len(chunks)
+    last = dispatch.last_dispatch("train_staging")
+    assert last["reason"] == "host stack"
+    assert last["shapes"] == {"steps": len(chunk), "slab": SLAB_STEPS,
+                              "slabs": -(-len(chunk) // SLAB_STEPS)}
+
+
+def test_sweep_stages_each_calls_own_batches():
+    """Two calls of one sweep with different batches of the same shapes
+    (the second reusing the first's stacks) give the losses and the
+    parameters of a fresh sweep for each call over the same model state,
+    bit for bit: nothing the first call staged is read by the second."""
+    got, want = [], []
+    for fresh, out in ((False, got), (True, want)):
+        pb, _, make = _tiny()
+        sweep = make()
+        for seed in (0, 100):
+            if fresh:
+                sweep = make()
+            out.append(sweep.fetch(sweep.run(
+                _epoch(pb.spec, SLAB_STEPS + 1, seed=seed), 0)))
+        out.append({k: v.clone() for k, v in pb.model.state_dict().items()})
+    assert got[0] == want[0] and got[1] == want[1] and got[0] != got[1]
+    _assert_bitwise(got[2], want[2])
+
+
+def _bad(batch, key, where, value):
+    batch = {k: np.array(v) for k, v in batch.items()}
+    batch[key][where] = value
+    return batch
+
+
+# name: (key, where, value, the message's start); the batch is localized
+# to tables of 40 clip and 50 track rows, out of 64 and 96
+BAD_IDS = {
+    "clip_past_local": ("feat_idx", (1, 2, 3, 0), 40, "clip index"),
+    "track_past_local": ("feat_idx", (0, 5, 0, 1), 50, "track index"),
+    "second_track_past_local": ("feat_idx", (3, 0, 7, 2), 50,
+                                "track index"),
+    "negative_clip": ("feat_idx", (0, 0, 0, 0), -1, "clip index"),
+    "negative_track": ("feat_idx", (2, 1, 1, 1), -1, "track index"),
+    "negative_second_track": ("feat_idx", (1, 1, 1, 2), -3, "track index"),
+    "uniq_clip_past_full": ("uniq_clip", (4,), 64, "uniq_clip"),
+    "uniq_track_past_full": ("uniq_track", (0,), 96, "uniq_track"),
+    "negative_uniq_clip": ("uniq_clip", (0,), -1, "uniq_clip"),
+    "negative_uniq_track": ("uniq_track", (7,), -2, "uniq_track"),
+}
+
+
+def _local_batch(spec):
+    batch = make_batch(spec, 4, 40, 50, seed=3)
+    batch["uniq_clip"] = np.arange(40, dtype=np.int32)
+    batch["uniq_track"] = np.arange(50, dtype=np.int32) + 46
+    return batch
+
+
+@pytest.mark.parametrize("case", sorted(BAD_IDS) + ["in_range", "dense",
+                                                   "full_tables"])
+def test_check_indices(case):
+    """check_indices raises on an id past its table or negative, in the
+    clip column and in either track column of feat_idx (against the
+    batch-local tables) and in uniq_clip / uniq_track (against the full
+    tables), naming the column and its range; an in-range batch passes,
+    localized or against the full tables, and check_batch passes a dense
+    batch (no row ids)."""
+    pb, tables, _ = _tiny()
+    batch = _local_batch(pb.spec)
+    if case == "dense":
+        check_batch({"features": np.zeros((4, 8), np.float32),
+                     "labels": np.zeros(4, np.int64)}, tables)
+        return
+    if case == "full_tables":
+        check_batch(make_batch(pb.spec, 4, 64, 96, seed=4), tables)
+        return
+    if case == "in_range":
+        check_batch(batch, tables)
+        return
+    key, where, value, what = BAD_IDS[case]
+    n = {"clip index": 40, "track index": 50, "uniq_clip": 64,
+         "uniq_track": 96}[what]
+    with pytest.raises(ValueError,
+                       match=r"^%s out of range \[0, %d\)$" % (what, n)):
+        check_indices(_bad(batch, key, where, value), 64, 96)
+
+
+def test_a_bad_id_stops_train_before_the_sweep(pinned_root, monkeypatch):
+    """train() with the epoch sweep, an out-of-range track id in the
+    epoch's last batch: it raises at the index check, and EpochSweep.run
+    is never reached."""
+    collect = port_loop._collect_batches
+
+    def corrupted(iterator):
+        batches = collect(iterator)
+        batches[-1] = _bad(batches[-1], "feat_idx", (0, 0, 0, 1), 10 ** 6)
+        return batches
+
+    def refuse(*args, **kw):
+        raise AssertionError("EpochSweep.run reached")
+
+    monkeypatch.setattr(port_loop, "_collect_batches", corrupted)
+    monkeypatch.setattr(EpochSweep, "run", refuse)
+    with pytest.raises(ValueError, match="track index out of range"):
+        _port_run(pinned_root, 8, localize_tables=False)
 
 
 def test_graphs_are_refused_off_the_card(pinned_root):

@@ -21,7 +21,7 @@ from lirec_tpu_torch.evaluation import packed
 from lirec_tpu_torch.models.factory import create_model
 from lirec_tpu_torch.train.loop import check_batch
 from lirec_tpu_torch.train.optim import make_optimizer
-from lirec_tpu_torch.train.sweep import EpochSweep
+from lirec_tpu_torch.train.sweep import SLAB_STEPS, EpochSweep
 from lirec_tpu_torch.utils import profiling
 from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
 from lirec_tpu_torch.utils.profiling import span
@@ -176,15 +176,18 @@ def test_evaluate_packed_emits_finish_after_the_sweep(tmp_path):
 
 def test_epoch_sweep_emits_every_phase(tmp_path):
     """check_batch over an epoch's batches, then EpochSweep.run (eager on
-    the CPU: ``pin`` covers ``_host`` without pinning) and fetch: check
-    once a batch, and stack, pin, h2d, replays and fetch once a chunk,
-    in the epoch's order."""
+    the CPU) and fetch, over chunks of two slabs and of one: check once a
+    batch; pin once, where the stacks are made (both chunks share them);
+    stack, h2d and replays once a slab, each slab's h2d after its stack
+    and before its replays, and each slab's replays before the next
+    slab's stack; fetch once, after the last replays."""
     cfg, pb = _model()
-    batches = [make_batch(pb.spec, 4, 64, 96, seed=s) for s in range(3)]
+    n = SLAB_STEPS + 2
+    batches = [make_batch(pb.spec, 4, 64, 96, seed=s) for s in range(n)]
     tables = {k: torch.from_numpy(v)
               for k, v in make_tables(pb.spec, 64, 96).items()}
     sweep = EpochSweep(pb, make_optimizer(pb.model.parameters(), 1e-3),
-                       tables, 0, 4, sweep_max_steps=2)
+                       tables, 0, 4, sweep_max_steps=SLAB_STEPS + 1)
 
     def epoch():
         for b in batches:
@@ -192,14 +195,22 @@ def test_epoch_sweep_emits_every_phase(tmp_path):
         return sweep.fetch(sweep.run(batches, 0))
 
     losses, spans = _traced(tmp_path, epoch)
-    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert len(losses) == n and np.isfinite(losses).all()
     counts = {p: len(_named(spans, "lirec.train." + p))
               for p in TRAIN_PHASES}
-    assert counts == {"check": 3, "stack": 2, "pin": 2, "h2d": 2,
-                      "replays": 2, "fetch": 1}
-    order = [min(a for a, _ in _named(spans, "lirec.train." + p))
-             for p in TRAIN_PHASES]
-    assert order == sorted(order)
+    assert counts == {"check": n, "stack": 3, "pin": 1, "h2d": 3,
+                      "replays": 3, "fetch": 1}
+    checks = _named(spans, "lirec.train.check")
+    (pin_lo, pin_hi), = _named(spans, "lirec.train.pin")
+    slabs = list(zip(*(sorted(_named(spans, "lirec.train." + p))
+                       for p in ("stack", "h2d", "replays"))))
+    assert max(b for _, b in checks) <= pin_lo and pin_hi <= slabs[0][0][0]
+    for (stack, h2d, replays), after in zip(slabs, slabs[1:] + [None]):
+        assert stack[1] <= h2d[0] and h2d[1] <= replays[0]
+        if after is not None:
+            assert replays[1] <= after[0][0]
+    (fetched, _), = _named(spans, "lirec.train.fetch")
+    assert slabs[-1][2][1] <= fetched
 
 
 def test_localizer_emits_its_span(tmp_path):
