@@ -320,6 +320,7 @@ files.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -495,6 +496,46 @@ def median_ms(torch, fn, reps=15):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@contextmanager
+def host_clock(torch):
+    """Times its block on the host clock between two
+    torch.cuda.synchronize() calls, so that the block's work on the card
+    is inside and no work queued before it is; yields a namespace whose
+    ``s`` holds the block's seconds once the block has ended. With torch
+    None it times host work alone, unbracketed: there a synchronize's
+    own microseconds would be a share of the time."""
+    clock = types.SimpleNamespace(s=None)
+    if torch is not None:
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    yield clock
+    if torch is not None:
+        torch.cuda.synchronize()
+    clock.s = time.perf_counter() - t
+
+
+def host_ms(torch, fn, reps=1):
+    """fn(0), fn(1), ..., fn(reps - 1), each timed by host_clock: the list
+    of their ms."""
+    times = []
+    for i in range(reps):
+        with host_clock(torch) as clock:
+            fn(i)
+        times.append(clock.s * 1e3)
+    return times
+
+
+def in_turns(order, runs):
+    """A against B in turns: runs[name](turn) for each (turn, name) of
+    enumerate(order), so that each side meets the card's state (clocks,
+    caches, allocator) as the other does. Each run returns the list of ms
+    it timed (host_ms's); returns {name: [ms, ...]} in the order taken."""
+    times = {name: [] for name in runs}
+    for turn, name in enumerate(order):
+        times[name] += runs[name](turn)
+    return times
 
 
 def bound(n_bytes, flops):
@@ -1025,23 +1066,21 @@ def main_path(torch):
 
     cfg = config_lib.preset("int_rel_ch")
     engines = {}
-    t0 = time.perf_counter()
-    tables = None
-    for compute in ("bfloat16", "float32"):
-        bundle = create_model(cfg.with_runtime(compute_dtype=compute), 101,
-                              n_rels=15, seed=0, device="cuda")
-        if tables is None:
-            tables = make_tables(bundle.spec, N_CLIPS, N_TRACKS, seed=0)
-        engines[compute] = InferenceEngine(bundle, tables, device="cuda",
-                                           topk=TOPK, max_batch=64)
+    with host_clock(torch) as clock:
+        tables = None
+        for compute in ("bfloat16", "float32"):
+            bundle = create_model(cfg.with_runtime(compute_dtype=compute),
+                                  101, n_rels=15, seed=0, device="cuda")
+            if tables is None:
+                tables = make_tables(bundle.spec, N_CLIPS, N_TRACKS, seed=0)
+            engines[compute] = InferenceEngine(bundle, tables, device="cuda",
+                                               topk=TOPK, max_batch=64)
     spec = engines["float32"].bundle.spec
     check((spec.text_dim, spec.visual_dim, spec.track_dim, spec.joint_dim,
            spec.mid_m_ints, spec.n_classes, spec.n_rels)
           == (768, 2048, 2048, 512, 6, 101, 15), "published widths: %s" % (
               spec,))
-    torch.cuda.synchronize()
-    log("  engines built (tables embedded once each) in %.1f s"
-        % (time.perf_counter() - t0))
+    log("  engines built (tables embedded once each) in %.1f s" % clock.s)
     batches = {B: make_structured_batch(spec, B, N_CLIPS, N_TRACKS,
                                         seed=100 + B) for B in B_SIZES}
     reps = {1: 10, 64: 5}  # timed requests per size (3 for the others)
@@ -1060,11 +1099,10 @@ def main_path(torch):
                   "healthz: %s %s" % (status, health))
             for B in B_SIZES:
                 payload = {"samples": samples_of(batches[B])}
-                times = []
-                for _ in range(1 + reps.get(B, 3)):  # the first is a warm-up
-                    t = time.perf_counter()
-                    status, out = http(base + "/predict", payload)
-                    times.append((time.perf_counter() - t) * 1e3)
+                answers = []  # the first is a warm-up
+                times = host_ms(torch, lambda _: answers.append(
+                    http(base + "/predict", payload)), 1 + reps.get(B, 3))
+                for status, out in answers:
                     n += 1
                     check(status == 200, "%s B=%d: status %s %s"
                           % (compute, B, status, out))
@@ -1465,6 +1503,47 @@ def sort_checks(torch, g):
 # ------------------------------------------------------------ train path
 
 
+def timed_steps(torch, step, batches, tables, device="cuda"):
+    """One step a batch, each seeded as train() seeds it: (the losses,
+    each step's ms by host_ms; the first holds the warm-up)."""
+    from lirec_tpu_torch.train.loop import step_generators
+
+    losses = []
+    times = host_ms(torch, lambda i: losses.append(float(step(
+        batches[i], tables, step_generators(0, i, device)))), len(batches))
+    return losses, times
+
+
+def epochs_in_turns(torch, turns, sweep, step, batches, tables, label):
+    """Epochs of `batches` after the counted one, as the epoch sweep's
+    graph replays and as `step` run eagerly, in `turns` on one model
+    (epoch turn + 1, seeded as train() seeds it); every epoch's losses
+    finite. Returns {"graph": [ms/step], "eager": [ms/step]}."""
+    import math
+
+    from lirec_tpu_torch.train.loop import step_generators
+    from lirec_tpu_torch.train.sweep import SEED_STRIDE
+
+    def epoch(kind, turn):
+        got = []
+
+        def run(_):
+            if kind == "graph":
+                got.extend(sweep.fetch(sweep.run(batches, turn + 1)))
+            else:
+                got.extend(float(step(b, tables, step_generators(
+                    0, (turn + 1) * SEED_STRIDE + i, "cuda")))
+                    for i, b in enumerate(batches))
+
+        times = host_ms(torch, run)
+        check(all(math.isfinite(x) for x in got), "%s %s losses %s"
+              % (label, kind, got))
+        return [ms / len(batches) for ms in times]
+
+    return in_turns(turns, {kind: functools.partial(epoch, kind)
+                            for kind in ("graph", "eager")})
+
+
 def step_grads(torch, bundle, batch, tables, use_kernel):
     """Gradients of one training forward + loss (dropout on, the step's
     generators reseeded identically each call)."""
@@ -1495,7 +1574,7 @@ def train_path(torch, batches):
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.ops import dispatch
     from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES, SORT_NAME
-    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.loop import make_train_step
     from lirec_tpu_torch.train.optim import make_optimizer
 
     cfg = config_lib.preset("int_rel_ch")
@@ -1542,13 +1621,7 @@ def train_path(torch, batches):
         step = make_train_step(bundle, opt)
         # ---- the counted run: only the training steps launch kernels here
         dispatch.reset_launches()
-        times, losses = [], []
-        for i, batch in enumerate(batches):
-            t = time.perf_counter()
-            loss = step(batch, tables, step_generators(0, i, "cuda"))
-            losses.append(float(loss))  # waits for the step
-            times.append((time.perf_counter() - t) * 1e3)
-        torch.cuda.synchronize()
+        losses, times = timed_steps(torch, step, batches, tables)
         counted = kernel_launches()
         # ---- end of the counted run
         check(all(np.isfinite(losses)), "%s: losses %s" % (compute, losses))
@@ -1661,12 +1734,12 @@ def eval_sweep(torch, spec):
     from lirec_tpu_torch.ops.gather_pool import KERNEL_NAMES
     from lirec_tpu_torch.utils.fake_batch import make_tables
 
-    t0 = time.perf_counter()
-    data = eval_split(spec)
+    with host_clock(torch) as clock:
+        data = eval_split(spec)
     n_samples = len(data["labels"])
     log("  split: %d structured B=%d batches + a %d-sample tail (%d "
         "samples), made in %.1f s" % (EVAL_FULL, EVAL_B, EVAL_TAIL,
-                                      n_samples, time.perf_counter() - t0))
+                                      n_samples, clock.s))
     fi = data["feat_idx"]
     for name, fn in (
         ("triple", lambda: localize_eval_ctx_triples(
@@ -1674,12 +1747,12 @@ def eval_sweep(torch, spec):
         ("tables", lambda: localize_eval_ctx(
             fi, EVAL_B, EVAL_FULL, N_CLIPS, N_TRACKS)),
     ):
-        t0 = time.perf_counter()
-        loc = fn()
+        with host_clock(torch) as clock:
+            loc = fn()
         caps = loc[1].shape[1] if name == "triple" else (
             loc[1].shape[1], loc[2].shape[1])
         log("  host localisation (%s tier) of the split: %.3f s, caps %s"
-            % (name, time.perf_counter() - t0, caps))
+            % (name, clock.s, caps))
     n_half = EVAL_FULL // 2
     halves = {n: {k: v[: n * EVAL_B] for k, v in data.items()}
               for n in (n_half, EVAL_FULL)}
@@ -1708,14 +1781,9 @@ def eval_sweep(torch, spec):
                 tables = make_tables(bundle.spec, N_CLIPS, N_TRACKS, seed=0)
             dev_tables = {k: torch.from_numpy(v).cuda()
                           for k, v in tables.items()}
-            times = []
             with torch.inference_mode():
-                for _ in range(4):
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    embed_all(bundle.model, bundle.spec, dev_tables)
-                    torch.cuda.synchronize()
-                    times.append((time.perf_counter() - t) * 1e3)
+                times = host_ms(torch, lambda _: embed_all(
+                    bundle.model, bundle.spec, dev_tables), 4)
             del dev_tables
             log("  %s: embed_all over %d / %d rows: median %.2f ms"
                 % (compute, N_CLIPS, N_TRACKS, statistics.median(times[1:])))
@@ -1784,13 +1852,17 @@ def eval_sweep(torch, spec):
             for tier in tiers:
                 for n in halves:  # warm-up; computes the localisation
                     sweep(tier, halves[n], stand_ins[(tier, n)])
-            secs = {key: [] for key in stand_ins}
-            for r in range(EVAL_ROUNDS):
-                for tier in tiers[r % 3:] + tiers[:r % 3]:
-                    for n in (n_half, EVAL_FULL):
-                        t = time.perf_counter()
-                        sweep(tier, halves[n], stand_ins[(tier, n)])
-                        secs[(tier, n)].append(time.perf_counter() - t)
+
+            def timed_sweep(key, turn):
+                return host_ms(torch, lambda _: sweep(
+                    key[0], halves[key[1]], stand_ins[key]))
+
+            order = [(tier, n) for r in range(EVAL_ROUNDS)
+                     for tier in tiers[r % 3:] + tiers[:r % 3]
+                     for n in (n_half, EVAL_FULL)]
+            secs = {key: [ms / 1e3 for ms in times] for key, times in
+                    in_turns(order, {key: functools.partial(timed_sweep, key)
+                                     for key in stand_ins}).items()}
             for tier in tiers:
                 t1 = statistics.median(secs[(tier, n_half)])
                 t2 = statistics.median(secs[(tier, EVAL_FULL)])
@@ -2024,10 +2096,10 @@ def train_cli_phase(torch):
         return all(math.isfinite(v) for v in metrics.values())
 
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        write_fixture(root, **PUBLISHED_FIXTURE)
+        with host_clock(torch) as clock:
+            write_fixture(root, **PUBLISHED_FIXTURE)
         log("  fixture of published feature widths written in %.1f s"
-            % (time.perf_counter() - t0))
+            % clock.s)
         store = os.path.join(root, "store")
         dims = ["--data-root", root, "--device", "cuda", "--quiet",
                 "--text-dim", "768", "--visual-dim", "2048",
@@ -2036,13 +2108,12 @@ def train_cli_phase(torch):
 
         # ---- the counted run: 3 epochs from the training CLI
         dispatch.reset_launches()
-        t0 = time.perf_counter()
-        out = train_cli.main(base + ["--epochs", "3", "--checkpoint-every",
-                                     "1"])
-        torch.cuda.synchronize()
+        with host_clock(torch) as clock:
+            out = train_cli.main(base + ["--epochs", "3",
+                                         "--checkpoint-every", "1"])
         counts = kernel_launches()
         # ---- end of the counted run
-        secs = time.perf_counter() - t0
+        secs = clock.s
         losses = out["train"]["losses"]
         check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
               "training CLI losses %s" % losses)
@@ -2211,7 +2282,7 @@ def modalities_phase(torch, root, card):
     from lirec_tpu_torch.evaluation.metrics import _sigmoid
     from lirec_tpu_torch.models import tabular
     from lirec_tpu_torch.models.factory import create_model
-    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.loop import make_train_step
     from lirec_tpu_torch.train.optim import make_optimizer
     from lirec_tpu_torch.utils.fake_batch import make_tables
 
@@ -2242,11 +2313,10 @@ def modalities_phase(torch, root, card):
                     fi = data["feat_idx"][:B]
                     payload = {"samples": [{"feat_idx": f.tolist()}
                                            for f in fi]}
-                    times = []
-                    for _ in range(1 + reps):
-                        t = time.perf_counter()
-                        status, res = http(base + "/predict", payload)
-                        times.append((time.perf_counter() - t) * 1e3)
+                    answers = []
+                    times = host_ms(torch, lambda _: answers.append(
+                        http(base + "/predict", payload)), 1 + reps)
+                    for status, res in answers:
                         check(status == 200, "modalities %s B=%d: %s %s"
                               % (compute, B, status, res))
                         check_modalities_predictions(
@@ -2280,13 +2350,8 @@ def modalities_phase(torch, root, card):
         opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
                              cfg.optim.weight_decay)
         step = make_train_step(bundle, opt)
-        times, losses = [], []
         with counted_none(torch, "modalities training"):
-            for i, batch in enumerate(batches):
-                t = time.perf_counter()
-                losses.append(float(step(batch, dev_tables,
-                                         step_generators(0, i, DEV))))
-                times.append((time.perf_counter() - t) * 1e3)
+            losses, times = timed_steps(torch, step, batches, dev_tables, DEV)
         check(all(math.isfinite(x) for x in losses),
               "modalities %s losses %s" % (compute, losses))
         for n, p in bundle.model.named_parameters():
@@ -2325,18 +2390,15 @@ def modalities_phase(torch, root, card):
                 swept = packed.evaluate_packed(
                     stand_in, bundle, bundle.model, cfg, mode="test",
                     verbose=False, data=data, tables=tables)
-                t = time.perf_counter()
-                host = runner.evaluate(stand_in, bundle, bundle.model, cfg,
-                                       mode="test", tables=tables,
-                                       verbose=False)
-                host_s = time.perf_counter() - t
-                secs = []
-                for _ in range(3):
-                    t = time.perf_counter()
-                    packed.evaluate_packed(
+                with host_clock(torch) as clock:
+                    host = runner.evaluate(stand_in, bundle, bundle.model,
+                                           cfg, mode="test", tables=tables,
+                                           verbose=False)
+                host_s = clock.s
+                secs = [ms / 1e3 for ms in host_ms(
+                    torch, lambda _: packed.evaluate_packed(
                         stand_in, bundle, bundle.model, cfg, mode="test",
-                        verbose=False, data=data, tables=tables)
-                    secs.append(time.perf_counter() - t)
+                        verbose=False, data=data, tables=tables), 3)]
         finally:
             for module, orig in saved.items():
                 module.summarize_metrics = orig
@@ -2508,11 +2570,10 @@ def rels_only_phase(torch, root, card):
             s_flushes, s_pads = rels_flushes(s_lengths, EVAL_B)
         # ---- the counted run: the rels-only eval of the stand-in
         dispatch.reset_launches()
-        t = time.perf_counter()
-        got = evaluate_rels_only(stand_in, bundle, bundle.model, cfg,
-                                 verbose=False, batch_size=EVAL_B)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
+        with host_clock(torch) as clock:
+            got = evaluate_rels_only(stand_in, bundle, bundle.model, cfg,
+                                     verbose=False, batch_size=EVAL_B)
+        secs = clock.s
         launched = kernel_launches()
         # ---- end of the counted run
         plain = evaluate_rels_only(stand_in, bundle, bundle.model, cfg,
@@ -2636,9 +2697,9 @@ def text_only_phase(torch, root):
             "--quiet", "--text-dim", "768", "--text-layers", "12",
             "--joint-dim", "512", "--batch-size", "8"]
     with counted_none(torch, "the text-only CLI"):
-        t = time.perf_counter()
-        trained = text_only.main(args + ["--train", "--epochs", "2"])
-        train_s = time.perf_counter() - t
+        with host_clock(torch) as clock:
+            trained = text_only.main(args + ["--train", "--epochs", "2"])
+        train_s = clock.s
         metrics = text_only.main(args + ["--resume-path",
                                          os.path.join(store, "1.pth.tar")])
     losses = trained["train"]["losses"]
@@ -2693,6 +2754,7 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
     from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES as SCATTER
     from lirec_tpu_torch.ops.scatter_accum import SORT_NAME
     from lirec_tpu_torch.parallel import dist
+    from lirec_tpu_torch.parallel.mesh import Mesh2D
     from lirec_tpu_torch.parallel.step import make_dp_train_step
     from lirec_tpu_torch.tools import dist_check
     from lirec_tpu_torch.train.loop import (
@@ -2754,13 +2816,7 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
                 scatter = SCATTER[dtype]
                 # ---- counted run: phase 7's steps over a world of one
                 dispatch.reset_launches()
-                times, losses = [], []
-                for i, batch in enumerate(local):
-                    t = time.perf_counter()
-                    losses.append(float(step(batch, dev_tables,
-                                             step_generators(0, i, "cuda"))))
-                    times.append((time.perf_counter() - t) * 1e3)
-                torch.cuda.synchronize()
+                losses, times = timed_steps(torch, step, local, dev_tables)
                 stepped = kernel_launches()
                 # ---- end of the counted run
                 want_losses, want_params = train_finals[compute]
@@ -2803,11 +2859,11 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
                "eval_b": EVAL_B, "train_b": TRAIN_B}
         torch.save(split, job["split"])
         torch.save(local[:DIST_STEPS], job["batches"])
-        t0 = time.perf_counter()
-        ranks = dist.spawn(dist_check.rank_run, 2, devices="cuda",
-                           backend="gloo", timeout=DIST_TIMEOUT, args=(job,),
-                           workdir=work)
-        wall = time.perf_counter() - t0
+        with host_clock(torch) as clock:
+            ranks = dist.spawn(dist_check.rank_run, 2, devices="cuda",
+                               backend="gloo", timeout=DIST_TIMEOUT,
+                               args=(job,), workdir=work)
+        wall = clock.s
     fcfg = cfg.with_runtime(compute_dtype="float32")
     bundle = create_model(fcfg, 101, n_rels=15, seed=0, device="cuda")
     opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
@@ -2850,7 +2906,7 @@ def dist_phase(torch, local, train_finals, step_ms, eval_ref):
                  for n, p in bundle.model.named_parameters()}
         halves, blocks = [], []
         for r in range(2):
-            half = _to_device(local_batch(batch, dist.DataMesh(2, r)),
+            half = _to_device(local_batch(batch, Mesh2D(2, r)),
                               "cuda")
             with torch.no_grad(), dist_check.DecisionRecorder() as hrec:
                 train_loss(bundle, half, dev_tables, gens(),
@@ -2961,14 +3017,11 @@ def mesh_graph_steps(torch, ccfg, mesh, batches, tables, eager_losses,
     scatter a replay (added to `launches`); then epochs of graph replays and of the
     same step run eagerly in turns on its model. Returns {ms/step lists,
     capture ms}."""
-    import numpy as np
-
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.ops import dispatch
     from lirec_tpu_torch.ops.scatter_accum import SORT_NAME
-    from lirec_tpu_torch.train.loop import step_generators
     from lirec_tpu_torch.train.optim import make_optimizer
-    from lirec_tpu_torch.train.sweep import SEED_STRIDE, EpochSweep
+    from lirec_tpu_torch.train.sweep import EpochSweep
 
     compute = ccfg.runtime.compute_dtype
     bundle = create_model(ccfg, 101, n_rels=15, seed=0, device="cuda")
@@ -2997,20 +3050,8 @@ def mesh_graph_steps(torch, ccfg, mesh, batches, tables, eager_losses,
               compute, replayed, len(batches)))
     launches[scatter] = replayed[scatter]
     launches[SORT_NAME] = launches.get(SORT_NAME, 0) + replayed[SORT_NAME]
-    times = {"graph": [], "eager": []}
-    for turn, kind in enumerate(SWEEP_TURNS):
-        epoch = turn + 1
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if kind == "graph":
-            got = sweep.fetch(sweep.run(batches, epoch))
-        else:
-            got = [float(sweep.step(b, tables, step_generators(
-                0, epoch * SEED_STRIDE + i, "cuda")))
-                for i, b in enumerate(batches)]
-        times[kind].append((time.perf_counter() - t) * 1e3 / len(batches))
-        check(all(np.isfinite(got)), "%s mesh %s losses %s"
-              % (compute, kind, got))
+    times = epochs_in_turns(torch, SWEEP_TURNS, sweep, sweep.step, batches,
+                            tables, "%s mesh" % compute)
     check(len(sweep.capture_s) == 1, "%s: %d mesh captures for one batch "
           "shape" % (compute, len(sweep.capture_s)))
     log("  (a) NCCL world of one, %s: %d steps as graph replays of the mesh "
@@ -3160,11 +3201,11 @@ def context_checks(torch, eval_ref, work):
            "preset": "int_rel_ch", "n_classes": 101, "n_rels": 15,
            "seed": 0, "n_clips": N_CLIPS, "n_tracks": N_TRACKS}
     torch.save(batch, job["batch"])
-    t0 = time.perf_counter()
-    ranks = dist.spawn(dist_check.context_run, 2, devices="cuda",
-                       backend="gloo", timeout=DIST_TIMEOUT, args=(job,),
-                       workdir=work)
-    wall = time.perf_counter() - t0
+    with host_clock(torch) as clock:
+        ranks = dist.spawn(dist_check.context_run, 2, devices="cuda",
+                           backend="gloo", timeout=DIST_TIMEOUT, args=(job,),
+                           workdir=work)
+    wall = clock.s
     name = KERNEL_NAMES[("gather_masked_sum", torch.float32)]
     tol = {"float32": dict(rtol=1e-5, atol=1e-6),
            "bfloat16": dict(rtol=4.1e-3, atol=4.1e-3)}
@@ -3357,13 +3398,13 @@ def model_axis_phase(torch, spec, local, caps, train_finals, step_ms,
                 ("(a) 1x2", (1, 2), dict(steps=len(local), dropout=True)),
                 ("(b) 2x2", (2, 2), dict(steps=MESH_STEPS_2X2,
                                          dropout=False))):
-            t0 = time.perf_counter()
-            ranks = dist.spawn(dist_check.rank_run, shape[0] * shape[1],
-                               devices="cuda", backend="gloo",
-                               timeout=DIST_TIMEOUT,
-                               args=(dict(job, mesh=shape, **extra),),
-                               workdir=work)
-            wall = time.perf_counter() - t0
+            with host_clock(torch) as clock:
+                ranks = dist.spawn(dist_check.rank_run, shape[0] * shape[1],
+                                   devices="cuda", backend="gloo",
+                                   timeout=DIST_TIMEOUT,
+                                   args=(dict(job, mesh=shape, **extra),),
+                                   workdir=work)
+            wall = clock.s
             got = mesh_rank_checks(torch, label, ranks, shape, eval_ref,
                                    step_ms, train_finals)
             for k, v in got["launches"].items():
@@ -3494,25 +3535,22 @@ def dense_train_steps(torch, raw):
     losses = []
     dispatch.reset_launches()
     for i, batch in enumerate(raw[:3]):
-        t = time.perf_counter()
-        dense = collate([InteractionDataset.to_dense(
-            ds, {k: v[j] for k, v in batch.items()})
-            for j in range(len(batch["labels"]))])
-        out["host_to_dense_ms"].append((time.perf_counter() - t) * 1e3)
+        with host_clock(torch) as clock:
+            dense = collate([InteractionDataset.to_dense(
+                ds, {k: v[j] for k, v in batch.items()})
+                for j in range(len(batch["labels"]))])
+        out["host_to_dense_ms"].append(clock.s * 1e3)
         check(dense["features"].shape == (TRAIN_B, 20, 19, 6912),
               "dense batch %s" % (dense["features"].shape,))
         out["batch_bytes"] = sum(v.nbytes for v in dense.values())
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        staged = next(prefetch_to_device(iter([dense]), "cuda"))
-        torch.cuda.synchronize()
-        out["h2d_ms"].append((time.perf_counter() - t) * 1e3)
-        t = time.perf_counter()
-        loss = float(step(staged, None, step_generators(0, i, "cuda")))
-        out["step_ms"].append((time.perf_counter() - t) * 1e3)
-        losses.append(loss)
+        with host_clock(torch) as clock:
+            staged = next(prefetch_to_device(iter([dense]), "cuda"))
+        out["h2d_ms"].append(clock.s * 1e3)
+        with host_clock(torch) as clock:
+            losses.append(float(step(staged, None,
+                                     step_generators(0, i, "cuda"))))
+        out["step_ms"].append(clock.s * 1e3)
         del dense, staged
-    torch.cuda.synchronize()
     check(all(np.isfinite(losses)), "dense train losses %s" % losses)
     check(kernel_launches() == {}, "dense steps launched %s"
           % kernel_launches())
@@ -3548,9 +3586,12 @@ def prefetched_train_path(torch, local, train_finals, step_ms):
     ms = {}
     for compute in ("bfloat16", "float32"):
         want_losses, want_params = train_finals[compute]
-        times = {"plain": [], "prefetch": []}
         runs = {"plain": [], "prefetch": []}
-        for mode in PREFETCH_TURNS:
+
+        def run(mode, turn):
+            """A turn: phase 7's steps from a fresh model, each step's
+            ms after the first (its warm-up)."""
+            nonlocal tables
             bundle = create_model(cfg.with_runtime(compute_dtype=compute),
                                   101, n_rels=15, seed=0, device="cuda")
             if tables is None:
@@ -3560,29 +3601,32 @@ def prefetched_train_path(torch, local, train_finals, step_ms):
             opt = make_optimizer(bundle.model.parameters(), cfg.optim.lr,
                                  cfg.optim.weight_decay)
             step = make_train_step(bundle, opt)
-            source = (prefetch_to_device(iter(local), "cuda")
-                      if mode == "prefetch" else local)
-            losses, run = [], []
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for i, batch in enumerate(source):
+            source = enumerate(prefetch_to_device(iter(local), "cuda")
+                               if mode == "prefetch" else local)
+            losses = []
+
+            def one_step(_):
+                i, batch = next(source)
                 if mode == "prefetch":
                     check(all(v.is_cuda for v in batch.values()),
                           "not staged")
                 losses.append(float(step(batch, tables,
                                          step_generators(0, i, "cuda"))))
-                run.append((time.perf_counter() - t) * 1e3)
-                t = time.perf_counter()
+
+            times = host_ms(torch, one_step, len(local))[1:]
             check(losses == want_losses, "%s %s: losses %s != phase 7's %s"
                   % (compute, mode, losses, want_losses))
             for n, p in bundle.model.named_parameters():
                 check(torch.equal(p.detach().cpu(), want_params[n]),
                       "%s %s: parameter %s differs from phase 7's"
                       % (compute, mode, n))
-            times[mode] += run[1:]
-            runs[mode].append(statistics.median(run[1:]))
+            runs[mode].append(statistics.median(times))
             del bundle, opt, step
             torch.cuda.empty_cache()
+            return times
+
+        times = in_turns(PREFETCH_TURNS, {mode: functools.partial(run, mode)
+                                          for mode in runs})
         ms[compute] = {k: statistics.median(v) for k, v in times.items()}
         ms[compute]["runs"] = runs
         log("  (d) %s: phase 7's 10 steps in turns %s, each bitwise phase "
@@ -3596,7 +3640,7 @@ def prefetched_train_path(torch, local, train_finals, step_ms):
     return ms
 
 
-def plan_cache_checks(root):
+def plan_cache_checks(torch, root):
     """Phase 17(f): on the published-widths fixture, the assembly plan's
     disk cache: a miss (build and save) on one dataset, then a hit (load
     and spot check) on a second dataset over the same data. Returns the
@@ -3620,9 +3664,9 @@ def plan_cache_checks(root):
         ds = InteractionDataset(cfg, mode="train")
         ds.cache()
         ds.init_relships()
-        t = time.perf_counter()
-        plan = ds.assembly_plan()
-        out[case] = time.perf_counter() - t
+        with host_clock(torch) as clock:
+            plan = ds.assembly_plan()
+        out[case] = clock.s
         rec = dispatch.last_dispatch("assembly_plan_cache")
         check(plan is not None and rec["reason"] == reason,
               "plan cache: %s, expected %s" % (rec, reason))
@@ -3661,10 +3705,9 @@ def pool_and_profile_cli(torch, root):
                 extra += ["--assembly-workers", str(workers), "--profile",
                           prof]
             before = dispatch.decisions(ASSEMBLY)
-            t = time.perf_counter()
-            out = train_cli.main(args + extra)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t
+            with host_clock(torch) as clock:
+                out = train_cli.main(args + extra)
+            secs = clock.s
             after = dispatch.decisions(ASSEMBLY)
             runs[workers] = (out["train"]["losses"], secs, {
                 p: after.get(p, 0) - before.get(p, 0) for p in after})
@@ -3710,7 +3753,7 @@ def rest_of_training_phase(torch, spec, root, raw, local, train_finals,
     out["prefetch_ms"] = prefetched_train_path(torch, local, train_finals,
                                                step_ms)
     out["pool_cli"] = pool_and_profile_cli(torch, root)
-    out["plan_cache"] = plan_cache_checks(root)
+    out["plan_cache"] = plan_cache_checks(torch, root)
     return out
 
 
@@ -3770,12 +3813,11 @@ def ingest_and_eval_clis(torch, root, device, dims):
     # (a) the ingest CLI: one artifact per preset
     for preset in ("int_rel_ch", "int_rels"):
         arts[preset] = os.path.join(work, "ingest_%s.npz" % preset)
-        t = time.perf_counter()
-        ingest.main(["--data-root", root, "--preset", preset, "--out",
-                     arts[preset]] + dim_args(dims))
+        with host_clock(torch) as clock:
+            ingest.main(["--data-root", root, "--preset", preset, "--out",
+                         arts[preset]] + dim_args(dims))
         out["ingest_" + preset] = dict(
-            s=time.perf_counter() - t,
-            MB=os.path.getsize(arts[preset]) / 1e6)
+            s=clock.s, MB=os.path.getsize(arts[preset]) / 1e6)
         log("  (a) cli.ingest.main --preset %s: %.2f s, %.2f MB"
             % (preset, out["ingest_" + preset]["s"],
                out["ingest_" + preset]["MB"]))
@@ -3848,21 +3890,21 @@ def ingest_and_eval_clis(torch, root, device, dims):
             clip=list(emb.clip.shape), tracks=list(emb.tr1.shape))
         log("  (b) the %s pool's inputs: %s" % (tag, pool[tag]["shapes"]))
     # the datasets' start-up: built from the fixture against loaded
-    t = time.perf_counter()
-    common.build_datasets(cfg, "int_rel_ch")
-    out["build_datasets_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    load_ingest(arts["int_rel_ch"], cfg)
-    out["load_ingest_s"] = time.perf_counter() - t
+    with host_clock(torch) as clock:
+        common.build_datasets(cfg, "int_rel_ch")
+    out["build_datasets_s"] = clock.s
+    with host_clock(torch) as clock:
+        load_ingest(arts["int_rel_ch"], cfg)
+    out["load_ingest_s"] = clock.s
     log("  (b) start-up of the three datasets: build_datasets %.3f s, "
         "load_ingest %.3f s" % (out["build_datasets_s"],
                                 out["load_ingest_s"]))
 
     # (d) convert-checkpoint, then the eval CLI on the .ckpt
     converted = os.path.join(work, "int_rel_ch.ckpt")
-    t = time.perf_counter()
-    convert_checkpoint.main(["--src", ckpt, "--dst", converted])
-    out["convert_s"] = time.perf_counter() - t
+    with host_clock(torch) as clock:
+        convert_checkpoint.main(["--src", ckpt, "--dst", converted])
+    out["convert_s"] = clock.s
     got = int_rel_ch.main(base + ["--resume-path", converted,
                                   "--compute-dtype", "bfloat16"])
     check(got == metrics["bfloat16"], "the eval CLI on the converted .ckpt "
@@ -3961,7 +4003,7 @@ def int_rels_sweep_checks(torch, root, arts, device, dims):
     return launched, calls, dict(batches=batches, rels_table_vs_cpu=diff)
 
 
-def host_tools_checks(root, dims):
+def host_tools_checks(torch, root, dims):
     """Phase 18 (e): extract-text (fake backend), verify-features check on
     its output, graphs-demo on the fixture's graphs."""
     import contextlib
@@ -3972,12 +4014,12 @@ def host_tools_checks(root, dims):
     from lirec_tpu_torch.data import synthetic
 
     text_out = os.path.join(root, "phase18", "bert")
-    t = time.perf_counter()
-    n = extract_text.main(["--data-root", root, "--out-dir", text_out,
-                           "--backend", "fake", "--quiet", "--text-dim",
-                           str(dims["text_dim"]), "--text-layers",
-                           str(dims["text_layers"])])
-    secs = time.perf_counter() - t
+    with host_clock(torch) as clock:
+        n = extract_text.main(["--data-root", root, "--out-dir", text_out,
+                               "--backend", "fake", "--quiet", "--text-dim",
+                               str(dims["text_dim"]), "--text-layers",
+                               str(dims["text_layers"])])
+    secs = clock.s
     bad = verify_features.main(["check", "--text-root", text_out])
     check(n > 0 and bad == [], "extract-text wrote %d scenes, verify-"
           "features found %s" % (n, bad))
@@ -4001,7 +4043,7 @@ def remaining_clis_phase(torch, root, device, dims):
         torch, root, device, dims)
     rels_counts, calls, out["int_rels"] = int_rels_sweep_checks(
         torch, root, arts, device, dims)
-    host_tools_checks(root, dims)
+    host_tools_checks(torch, root, dims)
     ids, rows, n_rows = calls[0]  # the first batch: table rows + updates
     idx = ids[:, None].expand(-1, 3).contiguous()
     entry = scatter_case(torch, "kernel 8 at the int_rels sweep", idx,
@@ -4018,15 +4060,13 @@ def train_sweep_checks(torch, batches, finals):
     parameters, and a chunked sweep bitwise too; then epochs of the graph
     sweep and of the per-batch eager steps in turns on one model, ms/step
     each."""
-    import numpy as np
-
     from lirec_tpu_torch import config as config_lib
     from lirec_tpu_torch.models.factory import create_model
     from lirec_tpu_torch.ops import dispatch
     from lirec_tpu_torch.ops.scatter_accum import KERNEL_NAMES, SORT_NAME
-    from lirec_tpu_torch.train.loop import make_train_step, step_generators
+    from lirec_tpu_torch.train.loop import make_train_step
     from lirec_tpu_torch.train.optim import make_optimizer
-    from lirec_tpu_torch.train.sweep import SEED_STRIDE, EpochSweep
+    from lirec_tpu_torch.train.sweep import EpochSweep
     from lirec_tpu_torch.utils.fake_batch import make_tables
 
     cfg = config_lib.preset("int_rel_ch")
@@ -4059,12 +4099,11 @@ def train_sweep_checks(torch, batches, finals):
             tables = {k: torch.from_numpy(v).cuda() for k, v in make_tables(
                 spec, N_CLIPS, N_TRACKS, seed=0).items()}
         bundle, opt, sweep = fresh()
-        torch.cuda.synchronize()
         # ---- the counted run: one epoch of the sweep
         dispatch.reset_launches()
-        t = time.perf_counter()
-        losses = sweep.fetch(sweep.run(batches, 0))
-        first_ms = (time.perf_counter() - t) * 1e3
+        with host_clock(torch) as clock:
+            losses = sweep.fetch(sweep.run(batches, 0))
+        first_ms = clock.s * 1e3
         counted = kernel_launches()
         # ---- end of the counted run
         check(counted == {name: len(batches), SORT_NAME: len(batches)},
@@ -4081,21 +4120,8 @@ def train_sweep_checks(torch, batches, finals):
         del chunked_bundle, chunked
         # ms/step: further epochs on the counted run's model, in turns
         step = make_train_step(bundle, opt)
-        times = {"graph": [], "eager": []}
-        for turn, kind in enumerate(SWEEP_TURNS):
-            epoch = turn + 1
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            if kind == "graph":
-                got = sweep.fetch(sweep.run(batches, epoch))
-            else:
-                got = [float(step(b, tables, step_generators(
-                    0, epoch * SEED_STRIDE + i, "cuda")))
-                    for i, b in enumerate(batches)]
-            times[kind].append((time.perf_counter() - t) * 1e3
-                               / len(batches))
-            check(all(np.isfinite(got)), "%s %s losses %s"
-                  % (compute, kind, got))
+        times = epochs_in_turns(torch, SWEEP_TURNS, sweep, step, batches,
+                                tables, compute)
         check(len(sweep.capture_s) == 1, "%s: %d captures for one batch "
               "shape" % (compute, len(sweep.capture_s)))
         out[compute] = dict(
@@ -4156,15 +4182,12 @@ def eval_graph_checks(torch, eval_ref):
             launched = {}
             carries = {}
             for graph in (True, False):
-                torch.cuda.synchronize()
                 # ---- a counted run: one sweep of the split
                 dispatch.reset_launches()
-                t = time.perf_counter()
-                carries[graph] = sweep(tier, graph)
-                torch.cuda.synchronize()
+                with host_clock(torch) as clock:
+                    carries[graph] = sweep(tier, graph)
                 if not tier:
-                    whole["first graph" if graph else "eager"] = \
-                        time.perf_counter() - t
+                    whole["first graph" if graph else "eager"] = clock.s
                 launched[graph] = kernel_launches()
                 # ---- end of the counted run
                 check(dispatch.last_dispatch("eval_sweep")["path"]
@@ -4192,14 +4215,18 @@ def eval_graph_checks(torch, eval_ref):
                      for n in halves}
         for key in stand_ins:
             sweep(False, key[0], halves[key[1]], stand_ins[key])  # warm-up
-        secs = {key: [] for key in stand_ins}
-        for r in range(EVAL_ROUNDS):
-            for graph in ((True, False) if r % 2 == 0 else (False, True)):
-                for n in (n_half, EVAL_FULL):
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    sweep(False, graph, halves[n], stand_ins[(graph, n)])
-                    secs[(graph, n)].append(time.perf_counter() - t)
+
+        def timed_sweep(key, turn):
+            return host_ms(torch, lambda _: sweep(
+                False, key[0], halves[key[1]], stand_ins[key]))
+
+        order = [(graph, n) for r in range(EVAL_ROUNDS)
+                 for graph in ((True, False) if r % 2 == 0
+                               else (False, True))
+                 for n in (n_half, EVAL_FULL)]
+        secs = {key: [ms / 1e3 for ms in times] for key, times in
+                in_turns(order, {key: functools.partial(timed_sweep, key)
+                                 for key in stand_ins}).items()}
         slopes = {}
         for graph in (True, False):
             t1 = statistics.median(secs[(graph, n_half)])
@@ -4208,11 +4235,9 @@ def eval_graph_checks(torch, eval_ref):
                 (t2 - t1) / (EVAL_FULL - n_half) * 1e3
         # the whole split again (a cadence eval's second sweep): the graph
         # its first sweep captured
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        sweep(False, True)
-        torch.cuda.synchronize()
-        whole["later graph"] = time.perf_counter() - t
+        with host_clock(torch) as clock:
+            sweep(False, True)
+        whole["later graph"] = clock.s
         check(dispatch.last_dispatch("eval_sweep")["reason"]
               == "cuda: the graph of this key",
               "%s: the split's second graph sweep captured again" % compute)
@@ -4249,11 +4274,11 @@ def train_cli_sweep_checks(torch, root):
                               (["--per-batch-train"], False, "per_batch")):
         before = dispatch.decisions("train_loop").get(path, 0)
         store = os.path.join(root, "phase19_store%d" % len(extra))
-        t = time.perf_counter()
-        out = train_cli.main(["--data-root", root, "--device", "cuda",
-                              "--quiet", "--epochs", "1", "--store-root",
-                              store] + dim_args(PUBLISHED_DIMS) + extra)
-        secs = time.perf_counter() - t
+        with host_clock(torch) as clock:
+            out = train_cli.main(["--data-root", root, "--device", "cuda",
+                                  "--quiet", "--epochs", "1", "--store-root",
+                                  store] + dim_args(PUBLISHED_DIMS) + extra)
+        secs = clock.s
         train = out["train"]
         check(train["epoch_sweep_used"] is used, "training CLI %s: "
               "epoch_sweep_used %r" % (extra, train["epoch_sweep_used"]))
@@ -4451,13 +4476,12 @@ def decode_rate(frame, size, reps=9):
     from lirec_tpu_torch.native import bindings
 
     out = np.empty(size, np.uint8)
-    times = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        n = bindings.zstd_decompress(frame, out=out).size
-        times.append(time.perf_counter() - t)
+    sizes = []
+    times = host_ms(None, lambda _: sizes.append(
+        bindings.zstd_decompress(frame, out=out).size), reps)
+    for n in sizes:
         check(n == size, "the frame decoded to %d bytes, not %d" % (n, size))
-    return size / statistics.median(times) / 1e6
+    return size / (statistics.median(times) / 1e3) / 1e6
 
 
 def disk_mb(path):
@@ -4650,14 +4674,14 @@ def orbax_phase(torch, local):
     with tempfile.TemporaryDirectory() as work:
         for backend in ("msgpack", "orbax"):
             path = os.path.join(work, "%s.ckpt" % backend)
-            t = time.perf_counter()
-            save_train_state_any(path, bundle.model, opt, ORBAX_STEPS,
-                                 backend)
-            write_s = time.perf_counter() - t
-            t = time.perf_counter()
-            params, adam, epoch = load_jax_checkpoint(path, bundle.model,
-                                                      opt)
-            read_s = time.perf_counter() - t
+            with host_clock(torch) as clock:
+                save_train_state_any(path, bundle.model, opt, ORBAX_STEPS,
+                                     backend)
+            write_s = clock.s
+            with host_clock(torch) as clock:
+                params, adam, epoch = load_jax_checkpoint(
+                    path, bundle.model, opt)
+            read_s = clock.s
             check(epoch == ORBAX_STEPS, "(d) %s: epoch %d" % (backend,
                                                             epoch))
             names = {i: n for i, (n, _) in enumerate(
@@ -4742,7 +4766,7 @@ def sweep_and_steps(torch, label, fresh, batches, tables, expect):
 
     from lirec_tpu_torch.ops import dispatch
     from lirec_tpu_torch.train.loop import make_train_step, step_generators
-    from lirec_tpu_torch.train.sweep import SEED_STRIDE, EpochSweep
+    from lirec_tpu_torch.train.sweep import EpochSweep
 
     bundle, opt = fresh()
     sweep = EpochSweep(bundle, opt, tables, 0, TRAIN_B, require_graph=True)
@@ -4769,20 +4793,8 @@ def sweep_and_steps(torch, label, fresh, batches, tables, expect):
           % label)
     del eager_bundle, eager_opt
     step = make_train_step(bundle, opt)
-    times = {"graph": [], "eager": []}
-    for turn, kind in enumerate(GROUNDING_TURNS):
-        epoch = turn + 1
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if kind == "graph":
-            got = sweep.fetch(sweep.run(batches, epoch))
-        else:
-            got = [float(step(b, tables, step_generators(
-                0, epoch * SEED_STRIDE + i, "cuda")))
-                for i, b in enumerate(batches)]
-        times[kind].append((time.perf_counter() - t) * 1e3 / len(batches))
-        check(all(math.isfinite(x) for x in got), "%s %s losses %s"
-              % (label, kind, got))
+    times = epochs_in_turns(torch, GROUNDING_TURNS, sweep, step, batches,
+                            tables, label)
     return bundle, dict(graph_ms_per_step=times["graph"],
                         eager_ms_per_step=times["eager"],
                         capture_ms=sweep.capture_s[0] * 1e3, losses=losses)
@@ -4849,15 +4861,13 @@ def gt_int_rel_ch_checks(torch, local, eval_ref, card):
         counts[scatter_accum.SORT_NAME] = (
             counts.get(scatter_accum.SORT_NAME, 0) + len(local))
         ecfg = ccfg.with_optim(batch_size=EVAL_B)
-        torch.cuda.synchronize()
         # ---- a counted run: the GT model's cadence sweep of the split
         dispatch.reset_launches()
-        t = time.perf_counter()
-        carry = packed.sweep_carry(split_stand_in(), bundle, bundle.model,
-                                   ecfg, mode="test", data=eval_ref["split"],
-                                   tables=np_tables)
-        torch.cuda.synchronize()
-        eval_s = time.perf_counter() - t
+        with host_clock(torch) as clock:
+            carry = packed.sweep_carry(
+                split_stand_in(), bundle, bundle.model, ecfg, mode="test",
+                data=eval_ref["split"], tables=np_tables)
+        eval_s = clock.s
         launched = kernel_launches()
         # ---- end of the counted run
         check(launched == {pool: EVAL_FULL + 1}, "GT int_rel_ch %s cadence "
@@ -4951,11 +4961,11 @@ def int_ch_serving(torch, root, card):
                         seed=2300 + B))
                     payload = {"samples": [{"feat_idx": f.tolist()}
                                            for f in batch["feat_idx"]]}
-                    times = []
-                    for _ in range(1 + {1: 10, 64: 5}.get(B, 3)):
-                        t = time.perf_counter()
-                        status, res = http(base + "/predict", payload)
-                        times.append((time.perf_counter() - t) * 1e3)
+                    answers = []
+                    times = host_ms(torch, lambda _: answers.append(
+                        http(base + "/predict", payload)),
+                        1 + {1: 10, 64: 5}.get(B, 3))
+                    for status, res in answers:
                         check(status == 200, "int_ch %s B=%d: %s %s"
                               % (variant, B, status, res))
                         check_int_ch_predictions(
@@ -5042,22 +5052,25 @@ def int_ch_checks(torch, raw, eval_ref, root, card):
                 batches = localizer.maybe_localize(
                     [int_ch_layout(b) for b in raw])
             ecfg = ccfg.with_optim(batch_size=EVAL_B)
-            carries, secs = {}, {"graph": [], "eager": []}
-            with counted_none(torch, label + " eval sweep"):
-                for kind in GROUNDING_TURNS:
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    carry = packed.sweep_carry(
+            carries = {}
+
+            def eval_turn(kind, turn):
+                got = []
+                times = host_ms(torch, lambda _: got.append(
+                    packed.sweep_carry(
                         split_stand_in(), bundle, bundle.model, ecfg,
                         mode="test", data=data, tables=np_tables,
-                        graph=kind == "graph")
-                    torch.cuda.synchronize()
-                    secs[kind].append(time.perf_counter() - t)
-                    check(dispatch.last_dispatch("eval_sweep")["path"]
-                          == kind, "%s: the sweep's loop" % label)
-                    if kind in carries:
-                        continue
-                    carries[kind] = carry
+                        graph=kind == "graph")))
+                check(dispatch.last_dispatch("eval_sweep")["path"]
+                      == kind, "%s: the sweep's loop" % label)
+                carries.setdefault(kind, got[0])
+                return times
+
+            with counted_none(torch, label + " eval sweep"):
+                secs = {kind: [ms / 1e3 for ms in times] for kind, times in
+                        in_turns(GROUNDING_TURNS, {
+                            kind: functools.partial(eval_turn, kind)
+                            for kind in ("graph", "eager")}).items()}
             for key, v in carries["eager"].items():
                 check(np.array_equal(carries["graph"][key], v),
                       "%s: graph carry %s %s, eager %s"
@@ -5129,9 +5142,9 @@ def grounding_clis(torch, root):
             cfg, splits["train"].n_classes, n_rels=0, seed=seed,
             device="cpu").model.state_dict())
         with counted_none(torch, "the int_ch eval CLI"):
-            t = time.perf_counter()
-            got = int_ch_cli.main(dims + flag + ["--resume-path", ckpt])
-            secs = time.perf_counter() - t
+            with host_clock(torch) as clock:
+                got = int_ch_cli.main(dims + flag + ["--resume-path", ckpt])
+            secs = clock.s
             bundle = create_model(cfg, splits["train"].n_classes, n_rels=0,
                                   seed=seed + 7, device=DEV)
             bundle.model.load_state_dict(load_checkpoint_state(ckpt))
@@ -5151,11 +5164,10 @@ def grounding_clis(torch, root):
         store = os.path.join(root, "gt_%s_store" % preset)
         base = [preset] + dims + ["--tr-correct", "--store-root", store]
         dispatch.reset_launches()
-        t = time.perf_counter()
-        trained = train_cli.main(base + ["--epochs", "2",
-                                         "--checkpoint-every", "2"])
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
+        with host_clock(torch) as clock:
+            trained = train_cli.main(base + ["--epochs", "2",
+                                             "--checkpoint-every", "2"])
+        secs = clock.s
         launched = kernel_launches()
         losses = trained["train"]["losses"]
         check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
@@ -5365,11 +5377,11 @@ def long_rels_only(torch, card):
         try:
             # ---- the counted run: the rels-only eval of the stand-in
             dispatch.reset_launches()
-            t = time.perf_counter()
-            got = evaluate_rels_only(stand_in, bundle, bundle.model, cfg,
-                                     verbose=False, batch_size=EVAL_B)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t
+            with host_clock(torch) as clock:
+                got = evaluate_rels_only(stand_in, bundle, bundle.model,
+                                         cfg, verbose=False,
+                                         batch_size=EVAL_B)
+            secs = clock.s
             launched = kernel_launches()
             # ---- end of the counted run
         finally:
@@ -5401,15 +5413,15 @@ def grounding_phase(torch, raw, local, eval_ref):
     {kernel name: launches}}, {"long_context": (d)'s numbers}, the
     numbers logged)."""
     card = card_line()
-    t_phase = time.perf_counter()
-    gt_counts, gt = gt_int_rel_ch_checks(torch, local, eval_ref, card)
-    with tempfile.TemporaryDirectory() as root:
-        write_fixture(root, **PUBLISHED_FIXTURE)
-        int_ch = int_ch_checks(torch, raw, eval_ref, root, card)
-        clis = grounding_clis(torch, root)
-    long_ctx = long_context_checks(torch, card)
-    ctx_counts = long_rels_only(torch, card)
-    secs = time.perf_counter() - t_phase
+    with host_clock(torch) as clock:
+        gt_counts, gt = gt_int_rel_ch_checks(torch, local, eval_ref, card)
+        with tempfile.TemporaryDirectory() as root:
+            write_fixture(root, **PUBLISHED_FIXTURE)
+            int_ch = int_ch_checks(torch, raw, eval_ref, root, card)
+            clis = grounding_clis(torch, root)
+        long_ctx = long_context_checks(torch, card)
+        ctx_counts = long_rels_only(torch, card)
+    secs = clock.s
     log("  phase 23 took %.1f s" % secs)
     return ({"gt": gt_counts, "ctx4096": ctx_counts},
             long_ctx, {"gt_int_rel_ch": gt, "int_ch": int_ch, "clis": clis,
@@ -5435,13 +5447,12 @@ def main():
            torch.cuda.device_count(), torch.cuda.get_device_name(0)))
 
     log("== 2. build")
-    t0 = time.perf_counter()
     sources = ("fused_ctx_pool", "scatter_accum", "fused_ctx_pool_triple",
                "probe_hbm_dma", "probe_bf16_pack")
-    with ThreadPoolExecutor(len(sources)) as pool:
-        paths = list(pool.map(build.build, sources))
-    log("  built in %.2f s (one nvcc per source, in parallel)"
-        % (time.perf_counter() - t0))
+    with host_clock(torch) as clock:
+        with ThreadPoolExecutor(len(sources)) as pool:
+            paths = list(pool.map(build.build, sources))
+    log("  built in %.2f s (one nvcc per source, in parallel)" % clock.s)
     for name, path in zip(sources, paths):
         info = build.BUILD_LOGS.get(name)
         log("  %s: %s" % (name, "built in %.2f s" % info["seconds"]
@@ -5466,11 +5477,10 @@ def main():
     entry_point(torch)
 
     log("== 6. scatter kernel vs plain PyTorch on the card")
-    t0 = time.perf_counter()
-    raw, local, caps = train_batches(spec)
+    with host_clock(torch) as clock:
+        raw, local, caps = train_batches(spec)
     log("  %d structured B=%d batches, localized in %.1f s: caps %d clip / "
-        "%d track rows" % (len(raw), TRAIN_B, time.perf_counter() - t0,
-                           *caps))
+        "%d track rows" % (len(raw), TRAIN_B, clock.s, *caps))
     scatter = scatter_checks(torch, spec, raw[0], local[0], caps)
 
     log("== 7. int_rel_ch training at published widths (counted run)")
@@ -5493,10 +5503,10 @@ def main():
 
     card = card_line()
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        write_fixture(root, **PUBLISHED_FIXTURE)
+        with host_clock(torch) as clock:
+            write_fixture(root, **PUBLISHED_FIXTURE)
         log("  (phases 13-17) fixture of published feature widths written "
-            "in %.1f s" % (time.perf_counter() - t0))
+            "in %.1f s" % clock.s)
         log("== 13. modalities at published widths: serve, train, eval "
             "sweep, CLI (no kernel)")
         mod = modalities_phase(torch, root, card)

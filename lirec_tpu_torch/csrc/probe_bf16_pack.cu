@@ -51,8 +51,9 @@
 // with kernel 5 on the native bf16 table (0.0086-0.0088 / 0.0194-0.0195):
 // at equal load width the packed layout buys nothing on this card.
 // Left out: the load depth, threads per block and lanes per thread are
-// kernel 5's, whose alternatives tools/pool_variants.py measured (PERF.md
-// section 6); kernel 10 was not varied apart from them.
+// kernel 5's, whose alternatives were measured with kernels 4-5's redesign
+// (CHANGES.md; kernel 5's rows in PERF.md section 6); kernel 10 was not
+// varied apart from them.
 //
 // Indices are not range-checked: callers keep them in [0, N).
 

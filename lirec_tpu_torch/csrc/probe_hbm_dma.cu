@@ -70,14 +70,14 @@
 //   silent value).
 // * A wait on either barrier kind that never completes traps after ~4M
 //   polls, so a launch fails with an error instead of hanging the card.
-// Tried on the card and left out (tools/run_pool_variants.py; PERF.md
-// section 6): consumers that read the starts and the weights from
-// device memory at each row and summed the divider in the epilogue (their
-// adds alone took 0.047 ms, the ring 0.060); headers inside the stages,
-// which put the copies' destinations off 128-byte boundaries (the copies
-// alone 0.055 ms instead of 0.053); 2 to 9 rows per stage in 4 to 8 stages
-// (0.055-0.066 ms against 0.054 for whole runs x 2); two blocks per SM
-// (registers capped at 72: spills, 0.10 ms).
+// Tried on the card and left out (this kernel's redesign in CHANGES.md;
+// kernel 9's row in PERF.md section 6): consumers that read the starts and
+// the weights from device memory at each row and summed the divider in the
+// epilogue (their adds alone took 0.047 ms, the ring 0.060); headers inside
+// the stages, which put the copies' destinations off 128-byte boundaries
+// (the copies alone 0.055 ms instead of 0.053); 2 to 9 rows per stage in 4
+// to 8 stages (0.055-0.066 ms against 0.054 for whole runs x 2); two blocks
+// per SM (registers capped at 72: spills, 0.10 ms).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

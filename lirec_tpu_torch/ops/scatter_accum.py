@@ -120,8 +120,8 @@ SORT_DIGIT_BITS = 8
 SORT_COUNT_INTS = SORT_MAX_PASSES * (1 << SORT_DIGIT_BITS) + 4
 # the sort by digits takes tiles of SORT_TILE positions from
 # SORT_LARGE_TILES of them on (a tile an SM), else tiles of
-# SORT_SMALL_TILE: on an NVIDIA H100 80GB HBM3 at 700 W
-# (tools/sort_passes.py) the small tiles were faster up to the train
+# SORT_SMALL_TILE: on an NVIDIA H100 80GB HBM3 at 700 W (CHANGES.md,
+# the sort by digits' redesign) the small tiles were faster up to the train
 # step's B = 256 at split-scale tables (0.0498 against 0.0503 ms), the
 # large ones from B = 512 (0.0582 against 0.0617)
 SORT_LARGE_TILES = 132

@@ -14,8 +14,8 @@ slice of the tensor-parallel layers.
   such as ``file://<path>`` (a FileStore, for tests); each rank takes the
   card ``cuda:<rank % device_count>``.
 * ``world`` / ``rank``: 1 and 0 where no group is initialised.
-* ``make_mesh`` / ``DataMesh`` / ``process_local_slice``: parallel/mesh.py's
-  ``make_mesh``, ``Mesh2D`` and ``process_local_slice``, here too.
+* ``make_mesh`` / ``process_local_slice``: parallel/mesh.py's
+  ``make_mesh`` and ``process_local_slice``, here too.
 * ``barrier``, ``all_gather_object``.
 * ``sharded_batch`` / ``batch_shard`` / ``batch_total``: inside a
   data-parallel step, the forward draws its dropout masks and loss samples
@@ -47,14 +47,12 @@ from lirec_tpu_torch.parallel.mesh import (
 )
 
 __all__ = [
-    "DataMesh", "RankResult", "initialize_distributed", "world", "rank",
+    "RankResult", "initialize_distributed", "world", "rank",
     "in_rank", "make_mesh", "process_local_slice", "barrier",
     "all_gather_object", "sharded_batch", "batch_shard", "batch_total",
     "spawn",
 ]
 
-# the one mesh type, by the name of its data axis (DataMesh(D, d): M = 1)
-DataMesh = Mesh2D
 DEFAULT_TIMEOUT = 600  # seconds, for a collective and for spawn's join
 
 _SHARD: contextvars.ContextVar = contextvars.ContextVar("batch_shard",

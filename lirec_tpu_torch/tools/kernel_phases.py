@@ -15,7 +15,8 @@ and the scatter's device time per launch inside the op.
 
 TREE (default: this checkout) is the root of a checkout whose
 ``lirec_tpu_torch`` (kernels and wrappers) is imported; the phase code is
-this checkout's ``chip_smoke.py``. So a parent and a change are measured
+this checkout's ``chip_smoke.py``, loaded by path (the package imports no
+script of the repository root). So a parent and a change are measured
 in one call, in turns, by the same code (unpack the parent with ``git
 archive`` into a git-ignored directory). Run it by path, not with ``-m``:
 the package must come from TREE. ``--scatter`` runs the scatter's phase

@@ -13,7 +13,7 @@ import torch
 from lirec_tpu_torch import config as config_lib
 from lirec_tpu_torch.data.pipeline import local_batch
 from lirec_tpu_torch.models.factory import create_model
-from lirec_tpu_torch.parallel.dist import DataMesh
+from lirec_tpu_torch.parallel.mesh import Mesh2D
 from lirec_tpu_torch.tools import dist_check
 from lirec_tpu_torch.train.loop import _to_device, step_generators, train_loss
 from lirec_tpu_torch.utils.fake_batch import make_batch, make_tables
@@ -120,7 +120,7 @@ def test_row_gradients_add_up_to_the_batch_gradient():
     for n, g in want.items():
         scale = float(g.abs().max()) or 1.0
         assert float((total[n] - g).abs().max()) <= 1e-6 * scale, n
-    half = _to_device(local_batch(host, DataMesh(2, 1)), "cpu")
+    half = _to_device(local_batch(host, Mesh2D(2, 1)), "cpu")
     bundle.model.zero_grad(set_to_none=True)
     train_loss(bundle, half, tables, gens(), deterministic=True).backward()
     want = {n: p.grad.clone() / 2 for n, p in bundle.model.named_parameters()}
@@ -146,7 +146,7 @@ def test_whole_and_halves_forwards_make_comparable_decisions():
         whole = _record(train_loss, bundle, _to_device(host, "cpu"), tables,
                         gens(), True, True)
         blocks = [_record(train_loss, bundle,
-                          _to_device(local_batch(host, DataMesh(2, r)),
+                          _to_device(local_batch(host, Mesh2D(2, r)),
                                      "cpu"), tables, gens(), True, True)
                   for r in range(2)]
     kinds = {c[0] for c in whole}

@@ -27,6 +27,7 @@ from lirec_tpu_torch.evaluation import packed as port_packed
 from lirec_tpu_torch.evaluation.runner import MESH_HOST_EVAL, evaluate
 from lirec_tpu_torch.models.factory import create_model
 from lirec_tpu_torch.parallel import dist
+from lirec_tpu_torch.parallel.mesh import Mesh2D
 from tests import torch_dist_worker as worker
 
 CLUSTER_TIMEOUT = 240  # seconds for one two-rank cluster, start to end
@@ -130,7 +131,7 @@ def test_two_rank_sweep_matches_jax_single_device(cluster, job):
 @pytest.mark.parametrize("world", [2, 3])
 def test_rank_blocks_add_up_to_the_whole_sweep(synth_root, world):
     """In one process: the carries of every rank's block (sweep_carry
-    with DataMesh(world, r); no group, so nothing is reduced) add up
+    with Mesh2D(world, r); no group, so nothing is reduced) add up
     counter for counter to the unsharded sweep's, with whole batches per
     block and the tail on the last."""
     cfg, ds = worker.port_setup(synth_root, "int_rel_ch", "test", 4)
@@ -141,7 +142,7 @@ def test_rank_blocks_add_up_to_the_whole_sweep(synth_root, world):
                                     mode="test")
     blocks = [port_packed.sweep_carry(ds, bundle, bundle.model, cfg,
                                       mode="test",
-                                      mesh=dist.DataMesh(world, r))
+                                      mesh=Mesh2D(world, r))
               for r in range(world)]
     n_full = len(ds) // 4
     assert [int(b["n_batches"]) for b in blocks[:-1]] == [
@@ -214,11 +215,11 @@ def test_mesh_refusals_and_slices():
         dist.make_mesh((2, 2))
     with pytest.raises(ValueError, match="needs 2 processes"):
         dist.make_mesh((2, 1))
-    assert dist.make_mesh((1, 1)) == dist.DataMesh(1, 0)
-    assert dist.process_local_slice(dist.DataMesh(4, 2), 8) == slice(4, 6)
+    assert dist.make_mesh((1, 1)) == Mesh2D(1, 0)
+    assert dist.process_local_slice(Mesh2D(4, 2), 8) == slice(4, 6)
     with pytest.raises(ValueError, match="does not divide"):
-        dist.process_local_slice(dist.DataMesh(2, 0), 7)
+        dist.process_local_slice(Mesh2D(2, 0), 7)
     with pytest.raises(ValueError, match="drop --host-eval"):
-        evaluate(None, None, None, None, mesh=dist.DataMesh(2, 0))
+        evaluate(None, None, None, None, mesh=Mesh2D(2, 0))
     assert MESH_HOST_EVAL == ("--mesh only shards the packed eval sweep; "
                               "drop --host-eval")

@@ -210,6 +210,7 @@ def test_train_refuses_a_batch_that_does_not_divide():
     (tests/test_torch_train.py) and --host-eval under a mesh as JAX
     refuses it."""
     from lirec_tpu_torch import config as port_config
+    from lirec_tpu_torch.parallel.mesh import Mesh2D
     from lirec_tpu_torch.parallel.step import make_dp_train_step
     from lirec_tpu_torch.train.optim import make_optimizer
 
@@ -218,7 +219,7 @@ def test_train_refuses_a_batch_that_does_not_divide():
     pb = create_model(cfg, 9, n_rels=6, device="cpu")
     opt = make_optimizer(pb.model.parameters(), 1e-3)
     with pytest.raises(ValueError, match="does not divide by the data axis"):
-        make_dp_train_step(pb, opt, dist.DataMesh(2, 0), 7)
+        make_dp_train_step(pb, opt, Mesh2D(2, 0), 7)
     with pytest.raises(ValueError, match="drop --host-eval"):
         train(cfg, pb, None, mesh=(1, 1), host_eval=True)
 

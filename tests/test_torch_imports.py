@@ -263,6 +263,21 @@ def test_port_source_names_no_jax_package_import():
     assert bad == []
 
 
+def test_port_package_imports_no_root_script():
+    """No module of the port imports a script at the repository root
+    (chip_smoke.py, which itself imports the package) or the benchmark:
+    the package stands below both. A tool that runs a checkout's
+    chip_smoke.py loads it by path instead (tools/kernel_phases.py)."""
+    paths = []
+    for d, _, files in os.walk(os.path.join(ROOT, "lirec_tpu_torch")):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 40
+    bad = [(os.path.relpath(p, ROOT), m) for p in paths
+           for m in _imported_modules(p)
+           if m.split(".")[0] in ("chip_smoke", "benchmark")]
+    assert bad == []
+
+
 def test_chip_smoke_fails_without_a_card():
     assert not torch.cuda.is_available()
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
