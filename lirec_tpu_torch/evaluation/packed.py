@@ -16,7 +16,7 @@ argmax counts of ``update_probs_max_tracks[_rels]``, ref
 evaluation.py:114-271, the top-k/soft counters of ``update_probs``, ref
 :68-107, and the per-hash score sums of ``RelationshipsAcc``, ref
 :367-417) accumulates in a carry of device tensors, updated in place. One fetch at the end returns
-everything; the host finishes the divisions and the per-hash argsort. The
+everything; the host finishes the divisions and ranks each seen hash. The
 ragged tail is one eager step at its natural size, or is dropped when it
 is one sample (the reference skips size-1 batches, ref test.py:38-39).
 ``dispatch.decisions("eval_sweep")`` counts which loop ran ("graph" or
@@ -711,9 +711,13 @@ def finish_from_carry(
     carry, t, n_rels: int, n_hashes: int, mode: str, verbose: bool
 ) -> Dict[str, float]:
     """Host finish of the sweep: fill the accumulators from the fetched
-    counters and emit the metric dict (divisions + the per-hash argsort of
-    RelationshipsAcc only; the per-hash fill and argsort inside the span
-    ``lirec.eval.rels_finish``)."""
+    counters and emit the metric dict (divisions, and RelationshipsAcc's
+    ranking of the seen hashes inside the span ``lirec.eval.rels_finish``).
+    The ranking is ``RelationshipsAcc._compute`` in one pass: an argsort of
+    the seen rows along their last axis sorts each row as the 1-D argsort
+    of that row alone does, ties included, so ``total``, ``_top1``,
+    ``_top3`` and ``conf_mat`` are the counts ``_compute`` makes (its
+    per-hash dicts stay empty: nothing reads them on this path)."""
     carry = {k: np.asarray(v) for k, v in carry.items()}
     prec = MetricAccumulator(n_rels=n_rels)
     prec.total = int(carry.get("total", 0))
@@ -730,12 +734,21 @@ def finish_from_carry(
 
     prec_rels = None
     if "rels_table" in carry:
+        from lirec_tpu_torch.ops import dispatch
+
         with span("lirec.eval.rels_finish"):
+            seen = np.nonzero(carry["rels_seen"][:n_hashes])[0]
+            rows = carry["rels_table"][seen]
+            dispatch.record("eval_rels_finish", "one_pass", "host carry",
+                            {"hashes": len(seen), "width": rows.shape[1]})
+            order = np.argsort(-rows, axis=1)
+            gt = carry["rels_gt"][seen]
             prec_rels = RelationshipsAcc(n_rels=n_rels)
-            for h in np.nonzero(carry["rels_seen"][:n_hashes])[0]:
-                prec_rels._pr_probs[int(h)] = carry["rels_table"][h]
-                prec_rels._gt[int(h)] = int(carry["rels_gt"][h])
-            prec_rels.top1()  # the per-hash argsort, inside the span
+            prec_rels.total = len(seen)
+            prec_rels._top1 = int((order[:, 0] == gt).sum())
+            prec_rels._top3 = int((order[:, :3] == gt[:, None]).any(1).sum())
+            np.add.at(prec_rels.conf_mat, (gt, order[:, 0]), 1)
+            prec_rels.top1()  # no hash seen: raises before a line prints
 
     n_batches = int(carry["n_batches"])
     avg_loss = float(carry["loss_sum"]) / n_batches if n_batches else 0.0

@@ -313,6 +313,20 @@ def test_the_fold_is_recorded_once_a_sweep(bench):
                              "scatter_path": "small"}
 
 
+def test_the_finish_is_recorded_once_a_sweep(bench):
+    """The finish's dispatch record: one ranking pass a sweep, over the
+    hashes the sweep saw and the table's width."""
+    data, n_hashes, tables = _inputs(bench)
+    before = dispatch.decisions("eval_rels_finish").get("one_pass", 0)
+    _, got = _port("float32", data, n_hashes, tables)
+    assert dispatch.decisions("eval_rels_finish")["one_pass"] == before + 1
+    rec = dispatch.last_dispatch("eval_rels_finish")
+    seen = int((got["carry"]["rels_seen"][:n_hashes] > 0).sum())
+    assert seen == n_hashes
+    assert rec["reason"] == "host carry"
+    assert rec["shapes"] == {"hashes": seen, "width": NR}
+
+
 @pytest.mark.parametrize("hashes,path", [(2304, "small"), (4096, "sorted")])
 def test_the_fold_record_names_the_cards_path(hashes, path):
     """On a card the record names the launch ``scatter_path`` picks: at the
